@@ -1,0 +1,310 @@
+"""Continuous batching under a latency SLO, the counterpart of
+moco_tpu/serve/batcher.py (standard library only).
+
+Requests enqueue from any number of client threads; one batcher thread
+coalesces them into micro-batches, flushing when the pending rows reach
+`max_batch` (the engine's largest bucket) or when the oldest pending
+request has waited `slo_ms / 2`, runs the engine call on its own thread,
+and scatters the result rows back to each request's future.
+
+The submit queue is bounded, every blocking put polls a stop flag,
+`close()` fails all pending futures with `BatcherClosedError` and joins
+the thread, and `drain()` flushes what was accepted before it closes.
+
+Request tracing, the SLO burn tracker and the fault-injection hooks of
+the JAX package come with the observability slice.
+"""
+
+from __future__ import annotations
+
+import inspect
+import queue
+import threading
+import time
+from bisect import bisect_left
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+
+from moco_tpu_torch.utils.locks import make_lock
+
+# cumulative latency histogram bounds (ms) of `serve/latency_hist`
+LATENCY_BUCKETS_MS = (
+    1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
+)
+LATENCY_WINDOW = 2048  # requests behind the p50 / p99 gauges
+
+
+class BatcherClosedError(RuntimeError):
+    """The batcher shut down before (or while) handling this request."""
+
+
+def _responsive_put(q: queue.Queue, stop: threading.Event, item) -> bool:
+    """Bounded put that stays responsive to a stop flag; False = stopped."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+class ServeFuture:
+    """Single-assignment result handle: `result(timeout)` blocks until
+    the batcher scatters this request's rows back (or fails it)."""
+
+    def __init__(self, num_rows: int, submitted_at: float, want_neighbors: bool,
+                 mode: Optional[str] = None):
+        self.num_rows = num_rows
+        self.submitted_at = submitted_at
+        self.want_neighbors = want_neighbors
+        self.mode = mode  # neighbor tier this rider asked for (None = default)
+        self._done = threading.Event()
+        self._value: Optional[dict] = None
+        self._error: Optional[BaseException] = None
+        self.latency_s: Optional[float] = None
+
+    def _resolve(self, value: dict) -> None:
+        self.latency_s = time.perf_counter() - self.submitted_at
+        self._value = value
+        self._done.set()
+
+    def _fail(self, error: BaseException) -> None:
+        self.latency_s = time.perf_counter() - self.submitted_at
+        self._error = error
+        self._done.set()
+
+    def result(self, timeout: Optional[float] = None) -> dict:
+        if not self._done.wait(timeout):
+            raise TimeoutError("serve request still pending")
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+class ServeMetrics:
+    """Thread-safe serving gauges; `payload()` is the `serve/*` line."""
+
+    def __init__(self, slo_ms: float):
+        self.slo_ms = float(slo_ms)
+        self._lock = make_lock("serve.metrics")
+        self._latencies_ms: deque = deque(maxlen=LATENCY_WINDOW)
+        self._bucket_counts: dict[int, int] = {}
+        self._valid_rows = 0
+        self._padded_rows = 0
+        self._completed = 0
+        self._violations = 0
+        self._win_t0 = time.perf_counter()
+        self._win_completed = 0
+        self._hist_counts = [0] * (len(LATENCY_BUCKETS_MS) + 1)
+        self._hist_sum_ms = 0.0
+        # per-tier request counts: explicit ?mode= riders under their tier,
+        # the rest under "default"
+        self._mode_counts: dict[str, int] = {}
+
+    def record_request(self, latency_s: float, mode: Optional[str] = None) -> None:
+        ms = latency_s * 1e3
+        with self._lock:
+            key = mode or "default"
+            self._mode_counts[key] = self._mode_counts.get(key, 0) + 1
+            self._latencies_ms.append(ms)
+            self._completed += 1
+            self._win_completed += 1
+            if ms > self.slo_ms:
+                self._violations += 1
+            self._hist_counts[bisect_left(LATENCY_BUCKETS_MS, ms)] += 1
+            self._hist_sum_ms += ms
+
+    def record_flush(self, executed: list[tuple[int, int]]) -> None:
+        with self._lock:
+            for bucket, valid in executed:
+                self._bucket_counts[bucket] = self._bucket_counts.get(bucket, 0) + 1
+                self._padded_rows += bucket
+                self._valid_rows += valid
+
+    def payload(self) -> dict:
+        """`serve/*` fields; qps is over the window since the previous
+        payload() call."""
+        with self._lock:
+            now = time.perf_counter()
+            qps = self._win_completed / max(now - self._win_t0, 1e-9)
+            self._win_t0, self._win_completed = now, 0
+            lat = sorted(self._latencies_ms)
+            pct = lambda p: (
+                lat[min(int(p * (len(lat) - 1) + 0.5), len(lat) - 1)] if lat else None
+            )
+            out = {
+                "serve/p50_ms": pct(0.50),
+                "serve/p99_ms": pct(0.99),
+                "serve/qps": qps,
+                "serve/occupancy": (
+                    self._valid_rows / self._padded_rows if self._padded_rows else None
+                ),
+                "serve/requests": self._completed,
+                "serve/slo_violations": self._violations,
+                "serve/slo_ms": self.slo_ms,
+                "serve/latency_hist": {
+                    "le": list(LATENCY_BUCKETS_MS),
+                    "counts": list(self._hist_counts),
+                    "sum": round(self._hist_sum_ms, 3),
+                    "count": self._completed,
+                },
+            }
+            for bucket, count in sorted(self._bucket_counts.items()):
+                out[f"serve/bucket_{bucket}"] = count
+            for m, count in sorted(self._mode_counts.items()):
+                out[f"serve/mode_{m}"] = count
+        return out
+
+
+class ContinuousBatcher:
+    """Micro-batch coalescing front end over an engine-shaped callable.
+
+    `run_batch(images, want_neighbors) -> (dict of row-arrays, executed)`;
+    a `run_batch` with three positional parameters also receives the
+    sorted tuple of the neighbor modes the micro-batch's riders asked for.
+    Every returned array's rows align with the input rows, so the scatter
+    is a slice. `max_batch` is normally the engine's largest bucket."""
+
+    def __init__(
+        self,
+        run_batch: Callable,
+        max_batch: int,
+        slo_ms: float = 100.0,
+        queue_depth: int = 256,
+        metrics: Optional[ServeMetrics] = None,
+    ):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self._run_batch = run_batch
+        positional = [
+            p for p in inspect.signature(run_batch).parameters.values()
+            if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+        ]
+        self._pass_modes = len(positional) >= 3
+        self.max_batch = int(max_batch)
+        self.slo_ms = float(slo_ms)
+        # half the SLO budget may be spent coalescing; the rest belongs
+        # to the compute + scatter
+        self.deadline_s = self.slo_ms / 2e3
+        self.metrics = metrics or ServeMetrics(slo_ms)
+        self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
+        self._stop = threading.Event()
+        self._draining = threading.Event()
+        self._drained = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="serve_batcher", daemon=True)
+        self._thread.start()
+
+    # -- client side -----------------------------------------------------
+
+    def submit(self, images: np.ndarray, want_neighbors: bool = False,
+               mode: Optional[str] = None) -> ServeFuture:
+        """Enqueue an (n, H, W, C) uint8 request; returns its future.
+        Raises BatcherClosedError when the batcher is shut or draining."""
+        images = np.asarray(images, np.uint8)
+        if images.ndim != 4 or images.shape[0] < 1:
+            raise ValueError(f"request must be (n>=1, H, W, C) uint8, got {images.shape}")
+        fut = ServeFuture(images.shape[0], time.perf_counter(), want_neighbors, mode)
+        if self._draining.is_set():
+            raise BatcherClosedError("batcher is draining")
+        if self._stop.is_set() or not _responsive_put(self._q, self._stop, (images, fut)):
+            raise BatcherClosedError("batcher is closed")
+        return fut
+
+    # -- batcher thread --------------------------------------------------
+
+    def _flush(self, pending: list) -> None:
+        if not pending:
+            return
+        images = np.concatenate([img for img, _ in pending])
+        want_neighbors = any(f.want_neighbors for _, f in pending)
+        try:
+            if self._pass_modes:
+                modes = tuple(sorted(
+                    {f.mode for _, f in pending if f.want_neighbors and f.mode}
+                ))
+                results, executed = self._run_batch(images, want_neighbors, modes)
+            else:
+                results, executed = self._run_batch(images, want_neighbors)
+        except Exception as e:  # the batch's riders get the error, the thread lives on
+            for _, fut in pending:
+                fut._fail(e)
+            return
+        self.metrics.record_flush(executed)
+        offset = 0
+        for _, fut in pending:
+            rows = slice(offset, offset + fut.num_rows)
+            fut._resolve({k: v[rows] for k, v in results.items()})
+            offset += fut.num_rows
+            self.metrics.record_request(fut.latency_s, mode=fut.mode)
+
+    def _loop(self) -> None:
+        pending: list = []
+        rows = 0
+        while not self._stop.is_set():
+            draining = self._draining.is_set()
+            if pending:
+                timeout = self.deadline_s - (time.perf_counter() - pending[0][1].submitted_at)
+                # draining with an empty queue: nobody else is coming, so
+                # flush now instead of idling out the deadline
+                if timeout <= 0 or rows >= self.max_batch or (draining and self._q.empty()):
+                    self._flush(pending)
+                    pending, rows = [], 0
+                    continue
+            elif draining and self._q.empty():
+                break  # graceful exit: everything accepted was flushed
+            else:
+                timeout = 0.05  # idle poll so close() never waits long
+            try:
+                images, fut = self._q.get(timeout=min(timeout, 0.05))
+            except queue.Empty:
+                continue
+            pending.append((images, fut))
+            rows += fut.num_rows
+            if rows >= self.max_batch:
+                self._flush(pending)
+                pending, rows = [], 0
+        # on stop, everything still queued or pending fails fast so no
+        # client blocks on a future that will never resolve
+        for _, fut in pending:
+            fut._fail(BatcherClosedError("batcher closed with request pending"))
+        self._fail_queued("batcher closed with request queued")
+        self._drained.set()
+
+    def _fail_queued(self, why: str) -> None:
+        while True:
+            try:
+                _, fut = self._q.get_nowait()
+            except queue.Empty:
+                return
+            fut._fail(BatcherClosedError(why))
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Graceful shutdown: stop intake, flush every accepted rider, then
+        close. True when the flush finished inside `timeout`."""
+        self._draining.set()
+        drained = self._drained.wait(timeout)
+        self.close()
+        return drained
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Stop, fail all pending/queued futures, join the thread."""
+        self._stop.set()
+        self._thread.join(timeout=timeout)
+        # a producer may have enqueued between the thread's drain and its exit
+        self._fail_queued("batcher is closed")
+
+    @property
+    def closed(self) -> bool:
+        return self._stop.is_set()
+
+
+__all__ = [
+    "BatcherClosedError",
+    "ContinuousBatcher",
+    "LATENCY_BUCKETS_MS",
+    "ServeFuture",
+    "ServeMetrics",
+]
