@@ -29,6 +29,30 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    engine on the card, cosine >= 0.99.
 6. Timing: each kernel, its plain version, its bound and one library call
    on the path's own inputs; engine ms per bucket; query ms per tier.
+7. InfoNCE kernels: `infonce_fwd` and `infonce_bwd` (csrc/infonce.cu)
+   against their plain versions at (B, K, C) in {(8, 4096, 128),
+   (256, 65536, 128), (7, 1000, 20)}, with the width limit raising beyond
+   C=256. Tolerances: pos <= 1e-5, lse <= 1e-4, dq max |diff| <=
+   1e-4 * max |dq| + 1e-6, and n_above of kernel and plain version, on
+   every row, between the float64 count of negatives above pos by more
+   than 1e-5 and that count plus the near ties within 1e-5 (counted).
+8. Training path, at full width: the imagenet_v2 preset (ResNet-50 + MLP
+   head, K=65536, T=0.2, batch 256, 224 px, bf16 autocast) from seeded
+   Flax-layout weights and a seeded unit-row queue carried in through
+   convert.state_from_flax; a SyntheticDataset through the port's
+   TwoCropPipeline on the card; train(..., device="cuda") for 3 warm-up
+   and 10 timed steps, the InfoNCE launch counts set to 0 just before and
+   read just after. Checks: finite losses; queue_ptr == steps * 256 mod K;
+   the last 256 written rows are the last step's unit-norm keys; after the
+   first step a params_k leaf is m * k0 + (1 - m) * q0; each InfoNCE
+   kernel launched once per step; and on the last step's own (q, k,
+   queue), captured as the step computed them, the loss and dq through
+   the kernels agree with the plain versions within the tolerances of
+   phase 7, and acc1/acc5 within the percent of rows whose count window
+   straddles the accuracy's cut.
+9. Timing: step ms and imgs/s; each InfoNCE kernel, its plain version, its
+   bound and one composed PyTorch computation on the path's own inputs;
+   a torch.profiler breakdown of one step's device time.
 
 The last line of stdout is {"ok": true, "device": {...}}; the lines before
 it carry the kernel table and the timings as JSON.
@@ -36,6 +60,7 @@ it carry the kernel table and the timings as JSON.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,6 +76,8 @@ SEED = 0
 K, DIM, NLIST, NPROBE, TOPK = 65536, 128, 256, 16, 5
 IMG = 224
 SCORE_TOL = 1e-5
+POS_TOL, LSE_TOL, TIE_TOL = 1e-5, 1e-4, 1e-5
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -161,6 +188,260 @@ def time_cell_scan(ivf_scan, q, cell_rows, probes):
     }
 
 
+def count_window(q, k, queue, t):
+    """Per row, (lo, hi): the least and most negatives a count of
+    `logit > pos` may report. lo counts the logits above pos by more than
+    TIE_TOL in float64; hi adds the near ties within TIE_TOL of pos, where
+    a float32 count may go either way."""
+    pos = (q.double() * k.double()).sum(-1) / t
+    diff = q.double() @ queue.double().T / t - pos[:, None]
+    lo = (diff > TIE_TOL).sum(1)
+    return lo, lo + (diff.abs() <= TIE_TOL).sum(1)
+
+
+def acc_slack(lo, hi):
+    """Per accuracy, the percent of rows whose count window straddles its
+    cut (acc1: count == 0, acc5: count < 5): only there may two right
+    counts disagree on it."""
+    return {name: 100.0 * ((lo < top) & (hi >= top)).float().mean().item()
+            for name, top in (("acc1", 1), ("acc5", 5))}
+
+
+def compare_infonce(fi, q, k, queue, t, g_lse, what):
+    """Both InfoNCE kernels against their plain versions on one input; the
+    counts of both, on every row, inside the float64 count window."""
+    pos, lse, above = fi.infonce_stats(q, k, queue, t)
+    dq = fi.infonce_dq(q, queue, lse, g_lse, t)
+    torch.cuda.synchronize()
+    pos_p, lse_p, above_p = fi.infonce_stats_reference(q, k, queue, t)
+    dq_p = fi.infonce_dq_reference(q, queue, lse_p, g_lse, t)
+    lo, hi = count_window(q, k, queue, t)
+    err = {
+        "pos": (pos - pos_p).abs().max().item(), "lse": (lse - lse_p).abs().max().item(),
+        "dq": (dq - dq_p).abs().max().item(), "dq_scale": dq_p.abs().max().item(),
+        "near_tie_rows": int((hi > lo).sum()), "near_ties_max": int((hi - lo).max()),
+        "count_mismatches": int((above != above_p).sum()),
+        "count_max_diff": int((above - above_p).abs().max()),
+        "outside_window": {"kernel": int(((above < lo) | (above > hi)).sum()),
+                           "plain": int(((above_p < lo) | (above_p > hi)).sum())},
+        "acc_slack": acc_slack(lo, hi),
+    }
+    print(f"kernel infonce {what}: {json.dumps(err)}", flush=True)
+    check(err["pos"] <= POS_TOL, f"infonce_fwd {what}: pos off by {err['pos']}")
+    check(err["lse"] <= LSE_TOL, f"infonce_fwd {what}: lse off by {err['lse']}")
+    check(err["outside_window"] == {"kernel": 0, "plain": 0},
+          f"infonce_fwd {what}: n_above outside its float64 window: {err['outside_window']}")
+    check(err["dq"] <= 1e-4 * err["dq_scale"] + 1e-6, f"infonce_bwd {what}: dq off by {err['dq']}")
+    return err
+
+
+def infonce_kernel_phase(fi):
+    """Both InfoNCE kernels against their plain versions, a small shape,
+    the path's shape and an odd one; and the width limit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for b, kk, c in ((8, 4096, DIM), (256, K, DIM), (7, 1000, 20)):
+        q, k, queue = (torch.nn.functional.normalize(
+            torch.randn(shape, generator=gen, device="cuda"), dim=-1)
+            for shape in ((b, c), (b, c), (kk, c)))
+        err = compare_infonce(fi, q, k, queue, 0.2, torch.full((b,), 1.0 / b, device="cuda"),
+                              f"B={b} K={kk} C={c}")
+        worst["fwd"] = max(worst["fwd"], err["pos"], err["lse"])
+        worst["bwd"] = max(worst["bwd"], err["dq"])
+    wide = torch.zeros(2, fi.MAX_C + 4, device="cuda")
+    try:
+        fi.infonce_stats(wide, wide, torch.zeros(64, fi.MAX_C + 4, device="cuda"), 0.2)
+    except ValueError as e:
+        print(f"kernel infonce: C={fi.MAX_C + 4} refused as it must be ({e})", flush=True)
+    else:
+        raise RuntimeError(f"infonce_stats accepted C={fi.MAX_C + 4} > {fi.MAX_C}")
+    return worst
+
+
+def infonce_bound_ms(b, kk, c, backward):
+    """Least time for one InfoNCE call: the bytes it must move (q, k or
+    lse and g, the queue once; pos, lse and n_above or dq once) over the
+    memory rate, against its f32 multiply-adds (2BKC forward, 4BKC
+    backward, which recomputes the scores) over the f32 rate."""
+    if backward:
+        bytes_, flops = 4 * (2 * b * c + kk * c + 2 * b), 4 * b * kk * c
+    else:
+        bytes_, flops = 4 * (2 * b * c + kk * c + 3 * b), 2 * b * kk * c
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel names it takes), first match wins
+    ("infonce", ("fwd_partial_kernel", "fwd_merge_kernel", "bwd_partial_kernel",
+                 "bwd_reduce_kernel")),
+    ("batch_norm", ("batch_norm",)),
+    ("conv_gemm", ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "wgrad", "dgrad")),
+)
+
+
+def profile_step(train, cfg, dataset, state):
+    """One whole train iteration (data, augment and step) under
+    torch.profiler: the CUDA kernels' summed time by group and the top
+    kernels, against the iteration's wall time (the rest is the card's idle
+    share); None where the profiler saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rec = train(cfg, dataset=dataset, device="cuda", steps=1, state=state)["history"][0]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        return None
+    busy = sum(r[0] for r in rows)
+    groups = {}
+    for ms, _, name in rows:
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    return {"wall_ms": wall_ms, "data_ms": rec["data_ms"], "step_ms": rec["step_ms"],
+            "kernel_ms": busy, "idle_share": 1.0 - busy / wall_ms, "kernel_ms_by_group": groups,
+            "top": [{"ms": ms, "count": n, "kernel": name[:90]} for ms, n, name in rows[:12]]}
+
+
+def train_phase(fi):
+    """The training path at full width (phase 8) and its timings (phase 9)."""
+    from moco_tpu_torch.convert import random_flax_encoder, state_from_flax
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.ops.losses import l2_normalize
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.utils.config import PRESETS
+
+    cfg = PRESETS["imagenet_v2"]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
+    m, t, b = cfg.moco.momentum, cfg.moco.temperature, cfg.data.global_batch
+    check((cfg.moco.arch, cfg.moco.mlp, cfg.moco.num_negatives, cfg.moco.dim, b,
+           cfg.data.image_size, cfg.data.aug_plus, cfg.moco.compute_dtype, t)
+          == ("resnet50", True, K, DIM, 256, IMG, True, "bfloat16", 0.2), "imagenet_v2 preset")
+    params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
+    params_k, stats_k = random_flax_encoder(cfg.moco, seed=SEED + 1)
+    queue = np.random.default_rng(SEED + 2).standard_normal((K, DIM)).astype(np.float32)
+    queue /= np.linalg.norm(queue, axis=1, keepdims=True)
+    state = state_from_flax(cfg, {
+        "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
+        "batch_stats_k": stats_k, "queue": queue, "queue_ptr": 0}, device="cuda")
+    leaf = "head.fc.2.weight"
+    q0 = dict(state.encoder_q.named_parameters())[leaf].detach().clone()
+    k0 = dict(state.encoder_k.named_parameters())[leaf].detach().clone()
+    ema_err = []
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    # the last step's own (q, k, queue): the encoders' outputs as the step
+    # computed them (hooks keep the latest), and the queue it read
+    seen = {}
+    hooks = [enc.register_forward_hook(lambda _m, _i, o, name=name: seen.__setitem__(name, o.detach()))
+             for name, enc in (("q", state.encoder_q), ("k", state.encoder_k))]
+
+    def on_step(rec):
+        print(f"train step {json.dumps(rec)}", flush=True)
+        if rec["step"] == 1:
+            k1 = dict(state.encoder_k.named_parameters())[leaf].detach()
+            ema_err.append((k1 - (k0 * m + q0 * (1.0 - m))).abs().max().item())
+        if rec["step"] == steps - 1:
+            seen["queue"] = state.queue.clone()
+
+    dataset = SyntheticDataset(image_size=IMG)  # what build_dataset("synthetic") gives
+    torch.cuda.reset_peak_memory_stats()
+    fi.infonce_stats.launches = fi.infonce_dq.launches = 0  # counts from here on are the path's
+    t0 = time.perf_counter()
+    out = train(cfg, dataset=dataset, device="cuda", steps=steps, state=state, log=on_step)
+    wall_s = time.perf_counter() - t0
+    launches = {"infonce_fwd": fi.infonce_stats.launches, "infonce_bwd": fi.infonce_dq.launches}
+    for h in hooks:
+        h.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train path: {steps} steps in {wall_s:.1f} s; launches {launches}; "
+          f"peak memory {peak_gb:.1f} GB", flush=True)
+
+    # -- checks -------------------------------------------------------------
+    hist = out["history"]
+    check(len(hist) == steps and all(np.isfinite(r["loss"]) for r in hist), "finite losses")
+    check(launches == {"infonce_fwd": steps, "infonce_bwd": steps},
+          f"InfoNCE kernels not launched once per step: {launches} over {steps} steps")
+    check(state.queue_ptr == (steps * b) % K, f"queue_ptr {state.queue_ptr}")
+    check(ema_err and ema_err[0] <= 1e-6, f"params_k after step 1 is not the EMA: {ema_err}")
+    q_n, k_n, queue_n = l2_normalize(seen["q"].float()), l2_normalize(seen["k"].float()), seen["queue"]
+    check(state.queue_ptr >= b, f"queue_ptr {state.queue_ptr} wrapped inside the run")
+    written = state.queue[state.queue_ptr - b:state.queue_ptr]
+    key_err = (written - k_n).abs().max().item()
+    norm_err = (written.norm(dim=1) - 1).abs().max().item()
+    check(key_err <= 1e-6 and norm_err <= 1e-5,
+          f"last written queue rows vs the last step's keys: {key_err}, norms {norm_err}")
+    # the last step's own inputs, through the kernels and the plain versions
+    path_err = compare_infonce(fi, q_n, k_n, queue_n, t, torch.full((b,), 1.0 / b, device="cuda"),
+                               "on the path's last step")
+    qg = q_n.clone().requires_grad_(True)
+    loss, acc = fi.fused_infonce_loss(qg, k_n, queue_n, t)
+    loss.backward()
+    qd = q_n.clone().requires_grad_(True)
+    logits = torch.cat([(qd * k_n).sum(-1, keepdim=True), qd @ queue_n.T], 1) / t
+    loss_p = torch.nn.functional.cross_entropy(logits, torch.zeros(b, dtype=torch.long, device="cuda"))
+    loss_p.backward()
+    rank = (logits[:, 1:] > logits[:, :1]).sum(1)
+    slack = path_err["acc_slack"]
+    acc_err = {"acc1": abs(acc["acc1"].item() - 100.0 * (rank == 0).float().mean().item()),
+               "acc5": abs(acc["acc5"].item() - 100.0 * (rank < 5).float().mean().item())}
+    grad_err, grad_scale = (qg.grad - qd.grad).abs().max().item(), qd.grad.abs().max().item()
+    print(f"train path kernels vs plain: loss {loss.item():.6f} vs {loss_p.item():.6f}, "
+          f"acc {acc_err} (slack {slack}), dq {grad_err:.3g} of {grad_scale:.3g}", flush=True)
+    check(abs(loss.item() - loss_p.item()) <= LSE_TOL, "path loss through the kernels")
+    check(all(acc_err[n] <= slack[n] + 1e-9 for n in acc_err),
+          f"path accuracies off beyond the rows a near tie can flip: {acc_err}, slack {slack}")
+    check(grad_err <= 1e-4 * grad_scale + 1e-6, f"path dq through the kernels off by {grad_err}")
+
+    # -- timing -------------------------------------------------------------
+    timed = hist[TRAIN_WARMUP:]
+    step_ms = float(np.median([r["step_ms"] for r in timed]))
+    data_ms = float(np.median([r["data_ms"] for r in timed]))
+    imgs_s = float(np.median([r["imgs_per_s"] for r in timed]))
+    lse_n = fi.infonce_stats(q_n, k_n, queue_n, t)[1]
+    g = torch.full((b,), 1.0 / b, device="cuda")
+    pos_n = (q_n * k_n).sum(-1)
+
+    def library_fwd():
+        neg = q_n @ queue_n.T / t
+        pos = pos_n[:, None] / t
+        return torch.logsumexp(torch.cat([pos, neg], 1), 1), (neg > pos).sum(1)
+
+    def library_bwd():
+        logits = torch.cat([pos_n[:, None], q_n @ queue_n.T], 1) / t
+        return (torch.softmax(logits, 1)[:, 1:] * g[:, None]) @ queue_n / t
+
+    kernels = []
+    for name, fn, plain, lib, backward, err, src_line in (
+        ("infonce_fwd", lambda: fi.infonce_stats(q_n, k_n, queue_n, t),
+         lambda: fi.infonce_stats_reference(q_n, k_n, queue_n, t), library_fwd, False,
+         path_err, 40),
+        ("infonce_bwd", lambda: fi.infonce_dq(q_n, queue_n, lse_n, g, t),
+         lambda: fi.infonce_dq_reference(q_n, queue_n, lse_n, g, t), library_bwd, True,
+         path_err, 71),
+    ):
+        bound, bound_by = infonce_bound_ms(b, K, DIM, backward)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "moco_tpu_torch/csrc/infonce.cu",
+            "replaces": f"moco_tpu/ops/fused_infonce.py:{src_line}",
+            "launches": launches[name],
+            "max_abs_err": err["dq"] if backward else max(err["pos"], err["lse"]),
+            "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain), "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": cuda_ms(lib),
+            "library": ("logsumexp(cat([pos, q @ queue.T / T])) + (neg > pos).sum" if not backward
+                        else "softmax(cat([pos, q @ queue.T]) / T)[:, 1:] @ queue / T"),
+            "shape": {"B": b, "K": K, "C": DIM},
+        })
+    share = (kernels[0]["ms"] + kernels[1]["ms"]) / step_ms
+    timing = {"step_ms_median": step_ms, "data_ms_median": data_ms, "imgs_per_s_median": imgs_s,
+              "infonce_share_of_step": share, "peak_memory_gb": peak_gb,
+              "steps_timed": len(timed), "batch": b, "profile": profile_step(train, cfg, dataset, state)}
+    print(f"train timing: {json.dumps(timing)}", flush=True)
+    return kernels, timing
+
+
 def post(port, path, imgs):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=imgs.tobytes(),
@@ -179,7 +460,7 @@ def main() -> int:
 
     from moco_tpu_torch.convert import encoder_from_flax, random_flax_encoder
     from moco_tpu_torch.core.moco import build_encoder
-    from moco_tpu_torch.ops import build, ivf_scan
+    from moco_tpu_torch.ops import build, fused_infonce, ivf_scan
     from moco_tpu_torch.serve.engine import InferenceEngine
     from moco_tpu_torch.serve.index import QUERY_MODES, EmbeddingIndex
     from moco_tpu_torch.serve.server import ServeServer
@@ -196,6 +477,7 @@ def main() -> int:
 
     # -- kernel vs plain ----------------------------------------------------
     max_err = kernel_phase(ivf_scan)
+    infonce_err = infonce_kernel_phase(fused_infonce)
 
     # -- path at full width -------------------------------------------------
     cfg = PRESETS["imagenet_v2"]
@@ -305,6 +587,15 @@ def main() -> int:
         for mode in QUERY_MODES
     }
     print(json.dumps({"engine_ms": engine_ms, "query_ms": query_ms, "device": smi}))
+    del server, engine, f32_engine, index, model, feats_t, cell_rows
+    torch.cuda.empty_cache()
+
+    # -- training path at full width ---------------------------------------
+    train_kernels, train_timing = train_phase(fused_infonce)
+    for rec, worst in zip(train_kernels, (infonce_err["fwd"], infonce_err["bwd"])):
+        rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+    kernels += train_kernels
+    print(json.dumps({"train": train_timing, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

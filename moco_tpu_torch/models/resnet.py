@@ -9,19 +9,45 @@ Inputs are NHWC like the JAX package's. A contiguous NHWC tensor permuted
 to NCHW is already in `channels_last` memory format, so the convolutions
 run channels-last with no copy.
 
-Eval mode only in this slice. `nn.BatchNorm2d` in `eval()` normalizes with
-the stored running mean and var exactly as the Flax BatchNorm with
-`use_running_average=True` does. In training mode the two differ: the
-Flax running variance is the biased E[x^2]-E[x]^2 and its momentum=0.9 is
-the weight kept on the old value, and the virtual-group / stats-rows /
-momentum-stats modes have no torch counterpart. The training slice needs
-its own BatchNorm and must not inherit this shortcut.
+BatchNorm is the Flax layer's, not `nn.BatchNorm2d`'s, in training mode
+(`BatchNorm` below); eval mode is `nn.BatchNorm2d`'s own, which
+normalizes with the stored running mean and var exactly as Flax's
+`use_running_average=True` does.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with Flax's training semantics (moco_tpu/models/resnet.py
+    `BatchNorm`, full-batch mode; the virtual-group, stats-rows and
+    momentum-statistics modes come with a later slice).
+
+    Training mode normalizes with the batch's statistics (taken in f32),
+    the gradient flowing through them, and moves the buffers toward them
+    by the inherited `momentum` (0.1 on the new value is Flax's 0.9 on the
+    old). What differs from `nn.BatchNorm2d` is the running variance: the
+    biased one, as Flax keeps it, not the unbiased. The statistics and
+    the normalization come from one `torch.native_batch_norm` call with no
+    running buffers (cuDNN-class kernels, channels-last aware, the output
+    in the input's dtype); the biased variance is recovered from its
+    saved inverse standard deviation. Eval mode is `nn.BatchNorm2d`'s, bit
+    for bit. Parameter and buffer names are torchvision's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps
+        )
+        with torch.no_grad():
+            var = invstd.float().pow(-2).sub_(self.eps).clamp_min_(0.0)
+            self.running_mean.lerp_(mean.float(), self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return out
 
 
 class ConvBN(nn.Sequential):
@@ -31,7 +57,7 @@ class ConvBN(nn.Sequential):
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1, eps: float = 1e-5):
         super().__init__(
             nn.Conv2d(cin, cout, kernel_size, stride, kernel_size // 2, bias=False),
-            nn.BatchNorm2d(cout, eps=eps),
+            BatchNorm(cout, eps=eps),
         )
 
 
@@ -41,9 +67,9 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1, eps: float = 1e-5):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, features, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(features, eps=eps)
+        self.bn1 = BatchNorm(features, eps=eps)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(features, eps=eps)
+        self.bn2 = BatchNorm(features, eps=eps)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != features:
@@ -63,12 +89,12 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = features * self.expansion
         self.conv1 = nn.Conv2d(cin, features, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(features, eps=eps)
+        self.bn1 = BatchNorm(features, eps=eps)
         # v1.5: stride on the 3x3, as torchvision does
         self.conv2 = nn.Conv2d(features, features, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(features, eps=eps)
+        self.bn2 = BatchNorm(features, eps=eps)
         self.conv3 = nn.Conv2d(features, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out, eps=eps)
+        self.bn3 = BatchNorm(out, eps=eps)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != out:
@@ -100,7 +126,7 @@ class ResNet(nn.Module):
             self.conv1 = nn.Conv2d(3, num_filters, 3, 1, 1, bias=False)
         else:
             self.conv1 = nn.Conv2d(3, num_filters, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(num_filters, eps=bn_epsilon)
+        self.bn1 = BatchNorm(num_filters, eps=bn_epsilon)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = None if cifar_stem else nn.MaxPool2d(3, 2, 1)
         cin = num_filters

@@ -1,0 +1,102 @@
+"""MoCo v1/v2 pretraining on one device (the core of moco_tpu/train.py
+`train` / `_train_impl`).
+
+    python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic --steps 20
+
+builds the two-crop pipeline, the encoder (a seeded Flax-layout init
+carried in through `convert.encoder_from_flax`, or a given state), the
+optimizer and the train state; runs the steps; and prints one JSON line
+per step: loss, acc1, acc5, lr, data and step milliseconds, imgs/s.
+Checkpoints, the kNN monitor, the linear probe, elastic training and
+alerts come with later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import sys
+import time
+from typing import Callable, Optional
+
+import torch
+
+from moco_tpu_torch.convert import encoder_from_flax, random_flax_encoder
+from moco_tpu_torch.core.moco import TrainState, build_encoder, create_state, make_train_step
+from moco_tpu_torch.data.pipeline import TwoCropPipeline
+from moco_tpu_torch.utils.config import PRESETS, TrainConfig
+from moco_tpu_torch.utils.device import resolve_device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int] = None,
+          state: Optional[TrainState] = None, num_filters: int = 64,
+          log: Optional[Callable[[dict], None]] = None) -> dict:
+    """Run `steps` train steps (default: config.optim.epochs epochs) from
+    `state` (default: a fresh seeded one) and return
+    {"history": [per-step metrics], "state": the final state,
+    "steps_per_epoch": n}. Each step's record holds loss, acc1, acc5, lr,
+    data_ms (load, copy and augment), step_ms and imgs_per_s; `log` is
+    called with each record. Host times end in a device synchronize, so
+    they are the step's own; `num_filters` narrows a fresh encoder for
+    tests."""
+    device = resolve_device(device)
+    with TwoCropPipeline(config.data, seed=config.seed, dataset=dataset, device=device) as pipe:
+        steps_per_epoch = config.steps_per_epoch or pipe.steps_per_epoch
+        if steps_per_epoch <= 0:
+            raise ValueError(f"steps_per_epoch must be > 0, got {steps_per_epoch}")
+        if state is None:
+            params, stats = random_flax_encoder(config.moco, seed=config.seed,
+                                                num_filters=num_filters)
+            encoder = build_encoder(config.moco, num_filters=num_filters)
+            encoder.load_state_dict(encoder_from_flax(params, stats))
+            state = create_state(config, encoder, device=device)
+        step_fn = make_train_step(config, steps_per_epoch, device=device)
+        total = steps if steps is not None else config.optim.epochs * steps_per_epoch
+        history = []
+        for _ in range(total):
+            epoch, i = divmod(state.step, steps_per_epoch)
+            t0 = time.perf_counter()
+            batch = pipe.batch(epoch, i % pipe.steps_per_epoch)
+            _sync(device)
+            t1 = time.perf_counter()
+            metrics = step_fn(state, batch)
+            _sync(device)
+            t2 = time.perf_counter()
+            record = {
+                "step": state.step, "loss": float(metrics["loss"]),
+                "acc1": float(metrics["acc1"]), "acc5": float(metrics["acc5"]),
+                "lr": metrics["lr"], "data_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t1) * 1e3,
+                "imgs_per_s": config.data.global_batch / (t2 - t0),
+            }
+            if not math.isfinite(record["loss"]):
+                raise FloatingPointError(f"non-finite loss at step {state.step}: {record}")
+            history.append(record)
+            if log is not None:
+                log(record)
+    return {"history": history, "state": state, "steps_per_epoch": steps_per_epoch}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="imagenet_v2", choices=sorted(PRESETS))
+    ap.add_argument("--data", default=None, help="dataset name (this slice: synthetic)")
+    ap.add_argument("--steps", type=int, default=None, help="steps to run (default: all epochs)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    config = PRESETS[args.preset]
+    if args.data:
+        config = dataclasses.replace(config, data=dataclasses.replace(config.data, dataset=args.data))
+    train(config, device=args.device, steps=args.steps,
+          log=lambda r: print(json.dumps(r), flush=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

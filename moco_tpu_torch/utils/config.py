@@ -1,10 +1,21 @@
-"""The part of moco_tpu/utils/config.py that serving reads: the same field
-names, defaults and presets, so a preset means the same model in both
-packages. The training fields come with the training slice."""
+"""The part of moco_tpu/utils/config.py that the port runs: serving and
+single-device MoCo v1/v2 training. Same field names, defaults and presets,
+so a preset means the same model and recipe in both packages.
+
+Fields of the JAX config that the port does not run yet (the BN modes
+`bn_virtual_groups`, `bn_stats_rows`, `bn_momentum_stats`,
+`key_bn_running_stats`, `remat`, `momentum_cos`, the v3 and ViT fields,
+ZeRO, checkpoints, telemetry) are left out, so a config that asks for one
+fails at construction with a TypeError instead of being ignored. So is
+`fused_block_k`, the TPU kernel's tile (see `fused_infonce`).
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
+
+SHUFFLES = ("gather_perm", "a2a", "syncbn", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -12,25 +23,72 @@ class MocoConfig:
     arch: str = "resnet50"
     dim: int = 128  # --moco-dim
     num_negatives: int = 65536  # --moco-k
+    momentum: float = 0.999  # --moco-m
+    temperature: float = 0.07  # --moco-t (0.2 for the v2 recipe)
     mlp: bool = False  # --mlp (v2)
+    # BN decorrelation across devices. On one device every choice computes
+    # the same step (the JAX step's `shuffle_active` is false there), which
+    # is all the port runs yet.
+    shuffle: str = "gather_perm"
     cifar_stem: bool = False
+    compute_dtype: str = "bfloat16"
+    # False = the dense logits path; anything else = the streaming InfoNCE
+    # (ops/fused_infonce.py: the CUDA kernels on the card, their plain
+    # versions on the CPU) for any K. None stays the default so a preset
+    # equals JAX's field for field; there "auto" hinges on whether the
+    # Pallas tile (fused_block_k) divides K, a rule the CUDA kernels, which
+    # mask their tail, do not need.
+    fused_infonce: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.shuffle not in SHUFFLES:
+            raise ValueError(f"shuffle must be one of {SHUFFLES}, got {self.shuffle!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    optimizer: str = "sgd"  # sgd here; lars | adamw come with their slice
+    lr: float = 0.03
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    cos: bool = False  # cosine schedule (--cos)
+    schedule: Tuple[int, ...] = (120, 160)  # step-decay epochs (--schedule)
+    warmup_epochs: int = 0
+    epochs: int = 200
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    dataset: str = "synthetic"  # synthetic here; cifar10 | imagefolder come later
     image_size: int = 224
+    global_batch: int = 256
+    aug_plus: bool = False  # v2 aug recipe (jitter + blur)
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     moco: MocoConfig = dataclasses.field(default_factory=MocoConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    seed: int = 0
+    steps_per_epoch: Optional[int] = None  # None = derive from the dataset size
+
+
+def _v2(moco: MocoConfig, **kw) -> MocoConfig:
+    return dataclasses.replace(moco, mlp=True, temperature=0.2, **kw)
 
 
 PRESETS = {
     "cifar_smoke": TrainConfig(
-        moco=MocoConfig(arch="resnet18", num_negatives=4096, cifar_stem=True),
-        data=DataConfig(image_size=32),
+        moco=MocoConfig(arch="resnet18", num_negatives=4096, cifar_stem=True, shuffle="none"),
+        optim=OptimConfig(lr=0.03, epochs=10, cos=True),
+        data=DataConfig(dataset="cifar10", image_size=32, global_batch=256),
     ),
-    "imagenet_v2": TrainConfig(moco=MocoConfig(mlp=True), data=DataConfig()),
+    "imagenet_v2": TrainConfig(
+        moco=_v2(MocoConfig()),
+        optim=OptimConfig(lr=0.03, epochs=200, cos=True),
+        data=DataConfig(dataset="imagefolder", aug_plus=True),
+    ),
 }

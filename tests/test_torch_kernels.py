@@ -9,14 +9,32 @@ with an H100 and the CUDA toolkit:
 (`--noconftest`: tests/conftest.py sets up JAX, which such a machine
 need not have.)
 
-Tolerance: max |kernel - plain| <= 1e-5 on unit-norm f32 rows (FMA order
-over d differs between the kernel's warp reduction and cuBLAS).
+Tolerances. IVF cell scan: max |kernel - plain| <= 1e-5 on unit-norm f32
+rows (FMA order over d differs between the kernel's warp reduction and
+cuBLAS). InfoNCE on unit rows at T = 0.2: pos <= 1e-5, lse <= 1e-4 (the
+kernel merges per-split logsumexps, the plain version takes one over the
+row), n_above on every row between the float64 count of logits above
+pos by more than 1e-5 and that count plus the near ties within 1e-5 (a
+discrete count flips on a rounding difference only there), and
+max |dq - plain| <= 1e-4 * max |plain| + 1e-6.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from moco_tpu_torch.core.moco import build_encoder, create_state, make_train_step
+from moco_tpu_torch.ops.fused_infonce import (
+    MAX_C,
+    fused_infonce_loss,
+    infonce_dq,
+    infonce_dq_reference,
+    infonce_stats,
+    infonce_stats_reference,
+)
 from moco_tpu_torch.ops.ivf_scan import fused_cell_scores, fused_cell_scores_reference
+from moco_tpu_torch.utils.config import DataConfig, MocoConfig, OptimConfig, TrainConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -64,3 +82,106 @@ def test_cell_scores_kernel_rejects_unsupported_width(cuda):
     with pytest.raises(ValueError, match="d % 4"):
         fused_cell_scores(torch.zeros(1, 6, device=cuda), torch.zeros(2, 3, 6, device=cuda),
                           torch.zeros(1, 1, dtype=torch.int32, device=cuda))
+
+
+def _infonce_inputs(b, kk, c, gen, device, tie_rows=0):
+    q, k, queue = _unit((b, c), gen, device), _unit((b, c), gen, device), _unit((kk, c), gen, device)
+    if tie_rows:  # the positive equals a queue row: an exact tie in the count
+        idx = torch.randint(0, kk, (tie_rows,), generator=gen, device=device)
+        k[:tie_rows] = queue[idx]
+    return q, k, queue
+
+
+def _count_window(q, k, rows, t, tol=1e-5):
+    """Per row of q, (lo, hi): the least and most negatives a count of
+    `logit > pos` may report. lo counts the logits above pos by more than
+    `tol` in float64; hi adds those within `tol` of pos (near ties, where
+    a float32 count may go either way)."""
+    pos = (q.double() * k.double()).sum(-1) / t
+    diff = q.double() @ rows.double().T / t - pos[:, None]
+    lo = (diff > tol).sum(1)
+    return lo, lo + (diff.abs() <= tol).sum(1)
+
+
+@pytest.mark.parametrize(
+    "b,kk,c,tie_rows",
+    [(256, 65536, 128, 0), (8, 4096, 128, 0), (7, 1000, 20, 0), (70, 1000, 33, 0),
+     (16, 130, 128, 0), (32, 4096, 128, 8)],
+)
+def test_infonce_kernels_match_plain(cuda, b, kk, c, tie_rows):
+    t = 0.2
+    gen = torch.Generator(device=cuda).manual_seed(b * 7 + kk + c)
+    q, k, queue = _infonce_inputs(b, kk, c, gen, cuda, tie_rows)
+    before = (infonce_stats.launches, infonce_dq.launches)
+    pos, lse, above = infonce_stats(q, k, queue, t)
+    g = torch.rand(b, generator=gen, device=cuda)
+    dq = infonce_dq(q, queue, lse, g, t)
+    torch.cuda.synchronize()
+    assert (infonce_stats.launches, infonce_dq.launches) == (before[0] + 1, before[1] + 1)
+    pos_p, lse_p, above_p = infonce_stats_reference(q, k, queue, t)
+    assert (pos - pos_p).abs().max().item() <= 1e-5
+    assert (lse - lse_p).abs().max().item() <= 1e-4
+    lo, hi = _count_window(q, k, queue, t)
+    for count in (above, above_p):  # every row, each count inside its window
+        assert ((count < lo) | (count > hi)).sum().item() == 0
+    if tie_rows:
+        assert (hi > lo)[:tie_rows].all()
+    dq_p = infonce_dq_reference(q, queue, lse_p, g, t)
+    assert (dq - dq_p).abs().max().item() <= 1e-4 * dq_p.abs().max().item() + 1e-6
+
+
+def test_fused_infonce_loss_gradient_matches_plain(cuda):
+    """The autograd function on the card against autograd through the
+    plain logits: loss, accuracies and dq."""
+    t, b, kk, c = 0.2, 64, 8192, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q0, k, queue = _infonce_inputs(b, kk, c, gen, cuda)
+    q = q0.clone().requires_grad_(True)
+    loss, acc = fused_infonce_loss(q, k, queue, t)
+    loss.backward()
+    qr = q0.clone().requires_grad_(True)
+    logits = torch.cat([(qr * k).sum(-1, keepdim=True), qr @ queue.T], dim=1) / t
+    want = torch.nn.functional.cross_entropy(logits, torch.zeros(b, dtype=torch.long, device=cuda))
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-5
+    ranks = (logits[:, 1:] > logits[:, :1]).sum(1)
+    # an accuracy may differ only by rows whose count window straddles its cut
+    lo, hi = _count_window(q0, k, queue, t)
+    for name, top in (("acc1", 1), ("acc5", 5)):
+        slack = 100.0 * ((lo < top) & (hi >= top)).float().mean().item()
+        assert abs(acc[name].item() - 100.0 * (ranks < top).float().mean().item()) <= slack + 1e-9
+    assert (q.grad - qr.grad).abs().max().item() <= 1e-4 * qr.grad.abs().max().item() + 1e-6
+
+
+def test_train_step_launches_the_kernels_for_any_k(cuda):
+    """K = 65536 + 64 is no multiple of the JAX kernel's 2048-row tile; the
+    step on the card still launches each InfoNCE kernel once, and the
+    dense path (fused_infonce=False) none."""
+    cfg = TrainConfig(
+        moco=MocoConfig(arch="resnet18", dim=16, num_negatives=65600, temperature=0.2, mlp=True,
+                        cifar_stem=True, compute_dtype="float32"),
+        optim=OptimConfig(cos=True, epochs=2), data=DataConfig(image_size=16, global_batch=16))
+    assert cfg.moco.fused_infonce is None and cfg.moco.num_negatives % 2048  # the default
+    state = create_state(cfg, build_encoder(cfg.moco, num_filters=4), device=cuda)
+    step = make_train_step(cfg, 1, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {v: torch.randn((16, 16, 16, 3), generator=gen, device=cuda) for v in ("im_q", "im_k")}
+    before = (infonce_stats.launches, infonce_dq.launches)
+    out = step(state, batch)
+    torch.cuda.synchronize()
+    assert (infonce_stats.launches, infonce_dq.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(out["loss"]).item() and state.queue_ptr == 16
+    dense = dataclasses.replace(cfg, moco=dataclasses.replace(cfg.moco, fused_infonce=False))
+    make_train_step(dense, 1, device=cuda)(state, batch)
+    torch.cuda.synchronize()
+    assert (infonce_stats.launches, infonce_dq.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_infonce_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(4, MAX_C + 4, device=cuda)
+    with pytest.raises(ValueError, match="C <="):
+        infonce_stats(q, q, torch.zeros(64, MAX_C + 4, device=cuda), 0.2)
+    with pytest.raises(TypeError, match="float32"):
+        infonce_stats(q[:, :8].double(), q[:, :8].double(), torch.zeros(64, 8, device=cuda), 0.2)
+    with pytest.raises(ValueError, match="K > 0"):
+        infonce_stats(q[:, :8].contiguous(), q[:, :8].contiguous(), torch.zeros(0, 8, device=cuda), 0.2)

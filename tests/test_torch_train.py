@@ -1,0 +1,497 @@
+"""Parity of the port's training slice (moco_tpu_torch) with the JAX package
+on the CPU: losses, the fused InfoNCE (JAX's Pallas kernel in interpret
+mode against the port's plain version), EMA, queue, schedules, SGD,
+training-mode BatchNorm, `state_from_flax`, three whole train steps fused
+and dense, the driver and the device rule.
+
+Inputs and weights are made with numpy (or Flax's seeded init, carried
+over by `convert`) and handed to both packages; both run in float32.
+Each test states its tolerance.
+"""
+
+import dataclasses
+import functools
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from moco_tpu.core import ema as jax_ema
+from moco_tpu.core import queue as jax_queue
+from moco_tpu.core.moco import MoCoEncoder as FlaxEncoder
+from moco_tpu.core.moco import create_state as jax_create_state
+from moco_tpu.core.moco import make_train_step as jax_make_train_step
+from moco_tpu.core.moco import place_state
+from moco_tpu.models import resnet as jax_resnet
+from moco_tpu.models.heads import ProjectionHead as FlaxHead
+from moco_tpu.ops import fused_infonce as jax_fused
+from moco_tpu.ops import losses as jax_losses
+from moco_tpu.parallel import create_mesh, shard_batch
+from moco_tpu.utils import config as jc
+from moco_tpu.utils import schedules as jax_schedules
+from moco_tpu_torch import convert
+from moco_tpu_torch.core import ema, queue
+from moco_tpu_torch.core.moco import build_encoder, create_state, make_train_step
+from moco_tpu_torch.data.datasets import SyntheticDataset
+from moco_tpu_torch.models import resnet as port_resnet
+from moco_tpu_torch.ops import fused_infonce, losses
+from moco_tpu_torch.train import main as train_main
+from moco_tpu_torch.train import train
+from moco_tpu_torch.utils import config as pc
+from moco_tpu_torch.utils import schedules
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _unit(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+# ------------------------------------------------------------------ losses
+
+
+def test_dense_losses_match_jax():
+    """infonce_logits, cross_entropy and topk_accuracy within 1e-6, with a
+    forced tie so the top-k tie rule (lower index first) is exercised."""
+    rng = np.random.default_rng(0)
+    q, k, qu = _unit(rng, (8, 16)), _unit(rng, (8, 16)), _unit(rng, (64, 16))
+    qu[3] = k[0]  # row 0's positive ties a negative
+    jl, jlab = jax_losses.infonce_logits(jnp.asarray(q), jnp.asarray(k), jnp.asarray(qu), 0.2)
+    tl, tlab = losses.infonce_logits(_t(q), _t(k), _t(qu), 0.2)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-6, rtol=0)
+    assert (tlab.numpy() == np.asarray(jlab)).all()
+    logits = np.asarray(jl)
+    np.testing.assert_allclose(
+        float(losses.cross_entropy(_t(logits), tlab)),
+        float(jax_losses.cross_entropy(jl, jlab)), atol=1e-6, rtol=0)
+    for labels in (np.zeros(8, np.int64), rng.integers(0, 65, 8)):
+        want = jax_losses.topk_accuracy(jl, jnp.asarray(labels, jnp.int32))
+        got = losses.topk_accuracy(_t(logits), torch.from_numpy(labels))
+        for name in ("acc1", "acc5"):
+            assert abs(float(got[name]) - float(want[name])) <= 1e-6
+
+
+# ------------------------------------------------------------- fused InfoNCE
+
+
+@pytest.mark.parametrize("b,kk,block", [(8, 64, 32), (16, 96, 32)])
+def test_infonce_stats_matches_pallas_kernel(b, kk, block):
+    """The plain version the port runs on CPU tensors against JAX's Pallas
+    kernel in interpret mode (a multi-tile grid): pos, lse within 1e-5 and
+    n_above equal on tie-free data; the q-gradient of fused_infonce_loss
+    against jax.grad within 1e-5."""
+    rng = np.random.default_rng(b + kk)
+    q, k, qu = _unit(rng, (b, 16)), _unit(rng, (b, 16)), _unit(rng, (kk, 16))
+    want = jax_fused.infonce_stats(jnp.asarray(q), jnp.asarray(k), jnp.asarray(qu), 0.2,
+                                   block, True)
+    got = fused_infonce.infonce_stats(_t(q), _t(k), _t(qu), 0.2)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)
+    assert (got[2].numpy() == np.asarray(want[2])).all()
+
+    def jloss(q):
+        return jax_fused.fused_infonce_loss(q, jnp.asarray(k), jnp.asarray(qu), 0.2, block, True)[0]
+
+    jgrad = np.asarray(jax.grad(jloss)(jnp.asarray(q)))
+    tq = _t(q).requires_grad_(True)
+    loss, acc = fused_infonce.fused_infonce_loss(tq, _t(k), _t(qu), 0.2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss(jnp.asarray(q))), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tq.grad.numpy(), jgrad, atol=1e-5, rtol=0)
+    _, jacc = jax_fused.fused_infonce_loss(jnp.asarray(q), jnp.asarray(k), jnp.asarray(qu), 0.2,
+                                           block, True)
+    assert float(acc["acc1"]) == float(jacc["acc1"]) and float(acc["acc5"]) == float(jacc["acc5"])
+
+
+@pytest.mark.parametrize("b", [1, 7, 64, 65, 256, 1000])
+@pytest.mark.parametrize("kk", [1, 63, 64, 1000, 4096, 65536, 65537])
+def test_split_plan_covers_every_tile_once(b, kk):
+    """The kernels' split of K, including K not a multiple of the 64-row
+    tile or of the split: every tile in exactly one split, none empty."""
+    n_split, per = fused_infonce.split_plan(b, kk)
+    tiles = -(-kk // 64)
+    assert n_split >= 1 and per >= 1
+    assert (n_split - 1) * per < tiles <= n_split * per
+
+
+# ------------------------------------------------------- EMA, queue, schedules
+
+
+def test_ema_update_matches_jax():
+    """In place, parameters only (BN buffers untouched): within 1e-7."""
+    cfg = pc.MocoConfig(arch="resnet18", dim=16, mlp=True, cifar_stem=True)
+    enc_q, enc_k = build_encoder(cfg, num_filters=4), build_encoder(cfg, num_filters=4)
+    buffers = {n: b.clone() for n, b in enc_k.named_buffers()}
+    pq = {n: p.detach().numpy().copy() for n, p in enc_q.named_parameters()}
+    pk = {n: p.detach().numpy().copy() for n, p in enc_k.named_parameters()}
+    ema.ema_update(enc_k, enc_q, 0.999)
+    want = jax_ema.ema_update(pk, pq, 0.999)
+    for n, p in enc_k.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[n]), atol=1e-7, rtol=0)
+    for n, b in enc_k.named_buffers():
+        assert torch.equal(b, buffers[n])
+
+
+def test_queue_init_enqueue_wraparound_matches_jax():
+    rows = queue.init_queue(torch.Generator().manual_seed(0), 16, 8)
+    assert rows.shape == (16, 8)
+    np.testing.assert_allclose(rows.norm(dim=1).numpy(), 1.0, atol=1e-6)
+    base = _unit(np.random.default_rng(1), (16, 8))
+    tq, jq, tp, jp = _t(base), jnp.asarray(base), 0, jnp.zeros((), jnp.int32)
+    for i in range(5):  # 5 blocks of 4 rows in a 16-row queue: wraps once
+        keys = _unit(np.random.default_rng(10 + i), (4, 8))
+        tq, tp = queue.enqueue(tq, tp, _t(keys))
+        jq, jp = jax_queue.enqueue(jq, jp, jnp.asarray(keys))
+        assert tp == int(jp)
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert tp == 4
+    with pytest.raises(ValueError, match="divisible"):
+        queue.check_queue_divisibility(100, 8)
+
+
+@pytest.mark.parametrize("optim", [
+    dict(cos=True, epochs=5),
+    dict(cos=False, schedule=(2, 4), epochs=6),
+    dict(cos=True, epochs=10, warmup_epochs=2),
+    dict(cos=False, schedule=(1,), epochs=3, warmup_epochs=1, lr=0.3),
+])
+def test_lr_schedule_matches_jax(optim):
+    """Per-epoch granular lr at every step across epoch boundaries: within
+    1e-7 absolute (both in float32; the two libraries' float32 cos may
+    differ in the last bit, which 0.5 * (1 + cos) near -1 magnifies)."""
+    spe = 3
+    want = jax_schedules.make_lr_schedule(jc.OptimConfig(**optim), spe)
+    got = schedules.make_lr_schedule(pc.OptimConfig(**optim), spe)
+    for step in range(0, spe * optim["epochs"] + 2):
+        w = float(want(jnp.asarray(step, jnp.int32)))
+        assert abs(got(step) - w) <= 1e-7, step
+
+
+def test_sgd_matches_optax_chain():
+    """torch SGD(momentum, weight_decay) against add_decayed_weights -> sgd
+    on the same tree, three updates with a changing lr: within 1e-6."""
+    cfg = dict(lr=0.1, momentum=0.9, weight_decay=1e-2, cos=True, epochs=2)
+    rng = np.random.default_rng(3)
+    params = {"w": rng.standard_normal((4, 3)).astype(np.float32),
+              "b": rng.standard_normal(3).astype(np.float32)}
+    tx = jax_schedules.build_optimizer(jc.OptimConfig(**cfg), steps_per_epoch=1)
+    jparams = jax.tree.map(jnp.asarray, params)
+    jstate = tx.init(jparams)
+    tparams = {n: _t(v).requires_grad_(True) for n, v in params.items()}
+    opt = schedules.build_optimizer(pc.OptimConfig(**cfg), list(tparams.values()))
+    sched = schedules.make_lr_schedule(pc.OptimConfig(**cfg), 1)
+    for step in range(3):
+        grads = {n: rng.standard_normal(v.shape).astype(np.float32) for n, v in params.items()}
+        updates, jstate = tx.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for g in opt.param_groups:
+            g["lr"] = sched(step)
+        for n, p in tparams.items():
+            p.grad = _t(grads[n])
+        opt.step()
+        for n, p in tparams.items():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[n]), atol=1e-6)
+    with pytest.raises(ValueError, match="slice"):
+        schedules.build_optimizer(pc.OptimConfig(optimizer="lars"), list(tparams.values()))
+
+
+# --------------------------------------------------------- BatchNorm training
+
+
+def _flax_norm(train):
+    return functools.partial(fnn.BatchNorm, use_running_average=not train, momentum=0.9,
+                             epsilon=1e-5, dtype=jnp.float32)
+
+
+def _fill(shapes, seed):
+    """Numpy values for a Flax variable tree: He-normal kernels, BN
+    scale/bias and running statistics away from 1/0."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = jax.tree_util.keystr(path)
+        if "'mean'" in name or "'bias'" in name:
+            return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        if "'var'" in name:
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        if "'scale'" in name:
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        fan_in = int(np.prod(s.shape[:-1]))
+        return (rng.standard_normal(s.shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _tensors(sd):
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def _block_state_dict(params, stats, n_main):
+    out = {}
+    for c in range(n_main):
+        convert._convbn(out, f"conv{c + 1}", f"bn{c + 1}", params[f"ConvBN_{c}"],
+                        stats[f"ConvBN_{c}"])
+    if f"ConvBN_{n_main}" in params:
+        convert._convbn(out, "downsample.0", "downsample.1", params[f"ConvBN_{n_main}"],
+                        stats[f"ConvBN_{n_main}"])
+    return out
+
+
+# (name, flax module factory(norm), port module, state-dict mapping, input shape)
+BN_CASES = {
+    "convbn": (lambda norm: jax_resnet.ConvBN(8, 3, 2, norm),
+               lambda: port_resnet.ConvBN(4, 8, 3, 2),
+               lambda p, s: (lambda o: (convert._convbn(o, "0", "1", p, s), o)[1])({}),
+               (6, 9, 9, 4)),
+    "basic": (lambda norm: jax_resnet.BasicBlock(8, 2, norm),
+              lambda: port_resnet.BasicBlock(4, 8, 2),
+              lambda p, s: _block_state_dict(p, s, 2), (6, 8, 8, 4)),
+    "bottleneck": (lambda norm: jax_resnet.Bottleneck(4, 1, norm),
+                   lambda: port_resnet.Bottleneck(8, 4, 1),
+                   lambda p, s: _block_state_dict(p, s, 3), (4, 6, 6, 8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BN_CASES))
+@pytest.mark.parametrize("train", [True, False])
+def test_batchnorm_blocks_match_flax(case, train):
+    """Outputs and the mutated running statistics (momentum 0.9 on the old
+    value, biased variance) within 1e-5, in train and eval mode."""
+    make_flax, make_port, mapping, shape = BN_CASES[case]
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    mod = make_flax(_flax_norm(train))
+    v = _fill(jax.eval_shape(lambda: mod.init(jax.random.PRNGKey(0), jnp.asarray(x))), seed=2)
+    out, mut = mod.apply(v, jnp.asarray(x), mutable=["batch_stats"])
+    port = make_port()
+    port.load_state_dict(_tensors(mapping(v["params"], v["batch_stats"])), strict=False)
+    port.train(train)
+    got = port(_t(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).detach().numpy(), np.asarray(out),
+                               atol=1e-5, rtol=0)
+    want_stats = mapping(v["params"], mut["batch_stats"])
+    sd = port.state_dict()
+    for name, arr in want_stats.items():
+        if "running" in name:
+            np.testing.assert_allclose(sd[name].numpy(), arr, atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_cifar_stem_backbone_trains_like_flax():
+    """A whole resnet18 with the CIFAR stem in train mode: pooled features
+    and every running statistic within 1e-5."""
+    x = np.random.default_rng(4).standard_normal((4, 16, 16, 3)).astype(np.float32)
+    mod = jax_resnet.create_resnet("resnet18", num_filters=4, cifar_stem=True, dtype=jnp.float32)
+    v = _fill(jax.eval_shape(lambda: mod.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                              train=False)), seed=5)
+    out, mut = mod.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    port = port_resnet.create_resnet("resnet18", num_filters=4, cifar_stem=True)
+    port.load_state_dict(_tensors(convert.backbone_from_flax(v["params"], v["batch_stats"])),
+                         strict=False)
+    got = port.train()(_t(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=1e-5, rtol=0)
+    sd = port.state_dict()
+    for name, arr in convert.backbone_from_flax(v["params"], mut["batch_stats"]).items():
+        np.testing.assert_allclose(sd[name].numpy(), arr, atol=1e-5, rtol=0, err_msg=name)
+
+
+# -------------------------------------------------- the slice as a whole
+
+
+SPE = 2  # steps per epoch: the 3 steps cross an epoch boundary of the cosine lr
+# Backbone width of the 3-step test. A ReLU has a kink at 0: a unit whose
+# input lies within the two packages' float32 forward difference (~1e-5)
+# of zero can be active in one and dead in the other, and the gradient
+# then differs by far more than rounding. At width 8 (16 px, batch 8, this
+# seed) one unit of layer3.0's first ReLU sits at +3.1e-6 in the port and
+# -2.5e-6 in JAX, and a conv weight's gradient differs by 19%; with
+# softplus in place of ReLU the two agree within ~2e-5 at widths 8, 16
+# and 64. Width 16 has no such unit: the gradients agree within ~1.5e-5.
+NF = 16
+
+
+def _configs(fused):
+    moco = dict(arch="resnet18", dim=16, num_negatives=64, temperature=0.2, mlp=True,
+                cifar_stem=True, compute_dtype="float32", fused_infonce=fused)
+    optim = dict(lr=0.05, epochs=2, cos=True)
+    data = dict(dataset="synthetic", image_size=16, global_batch=8)
+    return (  # the Pallas tile is the JAX config's alone
+        jc.TrainConfig(moco=jc.MocoConfig(**moco, fused_block_k=32), optim=jc.OptimConfig(**optim),
+                       data=jc.DataConfig(**data), health_metrics=False),
+        pc.TrainConfig(moco=pc.MocoConfig(**moco), optim=pc.OptimConfig(**optim),
+                       data=pc.DataConfig(**data)),
+    )
+
+
+def _numpy_state(state):
+    """A JAX MocoState's contents as numpy trees, as state_from_flax takes them."""
+    tree = {f: jax.tree.map(np.asarray, getattr(state, f)) for f in (
+        "step", "params_q", "batch_stats_q", "params_k", "batch_stats_k", "queue", "queue_ptr")}
+    tree["trace"] = jax.tree.map(np.asarray, state.opt_state[1][0].trace["enc"])
+    return tree
+
+
+@functools.lru_cache(maxsize=None)
+def _trajectories(fused):
+    """3 steps of JAX make_train_step on a one-device mesh and of the port's,
+    the port starting from state_from_flax of the JAX create_state, both
+    fed the same pre-augmented views."""
+    jcfg, pcfg = _configs(fused)
+    encoder = FlaxEncoder(
+        backbone=jax_resnet.create_resnet("resnet18", num_filters=NF, cifar_stem=True,
+                                          dtype=jnp.float32),
+        head=FlaxHead(dim=16, mlp=True, dtype=jnp.float32),
+    )
+    tx = jax_schedules.build_optimizer(jcfg.optim, steps_per_epoch=SPE)
+    mesh = create_mesh(num_data=1, num_model=1, devices=jax.devices()[:1])
+    jstate = jax_create_state(jax.random.PRNGKey(0), jcfg, encoder, tx, jnp.zeros((1, 16, 16, 3)))
+    pstate = convert.state_from_flax(pcfg, _numpy_state(jstate), device="cpu", num_filters=NF)
+    jstate = place_state(jstate, mesh)
+    jstep = jax_make_train_step(jcfg, encoder, tx, mesh)
+    pstep = make_train_step(pcfg, SPE, device="cpu")
+    rng = jax.device_put(jax.random.PRNGKey(3),
+                         jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec()))
+    hist = []
+    for i in range(3):
+        views = np.random.default_rng(10 + i).standard_normal((2, 8, 16, 16, 3)).astype(np.float32)
+        jstate, jm = jstep(jstate, shard_batch(mesh, {"im_q": views[0], "im_k": views[1]}), rng)
+        pm = pstep(pstate, {"im_q": _t(views[0]), "im_k": _t(views[1])})
+        hist.append(({k: float(jm[k]) for k in ("loss", "acc1", "acc5")},
+                     {k: float(pm[k]) for k in ("loss", "acc1", "acc5", "lr")}))
+    return jstate, pstate, hist
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_three_train_steps_match_jax(fused):
+    """Per step: loss rtol 1e-5, acc1/acc5 equal. After 3 steps: params_q,
+    params_k and both encoders' BN statistics rtol 1e-3 / atol 5e-4 (the
+    tolerance tests/test_fused_train_step.py calibrates for float32
+    reassociation amplified by momentum SGD), the queue atol 5e-4, and
+    queue_ptr exact. Fused, JAX runs its Pallas kernel in interpret mode
+    on a 2-tile grid (K=64, block 32)."""
+    jstate, pstate, hist = _trajectories(fused)
+    for step, (jm, pm) in enumerate(hist):
+        np.testing.assert_allclose(pm["loss"], jm["loss"], rtol=1e-5, err_msg=f"step {step}")
+        assert pm["acc1"] == jm["acc1"] and pm["acc5"] == jm["acc5"], step
+    lrs = [pm["lr"] for _, pm in hist]
+    assert lrs[0] == lrs[1] > lrs[2]  # the epoch boundary of the cosine schedule
+    for enc, params, stats in ((pstate.encoder_q, jstate.params_q, jstate.batch_stats_q),
+                               (pstate.encoder_k, jstate.params_k, jstate.batch_stats_k)):
+        sd = enc.state_dict()
+        want = convert.encoder_from_flax(jax.tree.map(np.asarray, params),
+                                         jax.tree.map(np.asarray, stats))
+        for name, arr in want.items():
+            np.testing.assert_allclose(sd[name].numpy(), arr.numpy(), rtol=1e-3, atol=5e-4,
+                                       err_msg=name)
+    np.testing.assert_allclose(pstate.queue.numpy(), np.asarray(jstate.queue), atol=5e-4, rtol=0)
+    assert pstate.queue_ptr == int(jstate.queue_ptr) == 24 and pstate.step == int(jstate.step) == 3
+
+
+def test_state_from_flax_carries_the_momentum_trace():
+    """Mid-trajectory: the JAX state after 3 steps converted by
+    state_from_flax has the port's own momentum buffers after the same 3
+    steps (rtol 1e-3 / atol 5e-4), and every parameter, statistic and the
+    queue exactly as the JAX trees hold them."""
+    jstate, pstate, _ = _trajectories(True)
+    _, pcfg = _configs(True)
+    tree = _numpy_state(jstate)
+    conv = convert.state_from_flax(pcfg, tree, device="cpu", num_filters=NF)
+    assert conv.step == 3 and conv.queue_ptr == 24
+    np.testing.assert_array_equal(conv.queue.numpy(), tree["queue"])
+    want = convert.encoder_from_flax(tree["params_q"], tree["batch_stats_q"])
+    for name, t in conv.encoder_q.state_dict().items():
+        if name in want:
+            np.testing.assert_array_equal(t.numpy(), want[name].numpy())
+    mine = dict(pstate.encoder_q.named_parameters())
+    for name, p in conv.encoder_q.named_parameters():
+        buf = conv.optimizer.state[p]["momentum_buffer"]
+        ref = pstate.optimizer.state[mine[name]]["momentum_buffer"]
+        np.testing.assert_allclose(buf.numpy(), ref.numpy(), rtol=1e-3, atol=5e-4, err_msg=name)
+    assert not any(p.requires_grad for p in conv.encoder_k.parameters())
+
+
+# ------------------------------------------------------- config, driver, device
+
+
+@pytest.mark.parametrize("preset", ["cifar_smoke", "imagenet_v2"])
+def test_presets_match_the_jax_config_field_for_field(preset):
+    ours, theirs = pc.PRESETS[preset], jc.PRESETS[preset]
+    for section in ("moco", "optim", "data"):
+        for f in dataclasses.fields(getattr(ours, section)):
+            assert getattr(getattr(ours, section), f.name) == getattr(
+                getattr(theirs, section), f.name), (section, f.name)
+            assert getattr(type(getattr(ours, section))(), f.name) == getattr(
+                type(getattr(theirs, section))(), f.name), (section, f.name)
+    assert ours.seed == theirs.seed and ours.steps_per_epoch == theirs.steps_per_epoch
+    assert pc.PRESETS["imagenet_v2"].moco.temperature == 0.2
+
+
+def test_config_rejects_what_the_slice_does_not_run():
+    for field in ("bn_virtual_groups", "key_bn_running_stats", "remat", "fused_block_k"):
+        with pytest.raises(TypeError):
+            pc.MocoConfig(**{field: 1})
+
+
+@pytest.mark.parametrize("fused", [None, True, False])
+def test_train_step_takes_the_fused_loss_for_any_k(monkeypatch, fused):
+    """K = 2048 + 64 is no multiple of the JAX kernel's 2048-row tile: the
+    step still takes the fused loss, by default (None) too, unless
+    fused_infonce=False, and the dense chain only then."""
+    from moco_tpu_torch.core import moco as port_moco
+
+    calls = {"fused": 0, "dense": 0}
+
+    def count(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(port_moco, "fused_infonce_loss",
+                        count("fused", port_moco.fused_infonce_loss))
+    monkeypatch.setattr(port_moco, "infonce_logits", count("dense", port_moco.infonce_logits))
+    cfg = _configs(fused)[1]
+    cfg = dataclasses.replace(cfg, moco=dataclasses.replace(cfg.moco, num_negatives=2112))
+    state = create_state(cfg, build_encoder(cfg.moco, num_filters=4), device="cpu")
+    views = np.random.default_rng(0).standard_normal((2, 8, 16, 16, 3)).astype(np.float32)
+    out = make_train_step(cfg, 1, device="cpu")(state, {"im_q": _t(views[0]), "im_k": _t(views[1])})
+    assert calls == ({"fused": 0, "dense": 1} if fused is False else {"fused": 1, "dense": 0})
+    assert np.isfinite(float(out["loss"])) and state.queue_ptr == 8
+
+
+def test_train_driver_runs_on_cpu():
+    cfg = pc.PRESETS["cifar_smoke"]
+    cfg = dataclasses.replace(
+        cfg, moco=dataclasses.replace(cfg.moco, num_negatives=64, dim=16),
+        data=dataclasses.replace(cfg.data, dataset="synthetic", global_batch=16))
+    out = train(cfg, dataset=SyntheticDataset(64, 32), device="cpu", steps=2, num_filters=4)
+    assert len(out["history"]) == 2 and out["state"].queue_ptr == 32
+    for rec in out["history"]:
+        assert all(np.isfinite(rec[k]) for k in ("loss", "acc1", "acc5", "lr", "step_ms"))
+
+
+def test_train_cli_builds_a_preset(capsys):
+    """`python -m moco_tpu_torch.train` wiring: the preset, the dataset
+    override and the device reach train(); zero steps print nothing."""
+    assert train_main(["--preset", "cifar_smoke", "--data", "synthetic", "--steps", "0",
+                       "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == ""
+    with pytest.raises(ValueError, match="later slice"):
+        train_main(["--preset", "cifar_smoke", "--steps", "0", "--device", "cpu"])
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card rule cannot be shown here")
+    cfg = _configs(False)[1]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(cfg, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(cfg, dataset=SyntheticDataset(8, 16), steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_state(cfg, build_encoder(cfg.moco, num_filters=4))
