@@ -53,6 +53,43 @@ Phases, each of which fails the run (non-zero exit) on a miss:
 9. Timing: step ms and imgs/s; each InfoNCE kernel, its plain version, its
    bound and one composed PyTorch computation on the path's own inputs;
    a torch.profiler breakdown of one step's device time.
+10. Flash kernels: the forward, dq and dk/dv kernels
+   (csrc/flash_attention.cu) against their plain versions at (B, H, S, D)
+   in {(8, 12, 197, 64) bf16 and f32, (2, 3, 145, 64) f32, (1, 2, 1000, 32)
+   f32, (4, 4, 65, 128) bf16}, with a non-zero lse cotangent. f32: out <=
+   1e-5 max|out| + 1e-6, lse <= 1e-5, dq/dk/dv <= 1e-4 max|grad| + 1e-6.
+   bf16, against the plain version in f32 on the same bf16 values: lse <=
+   1e-5 and each output within 2^-7 of its largest sum of absolute terms
+   (+1e-6): rounding p or dS and the output to bf16 moves it by at most
+   2^-8 of that sum. A head width, dtype or device mix the kernels do not
+   take must raise.
+11. v3 path, at full width: the vit_b16_v3 preset (ViT-B/16, 224 px, dim
+   256, 4096-wide projector and predictor, AdamW, m = 0.99 on the cosine
+   ramp) with vit_flash_attention=True and the one cut, global batch 4096
+   -> 256 (one GPU's share of a 16-GPU job), bf16 autocast; seeded
+   Flax-layout weights through convert.state_from_flax and a
+   SyntheticDataset through the TwoCropPipeline; train(..., device="cuda")
+   for 3 warm-up and 10 timed steps, the flash launch counts set to 0 just
+   before and read just after. Checks: finite losses; per step 24 forward
+   launches (12 blocks in each encoder) and 12 of dq and of dk/dv; the
+   query encoder's patch embedding bit-equal to its init; after step 1 a
+   params_k leaf is m(0) k0 + (1 - m(0)) q0; on the last step's first
+   query-side block (its q, k, v and gradient g, captured as the step
+   computed them, g scaled by a power of two to a largest |g| near 1) the
+   kernels agree with their plain versions within phase 10's bf16
+   tolerance, each tolerance at most 1/8 of its output's largest value;
+   one more step on copies of the final state and one batch, through the
+   kernels and through dense attention (vit_flash_attention=False, which
+   rounds its attention logits to bf16), gives losses within 4.5e-4 of
+   each other and query-encoder features within 3% of their largest
+   value; two wrong attentions (uniform weights, and the kernels without
+   the 1/sqrt(Dh) scale) run as controls and must miss both checks.
+12. Timing: step ms and imgs/s; each flash kernel, its plain version, its
+   bound and F.scaled_dot_product_attention (forward; its backward through
+   autograd for dq and dk/dv together, which computes all three gradients
+   in one call and has no lse cotangent) on the captured block; a
+   torch.profiler breakdown of one step with flash_attention as its own
+   group.
 
 The last line of stdout is {"ok": true, "device": {...}}; the lines before
 it carry the kernel table and the timings as JSON.
@@ -72,12 +109,21 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 SEED = 0
 K, DIM, NLIST, NPROBE, TOPK = 65536, 128, 256, 16, 5
 IMG = 224
 SCORE_TOL = 1e-5
 POS_TOL, LSE_TOL, TIE_TOL = 1e-5, 1e-4, 1e-5
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+V3_BATCH = 256  # vit_b16_v3's global batch 4096 cut to one GPU's share of 16
+BF16_REL = 2.0 ** -7  # bf16 tolerance of a flash output, of its absolute-term sum
+TOL_SHARE = 0.125  # most a flash tolerance may be of its output's largest value
+# flash against dense attention on one v3 step (bf16): the loss, relative,
+# and the query features, of their largest value. Each lies between what
+# an H100 measured for the kernels (2.3e-4, 0.013) and for the nearer of
+# two wrong attentions (6.9e-4, 0.055)
+LOSS_REL, FEAT_REL = 4.5e-4, 0.03
 
 
 def check(ok: bool, what: str) -> None:
@@ -272,10 +318,12 @@ def infonce_bound_ms(b, kk, c, backward):
 
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel names it takes), first match wins
+    ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
     ("infonce", ("fwd_partial_kernel", "fwd_merge_kernel", "bwd_partial_kernel",
                  "bwd_reduce_kernel")),
     ("batch_norm", ("batch_norm",)),
-    ("conv_gemm", ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "wgrad", "dgrad")),
+    ("conv_gemm", ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "wgrad", "dgrad",
+                   "nvjet")),
 )
 
 
@@ -442,6 +490,274 @@ def train_phase(fi):
     return kernels, timing
 
 
+FLASH = (  # (kernel, wrapper, line of the TPU kernel in moco_tpu/ops/flash_attention.py)
+    ("flash_fwd", "flash_forward", 73), ("flash_dq", "flash_dq", 177),
+    ("flash_dkv", "flash_dkv", 225))
+
+
+def flash_launches(fa) -> dict:
+    return {name: getattr(fa, fn).launches for name, fn, _ in FLASH}
+
+
+def compare_flash(fa, q, k, v, g, g_lse, what):
+    """The three flash kernels against their plain versions on one input
+    (the plain versions in f32 on the same values), with phase 10's
+    tolerances; returns {output: (max |kernel - plain|, tolerance)}."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_forward(q, k, v, scale)
+    coeff = fa.backward_coeff(out, g, g_lse)
+    dq = fa.flash_dq(q, k, v, g, lse, coeff, scale)
+    dk, dv = fa.flash_dkv(q, k, v, g, lse, coeff, scale)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, k, v, g)]
+    out_p, lse_p = fa.attention_reference(*f[:3], scale)
+    dq_p = fa.flash_dq_reference(*f, lse, coeff, scale)
+    dk_p, dv_p = fa.flash_dkv_reference(*f, lse, coeff, scale)
+    got = {"out": (out, out_p), "dq": (dq, dq_p), "dk": (dk, dk_p), "dv": (dv, dv_p)}
+    if q.dtype == torch.float32:
+        tol = {n: (1e-5 if n == "out" else 1e-4) * w.abs().max().item() + 1e-6
+               for n, (_, w) in got.items()}
+    else:
+        tol = {n: BF16_REL * t + 1e-6 for n, t in fa.abs_term_sums(*f, lse, coeff, scale).items()}
+    errs = {"lse": ((lse - lse_p).abs().max().item(), 1e-5)}
+    errs.update({n: ((a.float() - b).abs().max().item(), tol[n]) for n, (a, b) in got.items()})
+    # each tolerance as a share of its output's largest value: a kernel off
+    # by more than that share of the output fails
+    share = {n: tol[n] / w.abs().max().item() for n, (_, w) in got.items()}
+    print(f"kernel flash {what}: " + json.dumps(
+        {n: {"err": e, "tol": t, **({"tol_share": share[n]} if n in share else {})}
+         for n, (e, t) in errs.items()}), flush=True)
+    for name, (err, t) in errs.items():
+        check(err <= t, f"flash {what}: {name} off by {err} > {t}")
+    for name, s in share.items():
+        check(s <= TOL_SHARE, f"flash {what}: {name}'s tolerance is {s:.3g} of its largest value")
+    return errs
+
+
+def flash_worst(errs) -> dict:
+    """The largest error of each kernel: forward (out, lse), dq, dk/dv."""
+    return {"flash_fwd": max(errs["out"][0], errs["lse"][0]), "flash_dq": errs["dq"][0],
+            "flash_dkv": max(errs["dk"][0], errs["dv"][0])}
+
+
+def flash_kernel_phase(fa):
+    """Phase 10: the three flash kernels against their plain versions, and
+    what they refuse."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = dict.fromkeys((name for name, _, _ in FLASH), 0.0)
+    for b, h, s, d, dtype in ((8, 12, 197, 64, torch.bfloat16), (8, 12, 197, 64, torch.float32),
+                              (2, 3, 145, 64, torch.float32), (1, 2, 1000, 32, torch.float32),
+                              (4, 4, 65, 128, torch.bfloat16)):
+        q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+                      for _ in range(4))
+        g_lse = torch.randn((b, h, s), generator=gen, device="cuda")
+        errs = compare_flash(fa, q, k, v, g, g_lse, f"B={b} H={h} S={s} D={d} {dtype}")
+        worst = {n: max(worst[n], e) for n, e in flash_worst(errs).items()}
+    x = torch.zeros(1, 2, 8, 64, device="cuda")
+    for what, args in (("D=48", [torch.zeros(1, 2, 8, 48, device="cuda")] * 3),
+                       ("float16", [x.half()] * 3), ("a CPU/CUDA mix", [x, x.cpu(), x])):
+        try:
+            fa.flash_forward(*args, 1.0)
+        except ValueError as e:
+            print(f"kernel flash: {what} refused as it must be ({e})", flush=True)
+        else:
+            raise RuntimeError(f"flash_forward accepted {what}")
+    return worst
+
+
+def flash_bound_ms(kind, bh, s, d, itemsize):
+    """Least time for one flash call at the path's shape: its (B*H, S, D)
+    blocks read or written once (forward: q, k, v in, out out; dq: q, k, v,
+    g in, dq out; dk/dv: q, k, v, g in, dk and dv out) and its (B*H, S) f32
+    rows (lse out; lse and coeff in) over the memory rate, against its
+    matrix products (4, 6 and 8 S^2 D flops per head: q.k^T and p.v; plus
+    g.v^T and ds.k; plus p^T.g and ds^T.q) over the bf16 tensor rate."""
+    blocks, rows, flops = {"flash_fwd": (4, 1, 4), "flash_dq": (5, 2, 6),
+                           "flash_dkv": (6, 2, 8)}[kind]
+    bytes_ = blocks * bh * s * d * itemsize + rows * bh * s * 4
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, flops * bh * s * s * d / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def set_flash(encoder, on: bool) -> None:
+    """Route every attention of `encoder` through the flash kernels or the
+    dense path (the parameters are the same either way)."""
+    from moco_tpu_torch.models.vit import MultiHeadAttention
+
+    for m in encoder.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.use_flash_attention = on
+
+
+def v3_phase(fa, flash_err):
+    """The v3 path at full width (phase 11) and its timings (phase 12)."""
+    import copy
+
+    from moco_tpu_torch.convert import random_flax_encoder, random_flax_predictor, state_from_flax
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.data.pipeline import TwoCropPipeline
+    from moco_tpu_torch.models import vit
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.utils.config import PRESETS
+
+    preset = PRESETS["vit_b16_v3"]
+    m = preset.moco
+    check((m.arch, m.dim, m.v3, m.num_negatives, m.momentum, m.momentum_cos, m.temperature,
+           preset.optim.optimizer, preset.data.image_size, preset.data.global_batch, m.compute_dtype)
+          == ("vit_b16", 256, True, 0, 0.99, True, 0.2, "adamw", IMG, 4096, "bfloat16"),
+          "vit_b16_v3 preset")
+    cfg = dataclasses.replace(
+        preset, moco=dataclasses.replace(m, vit_flash_attention=True),
+        data=dataclasses.replace(preset.data, dataset="synthetic", global_batch=V3_BATCH))
+    print(f"v3 path: vit_b16_v3 with vit_flash_attention=True; cut: global batch "
+          f"{preset.data.global_batch} -> {V3_BATCH}", flush=True)
+    params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
+    params_k, stats_k = random_flax_encoder(cfg.moco, seed=SEED + 1)
+    params_p, stats_p = random_flax_predictor(cfg.moco, seed=SEED + 2)
+    state = state_from_flax(cfg, {
+        "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
+        "batch_stats_k": stats_k, "params_pred": params_p, "batch_stats_pred": stats_p},
+        device="cuda")
+    del params_q, params_k, params_p
+    leaf = "head.fc2.weight"
+    q0 = dict(state.encoder_q.named_parameters())[leaf].detach().clone()
+    k0 = dict(state.encoder_k.named_parameters())[leaf].detach().clone()
+    patch0 = state.encoder_q.backbone.patch_embed.weight.detach().clone()
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    ema_err, seen = [], {"armed": False}
+
+    # the last step's first query-side block: its q, k, v and, in the
+    # backward, the gradient g of its output, as the step computed them
+    def capture(q, k, v, scale=None):
+        out = kernel_attention(q, k, v, scale)
+        if seen["armed"] and q.requires_grad:
+            seen.update(armed=False, q=q.detach(), k=k.detach(), v=v.detach())
+            out.register_hook(lambda g: seen.__setitem__("g", g.detach().contiguous()))
+        return out
+
+    def on_step(rec):
+        print(f"v3 train step {json.dumps(rec)}", flush=True)
+        if rec["step"] == 1:
+            k1 = dict(state.encoder_k.named_parameters())[leaf].detach()
+            ema_err.append((k1 - (k0 * m.momentum + q0 * (1.0 - m.momentum))).abs().max().item())
+        seen["armed"] = rec["step"] == steps - 1
+
+    kernel_attention, vit.flash_attention = vit.flash_attention, capture
+    dataset = SyntheticDataset(image_size=IMG)
+    torch.cuda.reset_peak_memory_stats()
+    for _, fn, _ in FLASH:  # counts from here on are the path's
+        getattr(fa, fn).launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = train(cfg, dataset=dataset, device="cuda", steps=steps, state=state, log=on_step)
+    finally:
+        vit.flash_attention = kernel_attention
+    wall_s = time.perf_counter() - t0
+    launches = flash_launches(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"v3 path: {steps} steps in {wall_s:.1f} s; launches {launches}; "
+          f"peak memory {peak_gb:.1f} GB", flush=True)
+
+    # -- checks -------------------------------------------------------------
+    hist = out["history"]
+    check(len(hist) == steps and all(np.isfinite(r["loss"]) for r in hist), "v3 finite losses")
+    depth = len(state.encoder_q.backbone.blocks)
+    want = {"flash_fwd": 2 * depth * steps, "flash_dq": depth * steps, "flash_dkv": depth * steps}
+    check(launches == want, f"flash launches {launches} over {steps} steps, want {want}")
+    check(torch.equal(state.encoder_q.backbone.patch_embed.weight, patch0),
+          "the frozen patch embedding moved")
+    check(ema_err and ema_err[0] <= 1e-6, f"params_k after step 1 is not the EMA: {ema_err}")
+    check("g" in seen, "the last step's attention block was not captured")
+    q, k, v, g = seen["q"], seen["k"], seen["v"], seen["g"]
+    # the step's g is tiny (a loss averaged over 512 rows, 12 blocks deep):
+    # scaled by a power of two to a largest |g| in [0.5, 1), exactly, so the
+    # gradients (linear in g, with a zero lse cotangent) reach the sizes
+    # phase 10's tolerances are stated for
+    g = g * 2.0 ** -float(np.frexp(g.abs().max().item())[1])
+    path_errs = compare_flash(fa, q, k, v, g, torch.zeros(q.shape[:3], device="cuda"),
+                              f"on the path's last step {tuple(q.shape)} {q.dtype}")
+    flash_err = {n: max(flash_err[n], e) for n, e in flash_worst(path_errs).items()}
+    with TwoCropPipeline(cfg.data, seed=cfg.seed + 1, dataset=dataset, device="cuda") as pipe:
+        batch = pipe.batch(0, 0)
+    # one more step on copies of the final state, through the kernels, the
+    # dense attention and two wrong attentions (controls: every key alike,
+    # and the kernels without the 1/sqrt(Dh) scale), with the query
+    # encoder's features on the same images beside each loss
+    variants = {"flash": kernel_attention, "dense": None,
+                "uniform": lambda q, k, v, scale=None: v.mean(2, keepdim=True).expand_as(v),
+                "unscaled": lambda q, k, v, scale=None: kernel_attention(q, k, v, 1.0)}
+    losses, feats = {}, {}
+    for name, attention in variants.items():
+        copy_ = copy.deepcopy(state)
+        set_flash(copy_.encoder_q, attention is not None)
+        set_flash(copy_.encoder_k, attention is not None)
+        vit.flash_attention = attention or kernel_attention
+        try:
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                feats[name] = copy_.encoder_q.backbone(batch["im_q"]).float()
+            losses[name] = make_train_step(cfg, out["steps_per_epoch"], device="cuda")(
+                copy_, batch)["loss"].item()
+        finally:
+            vit.flash_attention = kernel_attention
+        del copy_
+        torch.cuda.empty_cache()
+    scale_f = feats["dense"].abs().max().item()
+    rel = {n: {"loss": abs(losses[n] - losses["dense"]) / abs(losses["dense"]),
+               "features": (feats[n] - feats["dense"]).abs().max().item() / scale_f}
+           for n in variants if n != "dense"}
+    print(f"v3 step losses {json.dumps(losses)}; against dense attention, relative "
+          f"{json.dumps(rel)} (tolerances: loss {LOSS_REL}, features {FEAT_REL})", flush=True)
+    check(rel["flash"]["loss"] <= LOSS_REL, f"flash and dense v3 losses differ by {rel['flash']}")
+    check(rel["flash"]["features"] <= FEAT_REL,
+          f"flash and dense v3 features differ by {rel['flash']}")
+    for name in ("uniform", "unscaled"):
+        check(rel[name]["loss"] > LOSS_REL and rel[name]["features"] > FEAT_REL,
+              f"the {name} control passes a check meant to catch it: {rel[name]}")
+
+    # -- timing -------------------------------------------------------------
+    timed = hist[TRAIN_WARMUP:]
+    step_ms = float(np.median([r["step_ms"] for r in timed]))
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_forward(q, k, v, scale)
+    coeff = fa.backward_coeff(o, g, torch.zeros_like(lse))
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+    library_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g, retain_graph=True),
+                          iters=20)
+    bh, s, d = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+    kernels = []
+    for (name, fn, line), run, plain, library in zip(FLASH, (
+            lambda: fa.flash_forward(q, k, v, scale),
+            lambda: fa.flash_dq(q, k, v, g, lse, coeff, scale),
+            lambda: fa.flash_dkv(q, k, v, g, lse, coeff, scale)), (
+            lambda: fa.attention_reference(q, k, v, scale),
+            lambda: fa.flash_dq_reference(q, k, v, g, lse, coeff, scale),
+            lambda: fa.flash_dkv_reference(q, k, v, g, lse, coeff, scale)), (
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), None, None)):
+        bound, bound_by = flash_bound_ms(name, bh, s, d, q.element_size())
+        kernels.append({
+            "name": name, "route": "cuda", "source": "moco_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"moco_tpu/ops/flash_attention.py:{line}", "launches": launches[name],
+            "max_abs_err": flash_err[name], "ms": cuda_ms(run, iters=20),
+            "plain_ms": cuda_ms(plain, iters=5, warm=2), "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": cuda_ms(library, iters=20) if library else library_bwd,
+            "library": ("F.scaled_dot_product_attention forward" if library else
+                        "F.scaled_dot_product_attention backward through autograd: dq, dk and "
+                        "dv in one call, no lse cotangent"),
+            "shape": {"BH": bh, "S": s, "D": d, "dtype": str(q.dtype)},
+        })
+    share = sum(r["ms"] * launches[r["name"]] / steps for r in kernels) / step_ms
+    timing = {"step_ms_median": step_ms,
+              "data_ms_median": float(np.median([r["data_ms"] for r in timed])),
+              "imgs_per_s_median": float(np.median([r["imgs_per_s"] for r in timed])),
+              "flash_share_of_step": share, "peak_memory_gb": peak_gb, "steps_timed": len(timed),
+              "batch": V3_BATCH, "losses": losses, "relative_to_dense": rel,
+              "profile": profile_step(train, cfg, dataset, state)}
+    print(f"v3 timing: {json.dumps(timing)}", flush=True)
+    return kernels, timing
+
+
 def post(port, path, imgs):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=imgs.tobytes(),
@@ -461,6 +777,7 @@ def main() -> int:
     from moco_tpu_torch.convert import encoder_from_flax, random_flax_encoder
     from moco_tpu_torch.core.moco import build_encoder
     from moco_tpu_torch.ops import build, fused_infonce, ivf_scan
+    from moco_tpu_torch.ops import flash_attention as fa
     from moco_tpu_torch.serve.engine import InferenceEngine
     from moco_tpu_torch.serve.index import QUERY_MODES, EmbeddingIndex
     from moco_tpu_torch.serve.server import ServeServer
@@ -478,6 +795,7 @@ def main() -> int:
     # -- kernel vs plain ----------------------------------------------------
     max_err = kernel_phase(ivf_scan)
     infonce_err = infonce_kernel_phase(fused_infonce)
+    flash_err = flash_kernel_phase(fa)
 
     # -- path at full width -------------------------------------------------
     cfg = PRESETS["imagenet_v2"]
@@ -596,6 +914,12 @@ def main() -> int:
         rec["max_abs_err"] = max(rec["max_abs_err"], worst)
     kernels += train_kernels
     print(json.dumps({"train": train_timing, "device": smi}))
+    torch.cuda.empty_cache()
+
+    # -- v3 path at full width -----------------------------------------------
+    v3_kernels, v3_timing = v3_phase(fa, flash_err)
+    kernels += v3_kernels
+    print(json.dumps({"v3": v3_timing, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,15 @@ and moco_tpu/import_torch.py (head_from_torch), kept here as a copy:
 - conv kernels (H, W, Cin, Cout) -> (Cout, Cin, H, W)
 - dense kernels (Cin, Cout) -> (Cout, Cin)
 - BatchNorm: scale -> weight, bias -> bias, mean -> running_mean,
-  var -> running_var
+  var -> running_var; LayerNorm: scale -> weight, bias -> bias
+- attention: the q/k/v kernels (D, H, Dh) -> (H*Dh, D), their biases
+  (H, Dh) -> (H*Dh,), the out kernel (H, Dh, D) -> (D, H*Dh)
 
 Flax trees come in as nested dicts of numpy arrays (or anything
 `np.asarray` takes): `{"backbone": ..., "head": ...}` for the params and
-`{"backbone": ...}` for the batch statistics. A tree shaped like the
-params without statistics (optax's momentum trace) goes through the same
-rules with `batch_stats=None`.
+for the batch statistics (a ViT backbone has none). A tree shaped like the
+params without statistics (optax's momentum trace, Adam's moments) goes
+through the same rules with `batch_stats=None`.
 """
 
 from __future__ import annotations
@@ -22,8 +24,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from moco_tpu_torch.core.moco import TrainState, build_encoder, create_state
+from moco_tpu_torch.core.moco import (
+    V3_HIDDEN,
+    TrainState,
+    build_encoder,
+    build_predictor,
+    create_state,
+)
 from moco_tpu_torch.models.resnet import _CONFIGS
+from moco_tpu_torch.models.vit import _VIT_CONFIGS
 from moco_tpu_torch.utils.config import MocoConfig, TrainConfig
 
 
@@ -85,38 +94,110 @@ def backbone_from_flax(params: Any, stats: Any = None) -> Dict[str, np.ndarray]:
     return out
 
 
-def head_from_flax(params: Any) -> Dict[str, np.ndarray]:
-    """ProjectionHead tree -> `fc.*` (v1) or `fc.0.*` / `fc.2.*` (v2)."""
+def _dense(out: dict, name: str, params) -> None:
+    out[f"{name}.weight"] = _np(params["kernel"]).T
+    if "bias" in params:
+        out[f"{name}.bias"] = _np(params["bias"])
+
+
+def head_from_flax(params: Any, stats: Any = None) -> Dict[str, np.ndarray]:
+    """ProjectionHead tree -> `fc.*` (v1) or `fc.0.*` / `fc.2.*` (v2);
+    V3MLPHead tree and statistics -> `fc{i}.weight` and `bn{i}.*` (the
+    last BN is affine-free: statistics only)."""
+    if "BatchNorm_0" in params:  # V3MLPHead
+        out = {}
+        for name in params:
+            if name.startswith("Dense_"):
+                _dense(out, f"fc{name[6:]}", params[name])
+        for name in set(params) | set(stats or {}):
+            if name.startswith("BatchNorm_"):
+                bn, p = f"bn{name[10:]}", params.get(name)
+                if p is not None:
+                    out[f"{bn}.weight"], out[f"{bn}.bias"] = _np(p["scale"]), _np(p["bias"])
+                if stats is not None:
+                    out[f"{bn}.running_mean"] = _np(stats[name]["mean"])
+                    out[f"{bn}.running_var"] = _np(stats[name]["var"])
+        return out
     if "Dense_1" in params:
         pairs = (("fc.0", params["Dense_0"]), ("fc.2", params["Dense_1"]))
     else:
         pairs = (("fc", params["Dense_0"]),)
     out = {}
     for name, dense in pairs:
-        out[f"{name}.weight"] = _np(dense["kernel"]).T
-        out[f"{name}.bias"] = _np(dense["bias"])
+        _dense(out, name, dense)
     return out
+
+
+def vit_from_flax(params: Any) -> Dict[str, np.ndarray]:
+    """Flax VisionTransformer params -> the port's `VisionTransformer` names
+    (`patch_embed`, `cls_token`, `blocks.{i}.{norm1, attn.{query, key,
+    value, out}, norm2, mlp.{fc1, fc2}}`, `final_norm`)."""
+    out = {"patch_embed.weight": _conv(params["patch_embed"]["kernel"]),
+           "patch_embed.bias": _np(params["patch_embed"]["bias"])}
+    if "cls_token" in params:
+        out["cls_token"] = _np(params["cls_token"])
+
+    def norm(name, p):
+        out[f"{name}.weight"], out[f"{name}.bias"] = _np(p["scale"]), _np(p["bias"])
+
+    for i in range(sum(k.startswith("block_") for k in params)):
+        bp, pre = params[f"block_{i}"], f"blocks.{i}"
+        norm(f"{pre}.norm1", bp["LayerNorm_0"])
+        norm(f"{pre}.norm2", bp["LayerNorm_1"])
+        attn = bp["MultiHeadDotProductAttention_0"]
+        for proj in ("query", "key", "value"):
+            kernel = _np(attn[proj]["kernel"])  # (D, H, Dh)
+            out[f"{pre}.attn.{proj}.weight"] = kernel.reshape(kernel.shape[0], -1).T
+            out[f"{pre}.attn.{proj}.bias"] = _np(attn[proj]["bias"]).reshape(-1)
+        kernel = _np(attn["out"]["kernel"])  # (H, Dh, D)
+        out[f"{pre}.attn.out.weight"] = kernel.reshape(-1, kernel.shape[-1]).T
+        out[f"{pre}.attn.out.bias"] = _np(attn["out"]["bias"])
+        _dense(out, f"{pre}.mlp.fc1", bp["MlpBlock_0"]["Dense_0"])
+        _dense(out, f"{pre}.mlp.fc2", bp["MlpBlock_0"]["Dense_1"])
+    norm("final_norm", params["final_norm"])
+    return out
+
+
+def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 
 
 def encoder_from_flax(params: Any, batch_stats: Any = None) -> Dict[str, torch.Tensor]:
     """Flax `MoCoEncoder` variables -> the port's `MoCoEncoder` state_dict
-    (`backbone.*` in torchvision names, `head.fc*`); parameters only when
-    `batch_stats` is None."""
-    stats = None if batch_stats is None else batch_stats["backbone"]
-    sd = {f"backbone.{k}": v for k, v in backbone_from_flax(params["backbone"], stats).items()}
-    sd.update({f"head.{k}": v for k, v in head_from_flax(params["head"]).items()})
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    (`backbone.*` in torchvision or ViT names, `head.*`); parameters only
+    when `batch_stats` is None."""
+    stats = {} if batch_stats is None else batch_stats
+    if "patch_embed" in params["backbone"]:
+        backbone = vit_from_flax(params["backbone"])
+    else:
+        backbone = backbone_from_flax(params["backbone"], stats.get("backbone"))
+    sd = {f"backbone.{k}": v for k, v in backbone.items()}
+    head_stats = None if batch_stats is None else stats.get("head")
+    sd.update({f"head.{k}": v for k, v in head_from_flax(params["head"], head_stats).items()})
+    return _tensors(sd)
 
 
-def random_flax_encoder(
-    cfg: MocoConfig, seed: int = 0, num_filters: int = 64
-) -> tuple[dict, dict]:
-    """(params, batch_stats) of a Flax `MoCoEncoder` made with numpy from
-    `seed`: He-normal (fan_out) convs as the Flax init, BN scale 1 and
-    bias 0, running statistics drawn near (0, 1), LeCun-normal dense
-    kernels. Random weights in the exact tree a trained checkpoint has, so
-    they reach the port through `encoder_from_flax` like real ones."""
-    rng = np.random.default_rng(seed)
+def predictor_from_flax(params: Any, batch_stats: Any = None) -> Dict[str, torch.Tensor]:
+    """Flax v3 predictor (a V3MLPHead) variables -> the port's predictor
+    state_dict."""
+    return _tensors(head_from_flax(params, batch_stats))
+
+
+def _rng_dense(rng, cin: int, cout: int, bias: bool = True) -> dict:
+    """LeCun-normal kernel (Flax's Dense init) and a zero bias."""
+    p = {"kernel": (rng.standard_normal((cin, cout)) / np.sqrt(cin)).astype(np.float32)}
+    if bias:
+        p["bias"] = np.zeros(cout, np.float32)
+    return p
+
+
+def _rng_bn_stats(rng, c: int) -> dict:
+    return {"mean": (0.1 * rng.standard_normal(c)).astype(np.float32),
+            "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+
+
+def _random_resnet(rng, cfg: MocoConfig, num_filters: int) -> tuple[dict, dict, int]:
+    """(params, batch_stats, feature width) of a Flax ResNet backbone."""
     spec = _CONFIGS[cfg.arch]
     bottleneck = spec["block"].__name__ == "Bottleneck"
     expansion = 4 if bottleneck else 1
@@ -127,9 +208,7 @@ def random_flax_encoder(
 
     def bn(c):
         p = {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
-        s = {"mean": (0.1 * rng.standard_normal(c)).astype(np.float32),
-             "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
-        return p, s
+        return p, _rng_bn_stats(rng, c)
 
     def convbn(k, cin, cout):
         p, s = bn(cout)
@@ -156,41 +235,147 @@ def random_flax_encoder(
             name = f"{spec['block'].__name__}_{b}"
             params[name], stats[name] = bp, bs
             cin, b = f * expansion, b + 1
+    return params, stats, cin
 
-    def dense(cin, cout):
-        return {"kernel": (rng.standard_normal((cin, cout)) / np.sqrt(cin)).astype(np.float32),
-                "bias": np.zeros(cout, np.float32)}
 
-    head = ({"Dense_0": dense(cin, cin), "Dense_1": dense(cin, cfg.dim)} if cfg.mlp
-            else {"Dense_0": dense(cin, cfg.dim)})
-    return {"backbone": params, "head": head}, {"backbone": stats}
+def _random_vit(rng, cfg: MocoConfig) -> tuple[dict, int]:
+    """(params, width) of a Flax VisionTransformer: LeCun-normal kernels
+    (the patch embedding's too, Flax's Conv init), zero biases, LayerNorm
+    scale 1 and bias 0, cls_token N(0, 0.02)."""
+    spec = _VIT_CONFIGS[cfg.arch]
+    width, heads, patch = spec["hidden_dim"], spec["num_heads"], cfg.vit_patch_size or 16
+    zeros = lambda *shape: np.zeros(shape, np.float32)  # noqa: E731
+    ln = lambda: {"scale": np.ones(width, np.float32), "bias": zeros(width)}  # noqa: E731
+    fan_in = patch * patch * 3
+    params = {"patch_embed": {
+        "kernel": (rng.standard_normal((patch, patch, 3, width)) / np.sqrt(fan_in)).astype(np.float32),
+        "bias": zeros(width)}}
+    if cfg.vit_pool == "cls":
+        params["cls_token"] = (0.02 * rng.standard_normal((1, 1, width))).astype(np.float32)
+    head_dim = width // heads
+    for i in range(spec["depth"]):
+        attn = {proj: {"kernel": (rng.standard_normal((width, heads, head_dim)) / np.sqrt(width)
+                                  ).astype(np.float32), "bias": zeros(heads, head_dim)}
+                for proj in ("query", "key", "value")}
+        attn["out"] = {"kernel": (rng.standard_normal((heads, head_dim, width)) / np.sqrt(width)
+                                  ).astype(np.float32), "bias": zeros(width)}
+        params[f"block_{i}"] = {
+            "LayerNorm_0": ln(), "MultiHeadDotProductAttention_0": attn, "LayerNorm_1": ln(),
+            "MlpBlock_0": {"Dense_0": _rng_dense(rng, width, spec["mlp_dim"]),
+                           "Dense_1": _rng_dense(rng, spec["mlp_dim"], width)},
+        }
+    params["final_norm"] = ln()
+    return params, width
+
+
+def _random_v3_head(rng, cin: int, num_layers: int, hidden: int, dim: int,
+                    last_bn: bool) -> tuple[dict, dict]:
+    """(params, batch_stats) of a Flax V3MLPHead: bias-free LeCun-normal
+    Dense layers, BN scale 1 and bias 0 with statistics near (0, 1), the
+    last BN (with `last_bn`) affine-free."""
+    params, stats = {}, {}
+    widths = [cin] + [hidden] * (num_layers - 1) + [dim]
+    for i in range(num_layers):
+        params[f"Dense_{i}"] = _rng_dense(rng, widths[i], widths[i + 1], bias=False)
+        if i < num_layers - 1:
+            c = widths[i + 1]
+            params[f"BatchNorm_{i}"] = {"scale": np.ones(c, np.float32),
+                                        "bias": np.zeros(c, np.float32)}
+            stats[f"BatchNorm_{i}"] = _rng_bn_stats(rng, c)
+    if last_bn:
+        stats[f"BatchNorm_{num_layers - 1}"] = _rng_bn_stats(rng, dim)
+    return params, stats
+
+
+def random_flax_encoder(cfg: MocoConfig, seed: int = 0,
+                        num_filters: int = 64) -> tuple[dict, dict]:
+    """(params, batch_stats) of a Flax `MoCoEncoder` made with numpy from
+    `seed`: a ResNet (He-normal fan_out convs as the Flax init, BN scale 1
+    and bias 0, running statistics drawn near (0, 1)) or a ViT
+    (`_random_vit`), and the v1/v2 head (LeCun-normal dense kernels, zero
+    biases) or the v3 head (`_random_v3_head`, 3 layers behind a ViT).
+    Random weights in the exact tree a trained checkpoint has, so they
+    reach the port through `encoder_from_flax` like real ones."""
+    rng = np.random.default_rng(seed)
+    if cfg.arch.startswith("vit"):
+        (backbone, cin), bstats = _random_vit(rng, cfg), {}
+    else:
+        backbone, rstats, cin = _random_resnet(rng, cfg, num_filters)
+        bstats = {"backbone": rstats}
+    if cfg.v3:
+        layers = 3 if cfg.arch.startswith("vit") else 2
+        head, hstats = _random_v3_head(rng, cin, layers, V3_HIDDEN, cfg.dim, True)
+        return {"backbone": backbone, "head": head}, {**bstats, "head": hstats}
+    head = ({"Dense_0": _rng_dense(rng, cin, cin), "Dense_1": _rng_dense(rng, cin, cfg.dim)}
+            if cfg.mlp else {"Dense_0": _rng_dense(rng, cin, cfg.dim)})
+    return {"backbone": backbone, "head": head}, bstats
+
+
+def random_flax_predictor(cfg: MocoConfig, seed: int = 0) -> tuple[dict, dict]:
+    """(params, batch_stats) of v3's Flax predictor (`build_predictor`'s
+    2-layer V3MLPHead), made with numpy from `seed`."""
+    return _random_v3_head(np.random.default_rng(seed), cfg.dim, 2, V3_HIDDEN, cfg.dim,
+                           cfg.arch.startswith("vit"))
 
 
 def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
                     num_filters: int = 64) -> TrainState:
     """A JAX `MocoState`'s contents, as numpy trees, -> the port's
     `TrainState` on `device`. `tree` holds `step`, `params_q`,
-    `batch_stats_q`, `params_k`, `batch_stats_k`, `queue` (K, dim),
-    `queue_ptr` and, optionally, `trace`: the optax SGD trace over the
-    query encoder's params (the `"enc"` entry of the TraceState), which
-    becomes SGD's `momentum_buffer`s by the same layout rules."""
+    `batch_stats_q`, `params_k` and `batch_stats_k`; for v1/v2 also
+    `queue` (K, dim), `queue_ptr` and, optionally, `trace`: the optax SGD
+    trace over the query encoder's params (the `"enc"` entry of the
+    TraceState), which becomes SGD's `momentum_buffer`s by the same layout
+    rules; for v3 `params_pred`, `batch_stats_pred` and, optionally, `adam`:
+    {"mu", "nu", "count"} of optax's ScaleByAdamState over {"enc", "pred"},
+    which become AdamW's `exp_avg`, `exp_avg_sq` and `step` for every
+    trained parameter. A v3 head takes its hidden width from the tree's
+    first Dense kernel (v1/v2 heads have no such width)."""
+    def hidden(head):
+        return np.shape(head["Dense_0"]["kernel"])[-1]
+
     def encoder(params, stats):
-        enc = build_encoder(config.moco, num_filters=num_filters)
+        enc = build_encoder(config.moco, num_filters=num_filters,
+                            mlp_hidden=hidden(params["head"]))
         enc.load_state_dict(encoder_from_flax(params, stats))
         return enc
 
-    state = create_state(
-        config, encoder(tree["params_q"], tree["batch_stats_q"]), device=device,
-        encoder_k=encoder(tree["params_k"], tree["batch_stats_k"]),
-        queue=torch.from_numpy(np.array(tree["queue"], np.float32)),
-        step=int(np.asarray(tree["step"])), queue_ptr=int(np.asarray(tree["queue_ptr"])),
-    )
-    if tree.get("trace") is not None:
-        params = dict(state.encoder_q.named_parameters())
-        trace = encoder_from_flax(tree["trace"])
-        if trace.keys() != params.keys():
-            raise ValueError(f"trace leaves {sorted(set(trace) ^ set(params))} do not match")
-        for name, buf in trace.items():
-            p = params[name]  # the buffer takes the parameter's device and layout
-            state.optimizer.state[p]["momentum_buffer"] = torch.empty_like(p).copy_(buf)
+    step = int(np.asarray(tree["step"]))
+    enc_q, enc_k = (encoder(tree[f"params_{s}"], tree[f"batch_stats_{s}"]) for s in "qk")
+    if not config.moco.v3:
+        state = create_state(
+            config, enc_q, device=device, encoder_k=enc_k,
+            queue=torch.from_numpy(np.array(tree["queue"], np.float32)),
+            step=step, queue_ptr=int(np.asarray(tree["queue_ptr"])),
+        )
+        if tree.get("trace") is not None:
+            _load_moments(state, {"momentum_buffer": encoder_from_flax(tree["trace"])}, {})
+        return state
+    predictor = build_predictor(config.moco, mlp_hidden=hidden(tree["params_pred"]))
+    predictor.load_state_dict(predictor_from_flax(tree["params_pred"], tree["batch_stats_pred"]))
+    state = create_state(config, enc_q, device=device, encoder_k=enc_k, step=step,
+                         predictor=predictor)
+    adam = tree.get("adam")
+    if adam is not None:
+        moments = {"exp_avg": adam["mu"], "exp_avg_sq": adam["nu"]}
+        _load_moments(state, {n: encoder_from_flax(m["enc"]) for n, m in moments.items()},
+                      {n: predictor_from_flax(m["pred"]) for n, m in moments.items()},
+                      step=float(np.asarray(adam["count"])))
     return state
+
+
+def _load_moments(state: TrainState, enc: dict, pred: dict, step=None) -> None:
+    """Fill the optimizer state of every trained parameter from converted
+    moment trees ({state key: {param name: tensor}} for the query encoder
+    and the predictor); each buffer takes its parameter's device and
+    layout. AdamW also takes its `step` count."""
+    for moments, module in ((enc, state.encoder_q), (pred, state.predictor)):
+        params = {n: p for n, p in module.named_parameters() if p.requires_grad} if moments else {}
+        for key, tree in moments.items():
+            missing = set(params) - set(tree)
+            if missing:
+                raise ValueError(f"{key}: no leaves for {sorted(missing)}")
+            for name, p in params.items():
+                state.optimizer.state[p][key] = torch.empty_like(p).copy_(tree[name])
+                if step is not None:
+                    state.optimizer.state[p]["step"] = torch.tensor(step, dtype=torch.float32)

@@ -1,13 +1,14 @@
-"""MoCo v1/v2 on one device: the encoder, the train state and the train step
-(the v1/v2 single-device branch of moco_tpu/core/moco.py).
+"""MoCo on one device: the encoders, the train state and the train step
+(the single-device branches of moco_tpu/core/moco.py: v1/v2 and v3).
 
 The JAX step is a pure function over an immutable `MocoState`; here the
 state holds modules and tensors that the step updates in place (in-place
 EMA and FIFO writes save a copy of the key encoder and of the queue).
-The step follows the reference's order (moco_tpu/core/moco.py:1061-1316):
+
+The v1/v2 step follows the reference's order (moco_tpu/core/moco.py:1061-1316):
 
 1. EMA of the key encoder's parameters toward the pre-update query
-   encoder (:1084-1087);
+   encoder (:1084-1087), at `ema_momentum(step)`;
 2. key forward with train-mode BN, which updates the key encoder's
    running statistics, then l2_normalize (:1117-1131);
 3. query forward and l2_normalize;
@@ -15,9 +16,23 @@ The step follows the reference's order (moco_tpu/core/moco.py:1061-1316):
    the dense one (:1158-1168); the fused loss takes any K (the JAX gate
    at :731-758 exists for its Pallas tile, which the CUDA kernels do not
    need);
-5. backward and the SGD step (:1250-1258);
+5. backward and the optimizer step (:1250-1258);
 6. FIFO enqueue of this step's keys (:1260-1277), after the loss (and its
    backward, which saved the queue) has read the old queue.
+
+The v3 step (`v3_step`, :875-1059, the single-device branch without ZeRO):
+
+1. EMA of the key encoder toward the pre-update query encoder (the
+   predictor has no key-side twin);
+2. key forward in train mode on cat([im_q, im_k]), l2_normalize, split;
+3. query forward and predictor on the same concatenation (the head BNs
+   take their statistics over all 2B rows, as in JAX);
+4. ctr(q1, k2) + ctr(q2, k1), each 2T * CE(q @ k^T / T, arange), and acc
+   from q1's logits;
+5. backward and the optimizer step. `freeze_patch_embed` keeps the patch
+   embedding out of the optimizer with requires_grad=False: no gradient
+   and no decoupled weight decay reach it, which is what JAX gets by
+   zeroing both its gradient and its update (:953, :1028-1033).
 
 One device means no Shuffle-BN collective: the JAX step's
 `shuffle_active` is false there, whatever `shuffle` says.
@@ -27,6 +42,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -34,13 +50,16 @@ from torch import nn
 
 from moco_tpu_torch.core.ema import ema_update
 from moco_tpu_torch.core.queue import check_queue_divisibility, enqueue, init_queue
-from moco_tpu_torch.models.heads import ProjectionHead
+from moco_tpu_torch.models.heads import ProjectionHead, V3MLPHead
 from moco_tpu_torch.models.resnet import create_resnet
+from moco_tpu_torch.models.vit import create_vit
 from moco_tpu_torch.ops.fused_infonce import fused_infonce_loss
 from moco_tpu_torch.ops.losses import cross_entropy, infonce_logits, l2_normalize, topk_accuracy
 from moco_tpu_torch.utils.config import MocoConfig, TrainConfig
 from moco_tpu_torch.utils.device import resolve_device
-from moco_tpu_torch.utils.schedules import build_optimizer, make_lr_schedule
+from moco_tpu_torch.utils.schedules import build_optimizer, decay_groups, make_lr_schedule
+
+V3_HIDDEN = 4096  # V3MLPHead's hidden width
 
 
 class MoCoEncoder(nn.Module):
@@ -55,63 +74,124 @@ class MoCoEncoder(nn.Module):
         return self.head(self.backbone(x))
 
 
-def build_encoder(cfg: MocoConfig, num_filters: int = 64) -> MoCoEncoder:
-    """ResNet backbone + Linear (v1) or MLP (v2) head. `num_filters`
-    narrows the backbone for tests, as `create_resnet(num_filters=...)`
-    does in the JAX package."""
-    if cfg.arch.startswith("vit"):
-        raise ValueError(f"{cfg.arch!r}: ViT backbones come with the ViT/v3 slice")
-    backbone = create_resnet(cfg.arch, num_filters=num_filters, cifar_stem=cfg.cifar_stem)
-    return MoCoEncoder(backbone, ProjectionHead(backbone.num_features, cfg.dim, cfg.mlp))
+def build_encoder(cfg: MocoConfig, num_filters: int = 64,
+                  mlp_hidden: int = V3_HIDDEN) -> MoCoEncoder:
+    """Backbone (ResNet or ViT from `cfg.arch`, moco_tpu/core/moco.py:88) +
+    projection head (:200): v3 takes the V3MLPHead (3 layers behind a ViT,
+    2 behind a ResNet, both ending in the affine-free BN), v1/v2 the Linear
+    / MLP ProjectionHead. `num_filters` narrows a ResNet and `mlp_hidden`
+    the v3 head for tests, as `create_resnet(num_filters=...)` does in the
+    JAX package."""
+    vit = cfg.arch.startswith("vit")
+    if vit:
+        kw = {"patch_size": cfg.vit_patch_size} if cfg.vit_patch_size else {}
+        backbone = create_vit(cfg.arch, use_flash_attention=cfg.vit_flash_attention,
+                              pool=cfg.vit_pool, **kw)
+    else:
+        backbone = create_resnet(cfg.arch, num_filters=num_filters, cifar_stem=cfg.cifar_stem)
+    if cfg.v3:
+        num_layers = 3 if vit else 2
+        head = V3MLPHead(backbone.num_features, num_layers, mlp_hidden, cfg.dim)
+    else:
+        head = ProjectionHead(backbone.num_features, cfg.dim, cfg.mlp)
+    return MoCoEncoder(backbone, head)
+
+
+def build_predictor(cfg: MocoConfig, mlp_hidden: int = V3_HIDDEN) -> Optional[V3MLPHead]:
+    """v3's 2-layer prediction MLP on the query side (:220), with the final
+    affine-free BN behind a ViT and without it behind a ResNet; None for
+    v1/v2."""
+    if not cfg.v3:
+        return None
+    return V3MLPHead(cfg.dim, 2, mlp_hidden, cfg.dim, last_bn=cfg.arch.startswith("vit"))
 
 
 @dataclasses.dataclass
 class TrainState:
-    """What `MocoState` (moco_tpu/core/moco.py:237) carries for v1/v2: the
-    step, both encoders, the queue and its pointer, and the optimizer
-    (whose momentum buffers are optax's trace)."""
+    """What `MocoState` (moco_tpu/core/moco.py:237) carries: the step, both
+    encoders, the queue and its pointer (v1/v2; v3 is queue-free and keeps
+    neither, where JAX keeps a 1-row placeholder for its checkpointer), the
+    v3 predictor, and the optimizer (optax's SGD trace or Adam moments)."""
 
     step: int
     encoder_q: MoCoEncoder
     encoder_k: MoCoEncoder
-    queue: torch.Tensor  # (K, dim) L2-normalized rows
+    queue: Optional[torch.Tensor]  # (K, dim) L2-normalized rows; None for v3
     queue_ptr: int
     optimizer: torch.optim.Optimizer
+    predictor: Optional[nn.Module] = None
 
 
 def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
                  encoder_k: Optional[MoCoEncoder] = None,
                  queue: Optional[torch.Tensor] = None, step: int = 0,
-                 queue_ptr: int = 0) -> TrainState:
+                 queue_ptr: int = 0, predictor: Optional[nn.Module] = None) -> TrainState:
     """The train state on `device` (moco_tpu/core/moco.py:329): the key
     encoder is a copy of the query encoder with requires_grad=False unless
-    one is given; the queue is drawn from a generator on `device` seeded
-    with config.seed unless one is given; SGD over every query-encoder
-    parameter. Both encoders are kept channels-last."""
+    one is given. v1/v2: the queue is drawn from a generator on `device`
+    seeded with config.seed unless one is given. v3: no queue; the
+    predictor is required. The optimizer runs over the query encoder's
+    trainable parameters and the predictor's (AdamW in the two groups of
+    the decay mask). Both encoders are kept channels-last."""
     device = resolve_device(device)
     cfg = config.moco
-    if cfg.num_negatives <= 0:
-        raise ValueError("num_negatives must be > 0: the queue-free v3 step comes with its slice")
+    if cfg.v3 != (cfg.num_negatives == 0):
+        raise ValueError("v3 is queue-free (num_negatives=0); v1/v2 need num_negatives > 0")
+    if cfg.v3 and predictor is None:
+        raise ValueError("v3=True requires a predictor module (build_predictor)")
     encoder_q = encoder_q.to(device, memory_format=torch.channels_last)
     if encoder_k is None:
         encoder_k = copy.deepcopy(encoder_q)
     encoder_k = encoder_k.to(device, memory_format=torch.channels_last).requires_grad_(False)
-    if queue is None:
-        generator = torch.Generator(device=device).manual_seed(config.seed)
-        queue = init_queue(generator, cfg.num_negatives, cfg.dim, device=device)
-    queue = queue.to(device=device, dtype=torch.float32).contiguous()
-    if tuple(queue.shape) != (cfg.num_negatives, cfg.dim):
-        raise ValueError(f"queue {tuple(queue.shape)} != (K, dim) = {(cfg.num_negatives, cfg.dim)}")
-    optimizer = build_optimizer(config.optim, encoder_q.parameters())
-    return TrainState(step, encoder_q, encoder_k, queue, int(queue_ptr), optimizer)
+    if cfg.v3:
+        predictor = predictor.to(device)
+        if cfg.freeze_patch_embed and hasattr(encoder_q.backbone, "patch_embed"):
+            encoder_q.backbone.patch_embed.requires_grad_(False)
+        queue = None
+    else:
+        if queue is None:
+            generator = torch.Generator(device=device).manual_seed(config.seed)
+            queue = init_queue(generator, cfg.num_negatives, cfg.dim, device=device)
+        queue = queue.to(device=device, dtype=torch.float32).contiguous()
+        if tuple(queue.shape) != (cfg.num_negatives, cfg.dim):
+            raise ValueError(f"queue {tuple(queue.shape)} != (K, dim) = {(cfg.num_negatives, cfg.dim)}")
+    trained = [m for m in (encoder_q, predictor) if m is not None]
+    if config.optim.optimizer == "adamw":
+        params = decay_groups(trained, config.optim.weight_decay)
+    else:
+        params = [p for m in trained for p in m.parameters() if p.requires_grad]
+    optimizer = build_optimizer(config.optim, params)
+    return TrainState(step, encoder_q, encoder_k, queue, int(queue_ptr), optimizer, predictor)
+
+
+def make_ema_momentum(cfg: MocoConfig, total_steps: int) -> Callable[[int], float]:
+    """`ema_momentum(step)` (moco_tpu/core/moco.py:477-485): the constant m,
+    or with `momentum_cos` moco-v3's cosine ramp from m to 1 over
+    `total_steps`, the fraction clamped to [0, 1] (a resume that replays
+    steps past the end must not ramp back down); in float32 as JAX
+    computes it."""
+    if cfg.momentum_cos and total_steps <= 0:
+        raise ValueError(f"momentum_cos needs total_steps > 0, got {total_steps}")
+    # JAX folds the Python constants (1 - m) * 0.5 in double, then rounds them to f32
+    half_gap = torch.tensor((1.0 - cfg.momentum) * 0.5, dtype=torch.float32)
+
+    def ema_momentum(step: int) -> float:
+        if not cfg.momentum_cos:
+            return cfg.momentum
+        frac = torch.clamp(torch.tensor(step, dtype=torch.float32) / total_steps, 0.0, 1.0)
+        return float(1.0 - half_gap * (1.0 + torch.cos(math.pi * frac)))
+
+    return ema_momentum
 
 
 def make_train_step(config: TrainConfig, steps_per_epoch: int,
                     device="cuda") -> Callable[[TrainState, dict], dict]:
-    """`step(state, batch) -> metrics`: one MoCo v1/v2 step on `device`,
-    updating `state` in place. `batch` is {"im_q", "im_k"}, (B, S, S, 3)
-    float32 views already augmented, B = config.data.global_batch.
-    Metrics: loss, acc1, acc5 (0-dim tensors, not synchronized) and lr.
+    """`step(state, batch) -> metrics`: one MoCo step on `device` (v3 when
+    `config.moco.v3`), updating `state` in place. `batch` is {"im_q",
+    "im_k"}, (B, S, S, 3) float32 views already augmented, B =
+    config.data.global_batch. Metrics: loss, acc1, acc5 (0-dim tensors, not
+    synchronized) and lr. The EMA ramp spans epochs * steps_per_epoch
+    steps, the total moco_tpu/train.py:360 passes.
 
     Under compute_dtype="bfloat16" the encoders run under autocast while
     the parameters, BN statistics, head output and loss inputs stay
@@ -119,8 +199,10 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
     device = resolve_device(device)
     cfg = config.moco
     global_batch = config.data.global_batch
-    check_queue_divisibility(cfg.num_negatives, global_batch)
+    if not cfg.v3:
+        check_queue_divisibility(cfg.num_negatives, global_batch)
     schedule = make_lr_schedule(config.optim, steps_per_epoch)
+    ema_momentum = make_ema_momentum(cfg, config.optim.epochs * steps_per_epoch)
     bf16 = cfg.compute_dtype == "bfloat16"
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True  # the trainer's shapes are fixed
@@ -128,12 +210,25 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
     def autocast():
         return torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16)
 
-    def step(state: TrainState, batch: dict) -> dict:
-        im_q, im_k = batch["im_q"], batch["im_k"]
+    def check_batch(im_q, im_k):
         if im_q.shape[0] != global_batch or im_k.shape[0] != global_batch:
             raise ValueError(f"batch of {im_q.shape[0]} rows, config says {global_batch}")
+
+    def update(state: TrainState, loss) -> float:
+        """Backward and the optimizer step at the lr of this step's count."""
+        lr = schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        return lr
+
+    def step(state: TrainState, batch: dict) -> dict:
+        im_q, im_k = batch["im_q"], batch["im_k"]
+        check_batch(im_q, im_k)
         # (1) EMA before the key forward, on the pre-update query params
-        ema_update(state.encoder_k, state.encoder_q, cfg.momentum)
+        ema_update(state.encoder_k, state.encoder_q, ema_momentum(state.step))
         # (2) key forward, train-mode BN (its running stats move)
         state.encoder_k.train()
         with torch.no_grad(), autocast():
@@ -150,16 +245,43 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         else:
             logits, labels = infonce_logits(q, k, state.queue, cfg.temperature)
             loss, acc = cross_entropy(logits, labels), topk_accuracy(logits, labels)
-        # (5) backward and SGD at the lr of this step's optimizer count
-        lr = schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.optimizer.step()
+        # (5) backward and the optimizer step
+        lr = update(state, loss)
         # (6) FIFO enqueue after the loss has read the old queue
         state.queue, state.queue_ptr = enqueue(state.queue, state.queue_ptr, k)
         state.step += 1
         return {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
 
-    return step
+    def v3_step(state: TrainState, batch: dict) -> dict:
+        im_q, im_k = batch["im_q"], batch["im_k"]
+        check_batch(im_q, im_k)
+        x_cat = torch.cat([im_q, im_k])
+        labels = torch.arange(global_batch, device=im_q.device)
+        # (1) EMA of the key encoder (not the predictor), before the key forward
+        ema_update(state.encoder_k, state.encoder_q, ema_momentum(state.step))
+        # (2) key forward on both views, train-mode BN in the head
+        state.encoder_k.train()
+        with torch.no_grad(), autocast():
+            k_cat = state.encoder_k(x_cat)
+        k1, k2 = l2_normalize(k_cat.float()).chunk(2)
+        # (3) query forward and predictor on the same 2B rows
+        state.encoder_q.train()
+        state.predictor.train()
+        with autocast():
+            preds = state.predictor(state.encoder_q(x_cat))
+        q1, q2 = l2_normalize(preds.float()).chunk(2)
+
+        # (4) the symmetric loss, each term scaled by 2T
+        def ctr(q, k):
+            logits = q @ k.T / cfg.temperature
+            return 2.0 * cfg.temperature * cross_entropy(logits, labels), logits
+
+        loss1, logits = ctr(q1, k2)
+        loss = loss1 + ctr(q2, k1)[0]
+        acc = topk_accuracy(logits.detach(), labels)
+        # (5) backward and the optimizer step
+        lr = update(state, loss)
+        state.step += 1
+        return {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
+
+    return v3_step if cfg.v3 else step

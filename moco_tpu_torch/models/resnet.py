@@ -10,9 +10,9 @@ to NCHW is already in `channels_last` memory format, so the convolutions
 run channels-last with no copy.
 
 BatchNorm is the Flax layer's, not `nn.BatchNorm2d`'s, in training mode
-(`BatchNorm` below); eval mode is `nn.BatchNorm2d`'s own, which
-normalizes with the stored running mean and var exactly as Flax's
-`use_running_average=True` does.
+(`flax_train_batch_norm` below, which the v3 heads' 1-D BN shares); eval
+mode is `nn.BatchNorm2d`'s own, which normalizes with the stored running
+mean and var exactly as Flax's `use_running_average=True` does.
 """
 
 from __future__ import annotations
@@ -21,33 +21,41 @@ import torch
 from torch import nn
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d with Flax's training semantics (moco_tpu/models/resnet.py
+def flax_train_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x):
+    """Flax's training-mode BatchNorm (moco_tpu/models/resnet.py
     `BatchNorm`, full-batch mode; the virtual-group, stats-rows and
-    momentum-statistics modes come with a later slice).
+    momentum-statistics modes come with a later slice) for a torch BN
+    module `bn` and its input.
 
-    Training mode normalizes with the batch's statistics (taken in f32),
-    the gradient flowing through them, and moves the buffers toward them
-    by the inherited `momentum` (0.1 on the new value is Flax's 0.9 on the
-    old). What differs from `nn.BatchNorm2d` is the running variance: the
-    biased one, as Flax keeps it, not the unbiased. The statistics and
+    Normalizes with the batch's statistics (taken in f32), the gradient
+    flowing through them, and moves the buffers toward them by the
+    module's `momentum` (0.1 on the new value is Flax's 0.9 on the old).
+    What differs from torch's own training mode is the running variance:
+    the biased one, as Flax keeps it, not the unbiased. The statistics and
     the normalization come from one `torch.native_batch_norm` call with no
-    running buffers (cuDNN-class kernels, channels-last aware, the output
-    in the input's dtype); the biased variance is recovered from its
-    saved inverse standard deviation. Eval mode is `nn.BatchNorm2d`'s, bit
-    for bit. Parameter and buffer names are torchvision's."""
+    running buffers (channels-last aware, the output in the input's
+    dtype, weight and bias optional); the biased variance is recovered
+    from its saved inverse standard deviation."""
+    out, mean, invstd = torch.native_batch_norm(
+        x, bn.weight, bn.bias, None, None, True, 0.0, bn.eps
+    )
+    with torch.no_grad():
+        var = invstd.float().pow(-2).sub_(bn.eps).clamp_min_(0.0)
+        bn.running_mean.lerp_(mean.float(), bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
+    return out
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with Flax's training semantics (`flax_train_batch_norm`).
+    Eval mode is `nn.BatchNorm2d`'s, bit for bit, which normalizes with the
+    stored running statistics as Flax's `use_running_average=True` does.
+    Parameter and buffer names are torchvision's."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        out, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps
-        )
-        with torch.no_grad():
-            var = invstd.float().pow(-2).sub_(self.eps).clamp_min_(0.0)
-            self.running_mean.lerp_(mean.float(), self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-        return out
+        return flax_train_batch_norm(self, x)
 
 
 class ConvBN(nn.Sequential):

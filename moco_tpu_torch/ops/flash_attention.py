@@ -1,0 +1,239 @@
+"""Flash attention with its backward, on the JAX layout (B, H, S, D).
+
+The port of moco_tpu/ops/flash_attention.py. Its three TPU kernels,
+`_flash_kernel` (:73), `_dq_kernel` (:177) and `_dkv_kernel` (:225), are
+the hand-written CUDA kernels of `csrc/flash_attention.cu` (its source note
+gives the bound and the tiled design). `flash_forward`, `flash_dq` and
+`flash_dkv` launch them for CUDA tensors and take the plain versions
+(`attention_reference`, `flash_dq_reference`, `flash_dkv_reference`) only
+for CPU tensors; there is no fallback from one to the other.
+`FlashAttention` is the `custom_vjp` (:382-427) as an autograd function:
+it saves (q, k, v, out, lse) and takes both cotangents, g and g_lse.
+
+The kernels mask the tail of any S, so the port has no counterpart of
+JAX's dense branch for S < block_k (:140, :416), which exists only for
+the Pallas tile.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from moco_tpu_torch.ops import build
+
+HEAD_DIMS = (32, 64, 128)  # the widths the kernels are built for
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BH = 65535  # B*H is the grid's second dimension
+
+
+def _einsum_f32(eq: str, *xs):
+    return torch.einsum(eq, *(x.float() for x in xs))
+
+
+def attention_reference(q, k, v, scale: float):
+    """Plain version of the forward, as `_attn_reference` (:51): (out in
+    q's dtype, lse in f32)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
+    return out.to(q.dtype), lse
+
+
+def _probs_and_ds(q, k, v, g, lse, coeff, scale: float):
+    """p = exp(q.k^T scale - lse) and ds = p (g.v^T + coeff), in f32."""
+    p = torch.exp(_einsum_f32("bhqd,bhkd->bhqk", q, k) * scale - lse[..., None])
+    return p, p * (_einsum_f32("bhqd,bhkd->bhqk", g, v) + coeff[..., None])
+
+
+def flash_dq_reference(q, k, v, g, lse, coeff, scale: float):
+    """Plain dq = scale * ds.k, as `_flash_backward_jnp` (:337) computes it
+    in f32; coeff = g_lse - sum(g * out)."""
+    _, ds = _probs_and_ds(q, k, v, g, lse, coeff, scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, g, lse, coeff, scale: float):
+    """Plain (dk, dv): dk = scale * ds^T.q and dv = p^T.g, in f32."""
+    p, ds = _probs_and_ds(q, k, v, g, lse, coeff, scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def backward_coeff(out, g, g_lse):
+    """coeff = g_lse - delta with delta = sum(g * out) over D, (B, H, S) f32:
+    the per-row term both backward kernels take (delta is computed outside
+    the TPU kernels too, :278)."""
+    return (g_lse.float() - (g.float() * out.float()).sum(-1)).contiguous()
+
+
+def flash_backward_reference(q, k, v, out, lse, g, g_lse, scale: float):
+    """`_flash_backward_jnp` (:337) with the lse cotangent, in one shot:
+    (dq, dk, dv) in the inputs' dtypes."""
+    coeff = backward_coeff(out, g, g_lse)
+    return (flash_dq_reference(q, k, v, g, lse, coeff, scale),
+            *flash_dkv_reference(q, k, v, g, lse, coeff, scale))
+
+
+def abs_term_sums(q, k, v, g, lse, coeff, scale: float) -> dict:
+    """The largest sum of absolute terms behind each output, in f32:
+    out = sum_k p v / l, dq = scale sum_k ds k, dk = scale sum_q ds q,
+    dv = sum_q p g. Rounding p or ds and the output to bf16 (2^-9 relative
+    each, as the kernels do) moves an output by at most 2^-8 of this sum,
+    which therefore scales the bf16 tolerance of a kernel against its
+    plain f32 version on the same bf16 inputs."""
+    p, ds = _probs_and_ds(q, k, v, g, lse, coeff, scale)
+    p, ds = p.abs(), ds.abs()
+    return {
+        "out": _einsum_f32("bhqk,bhkd->bhqd", p, v.abs()).max().item(),
+        "dq": scale * _einsum_f32("bhqk,bhkd->bhqd", ds, k.abs()).max().item(),
+        "dk": scale * _einsum_f32("bhqk,bhqd->bhkd", ds, q.abs()).max().item(),
+        "dv": _einsum_f32("bhqk,bhqd->bhkd", p, g.abs()).max().item(),
+    }
+
+
+def _on_cpu(name: str, tensors: dict) -> bool:
+    """True for CPU tensors (the plain version runs); raises for a mix."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) > 1:
+        raise ValueError(f"{name}: tensors on several devices: {sorted(map(str, devices))}")
+    return next(iter(devices)).type == "cpu"
+
+
+def _check_cuda(name: str, blocks: dict, rows: dict) -> tuple[int, int, int, int]:
+    """(B, H, S, D) after checking what the kernels take: (B, H, S, D)
+    `blocks` of one dtype (f32 or bf16) with D in HEAD_DIMS, (B, H, S) f32
+    `rows`, all contiguous and 16-byte aligned."""
+    q = next(iter(blocks.values()))
+    if q.dim() != 4:
+        raise ValueError(f"{name}: expected (B, H, S, D) inputs, got shape {tuple(q.shape)}")
+    b, h, s, d = q.shape
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: the kernels take float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels take D in {HEAD_DIMS}, got D={d}")
+    if not (0 < b * h <= _MAX_BH and s > 0):
+        raise ValueError(f"{name}: needs 0 < B*H <= {_MAX_BH} and S > 0, got {tuple(q.shape)}")
+    for tname, t in {**blocks, **rows}.items():
+        shape, dtype = ((b, h, s, d), q.dtype) if tname in blocks else ((b, h, s), torch.float32)
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {tname} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {tname} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be contiguous and 16-byte aligned")
+    return b, h, s, d
+
+
+def _launch(fn_name: str, pointers: list, ints: list, scale: float) -> None:
+    fn = getattr(build.load("flash_attention"), fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(*pointers, *ints, scale, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError_t {err}")
+
+
+def flash_forward(q, k, v, scale: float):
+    """(out, lse): out = softmax(q.k^T scale) v in q's dtype, (B, H, S, D),
+    and lse = logsumexp(q.k^T scale) in f32, (B, H, S).
+
+    CUDA tensors go through the kernel (each launch adds one to
+    `flash_forward.launches`); CPU tensors through the plain version."""
+    blocks = {"q": q, "k": k, "v": v}
+    if _on_cpu("flash_forward", blocks):
+        return attention_reference(q, k, v, scale)
+    b, h, s, d = _check_cuda("flash_forward", blocks, {})
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_fwd",
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr()],
+                [b * h, s, d, _DTYPE_CODES[q.dtype]], scale)
+    flash_forward.launches += 1
+    return out, lse
+
+
+flash_forward.launches = 0
+
+
+def flash_dq(q, k, v, g, lse, coeff, scale: float):
+    """dq = scale * sum_k p (g.v^T + coeff) k in q's dtype, (B, H, S, D).
+
+    CUDA tensors go through the kernel (each launch adds one to
+    `flash_dq.launches`); CPU tensors through the plain version."""
+    blocks, rows = {"q": q, "k": k, "v": v, "g": g}, {"lse": lse, "coeff": coeff}
+    if _on_cpu("flash_dq", {**blocks, **rows}):
+        return flash_dq_reference(q, k, v, g, lse, coeff, scale)
+    b, h, s, d = _check_cuda("flash_dq", blocks, rows)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_dq",
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                 coeff.data_ptr(), dq.data_ptr()],
+                [b * h, s, d, _DTYPE_CODES[q.dtype]], scale)
+    flash_dq.launches += 1
+    return dq
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q, k, v, g, lse, coeff, scale: float):
+    """(dk, dv) in the inputs' dtype: dk = scale * ds^T.q, dv = p^T.g.
+
+    CUDA tensors go through the kernel (each launch adds one to
+    `flash_dkv.launches`); CPU tensors through the plain version."""
+    blocks, rows = {"q": q, "k": k, "v": v, "g": g}, {"lse": lse, "coeff": coeff}
+    if _on_cpu("flash_dkv", {**blocks, **rows}):
+        return flash_dkv_reference(q, k, v, g, lse, coeff, scale)
+    b, h, s, d = _check_cuda("flash_dkv", blocks, rows)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_dkv",
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                 coeff.data_ptr(), dk.data_ptr(), dv.data_ptr()],
+                [b * h, s, d, _DTYPE_CODES[q.dtype]], scale)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """(out, lse) with gradients for q, k and v through both cotangents:
+    g for out and g_lse for lse (autograd hands in zeros for an output the
+    caller does not use, so a zero g_lse gives plain attention's gradient)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = flash_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        coeff = backward_coeff(out, g, g_lse)
+        dq = flash_dq(q, k, v, g, lse, coeff, ctx.scale)
+        dk, dv = flash_dkv(q, k, v, g, lse, coeff, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention_with_lse(q, k, v, scale: Optional[float] = None):
+    """(out, lse) for non-causal attention over (B, H, S, D) inputs,
+    differentiable in both outputs; scale defaults to D ** -0.5."""
+    return FlashAttention.apply(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None):
+    """Attention output only; differentiable."""
+    return flash_attention_with_lse(q, k, v, scale)[0]

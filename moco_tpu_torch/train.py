@@ -1,12 +1,14 @@
-"""MoCo v1/v2 pretraining on one device (the core of moco_tpu/train.py
-`train` / `_train_impl`).
+"""MoCo pretraining on one device, v1/v2 or v3 (the core of
+moco_tpu/train.py `train` / `_train_impl`).
 
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic --steps 20
+    python -m moco_tpu_torch.train --preset vit_b16_v3 --data synthetic --steps 20 \
+        --batch-size 256 --vit-flash-attention
 
-builds the two-crop pipeline, the encoder (a seeded Flax-layout init
-carried in through `convert.encoder_from_flax`, or a given state), the
-optimizer and the train state; runs the steps; and prints one JSON line
-per step: loss, acc1, acc5, lr, data and step milliseconds, imgs/s.
+builds the two-crop pipeline, the encoder and, for v3, the predictor (a
+seeded Flax-layout init carried in through `convert`, or a given state),
+the optimizer and the train state; runs the steps; and prints one JSON
+line per step: loss, acc1, acc5, lr, data and step milliseconds, imgs/s.
 Checkpoints, the kNN monitor, the linear probe, elastic training and
 alerts come with later slices.
 """
@@ -23,8 +25,19 @@ from typing import Callable, Optional
 
 import torch
 
-from moco_tpu_torch.convert import encoder_from_flax, random_flax_encoder
-from moco_tpu_torch.core.moco import TrainState, build_encoder, create_state, make_train_step
+from moco_tpu_torch.convert import (
+    encoder_from_flax,
+    predictor_from_flax,
+    random_flax_encoder,
+    random_flax_predictor,
+)
+from moco_tpu_torch.core.moco import (
+    TrainState,
+    build_encoder,
+    build_predictor,
+    create_state,
+    make_train_step,
+)
 from moco_tpu_torch.data.pipeline import TwoCropPipeline
 from moco_tpu_torch.utils.config import PRESETS, TrainConfig
 from moco_tpu_torch.utils.device import resolve_device
@@ -33,6 +46,19 @@ from moco_tpu_torch.utils.device import resolve_device
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _seeded_state(config: TrainConfig, device, num_filters: int) -> TrainState:
+    """A fresh state from seeded Flax-layout weights: the encoder, and for
+    v3 the predictor (drawn from the next seed)."""
+    params, stats = random_flax_encoder(config.moco, seed=config.seed, num_filters=num_filters)
+    encoder = build_encoder(config.moco, num_filters=num_filters)
+    encoder.load_state_dict(encoder_from_flax(params, stats))
+    predictor = build_predictor(config.moco)
+    if predictor is not None:
+        predictor.load_state_dict(predictor_from_flax(
+            *random_flax_predictor(config.moco, seed=config.seed + 1)))
+    return create_state(config, encoder, device=device, predictor=predictor)
 
 
 def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int] = None,
@@ -52,11 +78,7 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
         if steps_per_epoch <= 0:
             raise ValueError(f"steps_per_epoch must be > 0, got {steps_per_epoch}")
         if state is None:
-            params, stats = random_flax_encoder(config.moco, seed=config.seed,
-                                                num_filters=num_filters)
-            encoder = build_encoder(config.moco, num_filters=num_filters)
-            encoder.load_state_dict(encoder_from_flax(params, stats))
-            state = create_state(config, encoder, device=device)
+            state = _seeded_state(config, device, num_filters)
         step_fn = make_train_step(config, steps_per_epoch, device=device)
         total = steps if steps is not None else config.optim.epochs * steps_per_epoch
         history = []
@@ -88,11 +110,19 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="imagenet_v2", choices=sorted(PRESETS))
     ap.add_argument("--data", default=None, help="dataset name (this slice: synthetic)")
     ap.add_argument("--steps", type=int, default=None, help="steps to run (default: all epochs)")
+    ap.add_argument("--batch-size", "-b", type=int, default=None,
+                    help="global batch (default: the preset's)")
+    ap.add_argument("--vit-flash-attention", action="store_true",
+                    help="ViT attention through the flash kernels")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     config = PRESETS[args.preset]
-    if args.data:
-        config = dataclasses.replace(config, data=dataclasses.replace(config.data, dataset=args.data))
+    data = {"dataset": args.data, "global_batch": args.batch_size}
+    data = {k: v for k, v in data.items() if v is not None}
+    config = dataclasses.replace(config, data=dataclasses.replace(config.data, **data))
+    if args.vit_flash_attention:
+        config = dataclasses.replace(
+            config, moco=dataclasses.replace(config.moco, vit_flash_attention=True))
     train(config, device=args.device, steps=args.steps,
           log=lambda r: print(json.dumps(r), flush=True))
     return 0

@@ -1,13 +1,19 @@
-"""The part of moco_tpu/utils/config.py that the port runs: serving and
-single-device MoCo v1/v2 training. Same field names, defaults and presets,
-so a preset means the same model and recipe in both packages.
+"""The part of moco_tpu/utils/config.py that the port runs: serving,
+single-device MoCo v1/v2 training and single-device MoCo v3 training of a
+ViT. Same field names, defaults and presets, so a preset means the same
+model and recipe in both packages.
 
 Fields of the JAX config that the port does not run yet (the BN modes
-`bn_virtual_groups`, `bn_stats_rows`, `bn_momentum_stats`,
-`key_bn_running_stats`, `remat`, `momentum_cos`, the v3 and ViT fields,
-ZeRO, checkpoints, telemetry) are left out, so a config that asks for one
-fails at construction with a TypeError instead of being ignored. So is
-`fused_block_k`, the TPU kernel's tile (see `fused_infonce`).
+`syncbn_group_size`, `bn_virtual_groups`, `bn_stats_rows`,
+`bn_stats_barrier`, `bn_momentum_stats`, `allow_leaky_bn`,
+`key_bn_running_stats`, `key_bn_stats_warmup`, `remat`,
+`vit_sequence_parallel`; LARS's `trust_coefficient`; the parallel, ZeRO,
+checkpoint, telemetry and elastic fields) are left out, so a config that
+asks for one fails at construction with a TypeError instead of being
+ignored. So are `fused_block_k`, the TPU kernel's tile (see
+`fused_infonce`), and the presets that need them
+(`imagenet_v2_large_batch`, `vit_b16_v3_huge_batch_zero3`,
+`vit_b16_v3_highres_sp`).
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ class MocoConfig:
     dim: int = 128  # --moco-dim
     num_negatives: int = 65536  # --moco-k
     momentum: float = 0.999  # --moco-m
+    # Cosine-anneal the EMA momentum from `momentum` to 1.0 over training
+    # (moco-v3's --moco-m-cos), in both the v1/v2 and the v3 step.
+    momentum_cos: bool = False
     temperature: float = 0.07  # --moco-t (0.2 for the v2 recipe)
     mlp: bool = False  # --mlp (v2)
     # BN decorrelation across devices. On one device every choice computes
@@ -39,6 +48,19 @@ class MocoConfig:
     # Pallas tile (fused_block_k) divides K, a rule the CUDA kernels, which
     # mask their tail, do not need.
     fused_infonce: Optional[bool] = None
+    # MoCo v3 (queue-free symmetric contrastive): set num_negatives=0;
+    # v3=True adds the prediction head.
+    v3: bool = False
+    # v3's stability trick: the ViT patch embedding stays at its init.
+    freeze_patch_embed: bool = True
+    # The ViT patch size (None = the arch's, 16); small-image tests use 4.
+    vit_patch_size: Optional[int] = None
+    # ViT attention through the flash kernels (ops/flash_attention.py: the
+    # CUDA kernels on the card, their plain versions on the CPU); False is
+    # dense attention. The parameters are the same either way.
+    vit_flash_attention: bool = False
+    # ViT feature pooling: "cls" (v3's) or "gap" (global average pool).
+    vit_pool: str = "cls"
 
     def __post_init__(self):
         if self.shuffle not in SHUFFLES:
@@ -49,7 +71,7 @@ class MocoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
-    optimizer: str = "sgd"  # sgd here; lars | adamw come with their slice
+    optimizer: str = "sgd"  # sgd | adamw (lars comes with its slice)
     lr: float = 0.03
     momentum: float = 0.9
     weight_decay: float = 1e-4
@@ -90,5 +112,18 @@ PRESETS = {
         moco=_v2(MocoConfig()),
         optim=OptimConfig(lr=0.03, epochs=200, cos=True),
         data=DataConfig(dataset="imagefolder", aug_plus=True),
+    ),
+    # MoCo v3 ViT-B/16: queue-free symmetric loss, AdamW with warmup
+    # (arXiv:2104.02057's recipe, lr = 1.5e-4 * batch / 256).
+    "vit_b16_v3": TrainConfig(
+        moco=MocoConfig(
+            arch="vit_b16", dim=256, num_negatives=0, momentum=0.99,
+            momentum_cos=True, temperature=0.2, v3=True, shuffle="none",
+        ),
+        optim=OptimConfig(
+            optimizer="adamw", lr=2.4e-3, weight_decay=0.1, epochs=300,
+            cos=True, warmup_epochs=40,
+        ),
+        data=DataConfig(dataset="imagefolder", aug_plus=True, global_batch=4096),
     ),
 }

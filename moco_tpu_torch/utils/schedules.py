@@ -11,6 +11,11 @@
   `buf = m*buf + (g + wd*p)` (the first step `buf = g + wd*p`) and
   `p -= lr*buf`. The caller sets the lr of step n to `schedule(n)` before
   the update, as optax reads its count before incrementing it.
+- `build_optimizer` for `adamw`: `optax.adamw(lr, weight_decay,
+  mask=_bn_and_bias_mask)` is `torch.optim.AdamW` over two parameter
+  groups (`decay_groups`), step for step: torch's decoupled decay
+  `p *= 1 - lr*wd` followed by the Adam step equals optax's
+  `p -= lr * (adam + wd*p)`, and the bias corrections are the same.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import math
 from typing import Callable
 
 import torch
+from torch import nn
 
 from moco_tpu_torch.utils.config import OptimConfig
 
@@ -45,17 +51,50 @@ def make_lr_schedule(cfg: OptimConfig, steps_per_epoch: int) -> Callable[[int], 
     return schedule
 
 
+def flax_leaf_name(module: nn.Module, param_name: str) -> str:
+    """The Flax leaf a parameter of `module` comes from under convert.py's
+    layout rules: a norm layer's `weight` is `scale`, any other layer's
+    `kernel`, `bias` is `bias`, and a bare parameter (the ViT's
+    `cls_token`) keeps its name."""
+    if param_name == "weight":
+        norms = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+        return "scale" if isinstance(module, norms) else "kernel"
+    return param_name
+
+
+def decay_groups(modules, weight_decay: float) -> list[dict]:
+    """The trainable parameters of `modules` in two AdamW groups, decided as
+    `_bn_and_bias_mask` (moco_tpu/utils/schedules.py:51) decides, by the
+    Flax leaf name and not by ndim: decayed unless the leaf is `bias` or
+    `scale` (so the ViT's cls_token and patch kernel are decayed, norm
+    weights and every bias are not)."""
+    decay, keep = [], []
+    for module in modules:
+        for sub in module.modules():
+            for name, p in sub.named_parameters(recurse=False):
+                if p.requires_grad:
+                    leaf = flax_leaf_name(sub, name)
+                    (keep if leaf in ("bias", "scale") else decay).append(p)
+    return [{"params": decay, "weight_decay": weight_decay},
+            {"params": keep, "weight_decay": 0.0}]
+
+
 def build_optimizer(cfg: OptimConfig, params) -> torch.optim.Optimizer:
-    """SGD as the reference pretrains (`main_moco.py:~L188`); its lr is set
-    per step from `make_lr_schedule`."""
+    """SGD as the reference pretrains (`main_moco.py:~L188`), or AdamW as
+    `optax.adamw` (b1 0.9, b2 0.999, eps 1e-8) over `params`, parameters or
+    groups (`decay_groups` for the mask); its lr is set per step from
+    `make_lr_schedule`."""
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(
             params, lr=cfg.lr, momentum=cfg.momentum, dampening=0.0,
             weight_decay=cfg.weight_decay, nesterov=False,
         )
-    if cfg.optimizer in ("lars", "adamw"):
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "lars":
         raise ValueError(
-            f"optimizer {cfg.optimizer!r} comes with the large-batch / v3 slice of the port; "
-            "this slice trains with sgd"
+            "optimizer 'lars' comes with the large-batch slice of the port; "
+            "this slice trains with sgd or adamw"
         )
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")

@@ -1,0 +1,104 @@
+"""Parity of the port's flash attention (moco_tpu_torch/ops/flash_attention.py)
+with the JAX package's on the CPU.
+
+On CPU tensors the port's wrappers take their plain versions; JAX runs
+its Pallas kernels in interpret mode (S >= 128) or its dense branch
+(S < 128). Both get the same numpy inputs and run in float32.
+Tolerances: 1e-5 absolute on O(1) outputs, lse and gradients (float32
+sums over at most 256 keys, taken in another order by the two packages).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moco_tpu_torch.ops import flash_attention as flash
+
+# moco_tpu.ops re-exports a function under the module's name
+jax_flash = importlib.import_module("moco_tpu.ops.flash_attention")
+
+TOL = 1e-5
+
+
+def _inputs(seed, b, h, s, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, h, s, d)).astype(np.float32) for _ in range(3))
+
+
+def _t(x, grad=False):
+    return torch.from_numpy(np.array(x, np.float32)).requires_grad_(grad)
+
+
+@pytest.mark.parametrize("s", [145, 256, 65])
+def test_forward_matches_jax(s):
+    """S = 145 pads to two 128-row Pallas tiles and masks the tail; 256
+    fills them; 65 < block_k takes JAX's dense branch, and the port the
+    same function for any S."""
+    q, k, v = _inputs(s, 2, 3, s, 64)
+    want_out, want_lse = jax_flash.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+    out, lse = flash.flash_attention_with_lse(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=TOL, rtol=0)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(want_lse), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("s,d", [(145, 64), (256, 32), (65, 64)])
+def test_gradients_match_jax_through_out_and_lse(s, d):
+    """jax.grad through the Pallas backward (interpret mode; the dense
+    branch at S = 65) against the port's autograd function, with a
+    cotangent on lse as ring attention gives it (g_lse != 0)."""
+    q, k, v = _inputs(10 + s, 2, 2, s, d)
+    rng = np.random.default_rng(s)
+    w = rng.standard_normal((2, 2, s, d)).astype(np.float32)
+    u = rng.standard_normal((2, 2, s)).astype(np.float32)
+
+    def jloss(q, k, v):
+        out, lse = jax_flash.flash_attention_with_lse(q, k, v, interpret=True)
+        return jnp.sum(out * w) + jnp.sum(lse * u)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    out, lse = flash.flash_attention_with_lse(tq, tk, tv)
+    ((out * _t(w)).sum() + (lse * _t(u)).sum()).backward()
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=0)
+
+
+def test_zero_lse_cotangent_is_plain_attention_gradient():
+    """flash_attention (out only) gives autograd's gradient of the plain
+    attention: the zero g_lse autograd hands in drops the lse term."""
+    q, k, v = _inputs(3, 1, 2, 70, 32)
+    w = _t(np.random.default_rng(4).standard_normal((1, 2, 70, 32)))
+    a = [_t(x, True) for x in (q, k, v)]
+    (flash.flash_attention(*a) * w).sum().backward()
+    b = [_t(x, True) for x in (q, k, v)]
+    (flash.attention_reference(*b, 32 ** -0.5)[0] * w).sum().backward()
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(), atol=TOL, rtol=0)
+
+
+def test_backward_reference_matches_jax_jnp_backward():
+    """flash_backward_reference against `_flash_backward_jnp` on the same
+    (out, lse, g, g_lse)."""
+    q, k, v = _inputs(7, 2, 2, 97, 64)
+    rng = np.random.default_rng(8)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    g_lse = rng.standard_normal(q.shape[:3]).astype(np.float32)
+    scale = 64 ** -0.5
+    out, lse = jax_flash._attn_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    want = jax_flash._flash_backward_jnp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse,
+                                         jnp.asarray(g), jnp.asarray(g_lse), scale, 128)
+    got = flash.flash_backward_reference(_t(q), _t(k), _t(v), _t(out), _t(lse), _t(g), _t(g_lse),
+                                         scale)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=TOL, rtol=0)
+
+
+def test_wrappers_refuse_a_device_mix():
+    x = torch.zeros(1, 1, 4, 32)
+    with pytest.raises(ValueError, match="several devices"):
+        flash.flash_forward(x, x.to("meta"), x, 1.0)

@@ -16,7 +16,12 @@ kernel merges per-split logsumexps, the plain version takes one over the
 row), n_above on every row between the float64 count of logits above
 pos by more than 1e-5 and that count plus the near ties within 1e-5 (a
 discrete count flips on a rounding difference only there), and
-max |dq - plain| <= 1e-4 * max |plain| + 1e-6.
+max |dq - plain| <= 1e-4 * max |plain| + 1e-6. Flash attention (forward,
+dq, dk/dv) against the plain versions in f32: f32 inputs out <= 1e-5 *
+max |out| + 1e-6, lse <= 1e-5, grads <= 1e-4 * max |grad| + 1e-6; bf16
+inputs lse <= 1e-5 and each output within 2^-7 of its largest sum of
+absolute terms (`abs_term_sums`) + 1e-6, twice the bound that rounding p
+or dS and the output to bf16 (2^-9 each) can move it.
 """
 
 import dataclasses
@@ -24,7 +29,17 @@ import dataclasses
 import pytest
 import torch
 
-from moco_tpu_torch.core.moco import build_encoder, create_state, make_train_step
+from moco_tpu_torch.core.moco import build_encoder, build_predictor, create_state, make_train_step
+from moco_tpu_torch.ops.flash_attention import (
+    abs_term_sums,
+    attention_reference,
+    backward_coeff,
+    flash_dkv,
+    flash_dkv_reference,
+    flash_dq,
+    flash_dq_reference,
+    flash_forward,
+)
 from moco_tpu_torch.ops.fused_infonce import (
     MAX_C,
     fused_infonce_loss,
@@ -175,6 +190,102 @@ def test_train_step_launches_the_kernels_for_any_k(cuda):
     make_train_step(dense, 1, device=cuda)(state, batch)
     torch.cuda.synchronize()
     assert (infonce_stats.launches, infonce_dq.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _flash_inputs(b, h, s, d, dtype, gen, device):
+    q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device=device).to(dtype)
+                  for _ in range(4))
+    g_lse = torch.randn((b, h, s), generator=gen, device=device)
+    return q, k, v, g, g_lse
+
+
+def flash_errors(q, k, v, g, g_lse):
+    """max |kernel - plain| of out, lse, dq, dk and dv on one input, with
+    the tolerance of each: f32 out <= 1e-5 max|out| + 1e-6, lse <= 1e-5,
+    grads <= 1e-4 max|grad| + 1e-6; bf16 (against the plain version in f32
+    on the same bf16 values) 2^-7 of the output's largest absolute-term sum
+    (`abs_term_sums`, twice the rounding bound) + 1e-6, lse <= 1e-5."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = flash_forward(q, k, v, scale)
+    coeff = backward_coeff(out, g, g_lse)
+    dq = flash_dq(q, k, v, g, lse, coeff, scale)
+    dk, dv = flash_dkv(q, k, v, g, lse, coeff, scale)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, k, v, g)]
+    out_p, lse_p = attention_reference(*f[:3], scale)
+    dq_p = flash_dq_reference(*f, lse, coeff, scale)
+    dk_p, dv_p = flash_dkv_reference(*f, lse, coeff, scale)
+    if q.dtype == torch.float32:
+        scales = {n: x.abs().max().item() for n, x in
+                  (("out", out_p), ("dq", dq_p), ("dk", dk_p), ("dv", dv_p))}
+        rel = {"out": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+    else:
+        scales = abs_term_sums(*f, lse, coeff, scale)
+        rel = dict.fromkeys(scales, 2.0 ** -7)
+    errs = {"lse": ((lse - lse_p).abs().max().item(), 1e-5)}
+    for name, got, want in (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p),
+                            ("dv", dv, dv_p)):
+        errs[name] = ((got.float() - want).abs().max().item(), rel[name] * scales[name] + 1e-6)
+    return errs
+
+
+@pytest.mark.parametrize(
+    "b,h,s,d,dtype",
+    [(8, 12, 197, 64, torch.bfloat16), (8, 12, 197, 64, torch.float32),
+     (2, 3, 145, 64, torch.float32), (1, 2, 1000, 32, torch.float32),
+     (2, 2, 65, 128, torch.float32), (2, 2, 65, 128, torch.bfloat16)],
+)
+def test_flash_kernels_match_plain(cuda, b, h, s, d, dtype):
+    """The three flash-attention kernels against their plain versions, with
+    a non-zero lse cotangent, any S (65 < the TPU tile, 197 and 1000 with
+    a masked tail) and each head width."""
+    gen = torch.Generator(device=cuda).manual_seed(b * s + d)
+    before = (flash_forward.launches, flash_dq.launches, flash_dkv.launches)
+    errs = flash_errors(*_flash_inputs(b, h, s, d, dtype, gen, cuda))
+    assert (flash_forward.launches, flash_dq.launches, flash_dkv.launches) == tuple(
+        n + 1 for n in before)
+    for name, (err, tol) in errs.items():
+        assert err <= tol, (name, err, tol)
+
+
+def test_v3_step_launches_the_flash_kernels(cuda):
+    """One v3 step of vit_tiny (4 blocks) at 32 px, patch 4 (65 tokens), bf16
+    autocast: the forward kernel runs once per block in each encoder (8),
+    dq and dk/dv once per block of the query encoder (4 each); the loss is
+    finite and the frozen patch embedding does not move."""
+    cfg = TrainConfig(
+        moco=MocoConfig(arch="vit_tiny", dim=16, num_negatives=0, momentum=0.99, temperature=0.2,
+                        v3=True, momentum_cos=True, vit_flash_attention=True, vit_patch_size=4),
+        optim=OptimConfig(optimizer="adamw", lr=1e-3, weight_decay=0.1, epochs=2, cos=True),
+        data=DataConfig(image_size=32, global_batch=8))
+    state = create_state(cfg, build_encoder(cfg.moco, mlp_hidden=64), device=cuda,
+                         predictor=build_predictor(cfg.moco, mlp_hidden=64))
+    patch = state.encoder_q.backbone.patch_embed.weight.detach().clone()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {v: torch.randn((8, 32, 32, 3), generator=gen, device=cuda) for v in ("im_q", "im_k")}
+    before = (flash_forward.launches, flash_dq.launches, flash_dkv.launches)
+    out = make_train_step(cfg, 1, device=cuda)(state, batch)
+    torch.cuda.synchronize()
+    launched = tuple(n - b for n, b in zip(
+        (flash_forward.launches, flash_dq.launches, flash_dkv.launches), before))
+    assert launched == (8, 4, 4) and torch.isfinite(out["loss"]).item()
+    assert torch.equal(state.encoder_q.backbone.patch_embed.weight, patch)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="D in"):
+        flash_forward(torch.zeros(1, 2, 8, 48, device=cuda), x[..., :48].contiguous(),
+                      x[..., :48].contiguous(), 1.0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_forward(x.half(), x.half(), x.half(), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_forward(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2), 1.0)
+    with pytest.raises(ValueError, match="several devices"):
+        flash_forward(x, x.cpu(), x, 1.0)
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        flash_dq(x, x, x, x, torch.zeros(1, 2, 8, device=cuda, dtype=torch.bfloat16),
+                 torch.zeros(1, 2, 8, device=cuda), 1.0)
 
 
 def test_infonce_kernels_reject_what_they_do_not_take(cuda):

@@ -418,7 +418,7 @@ def test_state_from_flax_carries_the_momentum_trace():
 # ------------------------------------------------------- config, driver, device
 
 
-@pytest.mark.parametrize("preset", ["cifar_smoke", "imagenet_v2"])
+@pytest.mark.parametrize("preset", ["cifar_smoke", "imagenet_v2", "vit_b16_v3"])
 def test_presets_match_the_jax_config_field_for_field(preset):
     ours, theirs = pc.PRESETS[preset], jc.PRESETS[preset]
     for section in ("moco", "optim", "data"):
@@ -432,7 +432,8 @@ def test_presets_match_the_jax_config_field_for_field(preset):
 
 
 def test_config_rejects_what_the_slice_does_not_run():
-    for field in ("bn_virtual_groups", "key_bn_running_stats", "remat", "fused_block_k"):
+    for field in ("bn_virtual_groups", "key_bn_running_stats", "remat", "fused_block_k",
+                  "vit_sequence_parallel"):
         with pytest.raises(TypeError):
             pc.MocoConfig(**{field: 1})
 
