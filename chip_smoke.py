@@ -8,7 +8,12 @@ Phases, each of which fails the run (non-zero exit) on a miss:
 1. Device: no CUDA device -> exit 2 before anything else. Prints
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 2. Build: every kernel under moco_tpu_torch/csrc/ is compiled by nvcc for
-   sm_90a, one process per source, all started together.
+   sm_90a, one process per source, all started together; ptxas's registers
+   and spills are printed per kernel. Then `cuobjdump -sass` of the flash
+   library: every bf16 tensor-core forward and dk/dv instantiation
+   (flash_fwd_mma_kernel, flash_dkv_mma_kernel) must hold HMMA/HGMMA
+   instructions and the f32 CUDA-core ones (flash_fwd_kernel,
+   flash_dkv_kernel) none; the counts are printed.
 3. Kernel: each kernel's wrapper against its plain PyTorch version on the
    card at the serving path's shapes (IVF cell scan: m in {1, 8, 32, 128},
    d=128, nlist=256, cell_cap=512, nprobe=16), max |diff| <= 1e-5 (f32 FMA
@@ -54,14 +59,17 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    bound and one composed PyTorch computation on the path's own inputs;
    a torch.profiler breakdown of one step's device time.
 10. Flash kernels: the forward, dq and dk/dv kernels
-   (csrc/flash_attention.cu) against their plain versions at (B, H, S, D)
-   in {(8, 12, 197, 64) bf16 and f32, (2, 3, 145, 64) f32, (1, 2, 1000, 32)
-   f32, (4, 4, 65, 128) bf16}, with a non-zero lse cotangent. f32: out <=
-   1e-5 max|out| + 1e-6, lse <= 1e-5, dq/dk/dv <= 1e-4 max|grad| + 1e-6.
+   (csrc/flash_attention.cu; bf16 through the tensor-core forward and
+   dk/dv, f32 through the CUDA-core ones) against their plain versions at
+   (B, H, S, D) in {(8, 12, 197, 64) bf16 and f32, (2, 3, 145, 64) f32,
+   (1, 2, 1000, 32) f32 and bf16, (4, 4, 65, 128) bf16, and the bf16 edges
+   (2, 3, 1, 64), (2, 3, 17, 64), (2, 4, 64, 64), (2, 4, 197, 128)}, with a
+   non-zero lse cotangent. f32: out <= 1e-5 max|out| + 1e-6, lse <= 1e-5,
+   dq/dk/dv <= 1e-4 max|grad| + 1e-6.
    bf16, against the plain version in f32 on the same bf16 values: lse <=
    1e-5 and each output within 2^-7 of its largest sum of absolute terms
-   (+1e-6): rounding p or dS and the output to bf16 moves it by at most
-   2^-8 of that sum. A head width, dtype or device mix the kernels do not
+   (+1e-6): rounding p or dS and the output to bf16 (2^-8 relative each)
+   moves it by at most that much. A head width, dtype or device mix the kernels do not
    take must raise.
 11. v3 path, at full width: the vit_b16_v3 preset (ViT-B/16, 224 px, dim
    256, 4096-wide projector and predictor, AdamW, m = 0.99 on the cosine
@@ -71,7 +79,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    SyntheticDataset through the TwoCropPipeline; train(..., device="cuda")
    for 3 warm-up and 10 timed steps, the flash launch counts set to 0 just
    before and read just after. Checks: finite losses; per step 24 forward
-   launches (12 blocks in each encoder) and 12 of dq and of dk/dv; the
+   launches (12 blocks in each encoder) and 12 of dq and of dk/dv, the
+   forward and dk/dv all through their tensor-core kernels; the
    query encoder's patch embedding bit-equal to its init; after step 1 a
    params_k leaf is m(0) k0 + (1 - m(0)) q0; on the last step's first
    query-side block (its q, k, v and gradient g, captured as the step
@@ -83,11 +92,13 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    rounds its attention logits to bf16), gives losses within 4.5e-4 of
    each other and query-encoder features within 3% of their largest
    value; two wrong attentions (uniform weights, and the kernels without
-   the 1/sqrt(Dh) scale) run as controls and must miss both checks.
+   the 1/sqrt(Dh) scale) run as controls: each must fail at least one of
+   the two checks, and each check must fail on at least one of them.
 12. Timing: step ms and imgs/s; each flash kernel, its plain version, its
    bound and F.scaled_dot_product_attention (forward; its backward through
    autograd for dq and dk/dv together, which computes all three gradients
-   in one call and has no lse cotangent) on the captured block; a
+   in one call and has no lse cotangent) on the captured block, and beside
+   each the f32 CUDA-core kernel on the same block in f32 (`f32_ms`); a
    torch.profiler breakdown of one step with flash_attention as its own
    group.
 
@@ -99,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -121,8 +133,9 @@ BF16_REL = 2.0 ** -7  # bf16 tolerance of a flash output, of its absolute-term s
 TOL_SHARE = 0.125  # most a flash tolerance may be of its output's largest value
 # flash against dense attention on one v3 step (bf16): the loss, relative,
 # and the query features, of their largest value. Each lies between what
-# an H100 measured for the kernels (2.3e-4, 0.013) and for the nearer of
-# two wrong attentions (6.9e-4, 0.055)
+# an H100 measured for the kernels (2.3e-4 and 0.013 with the CUDA-core
+# kernels, 9.4e-5 and 0.016 with the tensor-core ones) and for the nearer
+# of two wrong attentions (6.9e-4 and 0.055; then 4.7e-4 and 0.051)
 LOSS_REL, FEAT_REL = 4.5e-4, 0.03
 
 
@@ -194,6 +207,58 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+FLASH_SYMBOL = re.compile(r"(flash_(?:fwd|dq|dkv)(?:_mma)?_kernel)I(\w*?)EE")
+
+
+def short_name(mangled: str) -> str:
+    """'flash_fwd_mma_kernel<bf16, 64>' for a flash kernel's mangled name;
+    other names as they are, cut to 80 characters."""
+    m = FLASH_SYMBOL.search(mangled)
+    if not m:
+        return mangled[:80]
+    name, args = m.groups()  # args: "fLi64" (float), "13__nv_bfloat16Li64" or "Li64" (bf16 only)
+    dtype = "f32" if args.startswith("f") else "bf16"
+    head_dim = re.search(r"Li(\d+)", args)[1]
+    return f"{name}<{dtype}, {head_dim}>"
+
+
+def print_ptxas(logs: dict) -> None:
+    """ptxas's register, shared-memory and spill lines, each under the
+    kernel it is about."""
+    for lib, log in logs.items():
+        kernel = "?"
+        for line in log.splitlines():
+            found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if found:
+                kernel = short_name(found[1])
+            elif "registers" in line or "spill" in line:
+                print(f"  {lib}: {kernel}: {line.replace('ptxas info    :', '').strip()}")
+
+
+def tensor_core_check(build) -> dict:
+    """HMMA/HGMMA instructions per flash kernel in the built library's SASS;
+    fails unless every bf16 forward and dk/dv kernel has some and the f32
+    ones have none."""
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = short_name(line.split("Function :")[1].strip())
+            counts.setdefault(kernel, 0)
+        elif kernel and re.search(r"\bH(G)?MMA\b", line):
+            counts[kernel] += 1
+    print(f"sass: tensor-core instructions per kernel {json.dumps(counts)}", flush=True)
+    for d in (32, 64, 128):
+        for name in ("flash_fwd_mma_kernel", "flash_dkv_mma_kernel"):
+            check(counts.get(f"{name}<bf16, {d}>", 0) > 0, f"{name} D={d} has no HMMA/HGMMA")
+        for name in ("flash_fwd_kernel", "flash_dkv_kernel"):
+            check(counts.get(f"{name}<f32, {d}>") == 0,
+                  f"{name}<f32, {d}> missing or on the tensor cores: {counts.get(f'{name}<f32, {d}>')}")
+    return counts
 
 
 def kernel_phase(ivf_scan):
@@ -318,7 +383,8 @@ def infonce_bound_ms(b, kk, c, backward):
 
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel names it takes), first match wins
-    ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
+    ("flash_attention", ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_dq_kernel",
+                         "flash_dkv_kernel", "flash_dkv_mma_kernel")),
     ("infonce", ("fwd_partial_kernel", "fwd_merge_kernel", "bwd_partial_kernel",
                  "bwd_reduce_kernel")),
     ("batch_norm", ("batch_norm",)),
@@ -499,6 +565,11 @@ def flash_launches(fa) -> dict:
     return {name: getattr(fa, fn).launches for name, fn, _ in FLASH}
 
 
+def flash_kernel_launches(fa) -> dict:
+    """Launches by CUDA kernel (each dtype's) of the three wrappers."""
+    return {k: n for _, fn, _ in FLASH for k, n in getattr(fa, fn).kernel_launches.items()}
+
+
 def compare_flash(fa, q, k, v, g, g_lse, what):
     """The three flash kernels against their plain versions on one input
     (the plain versions in f32 on the same values), with phase 10's
@@ -545,9 +616,13 @@ def flash_kernel_phase(fa):
     what they refuse."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     worst = dict.fromkeys((name for name, _, _ in FLASH), 0.0)
-    for b, h, s, d, dtype in ((8, 12, 197, 64, torch.bfloat16), (8, 12, 197, 64, torch.float32),
-                              (2, 3, 145, 64, torch.float32), (1, 2, 1000, 32, torch.float32),
-                              (4, 4, 65, 128, torch.bfloat16)):
+    bf16, f32 = torch.bfloat16, torch.float32
+    for b, h, s, d, dtype in ((8, 12, 197, 64, bf16), (8, 12, 197, 64, f32), (2, 3, 145, 64, f32),
+                              (1, 2, 1000, 32, f32), (4, 4, 65, 128, bf16),
+                              # the tensor-core kernels' edges: one partial 16-row
+                              # chunk, a tail of 1, many ring stages, no tail, D = 128
+                              (2, 3, 1, 64, bf16), (2, 3, 17, 64, bf16), (1, 2, 1000, 32, bf16),
+                              (2, 4, 64, 64, bf16), (2, 4, 197, 128, bf16)):
         q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
                       for _ in range(4))
         g_lse = torch.randn((b, h, s), generator=gen, device="cuda")
@@ -647,17 +722,19 @@ def v3_phase(fa, flash_err):
     dataset = SyntheticDataset(image_size=IMG)
     torch.cuda.reset_peak_memory_stats()
     for _, fn, _ in FLASH:  # counts from here on are the path's
-        getattr(fa, fn).launches = 0
+        wrapper = getattr(fa, fn)
+        wrapper.launches = 0
+        wrapper.kernel_launches = dict.fromkeys(wrapper.kernel_launches, 0)
     t0 = time.perf_counter()
     try:
         out = train(cfg, dataset=dataset, device="cuda", steps=steps, state=state, log=on_step)
     finally:
         vit.flash_attention = kernel_attention
     wall_s = time.perf_counter() - t0
-    launches = flash_launches(fa)
+    launches, by_kernel = flash_launches(fa), flash_kernel_launches(fa)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"v3 path: {steps} steps in {wall_s:.1f} s; launches {launches}; "
-          f"peak memory {peak_gb:.1f} GB", flush=True)
+    print(f"v3 path: {steps} steps in {wall_s:.1f} s; launches {launches}, by kernel "
+          f"{by_kernel}; peak memory {peak_gb:.1f} GB", flush=True)
 
     # -- checks -------------------------------------------------------------
     hist = out["history"]
@@ -665,6 +742,10 @@ def v3_phase(fa, flash_err):
     depth = len(state.encoder_q.backbone.blocks)
     want = {"flash_fwd": 2 * depth * steps, "flash_dq": depth * steps, "flash_dkv": depth * steps}
     check(launches == want, f"flash launches {launches} over {steps} steps, want {want}")
+    want_kernels = {"flash_fwd_kernel": 0, "flash_fwd_mma_kernel": want["flash_fwd"],
+                    "flash_dq_kernel": want["flash_dq"], "flash_dkv_kernel": 0,
+                    "flash_dkv_mma_kernel": want["flash_dkv"]}
+    check(by_kernel == want_kernels, f"flash launches by kernel {by_kernel}, want {want_kernels}")
     check(torch.equal(state.encoder_q.backbone.patch_embed.weight, patch0),
           "the frozen patch embedding moved")
     check(ema_err and ema_err[0] <= 1e-6, f"params_k after step 1 is not the EMA: {ema_err}")
@@ -711,9 +792,14 @@ def v3_phase(fa, flash_err):
     check(rel["flash"]["loss"] <= LOSS_REL, f"flash and dense v3 losses differ by {rel['flash']}")
     check(rel["flash"]["features"] <= FEAT_REL,
           f"flash and dense v3 features differ by {rel['flash']}")
-    for name in ("uniform", "unscaled"):
-        check(rel[name]["loss"] > LOSS_REL and rel[name]["features"] > FEAT_REL,
-              f"the {name} control passes a check meant to catch it: {rel[name]}")
+    # a wrong attention moves a random-init v3 loss by only 1-3x the bf16
+    # gap, and by how much depends on the trained state: every control must
+    # fail a check, and every check must fail on a control
+    caught = {n: {c for c, tol in (("loss", LOSS_REL), ("features", FEAT_REL)) if rel[n][c] > tol}
+              for n in ("uniform", "unscaled")}
+    check(all(caught.values()), f"a control passes both checks meant to catch it: {caught}")
+    check(set().union(*caught.values()) == {"loss", "features"},
+          f"a check that no control fails: {caught}")
 
     # -- timing -------------------------------------------------------------
     timed = hist[TRAIN_WARMUP:]
@@ -726,15 +812,25 @@ def v3_phase(fa, flash_err):
     library_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), g, retain_graph=True),
                           iters=20)
     bh, s, d = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+    # the same block in f32, through the CUDA-core kernels
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_f, lse_f = fa.flash_forward(qf, kf, vf, scale)
+    coeff_f = fa.backward_coeff(o_f, gf, torch.zeros_like(lse_f))
+    f32_runs = (lambda: fa.flash_forward(qf, kf, vf, scale),
+                lambda: fa.flash_dq(qf, kf, vf, gf, lse_f, coeff_f, scale),
+                lambda: fa.flash_dkv(qf, kf, vf, gf, lse_f, coeff_f, scale))
+    entry = {"flash_fwd": "flash_attention_fwd", "flash_dq": "flash_attention_dq",
+             "flash_dkv": "flash_attention_dkv"}
     kernels = []
-    for (name, fn, line), run, plain, library in zip(FLASH, (
+    for (name, fn, line), run, plain, library, f32_run in zip(FLASH, (
             lambda: fa.flash_forward(q, k, v, scale),
             lambda: fa.flash_dq(q, k, v, g, lse, coeff, scale),
             lambda: fa.flash_dkv(q, k, v, g, lse, coeff, scale)), (
             lambda: fa.attention_reference(q, k, v, scale),
             lambda: fa.flash_dq_reference(q, k, v, g, lse, coeff, scale),
             lambda: fa.flash_dkv_reference(q, k, v, g, lse, coeff, scale)), (
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), None, None)):
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), None, None),
+            f32_runs):
         bound, bound_by = flash_bound_ms(name, bh, s, d, q.element_size())
         kernels.append({
             "name": name, "route": "cuda", "source": "moco_tpu_torch/csrc/flash_attention.cu",
@@ -746,6 +842,9 @@ def v3_phase(fa, flash_err):
                         "F.scaled_dot_product_attention backward through autograd: dq, dk and "
                         "dv in one call, no lse cotangent"),
             "shape": {"BH": bh, "S": s, "D": d, "dtype": str(q.dtype)},
+            "kernel": fa.KERNELS[(entry[name], q.dtype)],
+            "f32_kernel": fa.KERNELS[(entry[name], torch.float32)],
+            "f32_ms": cuda_ms(f32_run, iters=10),
         })
     share = sum(r["ms"] * launches[r["name"]] / steps for r in kernels) / step_ms
     timing = {"step_ms_median": step_ms,
@@ -787,10 +886,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"build: {len(logs)} kernel(s) in {time.perf_counter() - t0:.2f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    print_ptxas(logs)
+    tensor_core_check(build)
 
     # -- kernel vs plain ----------------------------------------------------
     max_err = kernel_phase(ivf_scan)

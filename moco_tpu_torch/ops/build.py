@@ -26,15 +26,17 @@ NVCC_FLAGS = (
 )
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (`nvcc`, `cuobjdump`): on PATH or
+    under the toolkit torch finds."""
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
 
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", name)):
+        return os.path.join(CUDA_HOME, "bin", name)
+    raise RuntimeError(f"{name} not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
 def library_path(name: str) -> Path:
@@ -51,7 +53,7 @@ def _start(name: str):
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

@@ -6,7 +6,9 @@ the hand-written CUDA kernels of `csrc/flash_attention.cu` (its source note
 gives the bound and the tiled design). `flash_forward`, `flash_dq` and
 `flash_dkv` launch them for CUDA tensors and take the plain versions
 (`attention_reference`, `flash_dq_reference`, `flash_dkv_reference`) only
-for CPU tensors; there is no fallback from one to the other.
+for CPU tensors; there is no fallback from one to the other. bf16 inputs
+go through the tensor-core forward and dk/dv kernels, f32 inputs through
+the CUDA-core ones, and dq through one kernel for both (`KERNELS`).
 `FlashAttention` is the `custom_vjp` (:382-427) as an autograd function:
 it saves (q, k, v, out, lse) and takes both cotangents, g and g_lse.
 
@@ -27,6 +29,15 @@ from moco_tpu_torch.ops import build
 HEAD_DIMS = (32, 64, 128)  # the widths the kernels are built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535  # B*H is the grid's second dimension
+# The CUDA kernel each (C entry point, dtype) launches.
+KERNELS = {
+    ("flash_attention_fwd", torch.float32): "flash_fwd_kernel",
+    ("flash_attention_fwd", torch.bfloat16): "flash_fwd_mma_kernel",
+    ("flash_attention_dq", torch.float32): "flash_dq_kernel",
+    ("flash_attention_dq", torch.bfloat16): "flash_dq_kernel",
+    ("flash_attention_dkv", torch.float32): "flash_dkv_kernel",
+    ("flash_attention_dkv", torch.bfloat16): "flash_dkv_mma_kernel",
+}
 
 
 def _einsum_f32(eq: str, *xs):
@@ -82,10 +93,10 @@ def flash_backward_reference(q, k, v, out, lse, g, g_lse, scale: float):
 def abs_term_sums(q, k, v, g, lse, coeff, scale: float) -> dict:
     """The largest sum of absolute terms behind each output, in f32:
     out = sum_k p v / l, dq = scale sum_k ds k, dk = scale sum_q ds q,
-    dv = sum_q p g. Rounding p or ds and the output to bf16 (2^-9 relative
-    each, as the kernels do) moves an output by at most 2^-8 of this sum,
-    which therefore scales the bf16 tolerance of a kernel against its
-    plain f32 version on the same bf16 inputs."""
+    dv = sum_q p g. Rounding p or ds and the output to bf16 (2^-8 relative
+    each: bf16 keeps 8 significant bits, as the kernels do) moves an output
+    by at most 2^-7 of this sum, which therefore scales the bf16 tolerance
+    of a kernel against its plain f32 version on the same bf16 inputs."""
     p, ds = _probs_and_ds(q, k, v, g, lse, coeff, scale)
     p, ds = p.abs(), ds.abs()
     return {
@@ -129,7 +140,11 @@ def _check_cuda(name: str, blocks: dict, rows: dict) -> tuple[int, int, int, int
     return b, h, s, d
 
 
-def _launch(fn_name: str, pointers: list, ints: list, scale: float) -> None:
+def _launch(wrapper, fn_name: str, dtype: torch.dtype, pointers: list, ints: list,
+            scale: float) -> None:
+    """Calls the C entry point `fn_name`, raises on a launch error, and
+    counts the launch on `wrapper`: `launches` in all and
+    `kernel_launches` by the CUDA kernel that ran."""
     fn = getattr(build.load("flash_attention"), fn_name)
     fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
                    + [ctypes.c_float, ctypes.c_void_p])
@@ -137,14 +152,22 @@ def _launch(fn_name: str, pointers: list, ints: list, scale: float) -> None:
     err = fn(*pointers, *ints, scale, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{fn_name} launch failed: cudaError_t {err}")
+    wrapper.launches += 1
+    wrapper.kernel_launches[KERNELS[(fn_name, dtype)]] += 1
+
+
+def _counters(wrapper, fn_name: str) -> None:
+    wrapper.launches = 0
+    wrapper.kernel_launches = {name: 0 for (f, _), name in KERNELS.items() if f == fn_name}
 
 
 def flash_forward(q, k, v, scale: float):
     """(out, lse): out = softmax(q.k^T scale) v in q's dtype, (B, H, S, D),
     and lse = logsumexp(q.k^T scale) in f32, (B, H, S).
 
-    CUDA tensors go through the kernel (each launch adds one to
-    `flash_forward.launches`); CPU tensors through the plain version."""
+    CUDA tensors go through the kernel of their dtype (each launch adds
+    one to `flash_forward.launches` and to its kernel's entry of
+    `flash_forward.kernel_launches`); CPU tensors through the plain version."""
     blocks = {"q": q, "k": k, "v": v}
     if _on_cpu("flash_forward", blocks):
         return attention_reference(q, k, v, scale)
@@ -152,58 +175,57 @@ def flash_forward(q, k, v, scale: float):
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_fwd",
+        _launch(flash_forward, "flash_attention_fwd", q.dtype,
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr()],
                 [b * h, s, d, _DTYPE_CODES[q.dtype]], scale)
-    flash_forward.launches += 1
     return out, lse
 
 
-flash_forward.launches = 0
+_counters(flash_forward, "flash_attention_fwd")
 
 
 def flash_dq(q, k, v, g, lse, coeff, scale: float):
     """dq = scale * sum_k p (g.v^T + coeff) k in q's dtype, (B, H, S, D).
 
-    CUDA tensors go through the kernel (each launch adds one to
-    `flash_dq.launches`); CPU tensors through the plain version."""
+    CUDA tensors go through the kernel of their dtype (each launch adds
+    one to `flash_dq.launches` and to its kernel's entry of
+    `flash_dq.kernel_launches`); CPU tensors through the plain version."""
     blocks, rows = {"q": q, "k": k, "v": v, "g": g}, {"lse": lse, "coeff": coeff}
     if _on_cpu("flash_dq", {**blocks, **rows}):
         return flash_dq_reference(q, k, v, g, lse, coeff, scale)
     b, h, s, d = _check_cuda("flash_dq", blocks, rows)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_dq",
+        _launch(flash_dq, "flash_attention_dq", q.dtype,
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                  coeff.data_ptr(), dq.data_ptr()],
                 [b * h, s, d, _DTYPE_CODES[q.dtype]], scale)
-    flash_dq.launches += 1
     return dq
 
 
-flash_dq.launches = 0
+_counters(flash_dq, "flash_attention_dq")
 
 
 def flash_dkv(q, k, v, g, lse, coeff, scale: float):
     """(dk, dv) in the inputs' dtype: dk = scale * ds^T.q, dv = p^T.g.
 
-    CUDA tensors go through the kernel (each launch adds one to
-    `flash_dkv.launches`); CPU tensors through the plain version."""
+    CUDA tensors go through the kernel of their dtype (each launch adds
+    one to `flash_dkv.launches` and to its kernel's entry of
+    `flash_dkv.kernel_launches`); CPU tensors through the plain version."""
     blocks, rows = {"q": q, "k": k, "v": v, "g": g}, {"lse": lse, "coeff": coeff}
     if _on_cpu("flash_dkv", {**blocks, **rows}):
         return flash_dkv_reference(q, k, v, g, lse, coeff, scale)
     b, h, s, d = _check_cuda("flash_dkv", blocks, rows)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _launch("flash_attention_dkv",
+        _launch(flash_dkv, "flash_attention_dkv", q.dtype,
                 [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                  coeff.data_ptr(), dk.data_ptr(), dv.data_ptr()],
                 [b * h, s, d, _DTYPE_CODES[q.dtype]], scale)
-    flash_dkv.launches += 1
     return dk, dv
 
 
-flash_dkv.launches = 0
+_counters(flash_dkv, "flash_attention_dkv")
 
 
 class FlashAttention(torch.autograd.Function):

@@ -9,6 +9,7 @@ sums over at most 256 keys, taken in another order by the two packages).
 """
 
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from moco_tpu_torch.ops import build
 from moco_tpu_torch.ops import flash_attention as flash
 
 # moco_tpu.ops re-exports a function under the module's name
@@ -102,3 +104,23 @@ def test_wrappers_refuse_a_device_mix():
     x = torch.zeros(1, 1, 4, 32)
     with pytest.raises(ValueError, match="several devices"):
         flash.flash_forward(x, x.to("meta"), x, 1.0)
+
+
+def test_kernel_table_names_the_sources_kernels():
+    """Each (entry point, dtype) of `KERNELS` names a `__global__` kernel of
+    csrc/flash_attention.cu, bf16 takes the tensor-core forward and dk/dv
+    and f32 the CUDA-core ones; CPU calls count no launch."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    for (entry, _), kernel in flash.KERNELS.items():
+        assert f"int {entry}(" in src and re.search(rf"\n{kernel}\(", src), (entry, kernel)
+    assert {flash.KERNELS[(e, torch.bfloat16)] for e in ("flash_attention_fwd", "flash_attention_dkv")} \
+        == {"flash_fwd_mma_kernel", "flash_dkv_mma_kernel"}
+    assert flash.KERNELS[("flash_attention_dq", torch.bfloat16)] == "flash_dq_kernel"
+    q, k, v = (_t(x) for x in _inputs(3, 1, 2, 9, 32))
+    before = {w: (w.launches, dict(w.kernel_launches))
+              for w in (flash.flash_forward, flash.flash_dq, flash.flash_dkv)}
+    out, lse = flash.flash_forward(q, k, v, 0.5)
+    coeff = flash.backward_coeff(out, q, torch.zeros_like(lse))
+    flash.flash_dq(q, k, v, q, lse, coeff, 0.5)
+    flash.flash_dkv(q, k, v, q, lse, coeff, 0.5)
+    assert before == {w: (w.launches, w.kernel_launches) for w in before}

@@ -20,8 +20,8 @@ max |dq - plain| <= 1e-4 * max |plain| + 1e-6. Flash attention (forward,
 dq, dk/dv) against the plain versions in f32: f32 inputs out <= 1e-5 *
 max |out| + 1e-6, lse <= 1e-5, grads <= 1e-4 * max |grad| + 1e-6; bf16
 inputs lse <= 1e-5 and each output within 2^-7 of its largest sum of
-absolute terms (`abs_term_sums`) + 1e-6, twice the bound that rounding p
-or dS and the output to bf16 (2^-9 each) can move it.
+absolute terms (`abs_term_sums`) + 1e-6: the most that rounding p or dS
+and the output to bf16 (2^-8 relative each) can move it.
 """
 
 import dataclasses
@@ -31,6 +31,7 @@ import torch
 
 from moco_tpu_torch.core.moco import build_encoder, build_predictor, create_state, make_train_step
 from moco_tpu_torch.ops.flash_attention import (
+    KERNELS,
     abs_term_sums,
     attention_reference,
     backward_coeff,
@@ -204,7 +205,7 @@ def flash_errors(q, k, v, g, g_lse):
     the tolerance of each: f32 out <= 1e-5 max|out| + 1e-6, lse <= 1e-5,
     grads <= 1e-4 max|grad| + 1e-6; bf16 (against the plain version in f32
     on the same bf16 values) 2^-7 of the output's largest absolute-term sum
-    (`abs_term_sums`, twice the rounding bound) + 1e-6, lse <= 1e-5."""
+    (`abs_term_sums`, the bound of its two bf16 roundings) + 1e-6, lse <= 1e-5."""
     scale = q.shape[-1] ** -0.5
     out, lse = flash_forward(q, k, v, scale)
     coeff = backward_coeff(out, g, g_lse)
@@ -233,12 +234,18 @@ def flash_errors(q, k, v, g, g_lse):
     "b,h,s,d,dtype",
     [(8, 12, 197, 64, torch.bfloat16), (8, 12, 197, 64, torch.float32),
      (2, 3, 145, 64, torch.float32), (1, 2, 1000, 32, torch.float32),
-     (2, 2, 65, 128, torch.float32), (2, 2, 65, 128, torch.bfloat16)],
+     (2, 2, 65, 128, torch.float32), (2, 2, 65, 128, torch.bfloat16),
+     # the bf16 tensor-core kernels' edges: one partial 16-row chunk, a
+     # tail of 1, many ring stages with a masked tail, no tail, D = 128
+     (2, 3, 1, 64, torch.bfloat16), (2, 3, 17, 64, torch.bfloat16),
+     (1, 2, 1000, 32, torch.bfloat16), (2, 2, 64, 64, torch.bfloat16),
+     (2, 2, 197, 128, torch.bfloat16)],
 )
 def test_flash_kernels_match_plain(cuda, b, h, s, d, dtype):
     """The three flash-attention kernels against their plain versions, with
-    a non-zero lse cotangent, any S (65 < the TPU tile, 197 and 1000 with
-    a masked tail) and each head width."""
+    a non-zero lse cotangent, any S (1 and 17 inside one 16-row chunk, 65 <
+    the TPU tile, 64 without a tail, 197 and 1000 with a masked tail) and
+    each head width."""
     gen = torch.Generator(device=cuda).manual_seed(b * s + d)
     before = (flash_forward.launches, flash_dq.launches, flash_dkv.launches)
     errs = flash_errors(*_flash_inputs(b, h, s, d, dtype, gen, cuda))
@@ -246,6 +253,30 @@ def test_flash_kernels_match_plain(cuda, b, h, s, d, dtype):
         n + 1 for n in before)
     for name, (err, tol) in errs.items():
         assert err <= tol, (name, err, tol)
+
+
+def test_flash_wrappers_launch_the_kernel_of_their_dtype(cuda):
+    """bf16 goes through the tensor-core forward and dk/dv, f32 through the
+    CUDA-core ones, dq through one kernel for both: the wrappers' counts by
+    kernel and the kernel names torch.profiler sees on the card agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wrappers = (flash_forward, flash_dq, flash_dkv)
+    entry = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        want = {KERNELS[(e, dtype)] for e in entry}
+        before = [dict(w.kernel_launches) for w in wrappers]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_errors(*_flash_inputs(1, 2, 70, 64, dtype, gen, cuda))
+            torch.cuda.synchronize()
+        launched = {name for w, b in zip(wrappers, before)
+                    for name, n in w.kernel_launches.items() if n > b[name]}
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        # no kernel name is a substring of another (flash_fwd_kernel vs flash_fwd_mma_kernel)
+        ran = {k for k in KERNELS.values() if any(k in n for n in names)}
+        assert launched == want and ran == want, (dtype, launched, names)
 
 
 def test_v3_step_launches_the_flash_kernels(cuda):
