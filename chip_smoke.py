@@ -10,10 +10,11 @@ Phases, each of which fails the run (non-zero exit) on a miss:
 2. Build: every kernel under moco_tpu_torch/csrc/ is compiled by nvcc for
    sm_90a, one process per source, all started together; ptxas's registers
    and spills are printed per kernel. Then `cuobjdump -sass` of the flash
-   library: every bf16 tensor-core forward and dk/dv instantiation
-   (flash_fwd_mma_kernel, flash_dkv_mma_kernel) must hold HMMA/HGMMA
-   instructions and the f32 CUDA-core ones (flash_fwd_kernel,
-   flash_dkv_kernel) none; the counts are printed.
+   library: every bf16 tensor-core forward, dq and dk/dv instantiation
+   (flash_fwd_mma_kernel, flash_dq_mma_kernel, flash_dkv_mma_kernel) must
+   hold HMMA/HGMMA instructions and the f32 CUDA-core ones
+   (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel) none; the counts
+   are printed.
 3. Kernel: each kernel's wrapper against its plain PyTorch version on the
    card at the serving path's shapes (IVF cell scan: m in {1, 8, 32, 128},
    d=128, nlist=256, cell_cap=512, nprobe=16), max |diff| <= 1e-5 (f32 FMA
@@ -59,13 +60,15 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    bound and one composed PyTorch computation on the path's own inputs;
    a torch.profiler breakdown of one step's device time.
 10. Flash kernels: the forward, dq and dk/dv kernels
-   (csrc/flash_attention.cu; bf16 through the tensor-core forward and
-   dk/dv, f32 through the CUDA-core ones) against their plain versions at
+   (csrc/flash_attention.cu; bf16 through the tensor-core ones, f32
+   through the CUDA-core ones) against their plain versions at
    (B, H, S, D) in {(8, 12, 197, 64) bf16 and f32, (2, 3, 145, 64) f32,
-   (1, 2, 1000, 32) f32 and bf16, (4, 4, 65, 128) bf16, and the bf16 edges
-   (2, 3, 1, 64), (2, 3, 17, 64), (2, 4, 64, 64), (2, 4, 197, 128)}, with a
-   non-zero lse cotangent. f32: out <= 1e-5 max|out| + 1e-6, lse <= 1e-5,
-   dq/dk/dv <= 1e-4 max|grad| + 1e-6.
+   (1, 2, 1000, 32) f32 and bf16, (4, 4, 65, 128) bf16, the bf16 edges
+   (2, 3, 1, 64), (2, 3, 17, 64), (2, 4, 64, 64), (2, 4, 197, 128), and
+   (5500, 12, 65, 64) bf16 and f32 (ViT-B at 128 px and a batch of 5500:
+   B*H = 66000 heads, past the 65535 a grid's second dimension holds)},
+   with a non-zero lse cotangent. f32: out <= 1e-5 max|out| + 1e-6,
+   lse <= 1e-5, dq/dk/dv <= 1e-4 max|grad| + 1e-6.
    bf16, against the plain version in f32 on the same bf16 values: lse <=
    1e-5 and each output within 2^-7 of its largest sum of absolute terms
    (+1e-6): rounding p or dS and the output to bf16 (2^-8 relative each)
@@ -79,8 +82,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    SyntheticDataset through the TwoCropPipeline; train(..., device="cuda")
    for 3 warm-up and 10 timed steps, the flash launch counts set to 0 just
    before and read just after. Checks: finite losses; per step 24 forward
-   launches (12 blocks in each encoder) and 12 of dq and of dk/dv, the
-   forward and dk/dv all through their tensor-core kernels; the
+   launches (12 blocks in each encoder) and 12 of dq and of dk/dv, all
+   through their tensor-core kernels (none through the CUDA-core ones); the
    query encoder's patch embedding bit-equal to its init; after step 1 a
    params_k leaf is m(0) k0 + (1 - m(0)) q0; on the last step's first
    query-side block (its q, k, v and gradient g, captured as the step
@@ -218,8 +221,8 @@ def short_name(mangled: str) -> str:
     m = FLASH_SYMBOL.search(mangled)
     if not m:
         return mangled[:80]
-    name, args = m.groups()  # args: "fLi64" (float), "13__nv_bfloat16Li64" or "Li64" (bf16 only)
-    dtype = "f32" if args.startswith("f") else "bf16"
+    name, args = m.groups()  # args: "Li64"; the _mma kernels take bf16, the others f32
+    dtype = "bf16" if "_mma_" in name else "f32"
     head_dim = re.search(r"Li(\d+)", args)[1]
     return f"{name}<{dtype}, {head_dim}>"
 
@@ -239,8 +242,8 @@ def print_ptxas(logs: dict) -> None:
 
 def tensor_core_check(build) -> dict:
     """HMMA/HGMMA instructions per flash kernel in the built library's SASS;
-    fails unless every bf16 forward and dk/dv kernel has some and the f32
-    ones have none."""
+    fails unless every bf16 forward, dq and dk/dv kernel has some and the
+    f32 ones have none."""
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
                            str(build.library_path("flash_attention"))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -253,9 +256,9 @@ def tensor_core_check(build) -> dict:
             counts[kernel] += 1
     print(f"sass: tensor-core instructions per kernel {json.dumps(counts)}", flush=True)
     for d in (32, 64, 128):
-        for name in ("flash_fwd_mma_kernel", "flash_dkv_mma_kernel"):
+        for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel"):
             check(counts.get(f"{name}<bf16, {d}>", 0) > 0, f"{name} D={d} has no HMMA/HGMMA")
-        for name in ("flash_fwd_kernel", "flash_dkv_kernel"):
+        for name in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
             check(counts.get(f"{name}<f32, {d}>") == 0,
                   f"{name}<f32, {d}> missing or on the tensor cores: {counts.get(f'{name}<f32, {d}>')}")
     return counts
@@ -384,7 +387,7 @@ def infonce_bound_ms(b, kk, c, backward):
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel names it takes), first match wins
     ("flash_attention", ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_dq_kernel",
-                         "flash_dkv_kernel", "flash_dkv_mma_kernel")),
+                         "flash_dq_mma_kernel", "flash_dkv_kernel", "flash_dkv_mma_kernel")),
     ("infonce", ("fwd_partial_kernel", "fwd_merge_kernel", "bwd_partial_kernel",
                  "bwd_reduce_kernel")),
     ("batch_norm", ("batch_norm",)),
@@ -622,12 +625,16 @@ def flash_kernel_phase(fa):
                               # the tensor-core kernels' edges: one partial 16-row
                               # chunk, a tail of 1, many ring stages, no tail, D = 128
                               (2, 3, 1, 64, bf16), (2, 3, 17, 64, bf16), (1, 2, 1000, 32, bf16),
-                              (2, 4, 64, 64, bf16), (2, 4, 197, 128, bf16)):
+                              (2, 4, 64, 64, bf16), (2, 4, 197, 128, bf16),
+                              # B*H = 66000 > 65535: ViT-B at 128 px, batch 5500
+                              (5500, 12, 65, 64, bf16), (5500, 12, 65, 64, f32)):
         q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
                       for _ in range(4))
         g_lse = torch.randn((b, h, s), generator=gen, device="cuda")
         errs = compare_flash(fa, q, k, v, g, g_lse, f"B={b} H={h} S={s} D={d} {dtype}")
         worst = {n: max(worst[n], e) for n, e in flash_worst(errs).items()}
+        del q, k, v, g, g_lse
+    torch.cuda.empty_cache()
     x = torch.zeros(1, 2, 8, 64, device="cuda")
     for what, args in (("D=48", [torch.zeros(1, 2, 8, 48, device="cuda")] * 3),
                        ("float16", [x.half()] * 3), ("a CPU/CUDA mix", [x, x.cpu(), x])):
@@ -743,8 +750,8 @@ def v3_phase(fa, flash_err):
     want = {"flash_fwd": 2 * depth * steps, "flash_dq": depth * steps, "flash_dkv": depth * steps}
     check(launches == want, f"flash launches {launches} over {steps} steps, want {want}")
     want_kernels = {"flash_fwd_kernel": 0, "flash_fwd_mma_kernel": want["flash_fwd"],
-                    "flash_dq_kernel": want["flash_dq"], "flash_dkv_kernel": 0,
-                    "flash_dkv_mma_kernel": want["flash_dkv"]}
+                    "flash_dq_kernel": 0, "flash_dq_mma_kernel": want["flash_dq"],
+                    "flash_dkv_kernel": 0, "flash_dkv_mma_kernel": want["flash_dkv"]}
     check(by_kernel == want_kernels, f"flash launches by kernel {by_kernel}, want {want_kernels}")
     check(torch.equal(state.encoder_q.backbone.patch_embed.weight, patch0),
           "the frozen patch embedding moved")

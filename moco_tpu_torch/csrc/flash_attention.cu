@@ -19,11 +19,11 @@
 // kernels (:278).
 //
 // Which kernel runs: bf16 inputs take the tensor-core forward
-// (`flash_fwd_mma_kernel`) and dk/dv (`flash_dkv_mma_kernel`); f32 inputs
-// take the CUDA-core `flash_fwd_kernel` and `flash_dkv_kernel` (TF32 would
-// break the f32 tolerances the plain versions are held to); dq is the
-// CUDA-core `flash_dq_kernel` for both dtypes. Each (kernel, dtype) has one
-// code path.
+// (`flash_fwd_mma_kernel`), dq (`flash_dq_mma_kernel`) and dk/dv
+// (`flash_dkv_mma_kernel`); f32 inputs take the CUDA-core
+// `flash_fwd_kernel`, `flash_dq_kernel` and `flash_dkv_kernel` (TF32 would
+// break the f32 tolerances the plain versions are held to). Each (kernel,
+// dtype) has one code path.
 //
 // Bound. At the ViT's S = 197, D = 64 attention is bytes-bound on this
 // card: the forward does 4 S^2 D flops against 4 S D elements moved, about
@@ -36,9 +36,11 @@
 // Common design. The TPU kernel holds the whole K/V of a (b, h) in VMEM and
 // walks it on a sequential grid. Here every CTA owns one 64-row tile of one
 // (b, h) (query rows for the forward and dq, key rows for dk/dv) and
-// streams the other side in 64-row tiles through shared memory. Grid =
-// (ceil(S/64), B*H): 4 x 6144 CTAs at the path's shape. Nothing carries
-// across CTAs: no partials, no atomics.
+// streams the other side in 64-row tiles through shared memory. The grid
+// is one-dimensional, B*H * ceil(S/64) CTAs (4 x 6144 at the path's
+// shape), with a head's tiles adjacent in launch order so they find its
+// streamed side in L2; any B*H works as long as the CTA count fits the
+// grid's 2^31 - 1. Nothing carries across CTAs: no partials, no atomics.
 //
 // The bf16 tensor-core kernels (128 threads: 4 warps x 16 rows of the tile).
 // - Products are `mma.sync.m16n8k16` bf16 -> f32 (HMMA). Operands are read
@@ -53,6 +55,12 @@
 //   them (running m and l per row, reduced over the quad by shuffles, l
 //   summing the unrounded p), and converts p to bf16 straight into the A
 //   fragment of O += P.V. P never touches shared memory.
+// - dq: each warp holds its 16 query rows of Q and G as A fragments and
+//   its rows' lse and coeff in registers; per 16-key chunk it takes S =
+//   Q.K^T and dP = G.V^T, forms P = exp(scale S - lse) and dS = P (dP +
+//   coeff) on the accumulator fragments, rounds dS to bf16 straight into
+//   an A fragment and accumulates dQ += dS.K with K read transposed from
+//   the same staged tile. Neither P nor dS touches shared memory.
 // - dk/dv: each warp holds its 16 keys of K and V as A fragments and takes
 //   the transposed scores S^T = K.Q^T and dP^T = V.G^T for one 16-query
 //   chunk at a time; P^T = exp(scale S^T - lse[q]) and dS^T = P^T (dP^T +
@@ -61,24 +69,26 @@
 //   read transposed from the same staged tile. Each of Q and G is staged
 //   once; lse and coeff are staged beside them; no P/dS buffer, no barrier
 //   between the two products.
-// - Masking is tile-granular: only 16-key (forward) or 16-query (dk/dv)
-//   chunks holding an index below S are computed, and only the last tile
-//   masks by index. At S = 197 that is 208 keys, not 256. Warps whose 16
-//   rows all lie past S do no math.
+// - Masking is tile-granular: only 16-key (forward, dq) or 16-query
+//   (dk/dv) chunks holding an index below S are computed, and only the
+//   last tile masks by index. At S = 197 that is 208 keys, not 256. Warps
+//   whose 16 rows all lie past S do no math.
 // - Rounding follows the TPU kernels: p rounded to bf16 relative to the
-//   running max before p.v and lse = m + log(l) in f32 (forward); p before
+//   running max before p.v and lse = m + log(l) in f32 (forward); dS (from
+//   the unrounded p) before dS.k, scale applied at the store (dq); p before
 //   p^T.g, dS (from the unrounded p) before dS^T.q, scale applied to dK at
 //   the store (dk/dv).
 // - Shared memory per CTA: forward 5 tiles of 64 x (D + 8) bf16 (Q and two
-//   stages of K and V), 46,080 bytes at D = 64; dk/dv 6 tiles (K, V, two
-//   stages of Q and G) plus 1 KiB of lse/coeff, 56,320 bytes at D = 64.
+//   stages of K and V), 46,080 bytes at D = 64; dq 6 tiles (Q, G, two
+//   stages of K and V), 55,296 bytes; dk/dv 6 tiles (K, V, two stages of Q
+//   and G) plus 1 KiB of lse/coeff, 56,320 bytes at D = 64.
 //   Registers per thread (`ptxas -v`, ops/build.py NVCC_FLAGS, as
-//   chip_smoke.py prints it): forward 90 / 128 / 213 at D = 32 / 64 / 128,
-//   dk/dv 96 / 166 / 255 with a 28-byte spill at D = 128. At D = 64 that
-//   is 4 forward CTAs or 3 dk/dv CTAs per SM.
+//   chip_smoke.py prints it): forward 90 / 128 / 214 at D = 32 / 64 / 128,
+//   dq 78 / 126 / 219, dk/dv 96 / 166 / 255 with a 20-byte spill at D =
+//   128. At D = 64 that is 4 forward or dq CTAs, or 3 dk/dv CTAs, per SM.
 //
 // The f32 CUDA-core kernels (256 threads, 16 x 16).
-// - Operands are converted to f32 as they are staged: the "score" operands
+// - Operands are staged in two layouts: the "score" operands
 //   (q, k, g, v as the left and right of q.k^T and g.v^T) transposed,
 //   (D, 64), so the 256 threads (16 x 16) each take a 4 x 4 register tile
 //   of the 64 x 64 scores with two float4 shared-memory loads per 16 FMAs;
@@ -86,10 +96,8 @@
 // - P (or dS) goes to shared memory row-major, (64, 68), one float4 per
 //   thread and row, and the second product reads it back as float4 over
 //   four keys: each thread accumulates 4 rows x D/16 columns.
-// - f32 FMAs on the CUDA cores, in the TPU kernel's order of rounding:
-//   products of the input-dtype values are exact in f32, p and dS are
-//   rounded to the input dtype where the TPU kernel rounds them (a no-op in
-//   f32, and in bf16 for dq), sums stay f32.
+// - f32 FMAs on the CUDA cores; the TPU kernel's roundings of p and dS to
+//   the input dtype are no-ops in f32.
 // - The forward skips the warps whose rows all lie past S and the second
 //   product stops at the tile's last valid key (rounded up to 4; those
 //   entries of P and the operand rows are zero).
@@ -106,42 +114,30 @@ constexpr int kThreads = 256;    // 16 x 16
 constexpr int kPld = kTile + 4;  // row stride of the P / dS tile (16-byte rows)
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
 
-template <typename T>
-__device__ inline float to_f32(T x);
-template <>
-__device__ inline float to_f32<float>(float x) { return x; }
-template <>
-__device__ inline float to_f32<__nv_bfloat16>(__nv_bfloat16 x) { return __bfloat162float(x); }
+__host__ __device__ constexpr int tiles_of(int S) { return (S + kTile - 1) / kTile; }
 
-template <typename T>
-__device__ inline T from_f32(float x);
-template <>
-__device__ inline float from_f32<float>(float x) { return x; }
-template <>
-__device__ inline __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+// The CTA's (b, h) and the first row of its 64-row tile, from the
+// one-dimensional grid of B*H * ceil(S/64) CTAs (a head's tiles adjacent).
+struct TileId {
+  int bh, row0;
+};
+__device__ __forceinline__ TileId tile_id(int S) {
+  const unsigned n_tiles = tiles_of(S);
+  return {static_cast<int>(blockIdx.x / n_tiles), static_cast<int>(blockIdx.x % n_tiles) * kTile};
+}
 
-// x rounded to T and back (round to nearest even, as astype does).
-template <typename T>
-__device__ inline float round_to(float x) { return to_f32<T>(from_f32<T>(x)); }
-
-// Four consecutive elements of a row; `p` is 8-byte (bf16) or 16-byte
-// (f32) aligned because D % 4 == 0 and the wrapper checks the base.
+// Four consecutive elements of a row; `p` is 16-byte aligned because
+// D % 4 == 0 and the wrapper checks the base.
 __device__ inline void load4(const float* p, float v[4]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
 }
-__device__ inline void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
 
-// Rows [row0, row0 + 64) of a (n, D) matrix into dst (D, 64), transposed,
-// as f32; rows at or past n are zero. Lanes walk rows, so the stores to
+// Rows [row0, row0 + 64) of a (n, D) matrix into dst (D, 64), transposed;
+// rows at or past n are zero. Lanes walk rows, so the stores to
 // shared memory hit 32 distinct banks.
-template <typename T, int D>
-__device__ inline void load_t(float* dst, const T* __restrict__ src, int row0, int n) {
+template <int D>
+__device__ inline void load_t(float* dst, const float* __restrict__ src, int row0, int n) {
   for (int idx = threadIdx.x; idx < kTile * (D / 4); idx += kThreads) {
     const int r = idx % kTile;
     const int d = (idx / kTile) * 4;
@@ -152,9 +148,9 @@ __device__ inline void load_t(float* dst, const T* __restrict__ src, int row0, i
   }
 }
 
-// The same rows into dst (64, D), row-major, as f32.
-template <typename T, int D>
-__device__ inline void load_rows(float* dst, const T* __restrict__ src, int row0, int n) {
+// The same rows into dst (64, D), row-major.
+template <int D>
+__device__ inline void load_rows(float* dst, const float* __restrict__ src, int row0, int n) {
   for (int idx = threadIdx.x; idx < kTile * (D / 4); idx += kThreads) {
     const int r = idx / (D / 4);
     const int d = (idx % (D / 4)) * 4;
@@ -272,10 +268,11 @@ __device__ inline float row_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
-__device__ inline void store_row(T* __restrict__ dst, int tx, const float v[D / 16], float mul) {
+template <int D>
+__device__ inline void store_row(float* __restrict__ dst, int tx, const float v[D / 16],
+                                 float mul) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) dst[Cols<D>::col(tx, n)] = from_f32<T>(v[n] * mul);
+  for (int n = 0; n < D / 16; ++n) dst[Cols<D>::col(tx, n)] = v[n] * mul;
 }
 
 __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -293,22 +290,24 @@ constexpr size_t dkv_smem() {
   return (6 * D * kTile + 2 * kTile * kPld) * sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int S, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                 int S, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;              // (D, 64)
   float* kt = qt + D * kTile;    // (D, 64)
   float* vs = kt + D * kTile;    // (64, D)
   float* ps = vs + kTile * D;    // (64, kPld)
-  const int row0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
+  const TileId id = tile_id(S);
+  const int row0 = id.row0;
+  const size_t base = static_cast<size_t>(id.bh) * S * D;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   // a warp owns rows 8w .. 8w + 7 of the tile: skip it when all are padding
   const bool live = row0 + 8 * static_cast<int>(threadIdx.x / 32) < S;
 
-  load_t<T, D>(qt, q + base, row0, S);
+  load_t<D>(qt, q + base, row0, S);
   float m[4], l[4], acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -320,8 +319,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int key0 = 0; key0 < S; key0 += kTile) {
     __syncthreads();  // the previous tile is read
-    load_t<T, D>(kt, k + base, key0, S);
-    load_rows<T, D>(vs, v + base, key0, S);
+    load_t<D>(kt, k + base, key0, S);
+    load_rows<D>(vs, v + base, key0, S);
     __syncthreads();
     if (!live) continue;
     float s[4][4];
@@ -341,7 +340,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        s[i][j] = round_to<T>(p);  // p in the input dtype for p.v
+        s[i][j] = p;
       }
       l[i] = l[i] * corr + row_sum(sum);
       m[i] = m_new;
@@ -359,17 +358,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (r >= S) continue;
 #pragma unroll
     for (int n = 0; n < D / 16; ++n) acc[i][n] /= l[i];
-    store_row<T, D>(out + base + static_cast<size_t>(r) * D, tx, acc[i], 1.f);
-    if (tx == 0) lse[static_cast<size_t>(blockIdx.y) * S + r] = m[i] + logf(l[i]);
+    store_row<D>(out + base + static_cast<size_t>(r) * D, tx, acc[i], 1.f);
+    if (tx == 0) lse[static_cast<size_t>(id.bh) * S + r] = m[i] + logf(l[i]);
   }
 }
 
-// The score phase both CUDA-core backward kernels share (dq in both dtypes,
-// dk/dv in f32): for query rows (ty) and keys
-// (tx) of the staged tiles, p = exp(s * scale - lse) (0 for a key or query
-// past S) and ds = p * (g.v^T + coeff), each rounded where the TPU kernels
-// round them. Writes round(p) to pt and round(ds) to dst when given.
-template <typename T, int D>
+// The score phase both f32 CUDA-core backward kernels share: for query
+// rows (ty) and keys (tx) of the staged tiles, p = exp(s * scale - lse) (0
+// for a key or query past S) and ds = p * (g.v^T + coeff). Writes p to pt
+// (when given) and ds to dst.
+template <int D>
 __device__ inline void backward_scores(const float* qt, const float* gt, const float* kt,
                                        const float* vt, const float lse_r[4],
                                        const float coeff_r[4], int q0, int key0, int S,
@@ -384,19 +382,20 @@ __device__ inline void backward_scores(const float* qt, const float* gt, const f
     for (int j = 0; j < 4; ++j) {
       const bool live = row_live && key0 + 4 * tx + j < S;
       const float p = live ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-      dp[i][j] = live ? round_to<T>(p * (dp[i][j] + coeff_r[i])) : 0.f;
-      s[i][j] = round_to<T>(p);
+      dp[i][j] = live ? p * (dp[i][j] + coeff_r[i]) : 0.f;
+      s[i][j] = p;
     }
   }
   if (pt != nullptr) store_tile(pt, ty, tx, s);
   store_tile(dst, ty, tx, dp);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ g, const float* __restrict__ lse,
-                const float* __restrict__ coeff, T* __restrict__ dq, int S, float scale) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ g,
+                const float* __restrict__ lse, const float* __restrict__ coeff,
+                float* __restrict__ dq, int S, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;              // (D, 64) query rows
   float* gt = qt + D * kTile;    // (D, 64)
@@ -404,14 +403,15 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* vt = kt + D * kTile;    // (D, 64)
   float* ks = vt + D * kTile;    // (64, D)
   float* ds = ks + kTile * D;    // (64, kPld)
-  const int row0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
-  const size_t sbase = static_cast<size_t>(blockIdx.y) * S;
+  const TileId id = tile_id(S);
+  const int row0 = id.row0;
+  const size_t base = static_cast<size_t>(id.bh) * S * D;
+  const size_t sbase = static_cast<size_t>(id.bh) * S;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const bool live = row0 + 8 * static_cast<int>(threadIdx.x / 32) < S;
 
-  load_t<T, D>(qt, q + base, row0, S);
-  load_t<T, D>(gt, g + base, row0, S);
+  load_t<D>(qt, q + base, row0, S);
+  load_t<D>(gt, g + base, row0, S);
   float lse_r[4], coeff_r[4], acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -424,12 +424,12 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   for (int key0 = 0; key0 < S; key0 += kTile) {
     __syncthreads();
-    load_t<T, D>(kt, k + base, key0, S);
-    load_t<T, D>(vt, v + base, key0, S);
-    load_rows<T, D>(ks, k + base, key0, S);
+    load_t<D>(kt, k + base, key0, S);
+    load_t<D>(vt, v + base, key0, S);
+    load_rows<D>(ks, k + base, key0, S);
     __syncthreads();
     if (!live) continue;
-    backward_scores<T, D>(qt, gt, kt, vt, lse_r, coeff_r, row0, key0, S, scale, ty, tx,
+    backward_scores<D>(qt, gt, kt, vt, lse_r, coeff_r, row0, key0, S, scale, ty, tx,
                           nullptr, ds);
     __syncwarp();  // a row of dS is written and read by one half-warp
     acc_rows<D>(acc, ds, ks, round4(min(kTile, S - key0)), ty, tx);
@@ -438,16 +438,16 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + 4 * ty + i;
-    if (r < S) store_row<T, D>(dq + base + static_cast<size_t>(r) * D, tx, acc[i], scale);
+    if (r < S) store_row<D>(dq + base + static_cast<size_t>(r) * D, tx, acc[i], scale);
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ g, const float* __restrict__ lse,
-                 const float* __restrict__ coeff, T* __restrict__ dk, T* __restrict__ dv, int S,
-                 float scale) {
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ g,
+                 const float* __restrict__ lse, const float* __restrict__ coeff,
+                 float* __restrict__ dk, float* __restrict__ dv, int S, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;              // (D, 64) keys of this CTA
   float* vt = kt + D * kTile;    // (D, 64)
@@ -457,13 +457,14 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* gs = qs + kTile * D;    // (64, D)
   float* pt = gs + kTile * D;    // (64, kPld): P[q][key]
   float* ds = pt + kTile * kPld; // (64, kPld): dS[q][key]
-  const int key0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
-  const size_t sbase = static_cast<size_t>(blockIdx.y) * S;
+  const TileId id = tile_id(S);
+  const int key0 = id.row0;
+  const size_t base = static_cast<size_t>(id.bh) * S * D;
+  const size_t sbase = static_cast<size_t>(id.bh) * S;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_t<T, D>(kt, k + base, key0, S);
-  load_t<T, D>(vt, v + base, key0, S);
+  load_t<D>(kt, k + base, key0, S);
+  load_t<D>(vt, v + base, key0, S);
   // accumulators: keys 4 ty + i, columns col(n)
   float dk_acc[4][D / 16], dv_acc[4][D / 16];
 #pragma unroll
@@ -473,10 +474,10 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int q0 = 0; q0 < S; q0 += kTile) {
     __syncthreads();
-    load_t<T, D>(qt, q + base, q0, S);
-    load_t<T, D>(gt, g + base, q0, S);
-    load_rows<T, D>(qs, q + base, q0, S);
-    load_rows<T, D>(gs, g + base, q0, S);
+    load_t<D>(qt, q + base, q0, S);
+    load_t<D>(gt, g + base, q0, S);
+    load_rows<D>(qs, q + base, q0, S);
+    load_rows<D>(gs, g + base, q0, S);
     float lse_r[4], coeff_r[4];  // query rows 4 ty + i of the score phase
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -485,7 +486,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       coeff_r[i] = r < S ? coeff[sbase + r] : 0.f;
     }
     __syncthreads();
-    backward_scores<T, D>(qt, gt, kt, vt, lse_r, coeff_r, q0, key0, S, scale, ty, tx, pt, ds);
+    backward_scores<D>(qt, gt, kt, vt, lse_r, coeff_r, q0, key0, S, scale, ty, tx, pt, ds);
     __syncthreads();  // every thread reads columns written by all
     const int qn = round4(min(kTile, S - q0));
     acc_cols<D>(dv_acc, pt, gs, qn, ty, tx);
@@ -496,8 +497,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     const int r = key0 + 4 * ty + i;
     if (r >= S) continue;
-    store_row<T, D>(dk + base + static_cast<size_t>(r) * D, tx, dk_acc[i], scale);
-    store_row<T, D>(dv + base + static_cast<size_t>(r) * D, tx, dv_acc[i], 1.f);
+    store_row<D>(dk + base + static_cast<size_t>(r) * D, tx, dk_acc[i], scale);
+    store_row<D>(dv + base + static_cast<size_t>(r) * D, tx, dv_acc[i], 1.f);
   }
 }
 
@@ -668,6 +669,10 @@ constexpr size_t fwd_mma_smem() {
   return 5 * tile_elems<D>() * sizeof(bf16);  // Q, 2 x K, 2 x V
 }
 template <int D>
+constexpr size_t dq_mma_smem() {
+  return 6 * tile_elems<D>() * sizeof(bf16);  // Q, G, 2 x K, 2 x V
+}
+template <int D>
 constexpr size_t dkv_mma_smem() {
   return 6 * tile_elems<D>() * sizeof(bf16) + 4 * kTile * sizeof(float);  // K, V, 2 x (Q, G, lse, coeff)
 }
@@ -682,9 +687,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ks = qs + tile_elems<D>();                // 2 stages of (64, D + 8) keys
   bf16* vs = ks + 2 * tile_elems<D>();            // 2 stages of (64, D + 8) values
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane & 3;
-  const int row0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
-  const int n_tiles = (S + kTile - 1) / kTile;
+  const TileId id = tile_id(S);
+  const int row0 = id.row0;
+  const size_t base = static_cast<size_t>(id.bh) * S * D;
+  const int n_tiles = tiles_of(S);
   const bool live = row0 + 16 * warp < S;  // the warp has a query row < S
 
   stage_tile<D>(qs, q + base, row0, S);
@@ -776,9 +782,98 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     inv[h] = 1.f / l[h];
     const int r = row0 + 16 * warp + (lane >> 2) + 8 * h;
-    if (t4 == 0 && r < S) lse[static_cast<size_t>(blockIdx.y) * S + r] = m[h] + logf(l[h]);
+    if (t4 == 0 && r < S) lse[static_cast<size_t>(id.bh) * S + r] = m[h] + logf(l[h]);
   }
   store_acc<D>(out + base, o, row0 + 16 * warp, S, lane, inv);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ g,
+                    const float* __restrict__ lse, const float* __restrict__ coeff,
+                    bf16* __restrict__ dq, int S, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (64, D + 8) query rows
+  bf16* gs = qs + tile_elems<D>();                // (64, D + 8) their gradient rows
+  bf16* ks = gs + tile_elems<D>();                // 2 stages of (64, D + 8) keys
+  bf16* vs = ks + 2 * tile_elems<D>();            // 2 stages of (64, D + 8) values
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane & 3;
+  const TileId id = tile_id(S);
+  const int row0 = id.row0;
+  const size_t base = static_cast<size_t>(id.bh) * S * D;
+  const size_t sbase = static_cast<size_t>(id.bh) * S;
+  const int n_tiles = tiles_of(S);
+  const bool live = row0 + 16 * warp < S;  // the warp has a query row < S
+  const float sl2 = scale * kLog2e;
+
+  stage_tile<D>(qs, q + base, row0, S);
+  stage_tile<D>(gs, g + base, row0, S);
+  stage_tile<D>(ks, k + base, 0, S);
+  stage_tile<D>(vs, v + base, 0, S);
+  cp_async_commit();
+
+  // lse * log2(e) and coeff of the thread's rows g and g + 8, 0 past S (so
+  // p = 1 and dS = 0 there: no inf or NaN, and those rows are not stored)
+  float lse2[2], co[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 16 * warp + (lane >> 2) + 8 * h;
+    lse2[h] = r < S ? lse[sbase + r] * kLog2e : 0.f;
+    co[h] = r < S ? coeff[sbase + r] : 0.f;
+  }
+
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile into the other stage
+      stage_tile<D>(ks + (stage ^ 1) * tile_elems<D>(), k + base, (t + 1) * kTile, S);
+      stage_tile<D>(vs + (stage ^ 1) * tile_elems<D>(), v + base, (t + 1) * kTile, S);
+    }
+    cp_async_commit();
+    cp_async_wait_one();  // tile t (and Q, G) have landed for this thread ...
+    __syncthreads();     // ... and for every thread
+    if (live) {
+      if (t == 0) {
+        load_a_frags<D>(qf, qs, warp, lane);
+        load_a_frags<D>(gf, gs, warp, lane);
+      }
+      const bf16* kt = ks + stage * tile_elems<D>();
+      const bf16* vt = vs + stage * tile_elems<D>();
+      const int key0 = t * kTile;
+      const int chunks = min(4, (S - key0 + 15) / 16);  // 16-key chunks holding a key < S
+      const bool tail = key0 + kTile > S;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= chunks) continue;
+        float s[2][4], dp[2][4];  // rows g, g + 8 x keys key0 + 16c + 8j + 2 t4 + {0, 1}
+        mma_abt<D>(s, qf, kt, 16 * c, lane);
+        mma_abt<D>(dp, gf, vt, 16 * c, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(s[j][e], sl2, -lse2[e >> 1]));
+            if (tail && key0 + 16 * c + 8 * j + 2 * t4 + (e & 1) >= S) p = 0.f;
+            dp[j][e] = p * (dp[j][e] + co[e >> 1]);  // dS from the unrounded p
+          }
+        uint32_t da[4];
+        acc_to_a(da, dp[0], dp[1]);  // dS rounded to bf16 for ds.k
+        mma_ab<D>(acc, da, kt, 16 * c, lane);
+      }
+    }
+    __syncthreads();  // every thread is done with this stage before it is refilled
+  }
+
+  if (!live) return;
+  const float mul[2] = {scale, scale};
+  store_acc<D>(dq + base, acc, row0 + 16 * warp, S, lane, mul);
 }
 
 template <int D>
@@ -795,10 +890,11 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* ls = reinterpret_cast<float*>(gs + 2 * tile_elems<D>());  // 2 stages of 64 lse
   float* cs = ls + 2 * kTile;                                       // 2 stages of 64 coeff
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane & 3;
-  const int key0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
-  const size_t sbase = static_cast<size_t>(blockIdx.y) * S;
-  const int n_tiles = (S + kTile - 1) / kTile;
+  const TileId id = tile_id(S);
+  const int key0 = id.row0;
+  const size_t base = static_cast<size_t>(id.bh) * S * D;
+  const size_t sbase = static_cast<size_t>(id.bh) * S;
+  const int n_tiles = tiles_of(S);
   const bool live = key0 + 16 * warp < S;  // the warp has a key < S
   const float sl2 = scale * kLog2e;
 
@@ -888,15 +984,21 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Launch and dispatch
 // ---------------------------------------------------------------------------
 
-// One launch of `kernel` over grid (ceil(S/64), BH) with `threads` threads
-// and `smem` bytes of dynamic shared memory.
+// The grid's CTA count, B*H * ceil(S/64), fits its x dimension (2^31 - 1).
+bool grid_fits(int BH, int S) {
+  return BH > 0 && S > 0 && static_cast<long long>(BH) * tiles_of(S) <= 0x7fffffffLL;
+}
+
+// One launch of `kernel` over the one-dimensional grid of BH * ceil(S/64)
+// CTAs (grid_fits(BH, S) holds) with `threads` threads and `smem` bytes of
+// dynamic shared memory.
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, int threads, size_t smem, int BH, int S, cudaStream_t stream,
                    Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTile - 1) / kTile, BH);
+  const unsigned grid = static_cast<unsigned>(BH) * static_cast<unsigned>(tiles_of(S));
   kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
@@ -904,7 +1006,7 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, int BH, int S, cudaS
 template <int D>
 cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int BH,
                     int S, float scale, cudaStream_t st) {
-  return launch(flash_fwd_kernel<float, D>, kThreads, fwd_smem<D>(), BH, S, st,
+  return launch(flash_fwd_kernel<D>, kThreads, fwd_smem<D>(), BH, S, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse),
                 S, scale);
@@ -919,30 +1021,31 @@ cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* out, voi
                 scale);
 }
 
-template <typename T, int D>
-cudaError_t dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
-               const void* coeff, void* dq_out, int BH, int S, float scale, cudaStream_t st) {
-  return launch(flash_dq_kernel<T, D>, kThreads, dq_smem<D>(), BH, S, st,
-                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<const T*>(g), static_cast<const float*>(lse),
-                static_cast<const float*>(coeff), static_cast<T*>(dq_out), S, scale);
-}
 template <int D>
 cudaError_t dq_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
                    const void* coeff, void* dq_out, int BH, int S, float scale, cudaStream_t st) {
-  return dq<float, D>(q, k, v, g, lse, coeff, dq_out, BH, S, scale, st);
+  return launch(flash_dq_kernel<D>, kThreads, dq_smem<D>(), BH, S, st,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<const float*>(g),
+                static_cast<const float*>(lse), static_cast<const float*>(coeff),
+                static_cast<float*>(dq_out), S, scale);
 }
+
 template <int D>
 cudaError_t dq_bf16(const void* q, const void* k, const void* v, const void* g, const void* lse,
                     const void* coeff, void* dq_out, int BH, int S, float scale, cudaStream_t st) {
-  return dq<bf16, D>(q, k, v, g, lse, coeff, dq_out, BH, S, scale, st);
+  return launch(flash_dq_mma_kernel<D>, kMmaThreads, dq_mma_smem<D>(), BH, S, st,
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+                static_cast<const float*>(lse), static_cast<const float*>(coeff),
+                static_cast<bf16*>(dq_out), S, scale);
 }
 
 template <int D>
 cudaError_t dkv_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
                     const void* coeff, void* dk_out, void* dv_out, int BH, int S, float scale,
                     cudaStream_t st) {
-  return launch(flash_dkv_kernel<float, D>, kThreads, dkv_smem<D>(), BH, S, st,
+  return launch(flash_dkv_kernel<D>, kThreads, dkv_smem<D>(), BH, S, st,
                 static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(g),
                 static_cast<const float*>(lse), static_cast<const float*>(coeff),
@@ -1000,12 +1103,13 @@ extern "C" {
 
 // All tensors are contiguous (B*H, S, D) in the input dtype (0 = f32,
 // 1 = bf16) on the current device, lse and coeff (B*H, S) f32; the caller
-// has checked shapes, dtypes, D in {32, 64, 128}, 0 < BH <= 65535 and
-// S > 0, and allocated the outputs. Each launches on `stream` and returns
-// the cudaError_t (0 = success).
+// has checked shapes, dtypes, D in {32, 64, 128}, BH > 0, S > 0 and
+// BH * ceil(S/64) <= 2^31 - 1 (the grid's CTA count), and allocated the
+// outputs. Each launches on `stream` and returns the cudaError_t (0 =
+// success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                         int BH, int S, int D, int dtype, float scale, void* stream) {
-  if (BH <= 0 || BH > 65535 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!grid_fits(BH, S)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       fwd_any(dtype, D, q, k, v, out, lse, BH, S, scale, static_cast<cudaStream_t>(stream)));
 }
@@ -1013,7 +1117,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
 int flash_attention_dq(const void* q, const void* k, const void* v, const void* g,
                        const void* lse, const void* coeff, void* dq_out, int BH, int S, int D,
                        int dtype, float scale, void* stream) {
-  if (BH <= 0 || BH > 65535 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!grid_fits(BH, S)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dq_any(dtype, D, q, k, v, g, lse, coeff, dq_out, BH, S, scale,
                                  static_cast<cudaStream_t>(stream)));
 }
@@ -1021,7 +1125,7 @@ int flash_attention_dq(const void* q, const void* k, const void* v, const void* 
 int flash_attention_dkv(const void* q, const void* k, const void* v, const void* g,
                         const void* lse, const void* coeff, void* dk_out, void* dv_out, int BH,
                         int S, int D, int dtype, float scale, void* stream) {
-  if (BH <= 0 || BH > 65535 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!grid_fits(BH, S)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dkv_any(dtype, D, q, k, v, g, lse, coeff, dk_out, dv_out, BH, S,
                                   scale, static_cast<cudaStream_t>(stream)));
 }

@@ -7,8 +7,9 @@ gives the bound and the tiled design). `flash_forward`, `flash_dq` and
 `flash_dkv` launch them for CUDA tensors and take the plain versions
 (`attention_reference`, `flash_dq_reference`, `flash_dkv_reference`) only
 for CPU tensors; there is no fallback from one to the other. bf16 inputs
-go through the tensor-core forward and dk/dv kernels, f32 inputs through
-the CUDA-core ones, and dq through one kernel for both (`KERNELS`).
+go through the tensor-core forward, dq and dk/dv kernels, f32 inputs
+through the CUDA-core ones (`KERNELS`). The kernels' grid is
+one-dimensional, so any B*H runs as long as B*H*ceil(S/64) CTAs fit it.
 `FlashAttention` is the `custom_vjp` (:382-427) as an autograd function:
 it saves (q, k, v, out, lse) and takes both cotangents, g and g_lse.
 
@@ -28,13 +29,14 @@ from moco_tpu_torch.ops import build
 
 HEAD_DIMS = (32, 64, 128)  # the widths the kernels are built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BH = 65535  # B*H is the grid's second dimension
+_TILE = 64  # rows of a CTA's tile: a call launches B*H*ceil(S/64) CTAs
+_MAX_CTAS = 2**31 - 1  # the CTA count the grid's one dimension holds
 # The CUDA kernel each (C entry point, dtype) launches.
 KERNELS = {
     ("flash_attention_fwd", torch.float32): "flash_fwd_kernel",
     ("flash_attention_fwd", torch.bfloat16): "flash_fwd_mma_kernel",
     ("flash_attention_dq", torch.float32): "flash_dq_kernel",
-    ("flash_attention_dq", torch.bfloat16): "flash_dq_kernel",
+    ("flash_attention_dq", torch.bfloat16): "flash_dq_mma_kernel",
     ("flash_attention_dkv", torch.float32): "flash_dkv_kernel",
     ("flash_attention_dkv", torch.bfloat16): "flash_dkv_mma_kernel",
 }
@@ -127,8 +129,9 @@ def _check_cuda(name: str, blocks: dict, rows: dict) -> tuple[int, int, int, int
         raise ValueError(f"{name}: the kernels take float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: the kernels take D in {HEAD_DIMS}, got D={d}")
-    if not (0 < b * h <= _MAX_BH and s > 0):
-        raise ValueError(f"{name}: needs 0 < B*H <= {_MAX_BH} and S > 0, got {tuple(q.shape)}")
+    if not (b * h > 0 and s > 0 and b * h * -(-s // _TILE) <= _MAX_CTAS):
+        raise ValueError(f"{name}: needs B*H > 0, S > 0 and B*H*ceil(S/{_TILE}) <= {_MAX_CTAS}"
+                         f" (the CTAs of one launch), got {tuple(q.shape)}")
     for tname, t in {**blocks, **rows}.items():
         shape, dtype = ((b, h, s, d), q.dtype) if tname in blocks else ((b, h, s), torch.float32)
         if t.dtype != dtype:

@@ -108,14 +108,16 @@ def test_wrappers_refuse_a_device_mix():
 
 def test_kernel_table_names_the_sources_kernels():
     """Each (entry point, dtype) of `KERNELS` names a `__global__` kernel of
-    csrc/flash_attention.cu, bf16 takes the tensor-core forward and dk/dv
-    and f32 the CUDA-core ones; CPU calls count no launch."""
+    csrc/flash_attention.cu, bf16 takes the tensor-core forward, dq and
+    dk/dv and f32 the CUDA-core ones; CPU calls count no launch."""
     src = (build.CSRC / "flash_attention.cu").read_text()
     for (entry, _), kernel in flash.KERNELS.items():
         assert f"int {entry}(" in src and re.search(rf"\n{kernel}\(", src), (entry, kernel)
-    assert {flash.KERNELS[(e, torch.bfloat16)] for e in ("flash_attention_fwd", "flash_attention_dkv")} \
-        == {"flash_fwd_mma_kernel", "flash_dkv_mma_kernel"}
-    assert flash.KERNELS[("flash_attention_dq", torch.bfloat16)] == "flash_dq_kernel"
+    entries = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+    assert [flash.KERNELS[(e, torch.bfloat16)] for e in entries] \
+        == ["flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel"]
+    assert [flash.KERNELS[(e, torch.float32)] for e in entries] \
+        == ["flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"]
     q, k, v = (_t(x) for x in _inputs(3, 1, 2, 9, 32))
     before = {w: (w.launches, dict(w.kernel_launches))
               for w in (flash.flash_forward, flash.flash_dq, flash.flash_dkv)}
@@ -124,3 +126,18 @@ def test_kernel_table_names_the_sources_kernels():
     flash.flash_dq(q, k, v, q, lse, coeff, 0.5)
     flash.flash_dkv(q, k, v, q, lse, coeff, 0.5)
     assert before == {w: (w.launches, w.kernel_launches) for w in before}
+
+
+def test_launch_limit_counts_ctas_not_heads():
+    """The kernels' grid is one-dimensional: B*H = 65536 (over the old
+    second-dimension limit of 65535) passes the wrappers' shape check, and
+    only B*H*ceil(S/64) > 2^31 - 1 CTAs is refused, with that limit named.
+    `_check_cuda` only reads shapes, dtypes and strides, so CPU tensors (and
+    a zero-stride view for the refused shape) exercise it without a launch."""
+    q = torch.zeros(32768, 2, 1, 32)
+    rows = torch.zeros(32768, 2, 1)
+    assert flash._check_cuda("flash_dq", {"q": q, "k": q, "v": q, "g": q},
+                             {"lse": rows, "coeff": rows}) == (32768, 2, 1, 32)
+    huge = torch.zeros(()).expand(2**16, 2**15, 65, 32)  # 2^31 heads x 2 tiles of 64 rows
+    with pytest.raises(ValueError, match=re.escape("B*H*ceil(S/64) <= 2147483647")):
+        flash._check_cuda("flash_forward", {"q": huge, "k": huge, "v": huge}, {})

@@ -239,13 +239,15 @@ def flash_errors(q, k, v, g, g_lse):
      # tail of 1, many ring stages with a masked tail, no tail, D = 128
      (2, 3, 1, 64, torch.bfloat16), (2, 3, 17, 64, torch.bfloat16),
      (1, 2, 1000, 32, torch.bfloat16), (2, 2, 64, 64, torch.bfloat16),
-     (2, 2, 197, 128, torch.bfloat16)],
+     (2, 2, 197, 128, torch.bfloat16),
+     # B*H = 70000 heads, past the 65535 a grid's second dimension holds
+     (35000, 2, 8, 32, torch.bfloat16), (35000, 2, 8, 32, torch.float32)],
 )
 def test_flash_kernels_match_plain(cuda, b, h, s, d, dtype):
     """The three flash-attention kernels against their plain versions, with
     a non-zero lse cotangent, any S (1 and 17 inside one 16-row chunk, 65 <
-    the TPU tile, 64 without a tail, 197 and 1000 with a masked tail) and
-    each head width."""
+    the TPU tile, 64 without a tail, 197 and 1000 with a masked tail), each
+    head width, and B*H beyond 65535 (the grid is one-dimensional)."""
     gen = torch.Generator(device=cuda).manual_seed(b * s + d)
     before = (flash_forward.launches, flash_dq.launches, flash_dkv.launches)
     errs = flash_errors(*_flash_inputs(b, h, s, d, dtype, gen, cuda))
@@ -256,16 +258,21 @@ def test_flash_kernels_match_plain(cuda, b, h, s, d, dtype):
 
 
 def test_flash_wrappers_launch_the_kernel_of_their_dtype(cuda):
-    """bf16 goes through the tensor-core forward and dk/dv, f32 through the
-    CUDA-core ones, dq through one kernel for both: the wrappers' counts by
-    kernel and the kernel names torch.profiler sees on the card agree."""
+    """bf16 goes through the three tensor-core kernels (forward, dq, dk/dv:
+    `flash_*_mma_kernel`), f32 through the three CUDA-core ones: the
+    wrappers' counts by kernel and the kernel names torch.profiler sees on
+    the card agree."""
     from torch.profiler import ProfilerActivity, profile
 
     wrappers = (flash_forward, flash_dq, flash_dkv)
     entry = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
     gen = torch.Generator(device=cuda).manual_seed(7)
+    expected = {torch.bfloat16: {"flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                                 "flash_dkv_mma_kernel"},
+                torch.float32: {"flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"}}
     for dtype in (torch.bfloat16, torch.float32):
         want = {KERNELS[(e, dtype)] for e in entry}
+        assert want == expected[dtype]
         before = [dict(w.kernel_launches) for w in wrappers]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             flash_errors(*_flash_inputs(1, 2, 70, 64, dtype, gen, cuda))
