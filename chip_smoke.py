@@ -10,11 +10,13 @@ Phases, each of which fails the run (non-zero exit) on a miss:
 2. Build: every kernel under moco_tpu_torch/csrc/ is compiled by nvcc for
    sm_90a, one process per source, all started together; ptxas's registers
    and spills are printed per kernel. Then `cuobjdump -sass` of the flash
-   library: every bf16 tensor-core forward, dq and dk/dv instantiation
-   (flash_fwd_mma_kernel, flash_dq_mma_kernel, flash_dkv_mma_kernel) must
-   hold HMMA/HGMMA instructions and the f32 CUDA-core ones
-   (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel) none; the counts
-   are printed.
+   and InfoNCE libraries: every bf16 tensor-core forward, dq and dk/dv
+   instantiation (flash_fwd_mma_kernel, flash_dq_mma_kernel,
+   flash_dkv_mma_kernel) and every split-TF32 InfoNCE forward and
+   backward instantiation (infonce_fwd_mma_kernel, infonce_bwd_mma_kernel,
+   padded widths 32 / 64 / 128 / 256) must hold HMMA/HGMMA instructions
+   and the f32 CUDA-core flash ones (flash_fwd_kernel, flash_dq_kernel,
+   flash_dkv_kernel) none; the counts are printed.
 3. Kernel: each kernel's wrapper against its plain PyTorch version on the
    card at the serving path's shapes (IVF cell scan: m in {1, 8, 32, 128},
    d=128, nlist=256, cell_cap=512, nprobe=16), max |diff| <= 1e-5 (f32 FMA
@@ -35,13 +37,16 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    engine on the card, cosine >= 0.99.
 6. Timing: each kernel, its plain version, its bound and one library call
    on the path's own inputs; engine ms per bucket; query ms per tier.
-7. InfoNCE kernels: `infonce_fwd` and `infonce_bwd` (csrc/infonce.cu)
-   against their plain versions at (B, K, C) in {(8, 4096, 128),
-   (256, 65536, 128), (7, 1000, 20)}, with the width limit raising beyond
-   C=256. Tolerances: pos <= 1e-5, lse <= 1e-4, dq max |diff| <=
-   1e-4 * max |dq| + 1e-6, and n_above of kernel and plain version, on
-   every row, between the float64 count of negatives above pos by more
-   than 1e-5 and that count plus the near ties within 1e-5 (counted).
+7. InfoNCE kernels: `infonce_fwd` and `infonce_bwd` (csrc/infonce.cu,
+   split-TF32 products on the tensor cores) against their plain versions
+   at (B, K, C) in {(8, 4096, 128), (256, 65536, 128), (7, 1000, 20),
+   (64, 8192, 256), (300, 5000, 100), (8, 1, 128), (8, 7, 128)}, with the
+   width limit raising beyond C=256; and two calls at the path's shape
+   giving the same bits. Tolerances: pos <= 1e-5, lse <= 1e-4, dq
+   max |diff| <= 1e-4 * max |dq| + 1e-6, and n_above of kernel and plain
+   version, on every row, between the float64 count of negatives above
+   pos by more than 1e-5 and that count plus the near ties within 1e-5
+   (counted).
 8. Training path, at full width: the imagenet_v2 preset (ResNet-50 + MLP
    head, K=65536, T=0.2, batch 256, 224 px, bf16 autocast) from seeded
    Flax-layout weights and a seeded unit-row queue carried in through
@@ -57,8 +62,11 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    phase 7, and acc1/acc5 within the percent of rows whose count window
    straddles the accuracy's cut.
 9. Timing: step ms and imgs/s; each InfoNCE kernel, its plain version, its
-   bound and one composed PyTorch computation on the path's own inputs;
-   a torch.profiler breakdown of one step's device time.
+   bound (the split-TF32 tensor-core work, 3 x 2BKC forward and 3 x 4BKC
+   backward at the TF32 rate; a line of its own gives `f32_fma_bound_ms`,
+   the same products as f32 FMAs on the CUDA cores) and one composed PyTorch
+   computation on the path's own inputs; a torch.profiler breakdown of
+   one step's device time.
 10. Flash kernels: the forward, dq and dk/dv kernels
    (csrc/flash_attention.cu; bf16 through the tensor-core ones, f32
    through the CUDA-core ones) against their plain versions at
@@ -124,6 +132,7 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 SEED = 0
 K, DIM, NLIST, NPROBE, TOPK = 65536, 128, 256, 16, 5
@@ -213,11 +222,17 @@ def nvidia_smi_line() -> str:
 
 
 FLASH_SYMBOL = re.compile(r"(flash_(?:fwd|dq|dkv)(?:_mma)?_kernel)I(\w*?)EE")
+INFONCE_SYMBOL = re.compile(r"(infonce_(?:fwd|bwd)_mma_kernel)ILi(\d+)EE")
+INFONCE_WIDTHS = (32, 64, 128, 256)  # the padded widths csrc/infonce.cu is built for
 
 
 def short_name(mangled: str) -> str:
-    """'flash_fwd_mma_kernel<bf16, 64>' for a flash kernel's mangled name;
-    other names as they are, cut to 80 characters."""
+    """'flash_fwd_mma_kernel<bf16, 64>' for a flash kernel's mangled name,
+    'infonce_fwd_mma_kernel<128>' for an InfoNCE one; other names as they
+    are, cut to 80 characters."""
+    found = INFONCE_SYMBOL.search(mangled)
+    if found:
+        return f"{found[1]}<{found[2]}>"
     m = FLASH_SYMBOL.search(mangled)
     if not m:
         return mangled[:80]
@@ -241,20 +256,25 @@ def print_ptxas(logs: dict) -> None:
 
 
 def tensor_core_check(build) -> dict:
-    """HMMA/HGMMA instructions per flash kernel in the built library's SASS;
-    fails unless every bf16 forward, dq and dk/dv kernel has some and the
-    f32 ones have none."""
-    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
-                           str(build.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    counts, kernel = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            kernel = short_name(line.split("Function :")[1].strip())
-            counts.setdefault(kernel, 0)
-        elif kernel and re.search(r"\bH(G)?MMA\b", line):
-            counts[kernel] += 1
+    """HMMA/HGMMA instructions per kernel in the flash and InfoNCE
+    libraries' SASS; fails unless every bf16 flash forward, dq and dk/dv
+    kernel and every InfoNCE forward and backward kernel has some and the
+    f32 flash ones have none."""
+    counts = {}
+    for lib in ("flash_attention", "infonce"):
+        sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        kernel = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = short_name(line.split("Function :")[1].strip())
+                counts.setdefault(kernel, 0)
+            elif kernel and re.search(r"\bH(G)?MMA\b", line):
+                counts[kernel] += 1
     print(f"sass: tensor-core instructions per kernel {json.dumps(counts)}", flush=True)
+    for cp in INFONCE_WIDTHS:
+        for name in ("infonce_fwd_mma_kernel", "infonce_bwd_mma_kernel"):
+            check(counts.get(f"{name}<{cp}>", 0) > 0, f"{name}<{cp}> has no HMMA/HGMMA")
     for d in (32, 64, 128):
         for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel"):
             check(counts.get(f"{name}<bf16, {d}>", 0) > 0, f"{name} D={d} has no HMMA/HGMMA")
@@ -350,11 +370,14 @@ def compare_infonce(fi, q, k, queue, t, g_lse, what):
 
 
 def infonce_kernel_phase(fi):
-    """Both InfoNCE kernels against their plain versions, a small shape,
-    the path's shape and an odd one; and the width limit."""
+    """Both InfoNCE kernels against their plain versions: a small shape,
+    the path's shape, an odd one, the widest, a width that is no multiple
+    of 8 over more than one CTA's rows, and K of 1 and 7 (one partial
+    tile); two calls giving the same bits; and the width limit."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for b, kk, c in ((8, 4096, DIM), (256, K, DIM), (7, 1000, 20)):
+    for b, kk, c in ((8, 4096, DIM), (256, K, DIM), (7, 1000, 20), (64, 8192, fi.MAX_C),
+                     (300, 5000, 100), (8, 1, DIM), (8, 7, DIM)):
         q, k, queue = (torch.nn.functional.normalize(
             torch.randn(shape, generator=gen, device="cuda"), dim=-1)
             for shape in ((b, c), (b, c), (kk, c)))
@@ -362,6 +385,13 @@ def infonce_kernel_phase(fi):
                               f"B={b} K={kk} C={c}")
         worst["fwd"] = max(worst["fwd"], err["pos"], err["lse"])
         worst["bwd"] = max(worst["bwd"], err["dq"])
+        if (b, kk) == (256, K):  # no atomics: a second call gives the same bits
+            g = torch.full((b,), 1.0 / b, device="cuda")
+            first = fi.infonce_stats(q, k, queue, 0.2)
+            again = fi.infonce_stats(q, k, queue, 0.2)
+            dq1, dq2 = (fi.infonce_dq(q, queue, first[1], g, 0.2) for _ in range(2))
+            check(all(torch.equal(x, y) for x, y in zip(first + (dq1,), again + (dq2,))),
+                  "infonce kernels: two calls on the same inputs differ")
     wide = torch.zeros(2, fi.MAX_C + 4, device="cuda")
     try:
         fi.infonce_stats(wide, wide, torch.zeros(64, fi.MAX_C + 4, device="cuda"), 0.2)
@@ -372,23 +402,28 @@ def infonce_kernel_phase(fi):
     return worst
 
 
-def infonce_bound_ms(b, kk, c, backward):
+def infonce_bound_ms(b, kk, c, backward, f32_fma=False):
     """Least time for one InfoNCE call: the bytes it must move (q, k or
     lse and g, the queue once; pos, lse and n_above or dq once) over the
-    memory rate, against its f32 multiply-adds (2BKC forward, 4BKC
-    backward, which recomputes the scores) over the f32 rate."""
+    memory rate, against its products done f32-exact on the TF32 tensor
+    cores (three split products each: 3 x 2BKC forward, 3 x 4BKC backward,
+    which recomputes the scores) over the TF32 rate. Returns (ms, what
+    bounds it); with `f32_fma` the products count once, as f32 FMAs over
+    the f32 rate, the bound the CUDA-core kernels of earlier versions were
+    held to."""
     if backward:
         bytes_, flops = 4 * (2 * b * c + kk * c + 2 * b), 4 * b * kk * c
     else:
         bytes_, flops = 4 * (2 * b * c + kk * c + 3 * b), 2 * b * kk * c
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    t_bytes = bytes_ / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_F32_FLOPS if f32_fma else 3 * flops / PEAK_TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 KERNEL_GROUPS = (  # (group, substrings of the CUDA kernel names it takes), first match wins
     ("flash_attention", ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_dq_kernel",
                          "flash_dq_mma_kernel", "flash_dkv_kernel", "flash_dkv_mma_kernel")),
-    ("infonce", ("fwd_partial_kernel", "fwd_merge_kernel", "bwd_partial_kernel",
+    ("infonce", ("infonce_fwd_mma_kernel", "fwd_merge_kernel", "infonce_bwd_mma_kernel",
                  "bwd_reduce_kernel")),
     ("batch_norm", ("batch_norm",)),
     ("conv_gemm", ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "wgrad", "dgrad",
@@ -540,6 +575,10 @@ def train_phase(fi):
          path_err, 71),
     ):
         bound, bound_by = infonce_bound_ms(b, K, DIM, backward)
+        print(f"kernel {name}: f32_fma_bound_ms="
+              f"{infonce_bound_ms(b, K, DIM, backward, f32_fma=True)[0]} (the same products as"
+              f" f32 FMAs on the CUDA cores; bound_ms={bound} counts them split on the TF32"
+              f" tensor cores)", flush=True)
         kernels.append({
             "name": name, "route": "cuda", "source": "moco_tpu_torch/csrc/infonce.cu",
             "replaces": f"moco_tpu/ops/fused_infonce.py:{src_line}",

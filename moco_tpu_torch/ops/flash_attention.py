@@ -42,38 +42,46 @@ KERNELS = {
 }
 
 
-def _einsum_f32(eq: str, *xs):
-    return torch.einsum(eq, *(x.float() for x in xs))
+def _einsum_f64(eq: str, *xs):
+    return torch.einsum(eq, *(x.double() for x in xs))
+
+
+# The plain versions compute in float64 and round once at the end, so they
+# are exact in f32 whatever precision the host's f32 matrix products run
+# at (an f32 product taken as bf16 pieces moves lse by ~1e-5 at S = 145).
+# For bf16 inputs the logits, p and dS are not rounded to bf16 in between:
+# the TPU `_flash_kernel` keeps its logits in f32, as the CUDA kernels do,
+# where `_attn_reference` (:51-53) rounds them through a bf16 einsum.
 
 
 def attention_reference(q, k, v, scale: float):
-    """Plain version of the forward, as `_attn_reference` (:51): (out in
-    q's dtype, lse in f32)."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    """Plain version of the forward, `_attn_reference` (:51) in float64:
+    (out in q's dtype, lse in f32)."""
+    logits = _einsum_f64("bhqd,bhkd->bhqk", q, k) * scale
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.exp(logits - lse[..., None])
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
-    return out.to(q.dtype), lse
+    out = _einsum_f64("bhqk,bhkd->bhqd", probs, v)
+    return out.to(q.dtype), lse.float()
 
 
 def _probs_and_ds(q, k, v, g, lse, coeff, scale: float):
-    """p = exp(q.k^T scale - lse) and ds = p (g.v^T + coeff), in f32."""
-    p = torch.exp(_einsum_f32("bhqd,bhkd->bhqk", q, k) * scale - lse[..., None])
-    return p, p * (_einsum_f32("bhqd,bhkd->bhqk", g, v) + coeff[..., None])
+    """p = exp(q.k^T scale - lse) and ds = p (g.v^T + coeff), in float64."""
+    p = torch.exp(_einsum_f64("bhqd,bhkd->bhqk", q, k) * scale - lse.double()[..., None])
+    return p, p * (_einsum_f64("bhqd,bhkd->bhqk", g, v) + coeff.double()[..., None])
 
 
 def flash_dq_reference(q, k, v, g, lse, coeff, scale: float):
-    """Plain dq = scale * ds.k, as `_flash_backward_jnp` (:337) computes it
-    in f32; coeff = g_lse - sum(g * out)."""
+    """Plain dq = scale * ds.k, `_flash_backward_jnp` (:337) in float64;
+    coeff = g_lse - sum(g * out)."""
     _, ds = _probs_and_ds(q, k, v, g, lse, coeff, scale)
-    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale).to(q.dtype)
+    return (_einsum_f64("bhqk,bhkd->bhqd", ds, k) * scale).to(q.dtype)
 
 
 def flash_dkv_reference(q, k, v, g, lse, coeff, scale: float):
-    """Plain (dk, dv): dk = scale * ds^T.q and dv = p^T.g, in f32."""
+    """Plain (dk, dv): dk = scale * ds^T.q and dv = p^T.g, in float64."""
     p, ds = _probs_and_ds(q, k, v, g, lse, coeff, scale)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, g.float())
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = _einsum_f64("bhqk,bhqd->bhkd", p, g)
+    dk = _einsum_f64("bhqk,bhqd->bhkd", ds, q) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -93,19 +101,19 @@ def flash_backward_reference(q, k, v, out, lse, g, g_lse, scale: float):
 
 
 def abs_term_sums(q, k, v, g, lse, coeff, scale: float) -> dict:
-    """The largest sum of absolute terms behind each output, in f32:
+    """The largest sum of absolute terms behind each output:
     out = sum_k p v / l, dq = scale sum_k ds k, dk = scale sum_q ds q,
     dv = sum_q p g. Rounding p or ds and the output to bf16 (2^-8 relative
     each: bf16 keeps 8 significant bits, as the kernels do) moves an output
     by at most 2^-7 of this sum, which therefore scales the bf16 tolerance
-    of a kernel against its plain f32 version on the same bf16 inputs."""
+    of a kernel against its plain version on the same bf16 inputs."""
     p, ds = _probs_and_ds(q, k, v, g, lse, coeff, scale)
     p, ds = p.abs(), ds.abs()
     return {
-        "out": _einsum_f32("bhqk,bhkd->bhqd", p, v.abs()).max().item(),
-        "dq": scale * _einsum_f32("bhqk,bhkd->bhqd", ds, k.abs()).max().item(),
-        "dk": scale * _einsum_f32("bhqk,bhqd->bhkd", ds, q.abs()).max().item(),
-        "dv": _einsum_f32("bhqk,bhqd->bhkd", p, g.abs()).max().item(),
+        "out": _einsum_f64("bhqk,bhkd->bhqd", p, v.abs()).max().item(),
+        "dq": scale * _einsum_f64("bhqk,bhkd->bhqd", ds, k.abs()).max().item(),
+        "dk": scale * _einsum_f64("bhqk,bhqd->bhkd", ds, q.abs()).max().item(),
+        "dv": _einsum_f64("bhqk,bhqd->bhkd", p, g.abs()).max().item(),
     }
 
 

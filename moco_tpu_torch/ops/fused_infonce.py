@@ -3,13 +3,15 @@ gradient without materializing the (B, 1+K) logits.
 
 The port of moco_tpu/ops/fused_infonce.py. Its two TPU kernels,
 `_fwd_kernel` (:40) and `_bwd_kernel` (:71), are the hand-written CUDA
-kernels of `csrc/infonce.cu` (its source note gives the bound and the
-split-K design). `infonce_stats` and `infonce_dq` launch them for CUDA
-tensors and take the plain versions `infonce_stats_reference` and
-`infonce_dq_reference` only for CPU tensors; there is no fallback from one
-to the other. `InfoNCEStats` is the `custom_vjp` (:137-196) as an autograd
-function: a gradient for q only, the positive term added outside the
-kernel as `_vjp_bwd` does (:189-192).
+kernels of `csrc/infonce.cu`: split-TF32 products on the tensor cores
+and a `cp.async` ring over the queue (its source note gives the bound,
+the precision argument and the split-K design). `infonce_stats` and
+`infonce_dq` launch them for CUDA tensors and take the plain versions
+`infonce_stats_reference` and `infonce_dq_reference` only for CPU
+tensors; there is no fallback from one to the other. `InfoNCEStats` is
+the `custom_vjp` (:137-196) as an autograd function: a gradient for q
+only, the positive term added outside the kernel as `_vjp_bwd` does
+(:189-192).
 """
 
 from __future__ import annotations
@@ -20,9 +22,21 @@ import torch
 
 from moco_tpu_torch.ops import build
 
-TILE_ROWS = 64  # queue rows per tile and query rows per CTA in the kernels
-MAX_C = 256  # the kernels keep a CTA's query rows and one tile in shared memory
-TARGET_CTAS = 264  # two CTAs on each of an H100's 132 SMs
+TILE_ROWS = 64  # queue rows per tile of the split plan
+MAX_C = 256  # the kernels keep a CTA's query rows and two queue stages in shared memory
+TARGET_CTAS = 132  # one CTA on each of an H100's 132 SMs (160-224 KiB of shared memory each)
+
+
+def query_rows(width: int, forward: bool) -> int:
+    """Query rows per CTA of the forward or backward kernel at C = width, as
+    the library tiles them (`infonce_query_rows`)."""
+    fn = build.load("infonce").infonce_query_rows
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    rows = fn(width, int(forward))
+    if rows <= 0:
+        raise ValueError(f"the InfoNCE kernels take 0 < C <= {MAX_C}, got C={width}")
+    return rows
 
 
 def infonce_stats_reference(q, k, queue, temperature: float):
@@ -43,12 +57,12 @@ def infonce_dq_reference(q, queue, lse, g_lse, temperature: float):
     return (p_neg * g_lse[:, None]) @ queue * inv_t
 
 
-def split_plan(batch: int, num_keys: int) -> tuple[int, int]:
+def split_plan(batch: int, num_keys: int, rows: int) -> tuple[int, int]:
     """(n_split, tiles_per_split): the queue's 64-row tiles cut into
-    contiguous runs, enough runs that ceil(B/64) * n_split CTAs give every
-    SM about two."""
+    contiguous runs, enough runs that ceil(B/rows) * n_split CTAs give every
+    SM about one; `rows` is the kernel's `query_rows`."""
     tiles = -(-num_keys // TILE_ROWS)
-    row_blocks = -(-batch // TILE_ROWS)
+    row_blocks = -(-batch // rows)
     n_split = min(tiles, max(1, -(-TARGET_CTAS // row_blocks)))
     per_split = -(-tiles // n_split)
     return -(-tiles // per_split), per_split
@@ -92,7 +106,7 @@ def infonce_stats(q, k, queue, temperature: float):
                 {"q": q, "k": k, "queue": queue})
     if b == 0 or kk == 0:
         raise ValueError(f"infonce_stats needs B > 0 and K > 0, got B={b}, K={kk}")
-    n_split, per_split = split_plan(b, kk)
+    n_split, per_split = split_plan(b, kk, query_rows(c, forward=True))
     f32 = dict(dtype=torch.float32, device=q.device)
     pos, lse = torch.empty(b, **f32), torch.empty(b, **f32)
     above = torch.empty(b, dtype=torch.int32, device=q.device)
@@ -127,7 +141,7 @@ def infonce_dq(q, queue, lse, g_lse, temperature: float):
                 {"q": q, "queue": queue, "lse": lse, "g_lse": g_lse})
     if b == 0 or kk == 0:
         raise ValueError(f"infonce_dq needs B > 0 and K > 0, got B={b}, K={kk}")
-    n_split, per_split = split_plan(b, kk)
+    n_split, per_split = split_plan(b, kk, query_rows(c, forward=False))
     dq_part = torch.empty(n_split, b, c, dtype=torch.float32, device=q.device)
     dq = torch.empty(b, c, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

@@ -3,13 +3,19 @@ with the JAX package's on the CPU.
 
 On CPU tensors the port's wrappers take their plain versions; JAX runs
 its Pallas kernels in interpret mode (S >= 128) or its dense branch
-(S < 128). Both get the same numpy inputs and run in float32.
+(S < 128). Both get the same numpy inputs; JAX runs in float32, the
+port's plain versions in float64, rounded once to float32.
 Tolerances: 1e-5 absolute on O(1) outputs, lse and gradients (float32
 sums over at most 256 keys, taken in another order by the two packages).
 """
 
 import importlib
+import json
+import os
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +52,64 @@ def test_forward_matches_jax(s):
     out, lse = flash.flash_attention_with_lse(_t(q), _t(k), _t(v))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), atol=TOL, rtol=0)
     np.testing.assert_allclose(lse.detach().numpy(), np.asarray(want_lse), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "medium"])
+def test_attention_reference_is_exact_whatever_the_f32_matmul_precision(precision):
+    """The plain forward (the CPU path of flash_forward, and the kernels'
+    yardstick on the card) against a float64 oracle at the shape of
+    test_forward_matches_jax[145], with the host's f32 matrix products set
+    to each precision torch offers ("medium" takes them as bf16 pieces).
+    Exact to 1e-6 in every setting; an f32 plain version is 2e-3 off under
+    "medium"."""
+    q, k, v = _inputs(145, 2, 3, 145, 64)
+    scale = 64 ** -0.5
+    logits = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k.astype(np.float64)) * scale
+    top = logits.max(-1, keepdims=True)
+    want_lse = top[..., 0] + np.log(np.exp(logits - top).sum(-1))
+    want_out = np.einsum("bhqk,bhkd->bhqd", np.exp(logits - want_lse[..., None]), v)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        out, lse = flash.attention_reference(_t(q), _t(k), _t(v), scale)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert np.abs(lse.numpy() - want_lse).max() <= 1e-6
+    assert np.abs(out.numpy() - want_out).max() <= 1e-6
+
+
+_FIRST_CALL = """
+import importlib, json
+import jax.numpy as jnp, numpy as np, torch
+from moco_tpu_torch.ops import flash_attention as flash
+jax_flash = importlib.import_module("moco_tpu.ops.flash_attention")
+rng = np.random.default_rng(145)
+q, k, v = (rng.standard_normal((2, 3, 145, 64)).astype(np.float32) for _ in range(3))
+want_out, want_lse = jax_flash.flash_attention_with_lse(
+    jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+out, lse = flash.flash_attention_with_lse(*(torch.from_numpy(x) for x in (q, k, v)))
+print(json.dumps({"out": float(np.abs(out.numpy() - np.asarray(want_out)).max()),
+                  "lse": float(np.abs(lse.numpy() - np.asarray(want_lse)).max())}))
+"""
+
+
+def test_forward_matches_jax_on_the_first_call_of_fresh_processes():
+    """test_forward_matches_jax[145] as the first call of 4 fresh
+    processes, each after JAX's interpret kernel has run: the setting in
+    which an f32 plain forward was seen to drift by 3.7-4.3e-5 in about 4%
+    of processes on one host (ROADMAP.md queue 3; the cause is not
+    confirmed, and the drift is rare, so a pass here is no proof)."""
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_CALL], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=300)
+        assert proc.returncode == 0, stderr[-2000:]
+        err = json.loads(stdout.strip().splitlines()[-1])
+        assert err["out"] <= TOL and err["lse"] <= TOL, err
 
 
 @pytest.mark.parametrize("s,d", [(145, 64), (256, 32), (65, 64)])

@@ -11,9 +11,9 @@ need not have.)
 
 Tolerances. IVF cell scan: max |kernel - plain| <= 1e-5 on unit-norm f32
 rows (FMA order over d differs between the kernel's warp reduction and
-cuBLAS). InfoNCE on unit rows at T = 0.2: pos <= 1e-5, lse <= 1e-4 (the
-kernel merges per-split logsumexps, the plain version takes one over the
-row), n_above on every row between the float64 count of logits above
+cuBLAS). InfoNCE on unit rows at T = 0.2 (split-TF32 products on the
+tensor cores, f32-level): pos <= 1e-5, lse <= 1e-4 (the kernel merges
+per-split logsumexps, the plain version takes one over the row), n_above on every row between the float64 count of logits above
 pos by more than 1e-5 and that count plus the near ties within 1e-5 (a
 discrete count flips on a rounding difference only there), and
 max |dq - plain| <= 1e-4 * max |plain| + 1e-6. Flash attention (forward,
@@ -48,6 +48,7 @@ from moco_tpu_torch.ops.fused_infonce import (
     infonce_dq_reference,
     infonce_stats,
     infonce_stats_reference,
+    query_rows,
 )
 from moco_tpu_torch.ops.ivf_scan import fused_cell_scores, fused_cell_scores_reference
 from moco_tpu_torch.utils.config import DataConfig, MocoConfig, OptimConfig, TrainConfig
@@ -122,7 +123,10 @@ def _count_window(q, k, rows, t, tol=1e-5):
 @pytest.mark.parametrize(
     "b,kk,c,tie_rows",
     [(256, 65536, 128, 0), (8, 4096, 128, 0), (7, 1000, 20, 0), (70, 1000, 33, 0),
-     (16, 130, 128, 0), (32, 4096, 128, 8)],
+     (16, 130, 128, 0), (32, 4096, 128, 8),
+     # the widest C (64-row CTAs), a C no multiple of 8 over three CTAs'
+     # rows, and K inside one partial tile
+     (64, 4096, 256, 0), (300, 5000, 100, 0), (8, 1, 128, 0), (8, 7, 128, 0)],
 )
 def test_infonce_kernels_match_plain(cuda, b, kk, c, tie_rows):
     t = 0.2
@@ -144,6 +148,20 @@ def test_infonce_kernels_match_plain(cuda, b, kk, c, tie_rows):
         assert (hi > lo)[:tie_rows].all()
     dq_p = infonce_dq_reference(q, queue, lse_p, g, t)
     assert (dq - dq_p).abs().max().item() <= 1e-4 * dq_p.abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("b,kk,c", [(256, 65536, 128), (300, 5000, 100)])
+def test_infonce_kernels_give_the_same_bits_twice(cuda, b, kk, c):
+    """No atomics: the split partials are merged in split order, so two
+    calls on the same inputs give the same pos, lse, n_above and dq."""
+    gen = torch.Generator(device=cuda).manual_seed(b + c)
+    q, k, queue = _infonce_inputs(b, kk, c, gen, cuda)
+    g = torch.rand(b, generator=gen, device=cuda)
+    first, again = (infonce_stats(q, k, queue, 0.2) for _ in range(2))
+    dq1, dq2 = (infonce_dq(q, queue, first[1], g, 0.2) for _ in range(2))
+    torch.cuda.synchronize()
+    for x, y in zip(first + (dq1,), again + (dq2,)):
+        assert torch.equal(x, y)
 
 
 def test_fused_infonce_loss_gradient_matches_plain(cuda):
@@ -324,6 +342,18 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="must be torch.float32"):
         flash_dq(x, x, x, x, torch.zeros(1, 2, 8, device=cuda, dtype=torch.bfloat16),
                  torch.zeros(1, 2, 8, device=cuda), 1.0)
+
+
+def test_infonce_query_rows_come_from_the_kernels_library(cuda):
+    """The split plan's query rows per CTA, read from csrc/infonce.cu: whole
+    m16 tiles for every C the kernels take, at least as many in the forward
+    (two tiles per warp) as in the backward; other C refused."""
+    for c in range(1, MAX_C + 1):
+        fwd, bwd = query_rows(c, forward=True), query_rows(c, forward=False)
+        assert fwd % 16 == 0 and bwd % 16 == 0 and fwd >= bwd > 0, (c, fwd, bwd)
+    for c in (0, MAX_C + 1):
+        with pytest.raises(ValueError, match="C <="):
+            query_rows(c, forward=True)
 
 
 def test_infonce_kernels_reject_what_they_do_not_take(cuda):

@@ -114,11 +114,65 @@ def test_infonce_stats_matches_pallas_kernel(b, kk, block):
 @pytest.mark.parametrize("kk", [1, 63, 64, 1000, 4096, 65536, 65537])
 def test_split_plan_covers_every_tile_once(b, kk):
     """The kernels' split of K, including K not a multiple of the 64-row
-    tile or of the split: every tile in exactly one split, none empty."""
-    n_split, per = fused_infonce.split_plan(b, kk)
-    tiles = -(-kk // 64)
-    assert n_split >= 1 and per >= 1
-    assert (n_split - 1) * per < tiles <= n_split * per
+    tile or of the split: every tile in exactly one split, none empty, for
+    query rows per CTA from one m16 tile to 16 (`query_rows` reads the
+    kernels' own from their library, on the card)."""
+    tiles = -(-kk // fused_infonce.TILE_ROWS)
+    for rows in (16, 64, 128, 256):
+        n_split, per = fused_infonce.split_plan(b, kk, rows)
+        assert n_split >= 1 and per >= 1
+        assert (n_split - 1) * per < tiles <= n_split * per
+
+
+def _tf32(x):
+    """x rounded to TF32 as csrc/infonce.cu rounds it: add half a TF32 ulp
+    and clear the 13 low bits (cvt.rna.tf32.f32)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_product_keeps_counts_and_lse_at_f32_level(seed):
+    """The precision argument of the InfoNCE kernels, emulated in numpy on
+    unit rows at T = 0.2: scores from one TF32 product (hi.hi) put n_above
+    outside its float64 window (negatives within 1e-5 of pos may go either
+    way) on some rows and move lse by more than 1e-6; the kernels' three
+    split products (lo.hi + hi.lo + hi.hi, hi = tf32(x), lo = tf32(x - hi))
+    keep every row inside its window and lse within 1e-6. Products are
+    summed in float64 and rounded to f32 as the tensor cores' f32
+    accumulator leaves them; pos is the f32 dot."""
+    rng = np.random.default_rng(seed)
+    b, kk, t = 64, 4096, 0.2
+    q, k, qu = _unit(rng, (b, 128)), _unit(rng, (b, 128)), _unit(rng, (kk, 128))
+    neg64 = q.astype(np.float64) @ qu.astype(np.float64).T / t
+    pos64 = (q.astype(np.float64) * k).sum(1) / t
+    diff = neg64 - pos64[:, None]
+    lo = (diff > 1e-5).sum(1)
+    hi = lo + (np.abs(diff) <= 1e-5).sum(1)
+
+    def lse(pos, neg):
+        x = np.concatenate([pos[:, None], neg], 1).astype(np.float64)
+        m = x.max(1, keepdims=True)
+        return m[:, 0] + np.log(np.exp(x - m).sum(1))
+
+    want = lse(pos64, neg64)
+    pos = (q * k).sum(1, dtype=np.float32) * np.float32(1 / t)
+    q_hi, qu_hi = _tf32(q), _tf32(qu)
+    q_lo, qu_lo = _tf32(q - q_hi), _tf32(qu - qu_hi)
+
+    def product(x, y):
+        return x.astype(np.float64) @ y.astype(np.float64).T
+
+    outside, lse_err = {}, {}
+    for name, acc in (("one", product(q_hi, qu_hi)),
+                      ("split", product(q_lo, qu_hi) + product(q_hi, qu_lo)
+                       + product(q_hi, qu_hi))):
+        s = acc.astype(np.float32) * np.float32(1 / t)
+        count = (s > pos[:, None]).sum(1)
+        outside[name] = int(((count < lo) | (count > hi)).sum())
+        lse_err[name] = float(np.abs(lse(pos, s) - want).max())
+    assert outside["split"] == 0 and lse_err["split"] <= 1e-6, (outside, lse_err)
+    assert outside["one"] > 0 and lse_err["one"] > 1e-6, (outside, lse_err)
 
 
 # ------------------------------------------------------- EMA, queue, schedules
