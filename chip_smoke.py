@@ -9,18 +9,23 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 2. Build: every kernel under moco_tpu_torch/csrc/ is compiled by nvcc for
    sm_90a, one process per source, all started together; ptxas's registers
-   and spills are printed per kernel. Then `cuobjdump -sass` of the flash
-   and InfoNCE libraries: every bf16 tensor-core forward, dq and dk/dv
+   and spills are printed per kernel. Then `cuobjdump -sass` of the flash,
+   InfoNCE and IVF libraries: every bf16 tensor-core forward, dq and dk/dv
    instantiation (flash_fwd_mma_kernel, flash_dq_mma_kernel,
-   flash_dkv_mma_kernel) and every split-TF32 InfoNCE forward and
-   backward instantiation (infonce_fwd_mma_kernel, infonce_bwd_mma_kernel,
-   padded widths 32 / 64 / 128 / 256) must hold HMMA/HGMMA instructions
-   and the f32 CUDA-core flash ones (flash_fwd_kernel, flash_dq_kernel,
-   flash_dkv_kernel) none; the counts are printed.
+   flash_dkv_mma_kernel), every split-TF32 InfoNCE forward and backward
+   instantiation (infonce_fwd_mma_kernel, infonce_bwd_mma_kernel, padded
+   widths 32 / 64 / 128 / 256) and every split-TF32 IVF cell-scan one
+   (cell_scores_mma_kernel, padded widths 32 to 512) must hold HMMA/HGMMA
+   instructions and the f32 CUDA-core flash ones (flash_fwd_kernel,
+   flash_dq_kernel, flash_dkv_kernel) none; the counts are printed.
 3. Kernel: each kernel's wrapper against its plain PyTorch version on the
-   card at the serving path's shapes (IVF cell scan: m in {1, 8, 32, 128},
-   d=128, nlist=256, cell_cap=512, nprobe=16), max |diff| <= 1e-5 (f32 FMA
-   order over d=128 on unit vectors).
+   card at the serving path's shapes (IVF cell scan: d=128, nlist=256,
+   cell_cap=512, nprobe=16; uniform probes at m in {1, 8, 32, 128}, and at
+   m=128 every pair in one cell, probes drawn from 20 cells (the served
+   path's skew) and every 5th id outside [0, nlist)), max |diff| <= 1e-5
+   (split-TF32 products at the f32 level, summed over d=128 in another
+   order than cuBLAS's, on unit vectors), NaN exactly where a probe is out
+   of range, and the same bits on a second call.
 4. Path, at full width: ResNet-50 + MLP head (dim 128, 224 px, the
    imagenet_v2 preset) from a seeded numpy init carried in through
    convert.encoder_from_flax; a bf16 InferenceEngine; an EmbeddingIndex of
@@ -35,8 +40,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    same features (ids equal except between rows whose true scores lie
    within 1e-5, scores within 1e-5 of the host's); bf16 against an f32
    engine on the card, cosine >= 0.99.
-6. Timing: each kernel, its plain version, its bound and one library call
-   on the path's own inputs; engine ms per bucket; query ms per tier.
+6. Timing: engine ms per bucket; query ms per tier. The IVF kernel's own
+   times come last (phase 13).
 7. InfoNCE kernels: `infonce_fwd` and `infonce_bwd` (csrc/infonce.cu,
    split-TF32 products on the tensor cores) against their plain versions
    at (B, K, C) in {(8, 4096, 128), (256, 65536, 128), (7, 1000, 20),
@@ -112,6 +117,18 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    each the f32 CUDA-core kernel on the same block in f32 (`f32_ms`); a
    torch.profiler breakdown of one step with flash_attention as its own
    group.
+13. IVF timing, after every other timing (the profiler it uses stays
+   attached to the process): the kernel, its plain version, its bound and
+   one library call on the path's own inputs. Its `ms` (CUDA events over
+   back-to-back wrapper calls: at small m, how fast the host launches it)
+   stands beside its `device_ms` (the kernel alone, torch.profiler); it is
+   timed with the served features' own probes and with uniform ones, each
+   also at buckets 1 / 8 / 32 / 128; its bound is the larger of the bytes
+   (each distinct probed cell read once) and the split-TF32 tensor-core
+   work (3 x 2 m nprobe cell_cap d at the TF32 rate). A plain-text line
+   per probe set gives what is computed rather than measured: the distinct
+   cells, the cell bytes a per-pair scan would request, the bound's bytes
+   and the f32-FMA bound of the same products.
 
 The last line of stdout is {"ok": true, "device": {...}}; the lines before
 it carry the kernel table and the timings as JSON.
@@ -120,6 +137,7 @@ it carry the kernel table and the timings as JSON.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -170,6 +188,30 @@ def cuda_ms(fn, iters: int = 50, warm: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, key: str, iters: int = 50, sessions: int = 3) -> float:
+    """Mean device time in ms of the CUDA kernels whose name holds `key`
+    per call of `fn`, under torch.profiler: the kernel alone, where
+    cuda_ms of a short kernel measures how fast the host enqueues it. A
+    session that records no such kernel (on an H100, one of ~40 sessions
+    late in a process that had profiled before recorded none while the
+    kernel ran) is run again, up to `sessions` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key)
+        if total > 0:
+            return total / iters / 1e3
+    check(False, f"{sessions} profiler sessions saw no kernel named like {key!r}")
+
+
 def host_ms(fn, iters: int = 10) -> float:
     """Median wall time of `fn` in ms, each call ending in a device sync."""
     times = []
@@ -190,11 +232,16 @@ def unit_rows(rng, n, d, centers=1024, noise=0.3):
 
 def cell_scan_bound_ms(m, nprobe, cell_cap, d, distinct_cells):
     """Least time for the cell scan: each distinct probed cell read once,
-    queries, probe ids and scores once; 2 flops per multiply-add."""
+    queries, probe ids and scores once, against the split-TF32 tensor-core
+    work (three TF32 products per product, 2 flops per multiply-add).
+    Returns (bound ms, "bytes" or "operations", bytes, the same products'
+    bound as f32 FMAs on the CUDA cores in ms)."""
     bytes_ = (distinct_cells * cell_cap * d + m * d + m * nprobe + m * nprobe * cell_cap) * 4
     flops = 2 * m * nprobe * cell_cap * d
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), bytes_
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS
+    t_fma = max(t_bytes, flops / PEAK_F32_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), bytes_,
+            t_fma * 1e3)
 
 
 def same_topk(feats, rows, got, want, what):
@@ -222,15 +269,17 @@ def nvidia_smi_line() -> str:
 
 
 FLASH_SYMBOL = re.compile(r"(flash_(?:fwd|dq|dkv)(?:_mma)?_kernel)I(\w*?)EE")
-INFONCE_SYMBOL = re.compile(r"(infonce_(?:fwd|bwd)_mma_kernel)ILi(\d+)EE")
+SPLIT_TF32_SYMBOL = re.compile(r"((?:infonce_(?:fwd|bwd)|cell_scores)_mma_kernel)ILi(\d+)EE")
 INFONCE_WIDTHS = (32, 64, 128, 256)  # the padded widths csrc/infonce.cu is built for
+IVF_WIDTHS = (32, 64, 128, 256, 512)  # and csrc/ivf_cell_scores.cu
 
 
 def short_name(mangled: str) -> str:
     """'flash_fwd_mma_kernel<bf16, 64>' for a flash kernel's mangled name,
-    'infonce_fwd_mma_kernel<128>' for an InfoNCE one; other names as they
-    are, cut to 80 characters."""
-    found = INFONCE_SYMBOL.search(mangled)
+    'infonce_fwd_mma_kernel<128>' for an InfoNCE one,
+    'cell_scores_mma_kernel<128>' for an IVF one; other names as they are,
+    cut to 80 characters."""
+    found = SPLIT_TF32_SYMBOL.search(mangled)
     if found:
         return f"{found[1]}<{found[2]}>"
     m = FLASH_SYMBOL.search(mangled)
@@ -256,12 +305,12 @@ def print_ptxas(logs: dict) -> None:
 
 
 def tensor_core_check(build) -> dict:
-    """HMMA/HGMMA instructions per kernel in the flash and InfoNCE
+    """HMMA/HGMMA instructions per kernel in the flash, InfoNCE and IVF
     libraries' SASS; fails unless every bf16 flash forward, dq and dk/dv
-    kernel and every InfoNCE forward and backward kernel has some and the
-    f32 flash ones have none."""
+    kernel, every InfoNCE forward and backward kernel and every IVF
+    cell-scan kernel has some and the f32 flash ones have none."""
     counts = {}
-    for lib in ("flash_attention", "infonce"):
+    for lib in ("flash_attention", "infonce", "ivf_cell_scores"):
         sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         kernel = None
@@ -275,6 +324,9 @@ def tensor_core_check(build) -> dict:
     for cp in INFONCE_WIDTHS:
         for name in ("infonce_fwd_mma_kernel", "infonce_bwd_mma_kernel"):
             check(counts.get(f"{name}<{cp}>", 0) > 0, f"{name}<{cp}> has no HMMA/HGMMA")
+    for cp in IVF_WIDTHS:
+        check(counts.get(f"cell_scores_mma_kernel<{cp}>", 0) > 0,
+              f"cell_scores_mma_kernel<{cp}> has no HMMA/HGMMA")
     for d in (32, 64, 128):
         for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel"):
             check(counts.get(f"{name}<bf16, {d}>", 0) > 0, f"{name} D={d} has no HMMA/HGMMA")
@@ -284,41 +336,130 @@ def tensor_core_check(build) -> dict:
     return counts
 
 
+def skewed_probes(m, nprobe, gen, cells=20):
+    """(m, nprobe) probe ids drawn from `cells` random cells of NLIST: the
+    served features probe ~19 of 256."""
+    hot = torch.randperm(NLIST, generator=gen, device="cuda")[:cells].int()
+    return hot[torch.randint(0, cells, (m, nprobe), generator=gen, device="cuda")].contiguous()
+
+
 def kernel_phase(ivf_scan):
-    """The cell-scan kernel against its plain version at the path's shapes."""
+    """The cell-scan kernel against its plain version at the path's shapes:
+    uniform probes at m in {1, 8, 32, 128}; at m=128 every pair in one
+    cell, probes from 20 cells, and every 5th id outside [0, NLIST) (NaN
+    there, nowhere else); and the same bits on a second call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = torch.randn((NLIST, 2 * K // NLIST, DIM), generator=gen, device="cuda")
     cell_rows = rows / rows.norm(dim=-1, keepdim=True)
-    worst = 0.0
+    cases = []
     for m in (1, 8, 32, 128):
+        cases.append((f"uniform m={m}", m, torch.randint(
+            0, NLIST, (m, NPROBE), generator=gen, device="cuda", dtype=torch.int32)))
+    cases.append(("one cell m=128", 128,
+                  torch.full((128, NPROBE), NLIST // 3, device="cuda", dtype=torch.int32)))
+    cases.append(("skewed m=128", 128, skewed_probes(128, NPROBE, gen)))
+    invalid = torch.randint(0, NLIST, (128, NPROBE), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    every5 = torch.arange(0, invalid.numel(), 5, device="cuda")
+    invalid.view(-1)[every5] = torch.where(every5 % 2 == 0, -1 - every5, NLIST + every5).int()
+    cases.append(("invalid m=128", 128, invalid))
+    worst = 0.0
+    for what, m, probes in cases:
         q = torch.randn((m, DIM), generator=gen, device="cuda")
         q = q / q.norm(dim=-1, keepdim=True)
-        probes = torch.randint(0, NLIST, (m, NPROBE), generator=gen, device="cuda",
-                               dtype=torch.int32)
         got = ivf_scan.fused_cell_scores(q, cell_rows, probes)
+        again = ivf_scan.fused_cell_scores(q, cell_rows, probes)
         torch.cuda.synchronize()
-        err = (got - ivf_scan.fused_cell_scores_reference(q, cell_rows, probes)).abs().max().item()
-        print(f"kernel ivf_cell_scores m={m}: max_abs_err={err:.3g}", flush=True)
-        check(err <= 1e-5, f"ivf_cell_scores m={m} max |kernel - plain| = {err}")
+        bad = (probes < 0) | (probes >= NLIST)
+        want = ivf_scan.fused_cell_scores_reference(q, cell_rows, probes.clamp(0, NLIST - 1))
+        err = (got - want)[~bad].abs().max().item()
+        nan_ok = torch.equal(got.isnan(), bad[:, :, None].expand_as(got))
+        same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        print(f"kernel ivf_cell_scores {what}: max_abs_err={err:.3g} "
+              f"distinct_cells={int(torch.unique(probes[~bad]).numel())} "
+              f"nan_exactly_at_invalid={nan_ok} same_bits={same}", flush=True)
+        check(err <= SCORE_TOL, f"ivf_cell_scores {what} max |kernel - plain| = {err}")
+        check(nan_ok, f"ivf_cell_scores {what}: NaN not exactly where a probe is out of range")
+        check(same, f"ivf_cell_scores {what}: a second call gave other bits")
         worst = max(worst, err)
     return worst
 
 
+def cell_scan_counts(probes, cell_rows):
+    """What one cell-scan call must move and do, computed from its probes:
+    the bound, the distinct cells and the bytes (for a plain-text line; the
+    `kernels` line takes only the bound)."""
+    (m, nprobe), (_, cell_cap, d) = probes.shape, cell_rows.shape
+    distinct = int(torch.unique(probes).numel())
+    bound, bound_by, bytes_, f32_fma = cell_scan_bound_ms(m, nprobe, cell_cap, d, distinct)
+    return {"bound_ms": bound, "bound_by": bound_by, "distinct_cells": distinct,
+            "bound_bytes": bytes_, "requested_bytes": m * nprobe * cell_cap * d * 4,
+            "f32_fma_bound_ms": f32_fma}
+
+
 def time_cell_scan(ivf_scan, q, cell_rows, probes):
+    """The kernel's ms (CUDA events over back-to-back calls) and device ms
+    (torch.profiler), the plain version's and the library call's, with the
+    bound; and the call's counts."""
     m, nprobe = probes.shape
     _, cell_cap, d = cell_rows.shape
     gathered = cell_rows[probes.long()].reshape(m, nprobe * cell_cap, d)
-    distinct = int(torch.unique(probes).numel())
-    bound, bound_by, bytes_ = cell_scan_bound_ms(m, nprobe, cell_cap, d, distinct)
+    run = functools.partial(ivf_scan.fused_cell_scores, q, cell_rows, probes)
+    counts = cell_scan_counts(probes, cell_rows)
     return {
-        "ms": cuda_ms(lambda: ivf_scan.fused_cell_scores(q, cell_rows, probes)),
+        "ms": cuda_ms(run),
+        "device_ms": kernel_device_ms(run, "cell_scores"),
         "plain_ms": cuda_ms(lambda: ivf_scan.fused_cell_scores_reference(q, cell_rows, probes)),
         "library_ms": cuda_ms(lambda: torch.bmm(gathered, q[:, :, None])),
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "distinct_cells": distinct,
-        "bound_bytes": bytes_,
-        "requested_bytes": m * nprobe * cell_cap * d * 4,
+        "bound_ms": counts["bound_ms"],
+        "bound_by": counts["bound_by"],
+    }, counts
+
+
+def cell_scan_by_bucket(ivf_scan, feats, cell_rows, probes, buckets):
+    """The kernel's ms and device ms with the bound at each bucket b (the
+    first b rows of queries and probes); and each bucket's counts."""
+    times, counts = {}, {}
+    for b in buckets:
+        bq, bp = feats[:b].contiguous(), probes[:b].contiguous()
+        run = functools.partial(ivf_scan.fused_cell_scores, bq, cell_rows, bp)
+        counts[b] = cell_scan_counts(bp, cell_rows)
+        times[b] = {"ms": cuda_ms(run), "device_ms": kernel_device_ms(run, "cell_scores"),
+                    "bound_ms": counts[b]["bound_ms"], "bound_by": counts[b]["bound_by"]}
+    return times, counts
+
+
+def ivf_timing_phase(ivf_scan, feats, cell_rows, probes, buckets, launches, max_err):
+    """The cell-scan kernel timed on the served features' own probes and on
+    uniform probes, whole and by bucket; its `kernels` entry. Run after every
+    timing of the serving and training paths: the profiler it uses stays
+    attached to the process."""
+    path_timing, path_counts = time_cell_scan(ivf_scan, feats, cell_rows, probes)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    uniform = torch.randint(0, NLIST, probes.shape, generator=gen, device="cuda", dtype=torch.int32)
+    uniform_timing, uniform_counts = time_cell_scan(ivf_scan, feats, cell_rows, uniform)
+    path_by_bucket, path_bucket_counts = cell_scan_by_bucket(ivf_scan, feats, cell_rows, probes,
+                                                             buckets)
+    by_bucket, bucket_counts = cell_scan_by_bucket(ivf_scan, feats, cell_rows, uniform, buckets)
+    for what, counts, per_bucket in (("path", path_counts, path_bucket_counts),
+                                     ("uniform", uniform_counts, bucket_counts)):
+        print(f"ivf_cell_scores {what} probes (computed, not measured; f32_fma_bound_ms is the "
+              f"same products as f32 FMAs on the CUDA cores, bound_ms counts them split on the "
+              f"TF32 tensor cores): {json.dumps(counts)}; by bucket {json.dumps(per_bucket)}",
+              flush=True)
+    return {
+        "name": "ivf_cell_scores",
+        "route": "cuda",
+        "source": "moco_tpu_torch/csrc/ivf_cell_scores.cu",
+        "replaces": "moco_tpu/serve/index.py:273",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "kernel_ms": path_timing["ms"],
+        **path_timing,
+        "by_bucket": path_by_bucket,
+        "uniform_probes": {**uniform_timing, "by_bucket": by_bucket},
+        "shape": {"m": probes.shape[0], "d": DIM, "nlist": NLIST, "cell_cap": cell_rows.shape[1],
+                  "nprobe": NPROBE},
     }
 
 
@@ -1015,32 +1156,6 @@ def main() -> int:
     check(cosine >= 0.99, f"bf16 engine vs f32 engine cosine {cosine} < 0.99")
 
     # -- timing ---------------------------------------------------------------
-    cell_rows = index._ivf_device_cell_rows()
-    probes = torch.topk(feats_t @ index._ivf["centroids"].T, NPROBE).indices.int()
-    path_timing = time_cell_scan(ivf_scan, feats_t, cell_rows, probes)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    uniform = torch.randint(0, NLIST, probes.shape, generator=gen, device="cuda", dtype=torch.int32)
-    uniform_timing = time_cell_scan(ivf_scan, feats_t, cell_rows, uniform)
-    by_bucket = {}
-    for b in engine.buckets:
-        bq, bp = feats_t[:b].contiguous(), uniform[:b].contiguous()
-        bound, _, _ = cell_scan_bound_ms(b, NPROBE, cell_rows.shape[1], DIM,
-                                         int(torch.unique(bp).numel()))
-        by_bucket[b] = {"ms": cuda_ms(lambda: ivf_scan.fused_cell_scores(bq, cell_rows, bp)),
-                        "bound_ms": bound}
-    kernels = [{
-        "name": "ivf_cell_scores",
-        "route": "cuda",
-        "source": "moco_tpu_torch/csrc/ivf_cell_scores.cu",
-        "replaces": "moco_tpu/serve/index.py:273",
-        "launches": launches["ivf_cell_scores"],
-        "max_abs_err": max_err,
-        "kernel_ms": path_timing["ms"],
-        **path_timing,
-        "uniform_probes": {**uniform_timing, "by_bucket": by_bucket},
-        "shape": {"m": 128, "d": DIM, "nlist": NLIST, "cell_cap": 2 * K // NLIST,
-                  "nprobe": NPROBE},
-    }]
     engine_ms = {b: host_ms(lambda b=b: engine.embed(imgs[:b])) for b in engine.buckets}
     query_ms = {
         mode: {b: host_ms(lambda b=b, mode=mode: index.query(feats_t[:b], TOPK, mode=mode))
@@ -1048,21 +1163,29 @@ def main() -> int:
         for mode in QUERY_MODES
     }
     print(json.dumps({"engine_ms": engine_ms, "query_ms": query_ms, "device": smi}))
-    del server, engine, f32_engine, index, model, feats_t, cell_rows
+    # kept for the kernel's own timing at the end: the cell-major copy of the
+    # index and the path's queries and probes
+    cell_rows = index._ivf_device_cell_rows()
+    probes = torch.topk(feats_t @ index._ivf["centroids"].T, NPROBE).indices.int()
+    buckets = engine.buckets
+    del server, engine, f32_engine, index, model
     torch.cuda.empty_cache()
 
     # -- training path at full width ---------------------------------------
     train_kernels, train_timing = train_phase(fused_infonce)
     for rec, worst in zip(train_kernels, (infonce_err["fwd"], infonce_err["bwd"])):
         rec["max_abs_err"] = max(rec["max_abs_err"], worst)
-    kernels += train_kernels
     print(json.dumps({"train": train_timing, "device": smi}))
     torch.cuda.empty_cache()
 
     # -- v3 path at full width -----------------------------------------------
     v3_kernels, v3_timing = v3_phase(fa, flash_err)
-    kernels += v3_kernels
     print(json.dumps({"v3": v3_timing, "device": smi}))
+
+    # -- the cell-scan kernel's own times --------------------------------------
+    ivf_kernel = ivf_timing_phase(ivf_scan, feats_t, cell_rows, probes, buckets,
+                                  launches["ivf_cell_scores"], max_err)
+    kernels = [ivf_kernel, *train_kernels, *v3_kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

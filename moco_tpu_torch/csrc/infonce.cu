@@ -88,10 +88,15 @@
 // - Keys past K get no score (masked by index); warps whose rows all lie
 //   past B do no math. No atomics: the result is the same bits on every
 //   run.
+//
+// The cp.async and TF32 mma wrappers are shared with ivf_cell_scores.cu
+// in tf32_mma.cuh.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -121,47 +126,19 @@ __device__ __forceinline__ int swz(int r, int c) {
   return c ^ ((((r >> 1) ^ ((r & 1) << 1)) & 3) << 3);
 }
 
-// ---- PTX wrappers -----------------------------------------------------
+// ---- staging and the split product ------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes from global to shared memory without waiting; the
-// destination is zero-filled instead when !valid (src must still be a
-// valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
+// As cp_async16, 4 bytes.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 4 : 0)
                : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 // Wait until at most one of this thread's committed groups (the newest
 // stage of the ring) is in flight.
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
-
-// c (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col).
-// Fragments (g = lane / 4, t = lane % 4): a = {(g, t), (g + 8, t),
-// (g, t + 4), (g + 8, t + 4)}; b = {(t, g), (t + 4, g)};
-// c = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---- the split product ------------------------------------------------
 
 // x = hi + lo with hi = tf32(x) (nearest, ties away from zero, as
 // cvt.rna.tf32.f32) and lo = x - hi exactly; lo is handed to the tensor
@@ -185,9 +162,6 @@ __device__ __forceinline__ void split4(const float x[4], uint32_t hi[4], uint32_
   }
 }
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 __device__ __forceinline__ uint32_t lds(const float* p) { return __float_as_uint(*p); }
 
 // Splits a landed stage of n floats in place (hi) and into lo.

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one `.cu` file under `moco_tpu_torch/csrc/` with a plain C
-interface. It is compiled by `nvcc` for `sm_90a` into a shared library
+interface (helpers shared between sources are `.cuh` headers there). It is compiled by `nvcc` for `sm_90a` into a shared library
 under `build/kernels/` at the repository root, named by a hash of the
 source so an edited source is rebuilt, and loaded with `ctypes`. Nothing is
 built when a module is imported: the first launch builds, and
@@ -40,8 +40,10 @@ def cuda_tool(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to (the hash pins the source)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """Where `csrc/<name>.cu` builds to (the hash pins the source and every
+    `csrc/*.cuh` header, so an edited header rebuilds what includes it)."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

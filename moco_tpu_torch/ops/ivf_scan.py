@@ -3,10 +3,23 @@ cells, (m, nprobe, cell_cap) f32.
 
 The port of the TPU kernel `_fused_cell_scores_kernel`
 (moco_tpu/serve/index.py:273) as the hand-written CUDA kernel
-`csrc/ivf_cell_scores.cu` (its source note gives the bound and design).
-`fused_cell_scores` launches it for CUDA tensors and takes the plain
-version `fused_cell_scores_reference` only for CPU tensors; there is no
-fallback from one to the other.
+`cell_scores_mma_kernel` in `csrc/ivf_cell_scores.cu`. The TPU kernel's
+grid is one step per (query, probe) pair; carried over, that re-reads a
+cell once per pair that probes it (on the served path 2048 pairs fall on
+19 cells) and leaves the card idle at small m. The kernel's work is
+cell-major instead: an item is (probed cell, 64-row chunk), numbered by
+a bitmap of the probed cells that every CTA builds from the probe ids
+itself; a CTA copies its item's chunk from device memory once, by one
+bulk copy into shared memory, gathers the queries that probe the cell,
+and scores them all from that copy. The products run on the TF32 tensor
+cores as three split products (lo.hi + hi.lo + hi.hi), which keeps the
+scores at the f32 level. The bound is bytes at the serving shapes: the
+distinct probed cells, read once. A probe id outside [0, nlist) gives
+NaN scores, each written by one CTA. The source note gives the details.
+
+`fused_cell_scores` launches the kernel for CUDA tensors and takes the
+plain version `fused_cell_scores_reference` only for CPU tensors; there
+is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -17,7 +30,8 @@ import torch
 
 from moco_tpu_torch.ops import build
 
-MAX_DIM = 512  # the kernel keeps at most 4 float4 of the query per lane
+MAX_DIM = 512  # widths are zero-padded to 32, 64, 128, 256 or 512
+MAX_PAIRS = 2**30  # m * nprobe: the kernel indexes pairs with int32
 
 
 def fused_cell_scores_reference(
@@ -67,6 +81,8 @@ def fused_cell_scores(
     nprobe = probes.shape[1]
     if d % 4 or not 0 < d <= MAX_DIM:
         raise ValueError(f"the kernel needs d % 4 == 0 and 0 < d <= {MAX_DIM}, got d={d}")
+    if m * nprobe > MAX_PAIRS:
+        raise ValueError(f"the kernel takes m * nprobe <= {MAX_PAIRS}, got {m * nprobe}")
     for name, t in (("queries", queries), ("cell_rows", cell_rows), ("probes", probes)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -114,12 +114,19 @@ def test_ivf_scans_match_jax(ivf_case, valid):
     )
 
 
-def test_cell_scores_reference_matches_pallas_interpret(ivf_case):
+@pytest.mark.parametrize("pattern", ["top_k", "one_cell", "duplicates"])
+def test_cell_scores_reference_matches_pallas_interpret(ivf_case, pattern):
     """The kernel's plain version against the Pallas kernel in interpret
-    mode, as tests/test_serve_ivf.py runs it: atol 1e-5."""
+    mode, as tests/test_serve_ivf.py runs it: atol 1e-5. Probes: each
+    query's top 4 cells; every pair in one cell; each odd probe repeating
+    the one before it (the card tests' patterns)."""
     rows, q, cent, cells = ivf_case
     cell_rows = rows[np.minimum(cells, rows.shape[0] - 1)]
-    probes = np.asarray(jax.lax.top_k(jnp.asarray(q @ cent.T), 4)[1], np.int32)
+    probes = np.array(jax.lax.top_k(jnp.asarray(q @ cent.T), 4)[1], np.int32)
+    if pattern == "one_cell":
+        probes = np.full_like(probes, 3)
+    elif pattern == "duplicates":
+        probes[:, 1::2] = probes[:, 0::2]
     want = np.asarray(jax_index._fused_cell_scores_pallas(
         jnp.asarray(q), jnp.asarray(cell_rows), jnp.asarray(probes), interpret=True
     ))
@@ -130,6 +137,44 @@ def test_cell_scores_reference_matches_pallas_interpret(ivf_case):
     launches = fused_cell_scores.launches
     np.testing.assert_array_equal(fused_cell_scores(t(q), t(cell_rows), t(probes)).numpy(), got)
     assert fused_cell_scores.launches == launches
+
+
+def _tf32(x):
+    """x rounded to TF32 as csrc/ivf_cell_scores.cu rounds hi: add half a
+    TF32 ulp and clear the 13 low bits (cvt.rna.tf32.f32)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x as the tensor cores read a TF32 operand handed to them unrounded:
+    its 13 low bits dropped."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32_product_keeps_cell_scores_at_f32_level(seed):
+    """The precision argument of the cell-scan kernel, emulated in torch at
+    the serving width (d = 128, unit rows): scores from one TF32 product
+    (hi.hi) miss the 1e-5 score gate against a float64 oracle; the
+    kernel's three split products (lo.hi + hi.lo + hi.hi, hi = tf32(x)
+    rounded, lo = x - hi as the tensor cores read it, its low bits
+    dropped), summed in float64 and rounded to f32 as the tensor cores' f32
+    accumulator leaves them, stay within 1e-6, the f32 level."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn(64, 128, generator=gen), dim=1)
+    rows = torch.nn.functional.normalize(torch.randn(4096, 128, generator=gen), dim=1)
+    want = q.double() @ rows.double().T
+    q_hi, rows_hi = _tf32(q), _tf32(rows)
+    q_lo, rows_lo = _tf32_trunc(q - q_hi), _tf32_trunc(rows - rows_hi)
+
+    def product(x, y):
+        return x.double() @ y.double().T
+
+    one = product(q_hi, rows_hi).float()
+    split = (product(q_lo, rows_hi) + product(q_hi, rows_lo) + product(q_hi, rows_hi)).float()
+    err_one = (one.double() - want).abs().max().item()
+    err_split = (split.double() - want).abs().max().item()
+    assert err_split <= 1e-6 < 1e-5 < err_one, (err_one, err_split)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "probe_dtype", "shape", "rank"])

@@ -10,8 +10,8 @@ with an H100 and the CUDA toolkit:
 need not have.)
 
 Tolerances. IVF cell scan: max |kernel - plain| <= 1e-5 on unit-norm f32
-rows (FMA order over d differs between the kernel's warp reduction and
-cuBLAS). InfoNCE on unit rows at T = 0.2 (split-TF32 products on the
+rows (the kernel's split-TF32 products are at the f32 level; their order
+over d differs from cuBLAS's). InfoNCE on unit rows at T = 0.2 (split-TF32 products on the
 tensor cores, f32-level): pos <= 1e-5, lse <= 1e-4 (the kernel merges
 per-split logsumexps, the plain version takes one over the row), n_above on every row between the float64 count of logits above
 pos by more than 1e-5 and that count plus the near ties within 1e-5 (a
@@ -68,21 +68,69 @@ def _unit(shape, gen, device):
     return x / x.norm(dim=-1, keepdim=True)
 
 
+def _probes(pattern, m, nprobe, nlist, gen, device):
+    """(m, nprobe) int32 probe ids: `uniform` draws; `one_cell`, every pair
+    in one cell; `duplicates`, each odd probe repeats the one before it;
+    `skewed`, draws from 20 cells or fewer (the served features probe ~19 of 256);
+    `invalid`, uniform with every 5th id outside [0, nlist)."""
+    draw = torch.randint(0, nlist, (m, nprobe), generator=gen, device=device, dtype=torch.int32)
+    if pattern == "one_cell":
+        return torch.full_like(draw, nlist // 2)
+    if pattern == "duplicates":
+        draw[:, 1::2] = draw[:, 0::2][:, : nprobe // 2]
+    elif pattern == "skewed":
+        hot = torch.randperm(nlist, generator=gen, device=device)[:20].int()
+        draw = hot[torch.randint(0, hot.numel(), (m, nprobe), generator=gen, device=device)]
+    elif pattern == "invalid":
+        flat = draw.view(-1)
+        k = torch.arange(0, flat.numel(), 5, device=device)
+        flat[k] = torch.where(k % 2 == 0, -1 - k, nlist + k).int()
+    return draw.contiguous()
+
+
 @pytest.mark.parametrize(
-    "m,d,nlist,cell_cap,nprobe",
-    [(1, 128, 256, 512, 16), (128, 128, 256, 512, 16), (7, 16, 8, 37, 4), (5, 132, 4, 9, 3)],
+    "m,d,nlist,cell_cap,nprobe,pattern",
+    [(1, 128, 256, 512, 16, "uniform"), (128, 128, 256, 512, 16, "uniform"),
+     (7, 16, 8, 37, 4, "uniform"), (5, 132, 4, 9, 3, "uniform"),
+     # 2048 pairs in one cell; the served path's skew; a row probing a cell twice
+     (128, 128, 256, 512, 16, "one_cell"), (128, 128, 256, 512, 16, "skewed"),
+     (32, 128, 64, 100, 8, "duplicates"),
+     # more pairs than one scan round (2048) and one batch of query rows
+     (300, 128, 64, 64, 16, "uniform"), (300, 128, 8, 64, 16, "one_cell"),
+     # the widest and narrowest padded widths; cell_cap no multiple of the chunk
+     (5, 512, 16, 40, 3, "uniform"), (9, 16, 8, 512, 4, "skewed"),
+     (11, 132, 6, 37, 5, "duplicates"),
+     # ids outside [0, nlist) mixed with valid ones: NaN exactly there
+     (6, 64, 5, 70, 4, "invalid"), (40, 256, 7, 9, 6, "invalid"),
+     # more cells than one bitmap window (8192) of probed cells
+     (50, 16, 9000, 5, 8, "uniform"), (40, 16, 9000, 3, 8, "invalid")],
 )
-def test_cell_scores_kernel_matches_plain(cuda, m, d, nlist, cell_cap, nprobe):
+def test_cell_scores_kernel_matches_plain(cuda, m, d, nlist, cell_cap, nprobe, pattern):
     gen = torch.Generator(device=cuda).manual_seed(m * 1000 + d)
     q = _unit((m, d), gen, cuda)
     cell_rows = _unit((nlist, cell_cap, d), gen, cuda)
-    probes = torch.randint(0, nlist, (m, nprobe), generator=gen, device=cuda, dtype=torch.int32)
+    probes = _probes(pattern, m, nprobe, nlist, gen, cuda)
     before = fused_cell_scores.launches
     got = fused_cell_scores(q, cell_rows, probes)
     torch.cuda.synchronize()
     assert fused_cell_scores.launches == before + 1
-    want = fused_cell_scores_reference(q, cell_rows, probes)
-    assert (got - want).abs().max().item() <= 1e-5
+    bad = (probes < 0) | (probes >= nlist)
+    want = fused_cell_scores_reference(q, cell_rows, probes.clamp(0, nlist - 1))
+    assert torch.equal(got.isnan(), bad[:, :, None].expand_as(got))
+    assert (got - want)[~bad].abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("pattern", ["uniform", "skewed", "one_cell"])
+def test_cell_scores_kernel_gives_the_same_bits_twice(cuda, pattern):
+    """One writer per score and a fixed order over d: two calls on the same
+    inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _unit((128, 128), gen, cuda)
+    cell_rows = _unit((256, 512, 128), gen, cuda)
+    probes = _probes(pattern, 128, 16, 256, gen, cuda)
+    first, again = (fused_cell_scores(q, cell_rows, probes) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_cell_scores_kernel_marks_bad_probes(cuda):

@@ -125,7 +125,7 @@ def test_split_plan_covers_every_tile_once(b, kk):
 
 
 def _tf32(x):
-    """x rounded to TF32 as csrc/infonce.cu rounds it: add half a TF32 ulp
+    """x rounded to TF32 as csrc/tf32_mma.cuh rounds it: add half a TF32 ulp
     and clear the 13 low bits (cvt.rna.tf32.f32)."""
     bits = np.asarray(x, np.float32).view(np.uint32)
     return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(np.float32)
