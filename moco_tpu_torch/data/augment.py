@@ -40,10 +40,16 @@ BLUR_TAPS = 23
 
 
 def normalize(images: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
-    """(images - mean) / std over the last (channel) axis of NHWC images."""
-    mean = torch.as_tensor(mean, dtype=images.dtype, device=images.device)
-    std = torch.as_tensor(std, dtype=images.dtype, device=images.device)
-    return (images - mean) / std
+    """(images - mean) / std over the last (channel) axis of NHWC images.
+    The statistics are filled on the images' device, not copied from the
+    host: the augment is captured in a CUDA graph, where such a copy is
+    refused."""
+
+    def on_device(values):
+        return torch.stack([torch.full((), v, dtype=images.dtype, device=images.device)
+                            for v in values])
+
+    return (images - on_device(mean)) / on_device(std)
 
 
 def eval_stats(image_size: int) -> tuple[tuple, tuple]:
@@ -55,7 +61,10 @@ def eval_stats(image_size: int) -> tuple[tuple, tuple]:
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """`x` rounded to float32, made on `device` by a fill: no host-to-device
+    copy, which would wait for the stream, and which a CUDA graph's capture
+    refuses."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def uniform_range(u: torch.Tensor, lo, hi) -> torch.Tensor:
@@ -268,12 +277,15 @@ class AugRecipe(NamedTuple):
 
 V1_RECIPE = AugRecipe("v1", True, (0.4, 0.4, 0.4, 0.4), 1.0, 0.2, 0.0)
 V2_RECIPE = AugRecipe("v2", True, (0.4, 0.4, 0.4, 0.1), 0.8, 0.2, 0.5)
+# Geometric only (crop + flip + normalize, the pretraining crop scale): the
+# BN-leak positive control's recipe (augment.py:348).
+CROPS_ONLY_RECIPE = AugRecipe("probe", True, (0.0, 0.0, 0.0, 0.0), 0.0, 0.0, 0.0, (0.2, 1.0))
 
 
-def get_recipe(aug_plus: bool, image_size: int) -> AugRecipe:
-    """v2 or v1; CIFAR-sized inputs (<= 64 px) skip blur and use the CIFAR
-    statistics (augment.py:387)."""
-    base = V2_RECIPE if aug_plus else V1_RECIPE
+def get_recipe(aug_plus: bool, image_size: int, crops_only: bool = False) -> AugRecipe:
+    """v2, v1 or crops only; CIFAR-sized inputs (<= 64 px) skip blur and
+    use the CIFAR statistics (augment.py:387)."""
+    base = CROPS_ONLY_RECIPE if crops_only else (V2_RECIPE if aug_plus else V1_RECIPE)
     if image_size <= 64:
         return base._replace(blur_prob=0.0, mean=CIFAR_MEAN, std=CIFAR_STD)
     return base
@@ -304,13 +316,17 @@ def draw_recipe(recipe: AugRecipe, generator: torch.Generator, batch: int) -> di
 
 def apply_recipe(recipe: AugRecipe, draws: dict, images: torch.Tensor, out_size: int):
     """One view from its draws (augment.py:351): crop, then v1's grayscale
-    and jitter or v2's jitter, grayscale and blur, then flip and normalize.
+    and jitter, v2's jitter, grayscale and blur, or nothing (crops only),
+    then flip and normalize.
     `images` float [0, 1] NHWC, any (H, W) >= out_size."""
     x = images
     if recipe.crop:
         _, h, w, _ = x.shape
         boxes = crop_boxes(draws["crop"], h, w, scale=recipe.crop_scale)
         x = crop_resize(x, *boxes, out_size)
+    if recipe.name == "probe":  # crop, flip and normalize only
+        x = horizontal_flip(x, draws["flip"] < 0.5)
+        return normalize(x, recipe.mean, recipe.std)
     b = x.shape[0]
     bright, contrast, sat, hue = recipe.jitter
     u = draws["jitter"]

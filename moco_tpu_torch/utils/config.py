@@ -10,7 +10,10 @@ Fields of the JAX config that the port does not run yet (the BN modes
 `vit_sequence_parallel`; LARS's `trust_coefficient`; the parallel, ZeRO,
 checkpoint, telemetry and elastic fields) are left out, so a config that
 asks for one fails at construction with a TypeError instead of being
-ignored. So are `fused_block_k`, the TPU kernel's tile (see
+ignored. So is `prefetch_donate`: it recycles a consumed staging slot's
+device buffer through XLA's donation, and PyTorch's caching allocator
+already reuses that memory; and `on_device_augment`: the port always
+augments on the device. So are `fused_block_k`, the TPU kernel's tile (see
 `fused_infonce`), and the presets that need them
 (`imagenet_v2_large_batch`, `vit_b16_v3_huge_batch_zero3`,
 `vit_b16_v3_highres_sp`).
@@ -83,10 +86,22 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    dataset: str = "synthetic"  # synthetic here; cifar10 | imagefolder come later
+    dataset: str = "synthetic"  # synthetic* | cifar10 | imagefolder (data/datasets.py)
+    data_dir: Optional[str] = None
     image_size: int = 224
     global_batch: int = 256
     aug_plus: bool = False  # v2 aug recipe (jitter + blur)
+    # Geometric-only two-crop recipe (crop + flip + normalize): the BN-leak
+    # positive control's setting; overrides aug_plus.
+    crops_only: bool = False
+    num_workers: int = 4  # host loader threads (and the native loader's)
+    # Sample the RandomResizedCrop boxes on the host against each image's
+    # original geometry and decode once / crop twice in the loader, for
+    # datasets with the host-crop protocol (imagefolder, the RGB cache);
+    # the others crop on the device from their decode canvas.
+    host_rrc: bool = True
+    # Decode-once packed RGB cache (data/cache.py), built on first use.
+    cache_dir: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +111,16 @@ class TrainConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     seed: int = 0
     steps_per_epoch: Optional[int] = None  # None = derive from the dataset size
+    # The prefetch ring (data/device_prefetch.py): a decode thread and a
+    # transfer thread keep `prefetch_depth` batches ready, copied and
+    # augmented on a side CUDA stream, while the step runs. False = each
+    # batch made serially in the loop before its step.
+    device_prefetch: bool = True
+    prefetch_depth: int = 2
+
+    def __post_init__(self):
+        if self.prefetch_depth < 1:
+            raise ValueError(f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
 
 
 def _v2(moco: MocoConfig, **kw) -> MocoConfig:

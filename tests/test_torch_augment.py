@@ -175,6 +175,27 @@ def test_apply_recipe_matches_jax(aug_plus, size, canvas):
     np.testing.assert_allclose(got * std, want * std, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("crops_only,crop,size,canvas", [
+    (True, True, 72, 80), (True, True, 32, 40), (False, False, 72, 72), (True, False, 32, 32)])
+def test_crops_only_and_precropped_recipes_match_jax(crops_only, crop, size, canvas):
+    """The crops-only recipe (crop, flip, normalize), and a recipe without
+    its crop as the host-crop path runs it on images cropped to size,
+    within 1e-5 in pixel units."""
+    b = 6
+    recipe_j = ja.get_recipe(True, size, crops_only=crops_only)._replace(crop=crop)
+    recipe_t = ta.get_recipe(True, size, crops_only=crops_only)._replace(crop=crop)
+    assert tuple(recipe_t) == tuple(recipe_j)
+    key = jax.random.PRNGKey(size + canvas + crop)
+    x = _images(b, canvas, canvas, seed=7)
+    want = _np(ja.apply_recipe(recipe_j, key, jnp.asarray(x), size))
+    draws = recipe_draws(key, b)
+    if not crop:
+        del draws["crop"]
+    got = ta.apply_recipe(recipe_t, draws, _t(x), size).numpy()
+    std = np.asarray(recipe_j.std, np.float32)
+    np.testing.assert_allclose(got * std, want * std, atol=ATOL, rtol=0)
+
+
 def test_draws_and_samplers_stay_in_range():
     gen = torch.Generator().manual_seed(0)
     d = ta.draw_recipe(ta.V2_RECIPE, gen, 64)

@@ -8,6 +8,7 @@ the same f32 encoder; convolutions sum in different orders)."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -316,11 +317,11 @@ def test_http_neighbors_round_trip(server, mode):
 
 
 def test_port_imports_no_jax():
-    """Every module of moco_tpu_torch imports with jax, flax, optax and
-    moco_tpu made unimportable."""
+    """Every module of moco_tpu_torch imports with jax, flax, optax,
+    moco_tpu and PIL (which a card's machine may lack) made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'flax', 'optax', 'moco_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'moco_tpu', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import moco_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(moco_tpu_torch.__path__, 'moco_tpu_torch.')]\n"
@@ -332,3 +333,26 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 14
+
+
+def test_port_names_no_jax_module_in_any_import():
+    """No import in moco_tpu_torch, at the top of a module or inside a
+    function, names jax, flax, optax or moco_tpu: the runtime check above
+    sees only what importing a module runs."""
+    import ast
+    from pathlib import Path
+
+    banned = {"jax", "flax", "optax", "moco_tpu"}
+    found = []
+    for path in sorted((Path(REPO) / "moco_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [(path.name, n) for n in names if n.split(".")[0] in banned]
+        calls = re.findall(r"import_module\(\s*[\"'](\w+)", path.read_text())
+        found += [(path.name, n) for n in calls if n in banned]
+    assert not found

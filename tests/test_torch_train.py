@@ -536,7 +536,7 @@ def test_train_cli_builds_a_preset(capsys):
     assert train_main(["--preset", "cifar_smoke", "--data", "synthetic", "--steps", "0",
                        "--device", "cpu"]) == 0
     assert capsys.readouterr().out == ""
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="cifar10 needs data_dir"):
         train_main(["--preset", "cifar_smoke", "--steps", "0", "--device", "cpu"])
 
 
