@@ -142,6 +142,39 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    each the f32 CUDA-core kernel on the same block in f32 (`f32_ms`); a
    torch.profiler breakdown of one ring-mode iteration with flash_attention
    as its own group.
+12b. The closed v2 loop, at full width (imagenet_v2: ResNet-50 + MLP head,
+   K = 65536, batch 256, 224 px, bf16) in a temporary workdir, deleted at
+   the end. (a) Two epochs of 3 steps on a seeded LearnableSyntheticDataset
+   through the prefetch ring, the kNN monitor every epoch (a bank of 1024,
+   256 held-out queries) and checkpoint_keep=2, the InfoNCE launch counts
+   set to 0 just before and read just after: each kernel launched once per
+   step; every metrics.jsonl line passes obs/schema.py; one knn_top1 line
+   per epoch; checkpoints at steps 3 and 6. A save of the final state is
+   timed (its bytes printed), and a restore of step 6 into a fresh state
+   must equal the run's final in-memory state bit for bit, tensor by tensor
+   (both encoders' parameters and BN statistics, the momentum buffers, the
+   queue; queue_ptr and step). Then train again with epochs=3 on the same
+   workdir: the driver's own restore must give the same bits and the run
+   resumes at step 6, epoch 2 (steps 7-9, InfoNCE once per step); with
+   ckpt_truncate on its step-9 checkpoint, restore falls back to step 6
+   and the torn file is quarantined. kNN extract and classify are timed on
+   the final query backbone, and their top-1 must equal the monitor's last;
+   the guard's snapshot copy is timed. (b) The guard: log_every=1,
+   nan@step=8 and nan@step=10, threshold 2, from a copy of the final state:
+   after step 9 (the NaN is found one step late, as in JAX) the state
+   equals step 7's bit for bit while the step counter reads 9; two
+   nonfinite_loss lines (nan_steps 1 and 2); FloatingPointError at step 10's.
+   (c) The probe: train_lincls from the workdir (ResNet-50, fc 2048 -> 8,
+   batch 256, 2 epochs of 512 images, a val split of 300: a padded, masked
+   tail), whose sanity_check holds every backbone weight and BN statistic
+   to the checkpoint's bits; evaluate_lincls on model_best gives the best
+   epoch's acc1 exactly; the probe and eval steps are timed on one batch;
+   convert_pretrain's .pth loads with strict=True into a fresh ResNet-50
+   whose features equal the probe backbone's bit for bit. (d) The learning
+   signal, tests/test_learning_signal.py's configuration (ResNet-18, CIFAR
+   stem, 32 px, dim 64, K 256, m 0.9, T 0.2, MLP, f32, lr 0.12, 4 epochs of
+   512 images at batch 64): kNN top-1 (k 32, bank 512, 128 queries) must
+   exceed 25%, twice chance; a 10-epoch probe's top-1 is printed beside it.
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -168,8 +201,10 @@ import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -201,6 +236,10 @@ TOL_SHARE = 0.125  # most a flash tolerance may be of its output's largest value
 # kernels, 9.4e-5 and 0.016 with the tensor-core ones) and for the nearer
 # of two wrong attentions (6.9e-4 and 0.055; then 4.7e-4 and 0.051)
 LOSS_REL, FEAT_REL = 4.5e-4, 0.03
+# the closed loop (phase 12b): epochs of 3 steps, a kNN bank of 1024 and 256
+# held-out queries, a probe val split of 300 (a padded tail of 44 in batches
+# of 256)
+LOOP_EPOCH_STEPS, KNN_BANK, KNN_TEST, PROBE_VAL = 3, 1024, 256, 300
 
 
 def check(ok: bool, what: str) -> None:
@@ -1318,6 +1357,257 @@ def v3_phase(fa, flash_err):
     return kernels, timing
 
 
+# ------------------------------------------------------------ the closed loop
+
+
+def state_tensors(state) -> dict:
+    """Every tensor a checkpoint or a rollback brings back, by name: both
+    encoders' parameters and BN statistics, the queue, the optimizer's
+    buffers."""
+    out = {f"q.{k}": v for k, v in state.encoder_q.state_dict().items()}
+    out.update({f"k.{k}": v for k, v in state.encoder_k.state_dict().items()})
+    if state.queue is not None:
+        out["queue"] = state.queue
+    for i, p in enumerate(p for g in state.optimizer.param_groups for p in g["params"]):
+        for k, v in state.optimizer.state.get(p, {}).items():
+            out[f"opt.{i}.{k}"] = v
+    return out
+
+
+def same_state(state, want: dict, what: str) -> None:
+    """`state`'s tensors equal `want`'s (cloned earlier), tensor by tensor,
+    bit for bit."""
+    got = state_tensors(state)
+    check(set(got) == set(want), f"{what}: tensors differ in name: {sorted(set(got) ^ set(want))[:4]}")
+    for k, v in want.items():
+        check(torch.equal(got[k], v), f"{what}: {k} differs")
+
+
+def clone_state(state) -> dict:
+    return {k: v.clone() for k, v in state_tensors(state).items()}
+
+
+def closed_loop_phase(fi, workdir):
+    """Phase 12b: the closed v2 loop at full width (module docstring), in
+    `workdir`; returns its numbers."""
+    from moco_tpu_torch import convert_pretrain, knn, lincls
+    from moco_tpu_torch import train as train_module
+    from moco_tpu_torch.core.moco import build_encoder, create_state
+    from moco_tpu_torch.data.datasets import LearnableSyntheticDataset, SyntheticDataset
+    from moco_tpu_torch.models.resnet import create_resnet
+    from moco_tpu_torch.obs.schema import read_metrics, validate_file
+    from moco_tpu_torch.train import StateSnapshot, train
+    from moco_tpu_torch.utils import faults
+    from moco_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_state_payload,
+        state_payload,
+    )
+    from moco_tpu_torch.utils.config import (
+        DataConfig,
+        MocoConfig,
+        OptimConfig,
+        ProbeConfig,
+        PRESETS,
+        TrainConfig,
+    )
+
+    out = {}
+    phase_t0 = time.perf_counter()
+    preset = PRESETS["imagenet_v2"]
+    pre = os.path.join(workdir, "pretrain")
+    cfg = dataclasses.replace(
+        preset, data=dataclasses.replace(preset.data, dataset="synthetic_learnable"),
+        optim=dataclasses.replace(preset.optim, epochs=2), steps_per_epoch=LOOP_EPOCH_STEPS,
+        workdir=pre, knn_every_epochs=1, checkpoint_keep=2)
+    train_set = LearnableSyntheticDataset(256 * LOOP_EPOCH_STEPS, IMG)
+    knn_sets = (LearnableSyntheticDataset(KNN_BANK, IMG),
+                LearnableSyntheticDataset(KNN_TEST, IMG, train=False))
+
+    # (a) pretrain two epochs, checkpoint, resume
+    fi.infonce_stats.launches = fi.infonce_dq.launches = 0  # counts from here on are the path's
+    t0 = time.perf_counter()
+    run = train(cfg, dataset=train_set, device="cuda", knn_datasets=knn_sets)
+    out["pretrain_s"] = time.perf_counter() - t0
+    steps = 2 * LOOP_EPOCH_STEPS
+    launches = {"infonce_fwd": fi.infonce_stats.launches, "infonce_bwd": fi.infonce_dq.launches}
+    check(launches == {"infonce_fwd": steps, "infonce_bwd": steps},
+          f"closed loop: InfoNCE launches {launches} over {steps} steps")
+    final = run["state"]
+    check(final.step == steps and all(np.isfinite(r["loss"]) for r in run["history"]),
+          "closed loop: steps or losses")
+    metrics_path = os.path.join(pre, "metrics.jsonl")
+    errors = validate_file(metrics_path)
+    check(errors == [], f"metrics.jsonl schema: {errors[:3]}")
+    lines = read_metrics(metrics_path)
+    knn_lines = [r for r in lines if "knn_top1" in r]
+    check([r["epoch"] for r in knn_lines] == [0, 1], f"kNN lines {knn_lines}")
+    mgr = CheckpointManager(pre)
+    check(mgr.all_steps() == [LOOP_EPOCH_STEPS, steps], f"checkpoints {mgr.all_steps()}")
+    out["knn_top1_monitor"] = [r["knn_top1"] for r in knn_lines]
+    want = clone_state(final)
+
+    timing_dir = os.path.join(workdir, "timing")
+    t0 = time.perf_counter()
+    path = CheckpointManager(timing_dir, keep=1).save(steps, state_payload(final, "resnet50", 2))
+    out["checkpoint_save_ms"] = (time.perf_counter() - t0) * 1e3
+    out["checkpoint_bytes"] = os.path.getsize(path)
+    fresh = create_state(cfg, build_encoder(cfg.moco), device="cuda")
+    t0 = time.perf_counter()
+    payload, _ = mgr.restore(step=steps)
+    load_state_payload(fresh, payload)
+    torch.cuda.synchronize()
+    out["checkpoint_restore_ms"] = (time.perf_counter() - t0) * 1e3
+    same_state(fresh, want, "restore into a fresh state")
+    check((fresh.step, fresh.queue_ptr) == (final.step, final.queue_ptr), "restored step or ptr")
+    del fresh, payload
+    shutil.rmtree(timing_dir)
+
+    real_load = train_module.load_state_payload
+    resumed = {}
+
+    def load_and_check(state, payload):
+        real_load(state, payload)
+        same_state(state, want, "the driver's resume")
+        resumed["step"] = state.step
+
+    train_module.load_state_payload = load_and_check
+    faults.install(f"ckpt_truncate@step={steps + LOOP_EPOCH_STEPS}")
+    try:
+        fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+        again = train(dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, epochs=3)),
+                      dataset=train_set, device="cuda", knn_datasets=knn_sets)
+    finally:
+        faults.clear()
+        train_module.load_state_payload = real_load
+    check(resumed.get("step") == steps, f"resume step {resumed}")
+    check([r["step"] for r in again["history"]] == list(range(steps + 1, steps + 4)),
+          f"resumed steps {[r['step'] for r in again['history']]}")
+    check(fi.infonce_stats.launches == fi.infonce_dq.launches == LOOP_EPOCH_STEPS,
+          "resumed run: InfoNCE launches")
+    newest = steps + LOOP_EPOCH_STEPS
+    check(mgr.latest_step() == steps, "the truncated newest checkpoint was not passed over")
+    check(os.listdir(os.path.join(pre, "quarantine")) == [os.path.basename(mgr.path(newest))],
+          "the truncated checkpoint was not quarantined")
+    payload, extra = mgr.restore()
+    check(payload["step"] == steps and extra["epoch"] == 1, "fallback restore")
+    del payload, again
+
+    # kNN monitor timings on the pretrained query backbone
+    backbone = final.encoder_q.backbone
+    t0 = time.perf_counter()
+    bank_f, bank_y = knn.extract_features(backbone, knn_sets[0], image_size=IMG,
+                                          compute_dtype="bfloat16")
+    test_f, test_y = knn.extract_features(backbone, knn_sets[1], image_size=IMG,
+                                          compute_dtype="bfloat16")
+    out["knn_extract_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    preds = knn.knn_classify(bank_f, bank_y, test_f, 8, k=cfg.knn_k,
+                             temperature=cfg.knn_temperature)
+    out["knn_classify_ms"] = (time.perf_counter() - t0) * 1e3
+    out["knn_top1"] = float(100.0 * np.mean(preds == test_y))
+    check(out["knn_top1"] == out["knn_top1_monitor"][-1], "kNN top-1 differs from the monitor's")
+    snap = StateSnapshot(final)
+    out["snapshot_ms"] = host_ms(lambda: snap.take(final))
+    del snap
+
+    # (b) the non-finite guard: log every step, NaN at k1 and k2, threshold 2
+    guard_dir = os.path.join(workdir, "guard")
+    k1, k2 = steps + 2, steps + 4
+    gcfg = dataclasses.replace(cfg, workdir=guard_dir, log_every=1, nan_guard_threshold=2,
+                               knn_every_epochs=0, steps_per_epoch=None)
+    seen = {}
+
+    def watch(record):
+        if record["step"] == k1 - 1:  # the last finite state before the NaN
+            seen["before"] = clone_state(gstate)
+        elif record["step"] == k1 + 1:  # found one step late, as in JAX: rolled back by now
+            same_state(gstate, seen["before"], "the state after the rollback")
+            seen["rolled_back_at"] = gstate.step
+
+    gstate = copy.deepcopy(final)
+    faults.install(f"nan@step={k1},nan@step={k2}")
+    try:
+        train(gcfg, dataset=SyntheticDataset(256 * 16, IMG), device="cuda", steps=6,
+              state=gstate, log=watch)
+        check(False, "the guard did not abort at its threshold")
+    except FloatingPointError as e:
+        out["guard_abort"] = str(e)
+    finally:
+        faults.clear()
+    check(seen.get("rolled_back_at") == k1 + 1, f"rollback not seen: {sorted(seen)}")
+    events = [r for r in read_metrics(os.path.join(guard_dir, "metrics.jsonl")) if "event" in r]
+    check([(r["event"], r["step"], r["nan_steps"]) for r in events]
+          == [("nonfinite_loss", k1, 1), ("nonfinite_loss", k2, 2)], f"guard events {events}")
+    del gstate, seen
+
+    # (c) the linear probe at full width from the pretraining checkpoint
+    probe_dir = os.path.join(workdir, "probe")
+    val = LearnableSyntheticDataset(PROBE_VAL, IMG, train=False)
+    probe = ProbeConfig(epochs=2, num_classes=8)
+    t0 = time.perf_counter()
+    res = lincls.train_lincls(pre, probe, train_dataset=LearnableSyntheticDataset(512, IMG),
+                              val_dataset=val, workdir=probe_dir, device="cuda")
+    out["probe_run_s"] = time.perf_counter() - t0  # sanity_check passed inside
+    check(res["count"] == PROBE_VAL, f"probe val count {res['count']}")
+    out["probe_top1"] = res["best_acc1"]
+    best = lincls.evaluate_lincls(pre, workdir=probe_dir, val_dataset=val, device="cuda")
+    check(best["acc1"] == res["best_acc1"], f"evaluate_lincls {best['acc1']} != {res['best_acc1']}")
+    backbone, pretrained, _ = lincls.load_pretrained_backbone(pre, device="cuda")
+    fc = lincls.LinearClassifier(backbone.num_features, 8).cuda()
+    optimizer, schedule = lincls._probe_tx(probe, 2, fc.parameters())
+    step = lincls.make_probe_step(backbone, fc, optimizer, schedule, "bfloat16")
+    evaluate = lincls.make_eval_step(backbone, fc, "bfloat16")
+    x = torch.randn(256, IMG, IMG, 3, device="cuda")
+    y = torch.randint(0, 8, (256,), device="cuda")
+    mask = torch.ones(256, device="cuda")
+    out["probe_imgs_per_s"] = 256 / host_ms(lambda: step(0, x, y)) * 1e3
+    out["eval_imgs_per_s"] = 256 / host_ms(lambda: evaluate(x, y, mask)) * 1e3
+    lincls.sanity_check(backbone, pretrained)  # the timed steps moved no BN statistic either
+    pth = os.path.join(workdir, "backbone.pth")
+    convert_pretrain.main([pre, pth])
+    exported = create_resnet("resnet50")
+    exported.load_state_dict(torch.load(pth, weights_only=True), strict=True)
+    exported = exported.cuda().to(memory_format=torch.channels_last).eval()
+    with torch.no_grad():
+        check(torch.equal(exported(x), backbone(x)), "convert_pretrain: features differ")
+    del backbone, exported, fc, optimizer, pretrained
+
+    # (d) the learning signal: tests/test_learning_signal.py's configuration
+    sig = TrainConfig(
+        moco=MocoConfig(arch="resnet18", dim=64, num_negatives=256, momentum=0.9,
+                        temperature=0.2, mlp=True, shuffle="none", cifar_stem=True,
+                        compute_dtype="float32"),
+        optim=OptimConfig(lr=0.12, epochs=4, cos=True),
+        data=DataConfig(dataset="synthetic_learnable", image_size=32, global_batch=64,
+                        aug_plus=True),
+        workdir=os.path.join(workdir, "signal"), seed=0)
+    t0 = time.perf_counter()
+    sig_run = train(sig, dataset=LearnableSyntheticDataset(512, 32, 8, train=True), device="cuda")
+    out["signal_pretrain_s"] = time.perf_counter() - t0
+    top1 = knn.knn_eval(sig_run["state"].encoder_q.backbone,
+                        LearnableSyntheticDataset(512, 32, 8, train=True),
+                        LearnableSyntheticDataset(128, 32, 8, train=False),
+                        num_classes=8, k=32, image_size=32)
+    out["signal_knn_top1"] = top1
+    check(top1 > 2 * 100.0 / 8, f"learning signal: kNN top-1 {top1:.2f}% <= 25% (2x chance)")
+    sig_probe = lincls.train_lincls(sig.workdir, ProbeConfig(epochs=10, schedule=(6, 8),
+                                                             num_classes=8),
+                                    train_dataset=LearnableSyntheticDataset(512, 32, 8),
+                                    val_dataset=LearnableSyntheticDataset(128, 32, 8, train=False),
+                                    device="cuda")
+    out["signal_probe_top1"] = sig_probe["best_acc1"]
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"closed loop in {out['phase_s']:.1f} s: pretrain {out['pretrain_s']:.1f} s, checkpoint "
+          f"{out['checkpoint_bytes']} bytes, save {out['checkpoint_save_ms']:.1f} ms, restore "
+          f"{out['checkpoint_restore_ms']:.1f} ms; kNN extract {out['knn_extract_ms']:.1f} ms, "
+          f"classify {out['knn_classify_ms']:.1f} ms, top-1 {out['knn_top1']:.2f}%; probe "
+          f"{out['probe_imgs_per_s']:.0f} imgs/s, eval {out['eval_imgs_per_s']:.0f} imgs/s, "
+          f"top-1 {out['probe_top1']:.2f}%; learning signal kNN top-1 {top1:.2f}% (probe "
+          f"{out['signal_probe_top1']:.2f}%)", flush=True)
+    return out
+
+
 def post(port, path, imgs):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=imgs.tobytes(),
@@ -1455,6 +1745,15 @@ def main() -> int:
     # -- v3 path at full width -----------------------------------------------
     v3_kernels, v3_timing = v3_phase(fa, flash_err)
     print(json.dumps({"v3": v3_timing, "device": smi}))
+
+    # -- the closed loop: checkpoints, resume, guard, kNN, probe ----------------
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        loop = closed_loop_phase(fused_infonce, workdir)
+    finally:
+        shutil.rmtree(workdir)
+    print(json.dumps({"loop": loop, "device": smi}))
+    torch.cuda.empty_cache()
 
     # -- the cell-scan kernel's own times --------------------------------------
     ivf_kernel = ivf_timing_phase(ivf_scan, feats_t, cell_rows, probes, buckets,

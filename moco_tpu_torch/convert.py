@@ -1,4 +1,4 @@
-"""Weights across the two packages: Flax encoder trees -> the port's state_dict.
+"""Weights across the two packages: Flax encoder trees <-> the port's state_dict.
 
 The layout rules are those of moco_tpu/export.py (resnet_to_torchvision)
 and moco_tpu/import_torch.py (head_from_torch), kept here as a copy:
@@ -14,12 +14,21 @@ Flax trees come in as nested dicts of numpy arrays (or anything
 `np.asarray` takes): `{"backbone": ..., "head": ...}` for the params and
 for the batch statistics (a ViT backbone has none). A tree shaped like the
 params without statistics (optax's momentum trace, Adam's moments) goes
-through the same rules with `batch_stats=None`.
+through the same rules with `batch_stats=None`. `*_to_flax` are the
+inverses (`backbone_to_flax`, `head_to_flax`, `encoder_to_flax`): the port's
+tensors back into Flax trees of numpy arrays, for the JAX package's tools.
+
+Both directions only move and transpose float32 values, so a round trip is
+exact. Parity tests that run one input through a JAX module and the port's
+counterpart compare in float32 at a tolerance the test states: 1e-5 for a
+single layer or a head, 1e-4 for a whole encoder's features (two
+implementations of the same convolutions sum in different orders), each
+relative to values of order one.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -379,3 +388,155 @@ def _load_moments(state: TrainState, enc: dict, pred: dict, step=None) -> None:
                 state.optimizer.state[p][key] = torch.empty_like(p).copy_(tree[name])
                 if step is not None:
                     state.optimizer.state[p]["step"] = torch.tensor(step, dtype=torch.float32)
+
+
+# ----------------------------------------------------- the way back to Flax
+
+
+def _np_of(t) -> np.ndarray:
+    return np.array(t.detach().cpu() if isinstance(t, torch.Tensor) else t, np.float32)
+
+
+def _kernel(w) -> np.ndarray:
+    return _np_of(w).transpose(2, 3, 1, 0)  # (Cout, Cin, H, W) -> (H, W, Cin, Cout)
+
+
+def _bn_to(sd: dict, name: str) -> tuple[dict, dict]:
+    params = {"scale": _np_of(sd[f"{name}.weight"]), "bias": _np_of(sd[f"{name}.bias"])}
+    stats = {}
+    if f"{name}.running_mean" in sd:
+        stats = {"mean": _np_of(sd[f"{name}.running_mean"]),
+                 "var": _np_of(sd[f"{name}.running_var"])}
+    return params, stats
+
+
+def _convbn_to(sd: dict, conv: str, bn: str) -> tuple[dict, dict]:
+    bp, bs = _bn_to(sd, bn)
+    params = {"Conv_0": {"kernel": _kernel(sd[f"{conv}.weight"])}, "BatchNorm_0": bp}
+    return params, ({"BatchNorm_0": bs} if bs else {})
+
+
+def backbone_to_flax(sd: dict) -> tuple[dict, dict]:
+    """Torchvision-named ResNet tensors -> (params, batch_stats) of the Flax
+    ResNet, the inverse of `backbone_from_flax`: a 3x3 `conv1` is the CIFAR
+    stem (`ConvBN_0`), a 7x7 one the ImageNet stem (`Conv_0`,
+    `BatchNorm_0`); blocks are numbered across stages in order, and a
+    block with `conv3` is a Bottleneck. Without running statistics in `sd`
+    the stats tree is empty."""
+    params, stats = {}, {}
+
+    def put(name, pair):
+        params[name] = pair[0]
+        if pair[1]:
+            stats[name] = pair[1]
+
+    if np.shape(sd["conv1.weight"])[-1] == 3:  # CIFAR stem
+        put("ConvBN_0", _convbn_to(sd, "conv1", "bn1"))
+    else:
+        params["Conv_0"] = {"kernel": _kernel(sd["conv1.weight"])}
+        put("BatchNorm_0", _bn_to(sd, "bn1"))
+    bottleneck = "layer1.0.conv3.weight" in sd
+    block, n_main = ("Bottleneck", 3) if bottleneck else ("BasicBlock", 2)
+    idx, stage = 0, 1
+    while f"layer{stage}.0.conv1.weight" in sd:
+        j = 0
+        while f"layer{stage}.{j}.conv1.weight" in sd:
+            pre, bp, bs = f"layer{stage}.{j}", {}, {}
+            convs = [(f"{pre}.conv{c + 1}", f"{pre}.bn{c + 1}") for c in range(n_main)]
+            if f"{pre}.downsample.0.weight" in sd:
+                convs.append((f"{pre}.downsample.0", f"{pre}.downsample.1"))
+            for c, (conv, bn) in enumerate(convs):
+                bp[f"ConvBN_{c}"], s = _convbn_to(sd, conv, bn)
+                if s:
+                    bs[f"ConvBN_{c}"] = s
+            params[f"{block}_{idx}"] = bp
+            if bs:
+                stats[f"{block}_{idx}"] = bs
+            idx, j = idx + 1, j + 1
+        stage += 1
+    return params, stats
+
+
+def _dense_to(sd: dict, name: str) -> dict:
+    out = {"kernel": _np_of(sd[f"{name}.weight"]).T}
+    if f"{name}.bias" in sd:
+        out["bias"] = _np_of(sd[f"{name}.bias"])
+    return out
+
+
+def head_to_flax(sd: dict) -> tuple[dict, dict]:
+    """`fc.*` / `fc.0.*` + `fc.2.*` (ProjectionHead) or `fc{i}` + `bn{i}`
+    (V3MLPHead, the last BN statistics only) -> (params, batch_stats), the
+    inverse of `head_from_flax`."""
+    if "fc0.weight" in sd:  # V3MLPHead
+        params, stats = {}, {}
+        i = 0
+        while f"fc{i}.weight" in sd:
+            params[f"Dense_{i}"] = _dense_to(sd, f"fc{i}")
+            i += 1
+        for i in range(i):
+            bn = f"bn{i}"
+            if f"{bn}.weight" in sd:
+                params[f"BatchNorm_{i}"] = {"scale": _np_of(sd[f"{bn}.weight"]),
+                                            "bias": _np_of(sd[f"{bn}.bias"])}
+            if f"{bn}.running_mean" in sd:
+                stats[f"BatchNorm_{i}"] = {"mean": _np_of(sd[f"{bn}.running_mean"]),
+                                           "var": _np_of(sd[f"{bn}.running_var"])}
+        return params, stats
+    if "fc.0.weight" in sd:
+        return {"Dense_0": _dense_to(sd, "fc.0"), "Dense_1": _dense_to(sd, "fc.2")}, {}
+    return {"Dense_0": _dense_to(sd, "fc")}, {}
+
+
+def vit_to_flax(sd: dict, num_heads: int) -> dict:
+    """The port's ViT names -> Flax VisionTransformer params, the inverse
+    of `vit_from_flax`; `num_heads` splits the attention widths."""
+    out = {"patch_embed": {"kernel": _kernel(sd["patch_embed.weight"]),
+                           "bias": _np_of(sd["patch_embed.bias"])}}
+    if "cls_token" in sd:
+        out["cls_token"] = _np_of(sd["cls_token"])
+
+    def norm(name):
+        return {"scale": _np_of(sd[f"{name}.weight"]), "bias": _np_of(sd[f"{name}.bias"])}
+
+    i = 0
+    while f"blocks.{i}.norm1.weight" in sd:
+        pre, attn = f"blocks.{i}", {}
+        for proj in ("query", "key", "value"):
+            w = _np_of(sd[f"{pre}.attn.{proj}.weight"])  # (H*Dh, D)
+            attn[proj] = {"kernel": w.T.reshape(w.shape[1], num_heads, -1),
+                          "bias": _np_of(sd[f"{pre}.attn.{proj}.bias"]).reshape(num_heads, -1)}
+        w = _np_of(sd[f"{pre}.attn.out.weight"])  # (D, H*Dh)
+        attn["out"] = {"kernel": w.T.reshape(num_heads, -1, w.shape[0]),
+                       "bias": _np_of(sd[f"{pre}.attn.out.bias"])}
+        out[f"block_{i}"] = {
+            "LayerNorm_0": norm(f"{pre}.norm1"), "LayerNorm_1": norm(f"{pre}.norm2"),
+            "MultiHeadDotProductAttention_0": attn,
+            "MlpBlock_0": {"Dense_0": _dense_to(sd, f"{pre}.mlp.fc1"),
+                           "Dense_1": _dense_to(sd, f"{pre}.mlp.fc2")},
+        }
+        i += 1
+    out["final_norm"] = norm("final_norm")
+    return out
+
+
+def encoder_to_flax(sd: dict, num_heads: Optional[int] = None) -> tuple[dict, dict]:
+    """The port's `MoCoEncoder` state_dict -> (params, batch_stats) of the
+    Flax `MoCoEncoder`, the inverse of `encoder_from_flax`. A ViT backbone
+    needs `num_heads` and has no statistics; a tree without any statistics
+    gives an empty batch_stats."""
+    backbone = {k[9:]: v for k, v in sd.items() if k.startswith("backbone.")}
+    head = {k[5:]: v for k, v in sd.items() if k.startswith("head.")}
+    params, stats = {}, {}
+    if "patch_embed.weight" in backbone:
+        if num_heads is None:
+            raise ValueError("a ViT backbone needs num_heads")
+        params["backbone"] = vit_to_flax(backbone, num_heads)
+    else:
+        params["backbone"], bstats = backbone_to_flax(backbone)
+        if bstats:
+            stats["backbone"] = bstats
+    params["head"], hstats = head_to_flax(head)
+    if hstats:
+        stats["head"] = hstats
+    return params, stats

@@ -277,6 +277,9 @@ class AugRecipe(NamedTuple):
 
 V1_RECIPE = AugRecipe("v1", True, (0.4, 0.4, 0.4, 0.4), 1.0, 0.2, 0.0)
 V2_RECIPE = AugRecipe("v2", True, (0.4, 0.4, 0.4, 0.1), 0.8, 0.2, 0.5)
+# The linear probe's training transform (`main_lincls.py`, augment.py:343):
+# RandomResizedCrop (scale 0.08-1) + flip + normalize only.
+PROBE_RECIPE = AugRecipe("probe", True, (0.0, 0.0, 0.0, 0.0), 0.0, 0.0, 0.0, (0.08, 1.0))
 # Geometric only (crop + flip + normalize, the pretraining crop scale): the
 # BN-leak positive control's recipe (augment.py:348).
 CROPS_ONLY_RECIPE = AugRecipe("probe", True, (0.0, 0.0, 0.0, 0.0), 0.0, 0.0, 0.0, (0.2, 1.0))

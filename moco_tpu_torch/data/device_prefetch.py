@@ -119,7 +119,7 @@ class DevicePrefetchRing:
     """Depth-N transfer ring between a host-batch iterator and the step
     loop (module docstring). `transfer(host_item) -> (batch, wire_bytes)`
     runs on the ring's thread, inside the side stream on a card; a batch
-    is a dict of tensors."""
+    is a dict or a tuple of tensors."""
 
     def __init__(self, host_iter: Iterator, transfer: Callable, depth: int = 2,
                  device="cpu", name: str = "device_prefetch"):
@@ -156,7 +156,7 @@ class DevicePrefetchRing:
         if ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
-            for t in batch.values():
+            for t in (batch.values() if isinstance(batch, dict) else batch):
                 t.record_stream(stream)
         self.stats.record(seconds, nbytes, depth_live=self._q.qsize())
         return batch

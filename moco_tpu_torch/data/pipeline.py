@@ -29,8 +29,11 @@ Two epoch modes, with the same batches bit for bit:
 Training pipelines drop the last partial batch, as the reference's
 DataLoader does: the queue needs full batches. Every epoch iterator has
 `close()`; a consumer that leaves an epoch early must call it, or the
-producer thread stays blocked on its queue. The labeled and evaluation
-pipelines of the JAX module come with the kNN / linear-probe slice.
+producer thread stays blocked on its queue.
+
+The linear probe's `LabeledPipeline` (one probe-recipe view and the labels)
+runs through the same machinery, ring and graphs included; its
+`EvalPipeline` scores a whole split in order, the tail padded and masked.
 """
 
 from __future__ import annotations
@@ -44,7 +47,14 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
-from moco_tpu_torch.data.augment import AugRecipe, apply_recipe, draw_recipe, get_recipe
+from moco_tpu_torch.data.augment import (
+    PROBE_RECIPE,
+    AugRecipe,
+    apply_recipe,
+    draw_recipe,
+    get_recipe,
+    normalize,
+)
 from moco_tpu_torch.data.datasets import build_dataset, draw_rrc_uniforms, rrc_boxes_from_uniforms
 from moco_tpu_torch.data.device_prefetch import DevicePrefetchRing, _responsive_put
 from moco_tpu_torch.utils import faults, retry
@@ -194,13 +204,13 @@ class _GraphedAugment:
     for the last one's outputs to be copied out of the static buffers."""
 
     def __init__(self, transform):
-        self._transform = transform  # (precropped, raw, dq, dk) -> {"im_q", "im_k"}
+        self._transform = transform  # (precropped, raw, *draws) -> the views
         self._graphs: dict = {}
         self._lock = threading.Lock()
         self._done: Optional[torch.cuda.Event] = None
 
-    def __call__(self, precropped: bool, raw: torch.Tensor, dq: dict, dk: dict) -> dict:
-        inputs = (raw, dq, dk)
+    def __call__(self, precropped: bool, raw: torch.Tensor, *draws: dict):
+        inputs = (raw, *draws)
         key = (precropped, tuple(raw.shape))
         with self._lock:
             stream = torch.cuda.current_stream(raw.device)
@@ -212,14 +222,15 @@ class _GraphedAugment:
             for dst, src in zip(_leaves(static_in), _leaves(inputs)):
                 dst.copy_(src)
             graph.replay()
-            out = {k: v.clone() for k, v in static_out.items()}
+            out = ({k: v.clone() for k, v in static_out.items()} if isinstance(static_out, dict)
+                   else static_out.clone())
             self._done = torch.cuda.Event()
             self._done.record(stream)
         return out
 
     def _capture(self, precropped, inputs):
-        raw, dq, dk = inputs
-        static_in = (raw.clone(), _clone(dq), _clone(dk))
+        raw, *draws = inputs
+        static_in = (raw.clone(), *map(_clone, draws))
         side = torch.cuda.Stream(raw.device)
         side.wait_stream(torch.cuda.current_stream(raw.device))
         with torch.cuda.stream(side):  # warm-up: cuDNN's and cuBLAS's first-call work
@@ -381,20 +392,24 @@ class _HostPipeline:
         return (self._stage(hb)[0] for hb in self._host_gen(epoch, self._slots, start, stop))
 
 
-class TwoCropPipeline(_HostPipeline):
-    """{"im_q", "im_k"} batches, (B, S, S, 3) float32 on the device, by
-    (epoch, step). Close it (or use it as a context manager) to stop its
-    loader threads."""
+class _AugmentedPipeline(_HostPipeline):
+    """Shuffled training batches by (epoch, step): each step's images
+    loaded on the host (host crops where the dataset has the protocol),
+    copied to the device and augmented there, in either epoch mode. A
+    subclass gives its recipe, its crops per image, whether it keeps the
+    labels, and `_draw` / `_transform` / `_output`."""
 
-    def __init__(self, config: DataConfig, seed: int = 0, dataset=None, train: bool = True,
-                 device="cuda"):
+    N_CROPS = 1
+    LABELED = False
+
+    def __init__(self, config: DataConfig, recipe: AugRecipe, seed: int = 0, dataset=None,
+                 train: bool = True, device="cuda"):
         super().__init__(config, seed=seed, dataset=dataset, train=train, drop_last=True,
                          device=device)
-        self.recipe: AugRecipe = get_recipe(config.aug_plus, config.image_size,
-                                            crops_only=config.crops_only)
+        self.recipe = recipe
         # the host-crop path's images arrive cropped to size: the device
         # applies the rest of the recipe
-        self._nocrop = self.recipe._replace(crop=False)
+        self._nocrop = recipe._replace(crop=False)
         self._graphed = _GraphedAugment(self._transform)
 
     def close(self) -> None:
@@ -410,45 +425,41 @@ class TwoCropPipeline(_HostPipeline):
         idx = order[step * self.batch_size:(step + 1) * self.batch_size]
         seed = int(np.random.SeedSequence((self.seed, epoch, step)).generate_state(1)[0])
         if self.host_crops:
-            raw, _ = self._local_crop_batch(idx, epoch, step, n_crops=2,
-                                            scale=self.recipe.crop_scale,
-                                            out_size=self.config.image_size)
+            raw, labels = self._local_crop_batch(idx, epoch, step, n_crops=self.N_CROPS,
+                                                 scale=self.recipe.crop_scale,
+                                                 out_size=self.config.image_size)
             slot = slots.acquire(raw.shape)
             slot.tensor.numpy()[...] = raw
-            return HostBatch(step, seed, slot, slots, None, precropped=True)
-        slot, _ = self._host_batch(idx, slots)
-        return HostBatch(step, seed, slot, slots, None, precropped=False)
+            precropped = True
+        else:
+            slot, labels = self._host_batch(idx, slots)
+            precropped = False
+        return HostBatch(step, seed, slot, slots, labels if self.LABELED else None, precropped)
 
     def _host_gen(self, epoch: int, slots: _PinnedSlots, start: int, stop: int):
         order = self.epoch_order(epoch)
         for step in range(start, stop):
             yield self.host_batch(epoch, step, slots, order)
 
-    def augment(self, hb: HostBatch, raw: torch.Tensor) -> dict:
+    def augment(self, hb: HostBatch, raw: torch.Tensor):
         """The device stage's augment of `raw`, the batch's uint8 rows on
-        the device: the draws of both views from a generator seeded with
-        the batch's seed, the query view's first, then the transform (on a
-        card replayed from a CUDA graph)."""
+        the device: the draws from a generator seeded with the batch's seed,
+        then the transform (on a card replayed from a CUDA graph)."""
         gen = torch.Generator(device=self.device).manual_seed(hb.seed)
         recipe = self._nocrop if hb.precropped else self.recipe
-        dq = draw_recipe(recipe, gen, raw.shape[0])
-        dk = draw_recipe(recipe, gen, raw.shape[0])
+        draws = [draw_recipe(recipe, gen, raw.shape[0]) for _ in range(self.N_CROPS)]
         if self.device.type == "cuda":
-            return self._graphed(hb.precropped, raw, dq, dk)
-        return self._transform(hb.precropped, raw, dq, dk)
+            return self._graphed(hb.precropped, raw, *draws)
+        return self._transform(hb.precropped, raw, *draws)
 
-    def _transform(self, precropped: bool, raw: torch.Tensor, dq: dict, dk: dict) -> dict:
-        """The deterministic part of the augment: both views from their
-        draws, as `two_crop_augment` composes them."""
-        out_size = self.config.image_size
-        if precropped:
-            return {"im_q": apply_recipe(self._nocrop, dq, raw[:, 0].float() / 255.0, out_size),
-                    "im_k": apply_recipe(self._nocrop, dk, raw[:, 1].float() / 255.0, out_size)}
-        images = raw.float() / 255.0
-        return {"im_q": apply_recipe(self.recipe, dq, images, out_size),
-                "im_k": apply_recipe(self.recipe, dk, images, out_size)}
+    def _view(self, precropped: bool, raw: torch.Tensor, crop: int, draws: dict) -> torch.Tensor:
+        """One augmented view of the batch: crop `crop` of each image on
+        the host-crop path, else the decoded images."""
+        images = (raw[:, crop] if precropped else raw).float() / 255.0
+        recipe = self._nocrop if precropped else self.recipe
+        return apply_recipe(recipe, draws, images, self.config.image_size)
 
-    def _stage(self, hb: HostBatch) -> tuple[dict, int]:
+    def _stage(self, hb: HostBatch):
         """Copy the batch from its slot to the device, augment it there and
         give the slot back, with the event of its copy on a card (on the
         CPU the copy is the slot itself, so it goes back after the
@@ -462,15 +473,115 @@ class TwoCropPipeline(_HostPipeline):
             out = self.augment(hb, raw)
         finally:
             hb.slots.release(hb.slot, copied)
-        return out, hb.wire_bytes
+        return self._output(out, hb), hb.wire_bytes
 
-    def batch(self, epoch: int, step: int) -> dict:
-        """The augmented views of one step, made now in this thread."""
+    def _output(self, views, hb: HostBatch):
+        return views
+
+    def batch(self, epoch: int, step: int):
+        """The batch of one step, made now in this thread."""
         return self._stage(self.host_batch(epoch, step))[0]
 
     def epoch(self, epoch: int, device: bool = False, depth: Optional[int] = None,
-              start: int = 0, stop: Optional[int] = None) -> Iterator[dict]:
+              start: int = 0, stop: Optional[int] = None) -> Iterator:
         """Steps [start, stop) of `epoch` (default: all of it), yielding what
         `batch(epoch, step)` gives; `device=True` through the prefetch ring
         of `depth` (default 2)."""
         return self._epoch_iter(epoch, device, depth, start, stop)
+
+
+class TwoCropPipeline(_AugmentedPipeline):
+    """{"im_q", "im_k"} batches, (B, S, S, 3) float32 on the device, by
+    (epoch, step): TwoCropsTransform, the query view's draws first. Close
+    it (or use it as a context manager) to stop its loader threads."""
+
+    N_CROPS = 2
+
+    def __init__(self, config: DataConfig, seed: int = 0, dataset=None, train: bool = True,
+                 device="cuda"):
+        recipe = get_recipe(config.aug_plus, config.image_size, crops_only=config.crops_only)
+        super().__init__(config, recipe, seed=seed, dataset=dataset, train=train, device=device)
+
+    def _transform(self, precropped: bool, raw: torch.Tensor, dq: dict, dk: dict) -> dict:
+        """The deterministic part of the augment: both views from their
+        draws, as `two_crop_augment` composes them."""
+        return {"im_q": self._view(precropped, raw, 0, dq),
+                "im_k": self._view(precropped, raw, 1, dk)}
+
+
+class LabeledPipeline(_AugmentedPipeline):
+    """Shuffled (images, labels) batches for the linear probe
+    (`LabeledPipeline`, pipeline.py:449; `main_lincls.py`'s train
+    transform: RandomResizedCrop(0.08-1) + flip + normalize), images
+    (B, S, S, 3) float32 and labels (B,) int64 on the device, in either
+    epoch mode, host crops where the dataset has the protocol."""
+
+    LABELED = True
+
+    def __init__(self, config: DataConfig, seed: int = 0, dataset=None, device="cuda"):
+        base = get_recipe(config.aug_plus, config.image_size)
+        recipe = PROBE_RECIPE._replace(mean=base.mean, std=base.std)
+        super().__init__(config, recipe, seed=seed, dataset=dataset, train=True, device=device)
+
+    def _transform(self, precropped: bool, raw: torch.Tensor, draws: dict) -> torch.Tensor:
+        return self._view(precropped, raw, 0, draws)
+
+    def _output(self, images, hb: HostBatch):
+        labels = torch.from_numpy(hb.labels).to(self.device, torch.int64, non_blocking=True)
+        return images, labels
+
+
+class EvalPipeline(_HostPipeline):
+    """Deterministic (images, labels, mask) batches over a whole split
+    (`EvalPipeline`, pipeline.py:514; `main_lincls.py`'s val transform):
+    the decoded images center-cropped to `image_size` and normalized with
+    the recipe's statistics. The tail batch is padded to full size with
+    repeats of its last example and masked (mask 1.0 on real rows, 0.0 on
+    pads), so every example is scored once and a pad never is. Host loads
+    run one batch ahead on a thread."""
+
+    def __init__(self, config: DataConfig, train: bool = False, dataset=None, device="cuda"):
+        super().__init__(config, dataset=dataset, train=train, drop_last=False, device=device)
+        self.steps = self.steps_per_epoch
+        self.recipe = get_recipe(config.aug_plus, config.image_size)
+
+    def _host_gen(self, slots: _PinnedSlots):
+        n = len(self.dataset)
+        for step in range(self.steps):
+            start = step * self.batch_size
+            idx = np.arange(start, min(start + self.batch_size, n))
+            valid = len(idx)
+            if valid < self.batch_size:  # pad the tail, mask the pads
+                idx = np.concatenate([idx, np.full(self.batch_size - valid, idx[-1])])
+            mask = (np.arange(self.batch_size) < valid).astype(np.float32)
+            slot, labels = self._host_batch(idx, slots)
+            yield slot, labels, mask
+
+    def prep(self, raw: torch.Tensor) -> torch.Tensor:
+        """uint8 decoded images on the device -> center crop, /255,
+        normalize."""
+        out_size = self.config.image_size
+        x = raw.float() / 255.0
+        if x.shape[1] != out_size:
+            y0 = (x.shape[1] - out_size) // 2
+            x = x[:, y0:y0 + out_size, y0:y0 + out_size]
+        return normalize(x, self.recipe.mean, self.recipe.std)
+
+    def __iter__(self):
+        slots = _PinnedSlots(4, self._pin)  # prefetch depth 2 + one in each thread
+        it = _PrefetchIterator(self._host_gen(slots), depth=2, name="eval-prefetch")
+        try:
+            for slot, labels, mask in it:
+                raw = slot.tensor.to(self.device, non_blocking=True)
+                copied = None
+                if self.device.type == "cuda":
+                    copied = torch.cuda.Event()
+                    copied.record()
+                try:
+                    images = self.prep(raw)
+                finally:
+                    slots.release(slot, copied)
+                yield (images, torch.from_numpy(labels).to(self.device, torch.int64),
+                       torch.from_numpy(mask).to(self.device))
+        finally:
+            it.close()

@@ -1,8 +1,12 @@
-"""Projection heads, the counterparts of moco_tpu/models/heads.py:
-`ProjectionHead` (v1/v2) and `V3MLPHead` (v3's projector and predictor)."""
+"""Heads, the counterparts of moco_tpu/models/heads.py: `ProjectionHead`
+(v1/v2), `V3MLPHead` (v3's projector and predictor) and the linear probe's
+`LinearClassifier`."""
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 from torch import nn
 
 from moco_tpu_torch.models.resnet import flax_train_batch_norm
@@ -66,3 +70,19 @@ class V3MLPHead(nn.Module):
         if self.last_bn:
             x = getattr(self, f"bn{self.num_layers - 1}")(x)
         return x.float()
+
+
+class LinearClassifier(nn.Linear):
+    """The linear probe's classifier (`LinearClassifier`, heads.py:83) with
+    the reference's init (`main_lincls.py:~L160-165`): weight ~ N(0, 0.01)
+    drawn from `generator`, bias 0; float32 in and out."""
+
+    def __init__(self, in_features: int, num_classes: int = 1000,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, num_classes)
+        with torch.no_grad():
+            self.weight.normal_(0.0, 0.01, generator=generator)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return super().forward(x.float())

@@ -1,16 +1,18 @@
 """The part of moco_tpu/utils/config.py that the port runs: serving,
 single-device MoCo v1/v2 training and single-device MoCo v3 training of a
-ViT. Same field names, defaults and presets, so a preset means the same
-model and recipe in both packages.
+ViT, the driver's checkpoint, log, kNN and non-finite-guard fields, and the
+linear probe's `ProbeConfig`. Same field names, defaults and presets, so a
+preset means the same model and recipe in both packages; `workdir` alone
+differs: None (write nothing, resume nothing) instead of a fixed path.
 
 Fields of the JAX config that the port does not run yet (the BN modes
 `syncbn_group_size`, `bn_virtual_groups`, `bn_stats_rows`,
 `bn_stats_barrier`, `bn_momentum_stats`, `allow_leaky_bn`,
 `key_bn_running_stats`, `key_bn_stats_warmup`, `remat`,
 `vit_sequence_parallel`; LARS's `trust_coefficient`; the parallel, ZeRO,
-checkpoint, telemetry and elastic fields) are left out, so a config that
-asks for one fails at construction with a TypeError instead of being
-ignored. So is `prefetch_donate`: it recycles a consumed staging slot's
+telemetry, watchdog and elastic fields; `checkpoint_async`) are left out,
+so a config that asks for one fails at construction with a TypeError
+instead of being ignored. So is `prefetch_donate`: it recycles a consumed staging slot's
 device buffer through XLA's donation, and PyTorch's caching allocator
 already reuses that memory; and `on_device_augment`: the port always
 augments on the device. So are `fused_block_k`, the TPU kernel's tile (see
@@ -117,10 +119,44 @@ class TrainConfig:
     # batch made serially in the loop before its step.
     device_prefetch: bool = True
     prefetch_depth: int = 2
+    # Checkpoints (utils/checkpoint.py), metrics.jsonl and automatic resume
+    # live under `workdir`; None runs without any of them.
+    workdir: Optional[str] = None
+    log_every: int = 10  # --print-freq
+    checkpoint_every_epochs: int = 1
+    # keep the last N checkpoints; 0 keeps every one (the reference's
+    # per-epoch checkpoint_{epoch:04d}.pth.tar)
+    checkpoint_keep: int = 3
+    # The weighted-kNN monitor on frozen backbone features (knn.py) every N
+    # epochs and at the last; 0 disables.
+    knn_every_epochs: int = 0
+    knn_k: int = 200
+    knn_temperature: float = 0.07
+    # Non-finite-loss guard, checked on log steps: a NaN/Inf loss rolls the
+    # state back to the last finite log step's (the step counter keeps
+    # advancing), is written to metrics.jsonl, and the run aborts after
+    # this many such steps.
+    nan_guard_threshold: int = 10
 
     def __post_init__(self):
         if self.prefetch_depth < 1:
             raise ValueError(f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+        if self.log_every < 1 or self.checkpoint_every_epochs < 1:
+            raise ValueError("log_every and checkpoint_every_epochs must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeConfig:
+    """Linear-probe hyperparameters (`main_lincls.py:~L30-95, ~L200-210`):
+    SGD(lr=30.0, momentum=0.9, wd=0), step schedule [60, 80], 100 epochs,
+    frozen backbone with BN in eval mode."""
+
+    lr: float = 30.0
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    schedule: Tuple[int, ...] = (60, 80)
+    epochs: int = 100
+    num_classes: int = 1000
 
 
 def _v2(moco: MocoConfig, **kw) -> MocoConfig:
@@ -152,3 +188,70 @@ PRESETS = {
         data=DataConfig(dataset="imagefolder", aug_plus=True, global_batch=4096),
     ),
 }
+
+
+def config_to_dict(cfg: TrainConfig) -> dict:
+    """JSON-serializable dict (tuples become lists when dumped), stored in
+    every checkpoint so the probe and the converters rebuild the model
+    without the user re-specifying flags."""
+    return dataclasses.asdict(cfg)
+
+
+def dataclass_from_dict(cls, sub: dict):
+    """A config dataclass from checkpointed JSON: unknown keys are dropped
+    (a JAX checkpoint's extra fields, fields of later versions) and lists
+    become tuples."""
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name in sub:
+            v = sub[f.name]
+            kwargs[f.name] = tuple(v) if isinstance(v, list) else v
+    return cls(**kwargs)
+
+
+def config_from_dict(d: dict) -> TrainConfig:
+    top = {f.name for f in dataclasses.fields(TrainConfig)} - {"moco", "optim", "data"}
+    return TrainConfig(
+        moco=dataclass_from_dict(MocoConfig, d.get("moco", {})),
+        optim=dataclass_from_dict(OptimConfig, d.get("optim", {})),
+        data=dataclass_from_dict(DataConfig, d.get("data", {})),
+        **{k: d[k] for k in top if k in d},
+    )
+
+
+class ResumeCompatError(ValueError):
+    """The checkpoint being resumed was trained under a structurally
+    different config; carries a field-by-field diff."""
+
+
+# Structural fields a resume must agree on: they fix parameter, optimizer
+# state and queue shapes. Tunables (lr, epochs, temperature, recipe) may
+# change across a resume on purpose. The JAX list's `parallel` section and
+# `vit_sequence_parallel` have no counterpart here.
+RESUME_COMPAT_FIELDS = {
+    "moco": ("arch", "dim", "num_negatives", "mlp", "v3", "cifar_stem",
+             "vit_pool", "vit_patch_size"),
+    "data": ("image_size",),
+}
+
+
+def resume_compat_diff(saved_extra: dict, config: TrainConfig) -> list[str]:
+    """Incompatibilities between a checkpoint's saved `extra` (its
+    `config`) and the live config; empty = compatible. Fields the saved
+    config lacks are skipped, so older checkpoints stay resumable."""
+    diffs = []
+    saved_cfg = saved_extra.get("config") or {}
+    live = config_to_dict(config)
+    for section, fields in RESUME_COMPAT_FIELDS.items():
+        saved_sec = saved_cfg.get(section) or {}
+        for f in fields:
+            if f not in saved_sec:
+                continue
+            sv, lv = saved_sec[f], live[section][f]
+            if isinstance(lv, tuple):
+                lv = list(lv)
+            if isinstance(sv, tuple):
+                sv = list(sv)
+            if sv != lv:
+                diffs.append(f"{section}.{f}: checkpoint={sv!r} != config={lv!r}")
+    return diffs

@@ -1,8 +1,9 @@
-"""Deterministic fault injection at the data sites (the `io` and `delay`
-kinds of moco_tpu/utils/faults.py).
+"""Deterministic fault injection (the `io`, `delay`, `nan` and
+`ckpt_truncate` kinds of moco_tpu/utils/faults.py).
 
-A plan is installed from a spec string: comma-separated faults, each
-`kind@key=val[:key=val...]`:
+A plan is installed from a spec string (`install`, or the `MOCO_FAULTS`
+environment variable, which the training driver reads at its start):
+comma-separated faults, each `kind@key=val[:key=val...]`:
 
     io@site=S:at=K[:times=M]      raise IOError on the Kth (1-based) call
                                   at site S (M consecutive calls; default
@@ -14,23 +15,29 @@ A plan is installed from a spec string: comma-separated faults, each
                                   ("input.h2d" slows the prefetch ring's
                                   transfer stage, "data.read" the host's
                                   loads)
+    nan@step=N[:times=M]          the loss the driver's guard observes at
+                                  global steps N..N+M-1 becomes NaN
+    ckpt_truncate@step=N          halve the checkpoint file written at
+                                  step N after the write completes: a
+                                  torn write the restore path must survive
 
-Faults are keyed on per-site call counters, never on randomness, so a run
-is exactly reproducible. The other kinds of the JAX module (checkpoint,
-NaN, stall, preemption, kill and the serving and analysis kinds) come
+Faults are keyed on global steps and per-site call counters, never on
+randomness, so a run is exactly reproducible. The other kinds of the JAX
+module (stall, preemption, kill and the serving and analysis kinds) come
 with the slices that port what they test. With no plan installed every
 hook returns at once.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import Counter
 from typing import Optional
 
-KINDS = ("io", "delay")
-_INT_KEYS = ("at", "times")
+KINDS = ("io", "delay", "nan", "ckpt_truncate")
+_INT_KEYS = ("step", "at", "times")
 _FLOAT_KEYS = ("seconds",)
 _STR_KEYS = ("site",)
 
@@ -62,9 +69,12 @@ class FaultPlan:
                     raise ValueError(f"unknown fault param {k!r} in {part!r}")
             if kind == "delay" and "seconds" not in kv:
                 raise ValueError(f"delay fault {part!r} needs seconds=<X>")
+            if kind in ("nan", "ckpt_truncate") and "step" not in kv:
+                raise ValueError(f"{kind} fault {part!r} needs step=<N>")
             self.rules.append((kind, kv))
         self._lock = threading.Lock()
         self._counts: Counter = Counter()  # (kind, site) -> calls seen
+        self._fired: set = set()  # once-only rules that already fired
 
     def _count(self, kind: str, site: str) -> int:
         with self._lock:
@@ -91,6 +101,29 @@ class FaultPlan:
             if n >= at and (times is None or n < at + times):
                 time.sleep(p["seconds"])
 
+    def corrupt_loss(self, loss: float, step: int) -> float:
+        for kind, p in self.rules:
+            if kind == "nan" and p["step"] <= step < p["step"] + p.get("times", 1):
+                return float("nan")
+        return loss
+
+    def on_checkpoint_saved(self, path: str, step: int) -> None:
+        """Halve the file of the checkpoint just written at `step` (once
+        per rule): the file is in place and named as a good one, but its
+        payload is short."""
+        for i, (kind, p) in enumerate(self.rules):
+            if kind != "ckpt_truncate" or p["step"] != step:
+                continue
+            with self._lock:
+                if i in self._fired:
+                    continue
+                self._fired.add(i)
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                f.truncate(max(1, size // 2))
+            print(f"injected fault: truncated {path} ({size} -> {max(1, size // 2)} bytes)",
+                  flush=True)
+
 
 _PLAN: Optional[FaultPlan] = None
 
@@ -102,8 +135,19 @@ def install(spec: Optional[str]) -> Optional[FaultPlan]:
     return _PLAN
 
 
+def install_from_env() -> Optional[FaultPlan]:
+    """Install from `MOCO_FAULTS` when it is set; otherwise leave the
+    current plan alone (tests install theirs directly)."""
+    spec = os.environ.get("MOCO_FAULTS")
+    return install(spec) if spec else _PLAN
+
+
 def clear() -> None:
     install(None)
+
+
+def enabled() -> bool:
+    return _PLAN is not None
 
 
 def maybe_io_error(site: str) -> None:
@@ -114,3 +158,12 @@ def maybe_io_error(site: str) -> None:
 def maybe_delay(site: str) -> None:
     if _PLAN is not None:
         _PLAN.maybe_delay(site)
+
+
+def corrupt_loss(loss: float, step: int) -> float:
+    return _PLAN.corrupt_loss(loss, step) if _PLAN is not None else loss
+
+
+def on_checkpoint_saved(path: str, step: int) -> None:
+    if _PLAN is not None:
+        _PLAN.on_checkpoint_saved(path, step)

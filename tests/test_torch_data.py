@@ -179,7 +179,7 @@ def test_host_reads_retry_an_injected_io_error(monkeypatch):
             faults.clear()
         assert torch.equal(pipe.batch(0, 1)["im_q"], want["im_q"])  # the slot came back
     with pytest.raises(ValueError, match="unknown fault kind"):
-        faults.install("nan@step=3")
+        faults.install("stall@step=3")
     with pytest.raises(ValueError, match="needs seconds"):
         faults.install("delay@site=input.h2d")
 

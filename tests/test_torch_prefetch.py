@@ -317,8 +317,8 @@ def test_train_closes_the_ring_when_the_loss_is_not_finite(monkeypatch):
     monkeypatch.setattr(train_module, "make_train_step", poisoned)
     before = set(threading.enumerate())
     with pytest.raises(FloatingPointError, match="non-finite loss"):
-        train(_train_config(True), dataset=SyntheticDataset(64, 32), device="cpu", steps=3,
-              num_filters=4)
+        train(_train_config(True, nan_guard_threshold=1), dataset=SyntheticDataset(64, 32),
+              device="cpu", steps=3, num_filters=4)
     assert _joined([t for t in threading.enumerate() if t not in before])
 
 
@@ -372,3 +372,25 @@ def test_graphed_augment_equals_the_eager_transform(cuda):
             got = pipe.augment(hb, raw)
             hb.slots.release(hb.slot)
             assert _equal(got, want), step
+
+
+@pytest.mark.cuda
+def test_labeled_pipeline_ring_on_a_card_yields_the_synchronous_batches(cuda):
+    """The probe's (images, labels) tuples through the ring on a card,
+    their augment replayed from its own graph: bit-equal to batch()."""
+    from moco_tpu_torch.data.datasets import LearnableSyntheticDataset
+    from moco_tpu_torch.data.pipeline import LabeledPipeline
+
+    data = pc.DataConfig(dataset="synthetic_learnable", image_size=32, global_batch=8,
+                         num_workers=2)
+    with LabeledPipeline(data, seed=1, dataset=LearnableSyntheticDataset(40, 32),
+                         device=cuda) as pipe:
+        ring = pipe.epoch(0, device=True)
+        try:
+            got = [(images.clone(), labels.clone()) for images, labels in ring]
+        finally:
+            ring.close()
+        assert len(got) == pipe.steps_per_epoch == 5
+        for step, (images, labels) in enumerate(got):
+            want_images, want_labels = pipe.batch(0, step)
+            assert torch.equal(images, want_images) and torch.equal(labels, want_labels), step
