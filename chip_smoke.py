@@ -163,7 +163,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    nan@step=8 and nan@step=10, threshold 2, from a copy of the final state:
    after step 9 (the NaN is found one step late, as in JAX) the state
    equals step 7's bit for bit while the step counter reads 9; two
-   nonfinite_loss lines (nan_steps 1 and 2); FloatingPointError at step 10's.
+   nonfinite_loss lines (nan_steps 1 and 2), each followed by its alert
+   line (the default rules, since PR 10); FloatingPointError at step 10's.
    (c) The probe: train_lincls from the workdir (ResNet-50, fc 2048 -> 8,
    batch 256, 2 epochs of 512 images, a val split of 300: a padded, masked
    tail), whose sanity_check holds every backbone weight and BN statistic
@@ -175,6 +176,44 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    stem, 32 px, dim 64, K 256, m 0.9, T 0.2, MLP, f32, lr 0.12, 4 epochs of
    512 images at batch 64): kNN top-1 (k 32, bank 512, 128 queries) must
    exceed 25%, twice chance; a 10-epoch probe's top-1 is printed beside it.
+12c. Fault tolerance and health, at full width (imagenet_v2, epochs of 3
+   steps, seeded synthetic data, the ring on) in a temporary workdir,
+   deleted at the end. (a) Preemption: preempt@step=4 stops the run after
+   step 5 (the signal lands at log step 4's deferred processing, one step
+   late); the run returns with its `preempted` flag, one `preempt` line
+   (step 5, epoch 1), InfoNCE launched once per step, the previous
+   SIGTERM/SIGINT handlers back, and an emergency checkpoint at step 5
+   (extras epoch 0, emergency, reason "preempt") that restores bit for bit
+   into a fresh state equal to the run's final state; the rerun resumes at
+   epoch 1 and ends at step 8 (5 + one redone epoch, moco_tpu's driver
+   test). A real SIGTERM from a timer thread during step 3 is timed from
+   os.kill to the emergency checkpoint's durable write (`CheckpointManager
+   .wait` returning). (c) Async checkpoints, 3 epochs with checkpoint_async:
+   the milliseconds each epoch-end save cost the loop (the first allocates
+   pinned host buffers, the second reuses them) beside a blocking save and
+   two async saves of the same final state; the step-3 file, restored after
+   steps 4-9 ran in place, equals the state cloned at save time bit for
+   bit; ckpt_truncate on the step-9 file under async still falls back to
+   step 6 and quarantines it. (d) Health and alerts: every training line of
+   the (a) and (c) runs carries every gauge and passes obs/schema.py, and
+   no alert fires on those clean ring runs; on one step's own q, k (head
+   outputs) and the queue it read, each gauge within 1e-5 of a float64 host
+   recomputation, relative to the larger of its value and its unit (1/T for
+   the logit statistics, 1/sqrt(d) for feature_std), feature_dim_active
+   equal but for dimensions within 1e-6 of the threshold; the gauges'
+   device time (CUDA events) and the v2 sync-mode step ms with
+   health_metrics on and off (10 timed steps each from the same state);
+   nan@step=5 (log_every=1) under the default rules writes one
+   nonfinite_loss alert line and one alerts.jsonl entry, and under
+   alerts_fatal raises FatalAlertError after an emergency checkpoint of
+   step 4 (reason "alert"). (b) The watchdog, last: `python -m
+   moco_tpu_torch.train --preset imagenet_v2 --data synthetic --epochs 2
+   --steps-per-epoch 3 --watchdog-timeout 15` with
+   MOCO_FAULTS=stall@step=4:seconds=120 exits with code 42, leaves
+   stall_stacks.txt, one `stall` line and an emergency checkpoint
+   (reason "stall") of the last finite log step, step 4, not of the live
+   step 5: queue_ptr 1024, and the rows step 5 wrote still the seeded
+   initial queue's; the seconds from the stall to the exit are printed.
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -1537,8 +1576,12 @@ def closed_loop_phase(fi, workdir):
         faults.clear()
     check(seen.get("rolled_back_at") == k1 + 1, f"rollback not seen: {sorted(seen)}")
     events = [r for r in read_metrics(os.path.join(guard_dir, "metrics.jsonl")) if "event" in r]
-    check([(r["event"], r["step"], r["nan_steps"]) for r in events]
+    check([(r["event"], r["step"], r["nan_steps"]) for r in events
+           if r["event"] == "nonfinite_loss"]
           == [("nonfinite_loss", k1, 1), ("nonfinite_loss", k2, 2)], f"guard events {events}")
+    # the default alert rules turn each nonfinite_loss event into an alert line
+    check([(r["step"], r["alert"]) for r in events if r["event"] == "alert"]
+          == [(k1, "nonfinite_loss"), (k2, "nonfinite_loss")], f"guard alert lines {events}")
     del gstate, seen
 
     # (c) the linear probe at full width from the pretraining checkpoint
@@ -1605,6 +1648,370 @@ def closed_loop_phase(fi, workdir):
           f"{out['probe_imgs_per_s']:.0f} imgs/s, eval {out['eval_imgs_per_s']:.0f} imgs/s, "
           f"top-1 {out['probe_top1']:.2f}%; learning signal kNN top-1 {top1:.2f}% (probe "
           f"{out['signal_probe_top1']:.2f}%)", flush=True)
+    return out
+
+
+# ------------------------------------------------- fault tolerance and health
+
+
+class TimedCheckpoints:
+    """A CheckpointManager factory for the driver that records what each
+    save cost the caller and when each emergency save became durable."""
+
+    def __init__(self):
+        from moco_tpu_torch.utils.checkpoint import CheckpointManager
+
+        self.saves, self.durable = [], []
+        log = self
+
+        class Manager(CheckpointManager):
+            def save(self, step, payload, extra=None, force=False):
+                t0 = time.perf_counter()
+                path = super().save(step, payload, extra=extra, force=force)
+                log.saves.append((step, (time.perf_counter() - t0) * 1e3))
+                return path
+
+            def wait(self):
+                super().wait()
+                log.durable.append(time.perf_counter())
+
+        self.Manager = Manager
+
+
+def gauge_reference(cfg, state, out_q, out_k, queue, step_before):
+    """The v2 gauges in float64 on the host from one step's own head outputs,
+    the queue it read and the parameters it left."""
+    t = cfg.moco.temperature
+    q = out_q.double().cpu()
+    q = q / q.norm(dim=1, keepdim=True)
+    k = out_k.double().cpu()
+    k = k / k.norm(dim=1, keepdim=True)
+    pos = (q * k).sum(1) / t
+    neg = q @ queue[:1024].double().cpu().T / t
+    std = q.std(dim=0, correction=0)
+    ref = {"logit_pos_mean": pos.mean(), "logit_pos_std": pos.std(correction=0),
+           "logit_neg_mean": neg.mean(), "logit_neg_std": neg.std(correction=0),
+           "feature_std": std.mean(), "std": std}
+    diff_sq = ref_sq = 0.0
+    for group in ("backbone", "head"):
+        pq = [p.detach().double().cpu() for p in getattr(state.encoder_q, group).parameters()]
+        pk = [p.detach().double().cpu() for p in getattr(state.encoder_k, group).parameters()]
+        d = sum(float(((a - b) ** 2).sum()) for a, b in zip(pq, pk))
+        r = sum(float((a ** 2).sum()) for a in pq)
+        ref[f"ema_drift/{group}"] = d ** 0.5 / (r ** 0.5 + 1e-12)
+        diff_sq, ref_sq = diff_sq + d, ref_sq + r
+    ref["ema_drift"] = diff_sq ** 0.5 / (ref_sq ** 0.5 + 1e-12)
+    depth = cfg.moco.num_negatives // cfg.data.global_batch
+    ages = np.minimum(np.arange(1, depth + 1, dtype=np.float64), step_before)
+    ref["queue_age_mean"], ref["queue_age_max"] = ages.mean(), ages.max()
+    bucket = np.clip(np.searchsorted(np.linspace(0, depth, 9), ages, side="right") - 1, 0, 7)
+    ref["queue_age_hist"] = np.bincount(bucket, minlength=8) / depth
+    return ref
+
+
+def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
+    """Phase 12c: the fault-tolerance and health layer at full width (module
+    docstring), in `workdir`; returns its numbers. `preset_name` and
+    `device` let the phase run a small preset on the CPU, where its
+    launch counts and CUDA timings are not checked."""
+    import signal
+    import threading
+
+    from moco_tpu_torch import train as train_module
+    from moco_tpu_torch.core.moco import build_encoder, create_state, make_train_step
+    from moco_tpu_torch.core.queue import init_queue
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.obs import health
+    from moco_tpu_torch.obs.alerts import FatalAlertError, read_alerts
+    from moco_tpu_torch.obs.schema import read_metrics, validate_file
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.utils import faults
+    from moco_tpu_torch.utils.checkpoint import CheckpointManager, load_state_payload, state_payload
+    from moco_tpu_torch.utils.config import PRESETS
+
+    out = {}
+    phase_t0 = time.perf_counter()
+    spe = LOOP_EPOCH_STEPS
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    preset = PRESETS[preset_name]
+    base = dataclasses.replace(preset, data=dataclasses.replace(preset.data, dataset="synthetic"),
+                               optim=dataclasses.replace(preset.optim, epochs=2),
+                               steps_per_epoch=spe)
+    b, img, kk, dim = (base.data.global_batch, base.data.image_size, base.moco.num_negatives,
+                       base.moco.dim)
+    data = SyntheticDataset(b * spe, img)
+    state0 = create_state(base, build_encoder(base.moco), device=device)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    timed = TimedCheckpoints()
+    real_manager = train_module.CheckpointManager
+    train_module.CheckpointManager = timed.Manager
+
+    def run(cfg, spec="", state=None, **kw):
+        faults.install(spec or None)
+        try:
+            return train(cfg, dataset=data, device=device,
+                         state=copy.deepcopy(state0) if state is None else state, **kw)
+        finally:
+            faults.clear()
+
+    def fire_count(d):
+        return read_alerts(os.path.join(d, "alerts.jsonl"))
+
+    try:
+        # (a) preemption: preempt@step=4 on 3-step epochs, the ring on; the
+        # log steps are 1, 3, 4 and 6, so the signal lands at step 4's
+        # deferred processing, after step 5 ran
+        pre = os.path.join(workdir, "preempt")
+        cfg = dataclasses.replace(base, workdir=pre)
+        fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+        first = run(cfg, "preempt@step=4")
+        final = first["state"]
+        check(first["preempted"] and final.step == 5, f"preempt: stopped at step {final.step}")
+        check(not cuda or fi.infonce_stats.launches == fi.infonce_dq.launches == final.step,
+              "preempt: InfoNCE launches != steps")
+        check({s: signal.getsignal(s) for s in handlers} == handlers, "preempt: handlers not back")
+        events = [(r["step"], r["epoch"], r["event"]) for r in read_metrics(
+            os.path.join(pre, "metrics.jsonl")) if "event" in r]
+        check(events == [(5, 1, "preempt")], f"preempt: event lines {events}")
+        mgr = CheckpointManager(pre)
+        check(mgr.all_steps() == [spe, 5], f"preempt: checkpoints {mgr.all_steps()}")
+        extra = mgr.read_extra(5)
+        check((extra["epoch"], extra["emergency"], extra["reason"]) == (0, True, "preempt"),
+              f"preempt: extras {extra}")
+        fresh = create_state(base, build_encoder(base.moco), device=device)
+        load_state_payload(fresh, mgr.restore(step=5)[0])
+        same_state(fresh, clone_state(final), "preempt: the emergency checkpoint")
+        check((fresh.step, fresh.queue_ptr) == (final.step, final.queue_ptr), "preempt: step, ptr")
+        del fresh
+        again = run(cfg)  # resumes at epoch 1, redoes it: 5 + 3 = 8 (moco_tpu's driver test)
+        check([r["step"] for r in again["history"]] == [6, 7, 8] and mgr.latest_step() == 8,
+              f"preempt: resumed steps {[r['step'] for r in again['history']]}")
+        check(fire_count(pre) == [], f"preempt: alerts on a clean run {fire_count(pre)}")
+
+        # a real SIGTERM from a timer thread during step 3: signal to durable
+        sig_dir = os.path.join(workdir, "sigterm")
+        sent = {}
+
+        def kill():
+            sent["t"] = time.perf_counter()
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        timer = threading.Timer(0.05, kill)
+        timed.durable.clear()
+        try:
+            sig_run = run(dataclasses.replace(base, workdir=sig_dir),
+                          log=lambda r: r["step"] == 2 and timer.start())
+        finally:
+            timer.cancel()
+            if timer.ident is not None:
+                timer.join()
+        check(sig_run["preempted"] and "t" in sent and timed.durable, "SIGTERM: no preemption")
+        out["sigterm_to_durable_ms"] = (timed.durable[-1] - sent["t"]) * 1e3
+        out["sigterm_saved_step"] = sig_run["state"].step
+        extra = CheckpointManager(sig_dir).read_extra(sig_run["state"].step)
+        check(extra["reason"] == "preempt", f"SIGTERM: extras {extra}")
+        check({s: signal.getsignal(s) for s in handlers} == handlers, "SIGTERM: handlers not back")
+        del first, again, sig_run
+
+        # (c) async checkpoints, 3 epochs: the loop's paid save (the first
+        # allocates its pinned buffers, the second reuses them), the file's
+        # bits against the state at save time, the torn-file fall-back
+        async_dir = os.path.join(workdir, "async")
+        acfg = dataclasses.replace(base, workdir=async_dir, checkpoint_async=True,
+                                   optim=dataclasses.replace(base.optim, epochs=3))
+        at_save = {}
+        astate = copy.deepcopy(state0)
+        timed.saves.clear()
+        arun = run(acfg, f"ckpt_truncate@step={3 * spe}", state=astate,
+                   log=lambda r: r["step"] == spe and at_save.update(clone_state(astate)))
+        paid = dict(timed.saves)
+        out["async_save_paid_ms"] = [paid[spe], paid[2 * spe]]
+        amgr = CheckpointManager(async_dir)
+        check(amgr.latest_step() == 2 * spe, "async: the truncated newest file was not passed over")
+        check(os.listdir(os.path.join(async_dir, "quarantine"))
+              == [os.path.basename(amgr.path(3 * spe))], "async: the torn file not quarantined")
+        fresh = create_state(base, build_encoder(base.moco), device=device)
+        load_state_payload(fresh, amgr.restore(step=spe)[0])
+        same_state(fresh, at_save, "async: the checkpoint against the state at save time")
+        del fresh, at_save
+        final = arun["state"]
+        blocking = CheckpointManager(os.path.join(workdir, "blocking"), keep=1)
+        sync()
+        t0 = time.perf_counter()
+        blocking.save(final.step, state_payload(final, "resnet50", 2))
+        out["blocking_save_ms"] = (time.perf_counter() - t0) * 1e3
+        asave = CheckpointManager(os.path.join(workdir, "async_again"), keep=1, async_save=True)
+        paid_again = []
+        for _ in range(2):  # the first allocates its pinned buffers, the second reuses them
+            sync()
+            t0 = time.perf_counter()
+            asave.save(final.step, state_payload(final, "resnet50", 2))
+            paid_again.append((time.perf_counter() - t0) * 1e3)
+            asave.wait()
+        out["async_save_paid_ms_same_state"] = paid_again
+
+        # (d) health and alerts: every training line carries the gauges
+        for d in (pre, async_dir):
+            path = os.path.join(d, "metrics.jsonl")
+            errors = validate_file(path)
+            check(errors == [], f"metrics.jsonl schema ({d}): {errors[:3]}")
+            lines = [r for r in read_metrics(path) if "loss" in r]
+            missing = [(r["step"], k) for r in lines for k in health.HEALTH_KEYS
+                       + ("ema_drift/backbone", "ema_drift/head") if k not in r]
+            check(lines and not missing, f"gauges missing from training lines: {missing[:4]}")
+        check(fire_count(async_dir) == [], f"alerts on a clean ring run: {fire_count(async_dir)}")
+
+        # the gauges of one step against float64 on its own q, k and queue
+        gstate = copy.deepcopy(final)
+        seen = {}
+        hooks = [enc.register_forward_hook(lambda _m, _i, o, n=n: seen.__setitem__(n, o.detach()))
+                 for n, enc in (("q", gstate.encoder_q), ("k", gstate.encoder_k))]
+        views = torch.randn(2, b, img, img, 3, device=device,
+                            generator=torch.Generator(device=device).manual_seed(SEED))
+        queue_before, step_before = gstate.queue.clone(), gstate.step
+        metrics = make_train_step(base, spe, device=device)(gstate, {"im_q": views[0],
+                                                                     "im_k": views[1]})
+        for h in hooks:
+            h.remove()
+        ref = gauge_reference(base, gstate, seen["q"], seen["k"], queue_before, step_before)
+        unit = {"logit_pos_mean": 1 / base.moco.temperature, "logit_pos_std": 1 / base.moco.temperature,
+                "logit_neg_mean": 1 / base.moco.temperature, "logit_neg_std": 1 / base.moco.temperature,
+                "feature_std": 1 / dim ** 0.5}
+        worst = 0.0
+        for key, want in ref.items():
+            if key == "std":
+                continue
+            got = metrics[key].double().cpu().numpy()
+            want = np.asarray(want, np.float64)
+            err = float(np.max(np.abs(got - want)) / max(float(np.max(np.abs(want))),
+                                                          unit.get(key, 0.0), 1e-30))
+            worst = max(worst, err)
+            out.setdefault("gauge_rel_err", {})[key] = err
+            check(err <= 1e-5, f"gauge {key}: {got} against float64 {want} ({err:.2e} relative)")
+        threshold = 0.1 / dim ** 0.5
+        near = int((ref["std"] - threshold).abs().le(1e-6).sum())
+        want_active = int((ref["std"] > threshold).sum())
+        check(abs(float(metrics["feature_dim_active"]) - want_active) <= near,
+              f"feature_dim_active {float(metrics['feature_dim_active'])} != {want_active}")
+        out["gauge_max_rel_err"] = worst
+        gauges = functools.partial(
+            health.health_summary, health.module_groups(gstate.encoder_q),
+            health.module_groups(gstate.encoder_k), seen["q"].float(),
+            (seen["q"].float() * seen["k"].float()).sum(-1),
+            seen["q"].float() @ gstate.queue[:1024].T, gstate.step, kk, b)
+        if cuda:
+            out["gauge_ms"] = cuda_ms(gauges, iters=20)
+        else:  # the host's clock, once: a smoke of the phase, not a number to keep
+            t0 = time.perf_counter()
+            gauges()
+            out["gauge_ms"] = (time.perf_counter() - t0) * 1e3
+        del gstate, seen, views, astate, arun
+
+        # the gauges' cost end to end: sync-mode step ms, on against off
+        step_ms = {}
+        for on in (True, False):
+            hcfg = dataclasses.replace(base, health_metrics=on, device_prefetch=False,
+                                       steps_per_epoch=None)
+            hist = train(hcfg, dataset=SyntheticDataset(b * 16, img), device=device,
+                         steps=TRAIN_WARMUP + TRAIN_TIMED, state=copy.deepcopy(final))["history"]
+            step_ms[on] = float(np.median([r["step_ms"] for r in hist[TRAIN_WARMUP:]]))
+        out["step_ms_health_on"], out["step_ms_health_off"] = step_ms[True], step_ms[False]
+
+        # nan@step=5 under the default rules: one alert line, one alerts.jsonl entry
+        nan_dir = os.path.join(workdir, "nan")
+        run(dataclasses.replace(base, workdir=nan_dir, log_every=1), "nan@step=5")
+        alerts = [(r["step"], r["alert"]) for r in read_metrics(
+            os.path.join(nan_dir, "metrics.jsonl")) if r.get("event") == "alert"]
+        check(alerts == [(5, "nonfinite_loss")], f"nan: alert lines {alerts}")
+        check([a["rule"] for a in fire_count(nan_dir)] == ["nonfinite_loss"], "nan: alerts.jsonl")
+        # ... and under alerts_fatal: an emergency checkpoint, then FatalAlertError
+        fatal_dir = os.path.join(workdir, "fatal")
+        try:
+            run(dataclasses.replace(base, workdir=fatal_dir, log_every=1, alerts_fatal=True),
+                "nan@step=5")
+            check(False, "alerts_fatal: no FatalAlertError")
+        except FatalAlertError as e:
+            out["fatal"] = str(e)[:80]
+        fmgr = CheckpointManager(fatal_dir)
+        check(fmgr.all_steps() == [spe, 4], f"alerts_fatal: checkpoints {fmgr.all_steps()}")
+        extra = fmgr.read_extra(4)
+        check((extra["reason"], extra["alert"], extra["emergency"]) == ("alert", "nonfinite_loss",
+                                                                         True),
+              f"alerts_fatal: extras {extra}")
+    finally:
+        train_module.CheckpointManager = real_manager
+    del final, state0
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the watchdog: a stalled training process exits with 42 after
+    # saving the last finite log step's state
+    wd_dir = os.path.join(workdir, "watchdog")
+    env = {**os.environ, "MOCO_FAULTS": "stall@step=4:seconds=120"}
+    cmd = [sys.executable, "-m", "moco_tpu_torch.train", "--preset", preset_name, "--data",
+           "synthetic", "--workdir", wd_dir, "--epochs", "2", "--steps-per-epoch", str(spe),
+           "--watchdog-timeout", "15", "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    stalled, tail = {}, []
+
+    def read():
+        for line in proc.stdout:
+            tail.append(line.rstrip())
+            if line.startswith("injected fault: stalling"):
+                stalled["t"] = time.perf_counter()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        t_exit = time.perf_counter()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=30)
+    check(rc == 42 and "t" in stalled, f"watchdog: exit code {rc}; output {tail[-12:]}")
+    out["watchdog_exit_s"] = t_exit - stalled["t"]
+    out["watchdog_process_s"] = t_exit - t0
+    check("Thread" in open(os.path.join(wd_dir, "stall_stacks.txt")).read(), "watchdog: no stacks")
+    stall = [r for r in read_metrics(os.path.join(wd_dir, "metrics.jsonl"))
+             if r.get("event") == "stall"]
+    check(len(stall) == 1 and stall[0]["watchdog_timeout"] == 15.0, f"watchdog: stall lines {stall}")
+    wmgr = CheckpointManager(wd_dir)
+    check(wmgr.all_steps() == [spe, 4], f"watchdog: checkpoints {wmgr.all_steps()}")
+    payload, extra = wmgr.restore(step=4)
+    check((extra["reason"], extra["epoch"], extra["emergency"]) == ("stall", 0, True),
+          f"watchdog: extras {extra}")
+    # the snapshot of step 4, not the live state of step 5: pointer at 4 batches, and
+    # the rows step 5 wrote still hold the seeded initial queue
+    queue = payload["state_dict"]["module.queue"].t().to(device)
+    init = init_queue(torch.Generator(device=device).manual_seed(base.seed), kk, dim,
+                      device=device)
+    ptr = int(payload["state_dict"]["module.queue_ptr"][0])
+    check(ptr == 4 * b % kk, f"watchdog: queue_ptr {ptr}")
+    check(torch.equal(queue[4 * b:5 * b], init[4 * b:5 * b])
+          and not torch.equal(queue[3 * b:4 * b], init[3 * b:4 * b]),
+          "watchdog: the checkpoint is not the state of step 4")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"fault tolerance and health in {out['phase_s']:.1f} s: SIGTERM to durable checkpoint "
+          f"{out['sigterm_to_durable_ms']:.1f} ms (step {out['sigterm_saved_step']}); save paid by "
+          f"the loop, async {out['async_save_paid_ms'][0]:.1f} / {out['async_save_paid_ms'][1]:.1f}"
+          f" ms (same state {out['async_save_paid_ms_same_state'][0]:.1f} / "
+          f"{out['async_save_paid_ms_same_state'][1]:.1f}) against blocking "
+          f"{out['blocking_save_ms']:.1f} ms; gauges {out['gauge_ms']:.3f} ms of device time, "
+          f"v2 sync step {out['step_ms_health_on']:.2f} ms on, {out['step_ms_health_off']:.2f} ms "
+          f"off, worst relative error {out['gauge_max_rel_err']:.2e}; watchdog exit "
+          f"{out['watchdog_exit_s']:.1f} s after the stall ({out['watchdog_process_s']:.1f} s "
+          f"process)", flush=True)
     return out
 
 
@@ -1753,6 +2160,15 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir)
     print(json.dumps({"loop": loop, "device": smi}))
+    torch.cuda.empty_cache()
+
+    # -- fault tolerance and health: preemption, watchdog, async saves, alerts --
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    try:
+        faults_out = fault_health_phase(fused_infonce, workdir)
+    finally:
+        shutil.rmtree(workdir)
+    print(json.dumps({"faults": faults_out, "device": smi}))
     torch.cuda.empty_cache()
 
     # -- the cell-scan kernel's own times --------------------------------------

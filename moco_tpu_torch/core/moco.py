@@ -17,8 +17,14 @@ The v1/v2 step follows the reference's order (moco_tpu/core/moco.py:1061-1316):
    at :731-758 exists for its Pallas tile, which the CUDA kernels do not
    need);
 5. backward and the optimizer step (:1250-1258);
-6. FIFO enqueue of this step's keys (:1260-1277), after the loss (and its
-   backward, which saved the queue) has read the old queue.
+6. the health gauges (obs/health.py, :1279-1305) when
+   `config.health_metrics`: the positive logits from the (q, k) diagonal,
+   the negatives from q against the first min(1024, K) rows of the old
+   queue, both over T; `feature_stats` of q; the drift of the updated query
+   parameters from the key parameters; the queue's ages at the step count
+   before its increment;
+7. FIFO enqueue of this step's keys (:1260-1277), after the loss (and its
+   backward, which saved the queue) and the gauges have read the old queue.
 
 The v3 step (`v3_step`, :875-1059, the single-device branch without ZeRO):
 
@@ -32,7 +38,11 @@ The v3 step (`v3_step`, :875-1059, the single-device branch without ZeRO):
 5. backward and the optimizer step. `freeze_patch_embed` keeps the patch
    embedding out of the optimizer with requires_grad=False: no gradient
    and no decoupled weight decay reach it, which is what JAX gets by
-   zeroing both its gradient and its update (:953, :1028-1033).
+   zeroing both its gradient and its update (:953, :1028-1033);
+6. the health gauges when `config.health_metrics` (:1035, :1041-1050):
+   `logit_stats_from_dense` of the first term's logits, `feature_stats`
+   of q1 and the drift of the updated query encoder (not the predictor)
+   from the key encoder; no queue gauges.
 
 One device means no Shuffle-BN collective: the JAX step's
 `shuffle_active` is false there, whatever `shuffle` says.
@@ -53,6 +63,7 @@ from moco_tpu_torch.core.queue import check_queue_divisibility, enqueue, init_qu
 from moco_tpu_torch.models.heads import ProjectionHead, V3MLPHead
 from moco_tpu_torch.models.resnet import create_resnet
 from moco_tpu_torch.models.vit import create_vit
+from moco_tpu_torch.obs import health
 from moco_tpu_torch.ops.fused_infonce import fused_infonce_loss
 from moco_tpu_torch.ops.losses import cross_entropy, infonce_logits, l2_normalize, topk_accuracy
 from moco_tpu_torch.utils.config import MocoConfig, TrainConfig
@@ -190,7 +201,9 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
     `config.moco.v3`), updating `state` in place. `batch` is {"im_q",
     "im_k"}, (B, S, S, 3) float32 views already augmented, B =
     config.data.global_batch. Metrics: loss, acc1, acc5 (0-dim tensors, not
-    synchronized) and lr. The EMA ramp spans epochs * steps_per_epoch
+    synchronized), lr, and with `config.health_metrics` the health gauges
+    (0-dim tensors, `queue_age_hist` an (8,) one, not synchronized). The
+    EMA ramp spans epochs * steps_per_epoch
     steps, the total moco_tpu/train.py:360 passes.
 
     Under compute_dtype="bfloat16" the encoders run under autocast while
@@ -204,6 +217,7 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
     schedule = make_lr_schedule(config.optim, steps_per_epoch)
     ema_momentum = make_ema_momentum(cfg, config.optim.epochs * steps_per_epoch)
     bf16 = cfg.compute_dtype == "bfloat16"
+    health_on = config.health_metrics
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True  # the trainer's shapes are fixed
 
@@ -247,10 +261,20 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
             loss, acc = cross_entropy(logits, labels), topk_accuracy(logits, labels)
         # (5) backward and the optimizer step
         lr = update(state, loss)
-        # (6) FIFO enqueue after the loss has read the old queue
+        metrics = {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
+        # (6) the gauges, on the old queue and the updated query parameters
+        if health_on:
+            with torch.no_grad():
+                q_h = q.detach()
+                pos = (q_h * k).sum(-1) / cfg.temperature
+                neg = (q_h @ state.queue[:min(1024, state.queue.shape[0])].T) / cfg.temperature
+                metrics.update(health.health_summary(
+                    health.module_groups(state.encoder_q), health.module_groups(state.encoder_k),
+                    q_h, pos, neg, state.step, cfg.num_negatives, global_batch))
+        # (7) FIFO enqueue after the loss and the gauges have read the old queue
         state.queue, state.queue_ptr = enqueue(state.queue, state.queue_ptr, k)
         state.step += 1
-        return {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
+        return metrics
 
     def v3_step(state: TrainState, batch: dict) -> dict:
         im_q, im_k = batch["im_q"], batch["im_k"]
@@ -281,7 +305,14 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         acc = topk_accuracy(logits.detach(), labels)
         # (5) backward and the optimizer step
         lr = update(state, loss)
+        metrics = {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
+        # (6) the gauges; the drift of the updated encoder, not the predictor
+        if health_on:
+            metrics.update(health.logit_stats_from_dense(logits.detach(), labels))
+            metrics.update(health.feature_stats(q1.detach()))
+            metrics.update(health.ema_drift(health.module_groups(state.encoder_q),
+                                            health.module_groups(state.encoder_k)))
         state.step += 1
-        return {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
+        return metrics
 
     return v3_step if cfg.v3 else step

@@ -6,16 +6,20 @@ Line kinds (all carry `step` int + `time` float):
 - *training lines*: `loss` present -> require `epoch`/`lr`/`acc1`/`acc5`;
   optionally the step times (`t_data`/`t_step`), the input-wire gauges of
   the prefetch ring (`t_transfer`/`transfer_bytes`/`prefetch_depth_live`),
-  and the fault counters (`nan_steps`/`decode_failures`/`io_retries` when
-  nonzero);
-- *event lines*: `event` in EVENT_KINDS instead of the metric fields;
+  the health gauges (`ema_drift`, `ema_drift/<group>`, `logit_*`,
+  `feature_*`, `queue_age_*`), and the fault counters
+  (`nan_steps`/`decode_failures`/`io_retries` when nonzero);
+- *event lines*: `event` in EVENT_KINDS instead of the metric fields: the
+  guard's `nonfinite_loss`, the watchdog's `stall` (with its
+  `watchdog_timeout`), `preempt`, and `alert` (with `alert`, `severity`
+  and an `alert/<rule>` gauge);
 - *aux lines*: neither (the kNN monitor's `knn_top1` line).
 
 Numbers are finite or null: NaN/Inf literals are rejected at parse time
 (`loads_strict`), matching the writer's scrubbing. The JAX schema's
-serving, fleet, ZeRO, health, rescale and promotion families come with the
-slices that write them; a field this copy does not list passes unchecked,
-as in the original.
+serving, fleet, ZeRO, rescale and promotion families come with the slices
+that write them; a field this copy does not list passes unchecked, as in
+the original.
 """
 
 from __future__ import annotations
@@ -45,6 +49,10 @@ def _int_like(v: Any) -> bool:
     return isinstance(v, int) and not isinstance(v, bool)
 
 
+def _num_list(v: Any) -> bool:
+    return isinstance(v, list) and all(_num_or_null(x) for x in v)
+
+
 def _counter_map(v: Any) -> bool:
     return isinstance(v, dict) and all(isinstance(k, str) and _int_like(n) for k, n in v.items())
 
@@ -67,10 +75,34 @@ FIELD_VALIDATORS = {
     "t_transfer": _num,
     "transfer_bytes": _int_like,
     "prefetch_depth_live": _int_like,
+    # MoCo health gauges (obs/health.py)
+    "ema_drift": _num_or_null,
+    "logit_pos_mean": _num_or_null,
+    "logit_pos_std": _num_or_null,
+    "logit_neg_mean": _num_or_null,
+    "logit_neg_std": _num_or_null,
+    "feature_std": _num_or_null,
+    "feature_dim_active": _num_or_null,
+    "queue_age_mean": _num_or_null,
+    "queue_age_max": _num_or_null,
+    "queue_age_hist": _num_list,
     # fault-tolerance counters (present only when nonzero)
     "nan_steps": _int_like,
     "decode_failures": _int_like,
     "io_retries": _counter_map,
+    # the watchdog's stall event line
+    "watchdog_timeout": _num,
+    # alert event lines (obs/alerts.py)
+    "alert": lambda v: isinstance(v, str),
+    "severity": lambda v: v in ("warn", "fatal"),
+}
+
+# key-prefix families sharing one validator: the per-group EMA drift and
+# the per-rule alert gauge; an explicit FIELD_VALIDATORS entry wins, else
+# the longest matching prefix
+PREFIX_VALIDATORS = {
+    "ema_drift/": _num_or_null,
+    "alert/": _num,
 }
 
 
@@ -104,6 +136,12 @@ def validate_line(rec: dict) -> list[str]:
     for k, check in FIELD_VALIDATORS.items():
         if k in rec and not check(rec[k]):
             errors.append(f"field {k!r} has invalid value {rec[k]!r}")
+    for k, v in rec.items():
+        if k in FIELD_VALIDATORS:
+            continue
+        matches = [p for p in PREFIX_VALIDATORS if k.startswith(p)]
+        if matches and not PREFIX_VALIDATORS[max(matches, key=len)](v):
+            errors.append(f"field {k!r} has invalid value {v!r}")
     return errors
 
 

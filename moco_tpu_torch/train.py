@@ -1,5 +1,6 @@
 """MoCo pretraining on one device, v1/v2 or v3 (moco_tpu/train.py `train` /
-`_train_impl` without the mesh, ZeRO, watchdog, alerts and elastic parts).
+`_train_impl` without the mesh, ZeRO, fleet aggregation, tracing and
+elastic parts).
 
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic --steps 20
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic_learnable \\
@@ -36,6 +37,37 @@ pointer, the predictor, the optimizer's buffers; device buffers allocated
 once); a non-finite one counts toward `nan_guard_threshold`, writes a
 `nonfinite_loss` event, and restores the snapshot while the step counter
 keeps advancing; at the threshold the run raises `FloatingPointError`.
+
+Fault tolerance and health, as in the JAX driver:
+
+- preemption: SIGTERM (how a preemptible node or a scheduler announces the
+  end) or a first SIGINT sets a flag that the loop reads after each step;
+  the run then writes a `preempt` event line, saves the live state (an
+  emergency checkpoint: extras `epoch` = the last completed epoch,
+  `emergency`, `reason`), waits until it is durable, and returns. A resume
+  redoes the partial epoch. A second SIGINT raises KeyboardInterrupt. The
+  handlers are installed on the main thread only, and the previous ones
+  come back when `train` returns;
+- the stall watchdog (`watchdog_timeout` > 0, utils/watchdog.py): no
+  finished step for that long dumps every thread's stack to
+  `stall_stacks.txt`, writes a `stall` line, saves the guard's snapshot
+  (the last finite log step's state: a wedged card cannot be asked for the
+  live one) from a sidecar thread joined for at most max(30 s, timeout),
+  and exits with code 42;
+- `checkpoint_async`: epoch-end saves return once the state is copied to
+  host memory; every emergency save blocks until durable;
+- the health gauges (`health_metrics`, obs/health.py) on every training
+  line, fetched on log steps only, in one copy;
+- the heartbeat file (obs/fleet.py), beaten at the start and on log steps;
+- the alert engine (`alert_rules`, obs/alerts.py) over every training
+  payload and `nonfinite_loss` event: one `alert` event line per fire;
+  under `alerts_fatal`, an emergency checkpoint of the snapshot
+  (`reason="alert"`), then `FatalAlertError`;
+- the fault hooks `stall@step=N:seconds=S` and `preempt@step=N`, run at a
+  log step's deferred processing.
+
+Without a workdir nothing is written: no checkpoint, emergency or not, no
+metrics, heartbeat or alerts.jsonl; preemption still stops the run.
 """
 
 from __future__ import annotations
@@ -44,7 +76,10 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import signal
 import sys
+import threading
 import time
 from typing import Callable, Optional
 
@@ -67,6 +102,8 @@ from moco_tpu_torch.core.moco import (
 from moco_tpu_torch.data.datasets import build_dataset
 from moco_tpu_torch.data.pipeline import TwoCropPipeline
 from moco_tpu_torch.knn import knn_eval
+from moco_tpu_torch.obs.alerts import AlertEngine, FatalAlertError, parse_rules
+from moco_tpu_torch.obs.fleet import Heartbeat
 from moco_tpu_torch.utils import faults, retry
 from moco_tpu_torch.utils.checkpoint import CheckpointManager, load_state_payload, state_payload
 from moco_tpu_torch.utils.config import (
@@ -78,6 +115,7 @@ from moco_tpu_torch.utils.config import (
 )
 from moco_tpu_torch.utils.device import resolve_device
 from moco_tpu_torch.utils.metrics import AverageMeter, MetricWriter, ProgressMeter, print0
+from moco_tpu_torch.utils.watchdog import StepWatchdog
 
 
 def _sync(device: torch.device) -> None:
@@ -107,8 +145,10 @@ class StateSnapshot:
     buffers allocated on the first `take` (and again only when the
     optimizer's state grows, as SGD's momentum buffers appear at its first
     step); `take` and `restore` are one batched device copy each.
-    `state.step` is not part of it: the step counter keeps advancing across
-    a rollback."""
+    `state.step` is not restored: the step counter keeps advancing across
+    a rollback. `step` records the step it was taken at, and `payload`
+    gives a checkpoint of it (the watchdog's and fatal alerts' emergency
+    saves)."""
 
     def __init__(self, state: TrainState):
         self._saved: Optional[list] = None
@@ -150,6 +190,24 @@ class StateSnapshot:
         if opt:
             torch._foreach_copy_(self._opt_saved, opt)
         self.queue_ptr = state.queue_ptr
+        self.step = state.step
+
+    def payload(self, state: TrainState, arch: str, epoch: int) -> dict:
+        """`state_payload`'s layout with the snapshot's copies in place of
+        `state`'s live tensors; save it at `self.step`."""
+        it = iter(self._saved)
+        sds = {side: None if m is None else {k: next(it) for k in m.state_dict(keep_vars=True)}
+               for side, m in (("q", state.encoder_q), ("k", state.encoder_k),
+                               ("predictor", state.predictor))}
+        queue = next(it) if state.queue is not None else None
+        by_param: dict = {}
+        for (pid, k), t in zip(self._opt_keys, self._opt_saved):
+            by_param.setdefault(pid, {})[k] = t
+        opt = state.optimizer.state_dict()
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        opt["state"] = {i: by_param[id(p)] for i, p in enumerate(params) if id(p) in by_param}
+        return state_payload(state, arch, epoch, tensors={
+            **sds, "queue": queue, "queue_ptr": self.queue_ptr, "optimizer": opt})
 
     @torch.no_grad()
     def restore(self, state: TrainState) -> None:
@@ -182,6 +240,22 @@ def _num_classes(dataset) -> int:
     return int(np.max(np.asarray(labels)) + 1)
 
 
+def _fetch_gauges(metrics: dict) -> dict:
+    """The step's health gauges (its tensors beside loss and accuracy) as
+    Python numbers, in one device-to-host copy."""
+    keys = [k for k, v in metrics.items()
+            if torch.is_tensor(v) and k not in ("loss", "acc1", "acc5")]
+    if not keys:
+        return {}
+    flat = torch.cat([metrics[k].reshape(-1).float() for k in keys]).tolist()
+    out, at = {}, 0
+    for k in keys:
+        n = metrics[k].numel()
+        out[k] = flat[at] if metrics[k].dim() == 0 else flat[at:at + n]
+        at += n
+    return out
+
+
 def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int] = None,
           state: Optional[TrainState] = None, num_filters: int = 64,
           log: Optional[Callable[[dict], None]] = None, knn_datasets=None) -> dict:
@@ -189,18 +263,20 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
     config.optim.epochs - 1) from `state` (default: a fresh seeded one),
     or from the newest checkpoint under `config.workdir` when there is
     one; returns {"history": [per-step records], "state": the final state,
-    "steps_per_epoch": n, "last_avg": the last finished epoch's means
-    (and its knn_top1), "nan_steps": non-finite log steps}.
+    "steps_per_epoch": n, "last_avg": the last epoch's means (and its
+    knn_top1), "nan_steps": non-finite log steps, "preempted": whether a
+    signal stopped the run}.
 
     Each epoch's batches come from `pipe.epoch(e, device=config.device_prefetch,
     depth=config.prefetch_depth)`: the prefetch ring by default, made
     serially when device_prefetch is False. Each step's record holds loss,
     acc1, acc5, lr, data_ms (the wait for the batch), step_ms, imgs_per_s
-    and the ring's transfer stats; `log` is called with each record. Host
-    times end in a synchronize of the current stream, so they are the
-    step's own. `knn_datasets` is the (bank, test) pair of the kNN monitor
-    (default: built from config.data, train and held-out splits);
-    `num_filters` narrows a fresh encoder for tests."""
+    and the ring's transfer stats, and on log steps the health gauges;
+    `log` is called with each record. Host times end in a synchronize of
+    the current stream, so they are the step's own. `knn_datasets` is the
+    (bank, test) pair of the kNN monitor (default: built from config.data,
+    train and held-out splits); `num_filters` narrows a fresh encoder for
+    tests."""
     faults.install_from_env()
     device = resolve_device(device)
     workdir = config.workdir
@@ -211,7 +287,8 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
         if state is None:
             state = _seeded_state(config, device, num_filters)
         epoch, i = divmod(state.step, steps_per_epoch)
-        ckpt = CheckpointManager(workdir, keep=config.checkpoint_keep) if workdir else None
+        ckpt = (CheckpointManager(workdir, keep=config.checkpoint_keep,
+                                  async_save=config.checkpoint_async) if workdir else None)
         if ckpt is not None and ckpt.latest_step() is not None:  # automatic resume
 
             def check_compat(extra: dict) -> None:
@@ -238,20 +315,78 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
             knn_classes = _num_classes(knn_pair[0])
         writer = MetricWriter(workdir) if workdir and total else None
         snapshot = StateSnapshot(state)
-        guard = {"nan_steps": 0}
+        guard = {"nan_steps": 0, "epoch": epoch}
         flush_anchor = {"wall": time.perf_counter(), "gstep": state.step}
         history: list = []
         last_avg: dict = {}
+        arch = config.moco.arch
+
+        def emergency_save(source, completed_epoch: int, reason: str,
+                           extra_fields: Optional[dict] = None) -> None:
+            """Save first, die second: the preemption exit (`source` the
+            live state), the watchdog's stall and a fatal alert (`source`
+            the guard's snapshot). Skips a step that is already durable;
+            always blocks until the write lands."""
+            if ckpt is None:
+                print0(f"{reason}: no workdir, no emergency checkpoint", flush=True)
+                return
+            if source.step in ckpt.all_steps():
+                print(f"{reason}: step {source.step} already durable, skipping emergency save",
+                      flush=True)
+                return
+            extra = {"epoch": completed_epoch, "config": config_to_dict(config),
+                     "emergency": True, "reason": reason, **(extra_fields or {})}
+            if source is snapshot:
+                payload = snapshot.payload(state, arch, completed_epoch + 1)
+            else:
+                payload = state_payload(state, arch, completed_epoch + 1)
+            ckpt.save(source.step, payload, extra=extra, force=True)
+            ckpt.wait()
+
+        heartbeat = Heartbeat(workdir) if workdir else None
+        if heartbeat is not None:
+            heartbeat.beat(step=state.step, epoch=epoch)
+        engine = (AlertEngine(parse_rules(config.alert_rules,
+                                          heartbeat_timeout=config.heartbeat_timeout),
+                              workdir=workdir)
+                  if config.alert_rules and config.alert_rules != "none" else None)
+
+        def handle_alerts(gstep: int, epoch: int, fired: list) -> None:
+            """One `alert` event line per fire; under alerts_fatal, an
+            emergency checkpoint of the snapshot, then FatalAlertError."""
+            if not fired:
+                return
+            for a in fired:
+                print0(f"ALERT [{a['severity']}] {a['rule']} @ step {gstep}: {a['message']}",
+                       flush=True)
+                if writer is not None:
+                    writer.write(gstep, {"epoch": epoch, "event": "alert", "alert": a["rule"],
+                                         "severity": a["severity"], f"alert/{a['rule']}": 1})
+            if writer is not None:
+                writer.fsync()
+            if config.alerts_fatal:
+                # the last finite state, mid-epoch: resume redoes the epoch
+                emergency_save(snapshot, epoch - 1, "alert", {"alert": fired[0]["rule"]})
+                where = f"; see {engine.path}" if engine.path else ""
+                raise FatalAlertError(f"aborting on fired alert(s) {[a['rule'] for a in fired]} "
+                                      f"at step {gstep} (alerts_fatal); emergency checkpoint "
+                                      f"saved{where}")
 
         def flush(p: dict, meters: dict, progress: ProgressMeter) -> None:
             """A log step's deferred processing, run after the next step (or
-            at the epoch's end): the guard, then the metrics line."""
+            at the epoch's end): the fault hooks, the guard, then the
+            metrics line, the heartbeat and the alert engine."""
+            faults.maybe_stall(p["gstep"])
+            faults.maybe_preempt(p["gstep"])
             if not p["finite"]:
                 guard["nan_steps"] += 1
                 if writer is not None:
                     writer.write(p["gstep"], {"epoch": p["epoch"], "event": "nonfinite_loss",
                                               "nan_steps": guard["nan_steps"]})
                     writer.fsync()
+                if engine is not None:
+                    handle_alerts(p["gstep"], p["epoch"], engine.observe(
+                        p["gstep"], {"event": "nonfinite_loss", "nan_steps": guard["nan_steps"]}))
                 print0(f"WARNING: non-finite loss at step {p['gstep']} "
                        f"({guard['nan_steps']}/{config.nan_guard_threshold}): update skipped",
                        flush=True)
@@ -271,10 +406,13 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
             meters["time"].update(t_step)
             meters["data"].update(p["data_ms"] / 1e3)
             progress.display(p["i"])
-            if writer is None:
+            if heartbeat is not None:
+                heartbeat.beat(step=p["gstep"], epoch=p["epoch"])
+            if writer is None and engine is None:
                 return
             payload = {"epoch": p["epoch"], "lr": p["lr"], "loss": p["loss"], "acc1": p["acc1"],
-                       "acc5": p["acc5"], "t_data": p["data_ms"] / 1e3, "t_step": t_step}
+                       "acc5": p["acc5"], **p["gauges"], "t_data": p["data_ms"] / 1e3,
+                       "t_step": t_step}
             payload.update({k: p[k] for k in ("t_transfer", "transfer_bytes",
                                               "prefetch_depth_live") if k in p})
             if guard["nan_steps"]:
@@ -285,8 +423,56 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
             io_retries = retry.snapshot()
             if io_retries:
                 payload["io_retries"] = io_retries
-            writer.write(p["gstep"], payload)
+            if writer is not None:
+                writer.write(p["gstep"], payload)
+            if engine is not None:
+                handle_alerts(p["gstep"], p["epoch"], engine.observe(p["gstep"], payload))
 
+        # graceful preemption: the flag is read after each step
+        preempted = {"count": 0}
+
+        def on_signal(signum, frame):
+            preempted["count"] += 1
+            if signum == signal.SIGINT and preempted["count"] > 1:
+                raise KeyboardInterrupt
+            print0(f"signal {signum}: checkpointing at the next step, then exiting", flush=True)
+
+        prev_handlers = {}
+        if threading.current_thread() is threading.main_thread():  # signals reach it alone
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(sig, on_signal)
+
+        wd: Optional[StepWatchdog] = None
+        if config.watchdog_timeout > 0:
+
+            def on_stall() -> None:
+                # bounded: the main thread is stuck in a device call and the
+                # save may hang on a wedged context, so it runs in a sidecar
+                # thread and the exit comes after the budget regardless
+                try:
+                    if writer is not None:
+                        writer.write(0, {"event": "stall", "epoch": guard["epoch"],
+                                         "watchdog_timeout": config.watchdog_timeout})
+                        writer.fsync()
+                except Exception:
+                    pass
+
+                def save() -> None:
+                    try:  # mid-epoch: resume redoes the epoch from its start
+                        emergency_save(snapshot, guard["epoch"] - 1, "stall")
+                        print("watchdog: emergency checkpoint saved", flush=True)
+                    except Exception as e:
+                        print(f"watchdog: emergency checkpoint failed: {e!r}", flush=True)
+
+                t = threading.Thread(target=save, name="moco-stall-save", daemon=True)
+                t.start()
+                t.join(timeout=max(30.0, config.watchdog_timeout))
+
+            wd = StepWatchdog(config.watchdog_timeout, on_stall=on_stall,
+                              dump_path=os.path.join(workdir, "stall_stacks.txt")
+                              if workdir else None).start()
+
+        stop_now = False
         try:
             while len(history) < total:
                 stop = min(steps_per_epoch, i + total - len(history))
@@ -297,6 +483,7 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
                           "acc5": AverageMeter("Acc@5", ":6.2f")}
                 progress = ProgressMeter(steps_per_epoch, list(meters.values()),
                                          prefix=f"Epoch: [{epoch}]")
+                guard["epoch"] = epoch
                 it = pipe.epoch(epoch, device=config.device_prefetch,
                                 depth=config.prefetch_depth, start=i, stop=stop)
                 pending = None
@@ -324,26 +511,47 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
                         if stats is not None:
                             record.update(stats())
                         history.append(record)
+                        if wd is not None:
+                            wd.beat()
                         if pending is not None:
                             flush(pending, meters, progress)
                             pending = None
+                        if preempted["count"]:  # this step's line is not written, as in JAX
+                            stop_now = True
+                            if log is not None:
+                                log(record)
+                            break
                         last = len(history) == total
                         if i % config.log_every == 0 or i == steps_per_epoch - 1 or last:
                             record["loss"] = faults.corrupt_loss(record["loss"], state.step)
                             finite = math.isfinite(record["loss"])
                             if finite:  # the state as of this step, good unless proven not
                                 snapshot.take(state)
+                            gauges = _fetch_gauges(metrics)
+                            record.update(gauges)
                             pending = {**record, "i": i, "gstep": state.step, "epoch": epoch,
-                                       "finite": finite}
+                                       "finite": finite, "gauges": gauges}
                         if log is not None:
                             log(record)
-                    if pending is not None:
+                    if pending is not None and not stop_now:
                         flush(pending, meters, progress)
                 finally:
                     it.close()
-                if finished:
+                if finished or stop_now:
                     last_avg = {"epoch": epoch, **{k: meters[k].avg for k in ("loss", "acc1",
                                                                                 "acc5")}}
+                if stop_now:
+                    # mid-epoch: the previous epoch is the last completed one,
+                    # so a resume redoes this one from its start
+                    if writer is not None:
+                        writer.write(state.step, {"epoch": epoch, "event": "preempt"})
+                    emergency_save(state, epoch - 1, "preempt")
+                    if writer is not None:
+                        writer.fsync()
+                    print0(f"preempted mid-epoch {epoch}: state saved at step {state.step}; "
+                           f"resume will redo epoch {epoch}", flush=True)
+                    break
+                if finished:
                     last_epoch = epoch == config.optim.epochs - 1
                     if knn_pair is not None and (epoch % config.knn_every_epochs == 0
                                                  or last_epoch):
@@ -359,14 +567,22 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
                             writer.write(state.step, {"epoch": epoch, "knn_top1": top1})
                     if ckpt is not None and (last_epoch
                                              or epoch % config.checkpoint_every_epochs == 0):
-                        ckpt.save(state.step, state_payload(state, config.moco.arch, epoch + 1),
+                        ckpt.save(state.step, state_payload(state, arch, epoch + 1),
                                   extra={"epoch": epoch, "config": config_to_dict(config)})
                 epoch, i = epoch + 1, 0
         finally:
+            if wd is not None:
+                wd.stop()
+            if engine is not None:
+                engine.close()
             if writer is not None:
                 writer.close()
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
+            if ckpt is not None:
+                ckpt.close()  # an async write lands, or its error is raised
     return {"history": history, "state": state, "steps_per_epoch": steps_per_epoch,
-            "last_avg": last_avg, "nan_steps": guard["nan_steps"]}
+            "last_avg": last_avg, "nan_steps": guard["nan_steps"], "preempted": stop_now}
 
 
 def main(argv=None) -> int:
@@ -394,6 +610,25 @@ def main(argv=None) -> int:
                     help="steps per epoch (default: the dataset's size over the batch)")
     ap.add_argument("--knn-every-epochs", type=int, default=None,
                     help="kNN monitor every N epochs and at the last (default 0: off)")
+    ap.add_argument("--checkpoint-async", action="store_true", default=None,
+                    help="overlap checkpoint writes with training; the emergency saves "
+                         "still block until durable")
+    ap.add_argument("--watchdog-timeout", type=float, default=None,
+                    help="seconds without a finished step before the stall watchdog dumps "
+                         "every thread's stack, saves the last finite log step's state and "
+                         "exits with code 42 (0 = off; the first step gets 900 s)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=None,
+                    help="seconds after which another process's heartbeat counts as stale "
+                         "(the heartbeat_loss alert; default 120)")
+    ap.add_argument("--alert-rules", default=None,
+                    help="in-stream alert rules (obs/alerts.py grammar): 'default' = the "
+                         "built-ins, 'default,<spec>' extends them, 'none' turns them off")
+    ap.add_argument("--alerts-fatal", action="store_true", default=None,
+                    help="abort on any fired alert, after an emergency checkpoint")
+    ap.add_argument("--no-health-metrics", dest="health_metrics", action="store_false",
+                    default=None,
+                    help="no health gauges in the step (EMA drift, logit statistics, "
+                         "collapse, queue age)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     config = PRESETS[args.preset]
@@ -401,7 +636,10 @@ def main(argv=None) -> int:
             "cache_dir": args.cache_dir, "num_workers": args.workers}
     data = {k: v for k, v in data.items() if v is not None}
     top = {"workdir": args.workdir, "steps_per_epoch": args.steps_per_epoch,
-           "knn_every_epochs": args.knn_every_epochs, "prefetch_depth": args.prefetch_depth}
+           "knn_every_epochs": args.knn_every_epochs, "prefetch_depth": args.prefetch_depth,
+           "checkpoint_async": args.checkpoint_async, "watchdog_timeout": args.watchdog_timeout,
+           "heartbeat_timeout": args.heartbeat_timeout, "alert_rules": args.alert_rules,
+           "alerts_fatal": args.alerts_fatal, "health_metrics": args.health_metrics}
     top = {k: v for k, v in top.items() if v is not None}
     if args.no_device_prefetch:
         top["device_prefetch"] = False

@@ -13,6 +13,17 @@ on `torch.save` / `torch.load` instead of Orbax.
   never falls back. `validate_extra` runs before the state read, and its
   error propagates without quarantining anything: an incompatible config
   is not a corrupt file.
+- `async_save=True` overlaps the write with training: `save()` returns
+  once every tensor of the payload is copied into host buffers (pinned
+  when the state is on the card) that no step touches, and the write,
+  fsync, `os.replace` and keep-N pruning run on a background thread.
+  The step updates the state in place, so the copy must be whole before
+  `save()` returns: a background write of device tensors, or of host
+  buffers the next snapshot refills, would mix two steps. The buffers are
+  reused, so a save first waits for the previous write. `wait()` blocks
+  until the write is durable and raises its error, if any; `latest_step`,
+  `all_steps`, `read_extra`, `restore`, `close` and the `ckpt_truncate`
+  fault wait first.
 - `save_best` / `restore_best` / `best_exists`: the probe's `model_best`.
 
 The pretraining payload is the reference's `.pth.tar` layout
@@ -33,6 +44,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -72,32 +84,111 @@ def _extra_of(payload: dict) -> dict:
     return json.loads(payload.get("extra") or "{}")
 
 
+def _tensors_of(tree) -> list:
+    """The tensors of a payload (nested dicts and lists), in a fixed order."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors_of(v)]
+    return []
+
+
+def _replace_tensors(tree, tensors):
+    """`tree` with its tensors replaced, in `_tensors_of`'s order, by the
+    next items of the iterator `tensors`."""
+    if torch.is_tensor(tree):
+        return next(tensors)
+    if isinstance(tree, dict):
+        return {k: _replace_tensors(v, tensors) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_replace_tensors(v, tensors) for v in tree)
+    return tree
+
+
 class CheckpointManager:
     """Checkpoints of one run, keyed by global step."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = False):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.async_save = async_save
         os.makedirs(self.directory, exist_ok=True)
+        self._host: list = []  # async: host buffers, reused while the payload's layout holds
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"checkpoint_{int(step):08d}.pth.tar")
 
-    def save(self, step: int, payload: dict, extra: Optional[dict] = None) -> str:
+    def save(self, step: int, payload: dict, extra: Optional[dict] = None,
+             force: bool = False) -> str:
         """Write `payload` with `step` and the JSON `extra` at `step`, then
-        drop the oldest files past `keep`; returns the file's path."""
+        drop the oldest files past `keep`; returns the file's path. Blocking
+        unless `async_save`, then it returns once the payload is copied to
+        host memory. `force` is the JAX signature's: the port has no save
+        interval to bypass, so every save is written."""
+        del force
         payload = {**payload, "step": int(step), "extra": json.dumps(extra or {})}
         path = self.path(step)
-        retry.retry_call(_write_atomic, path, payload, site="ckpt.save")
-        faults.on_checkpoint_saved(path, int(step))
-        if self.keep > 0:
-            for old in self.all_steps()[:-self.keep]:
-                os.remove(self.path(old))
+        if self.async_save:
+            self.wait()  # the previous write still reads the host buffers
+            payload = self._snapshot(payload)
+            self._writer = threading.Thread(target=self._write_in_background,
+                                            args=(path, payload), name="moco-ckpt-writer",
+                                            daemon=True)
+            self._writer.start()
+        else:
+            self._write(path, payload)
+        faults.on_checkpoint_saved(path, int(step), wait=self.wait)
         return path
+
+    @torch.no_grad()
+    def _snapshot(self, payload: dict) -> dict:
+        """`payload` with every tensor copied into this manager's host
+        buffers, the copies finished: later in-place steps cannot reach it."""
+        live = _tensors_of(payload)
+        layout = [(t.shape, t.stride(), t.dtype) for t in live]
+        if layout != [(h.shape, h.stride(), h.dtype) for h in self._host]:
+            self._host = [torch.empty_like(t, device="cpu", pin_memory=t.is_cuda) for t in live]
+        for h, t in zip(self._host, live):
+            h.copy_(t, non_blocking=t.is_cuda)
+        for dev in {t.device for t in live if t.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
+        return _replace_tensors(payload, iter(self._host))
+
+    def _write(self, path: str, payload: dict) -> None:
+        retry.retry_call(_write_atomic, path, payload, site="ckpt.save")
+        if self.keep > 0:
+            for old in self._steps_on_disk()[:-self.keep]:
+                os.remove(self.path(old))
+
+    def _write_in_background(self, path: str, payload: dict) -> None:
+        try:
+            self._write(path, payload)
+        except BaseException as e:  # handed to the caller by wait()
+            self._error = e
+
+    def wait(self) -> None:
+        """Block until the in-flight async write is durable; raise its error."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"async checkpoint write under {self.directory} failed") from err
+
+    def close(self) -> None:
+        self.wait()
+
+    def _steps_on_disk(self) -> list[int]:
+        return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory)) if m)
 
     def all_steps(self) -> list[int]:
         """Step ids of the files in place, unvalidated, ascending."""
-        return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory)) if m)
+        self.wait()
+        return self._steps_on_disk()
 
     def _read_extra_step(self, step: int) -> dict:
         # mmap: the tensors stay on disk, only the zip directory and the
@@ -133,6 +224,7 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         """Newest step whose file passes the structural check; defective
         newer files are quarantined on the way."""
+        self.wait()
         for step in reversed(self.all_steps()):
             reason = self._structural_defect(step)
             if reason is None:
@@ -143,6 +235,7 @@ class CheckpointManager:
     def read_extra(self, step: Optional[int] = None) -> dict:
         """The JSON extras alone (no state read): lets a tool find the
         training config before it builds anything."""
+        self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
@@ -155,6 +248,7 @@ class CheckpointManager:
         the next older one tried, down to the oldest;
         `CheckpointCorruptionError` when every one fails. An explicit
         `step` reads that step or raises."""
+        self.wait()
         explicit = step is not None
         candidates = [step] if explicit else list(reversed(self.all_steps()))
         if not candidates:
@@ -216,12 +310,12 @@ def _head_prefix(encoder) -> str:
     return "" if isinstance(encoder.head, ProjectionHead) else "fc."
 
 
-def encoder_to_reference(encoder) -> dict:
-    """An encoder's state_dict under the reference's names: `backbone.X`
-    -> `X`, `head.X` -> `fc...`."""
+def encoder_to_reference(encoder, sd: Optional[dict] = None) -> dict:
+    """An encoder's state_dict (or `sd`, tensors under its names) under the
+    reference's names: `backbone.X` -> `X`, `head.X` -> `fc...`."""
     head = _head_prefix(encoder)
     out = {}
-    for k, v in encoder.state_dict().items():
+    for k, v in (encoder.state_dict() if sd is None else sd).items():
         part, _, rest = k.partition(".")
         out[rest if part == "backbone" else head + rest] = v
     return out
@@ -246,19 +340,28 @@ def _split(sd: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
-def state_payload(state: TrainState, arch: str, epoch: int) -> dict:
+def state_payload(state: TrainState, arch: str, epoch: int,
+                  tensors: Optional[dict] = None) -> dict:
     """The reference's payload of a train state; `epoch` is the number of
-    finished epochs."""
+    finished epochs. `tensors` stands in for the live values (a
+    StateSnapshot's copies): {"q", "k", "predictor": state dicts or None,
+    "queue": (K, dim) rows or None, "queue_ptr": int, "optimizer": an
+    optimizer state dict}."""
+    if tensors is None:
+        tensors = {"q": None, "k": None, "queue": state.queue, "queue_ptr": state.queue_ptr,
+                   "optimizer": state.optimizer.state_dict(),
+                   "predictor": None if state.predictor is None else state.predictor.state_dict()}
     sd = {}
     for side, enc in (("q", state.encoder_q), ("k", state.encoder_k)):
-        sd.update({f"module.encoder_{side}.{k}": v for k, v in encoder_to_reference(enc).items()})
-    if state.queue is not None:
-        sd["module.queue"] = state.queue.t().contiguous()  # (K, dim) rows -> (dim, K)
-        sd["module.queue_ptr"] = torch.tensor([state.queue_ptr], dtype=torch.long)
+        sd.update({f"module.encoder_{side}.{k}": v
+                   for k, v in encoder_to_reference(enc, tensors[side]).items()})
+    if tensors["queue"] is not None:
+        sd["module.queue"] = tensors["queue"].t().contiguous()  # (K, dim) rows -> (dim, K)
+        sd["module.queue_ptr"] = torch.tensor([tensors["queue_ptr"]], dtype=torch.long)
     payload = {"epoch": int(epoch), "arch": arch, "state_dict": sd,
-               "optimizer": state.optimizer.state_dict()}
-    if state.predictor is not None:
-        payload["predictor"] = state.predictor.state_dict()
+               "optimizer": tensors["optimizer"]}
+    if tensors["predictor"] is not None:
+        payload["predictor"] = tensors["predictor"]
     return payload
 
 

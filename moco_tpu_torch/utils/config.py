@@ -1,18 +1,21 @@
 """The part of moco_tpu/utils/config.py that the port runs: serving,
 single-device MoCo v1/v2 training and single-device MoCo v3 training of a
-ViT, the driver's checkpoint, log, kNN and non-finite-guard fields, and the
-linear probe's `ProbeConfig`. Same field names, defaults and presets, so a
-preset means the same model and recipe in both packages; `workdir` alone
-differs: None (write nothing, resume nothing) instead of a fixed path.
+ViT, the driver's checkpoint (async writes included), log, kNN,
+non-finite-guard, watchdog, health-gauge, alert and heartbeat fields, and
+the linear probe's `ProbeConfig`. Same field names, defaults and presets,
+so a preset means the same model and recipe in both packages; `workdir`
+alone differs: None (write nothing, resume nothing) instead of a fixed
+path.
 
 Fields of the JAX config that the port does not run yet (the BN modes
 `syncbn_group_size`, `bn_virtual_groups`, `bn_stats_rows`,
 `bn_stats_barrier`, `bn_momentum_stats`, `allow_leaky_bn`,
 `key_bn_running_stats`, `key_bn_stats_warmup`, `remat`,
-`vit_sequence_parallel`; LARS's `trust_coefficient`; the parallel, ZeRO,
-telemetry, watchdog and elastic fields; `checkpoint_async`) are left out,
-so a config that asks for one fails at construction with a TypeError
-instead of being ignored. So is `prefetch_donate`: it recycles a consumed staging slot's
+`vit_sequence_parallel`; LARS's `trust_coefficient`; the parallel and ZeRO
+fields; the other telemetry fields (`strict_tracing`, `sinks`,
+`metrics_port`, `obs_probe_every`, `fleet_metrics`, the sanitizers); the
+elastic fields) are left out, so a config that asks for one fails at
+construction with a TypeError instead of being ignored. So is `prefetch_donate`: it recycles a consumed staging slot's
 device buffer through XLA's donation, and PyTorch's caching allocator
 already reuses that memory; and `on_device_augment`: the port always
 augments on the device. So are `fused_block_k`, the TPU kernel's tile (see
@@ -127,6 +130,11 @@ class TrainConfig:
     # keep the last N checkpoints; 0 keeps every one (the reference's
     # per-epoch checkpoint_{epoch:04d}.pth.tar)
     checkpoint_keep: int = 3
+    # Overlap checkpoint writes with training: the save returns once the
+    # state is copied to host memory, and the write runs on a background
+    # thread. The emergency (preemption, stall, alert) saves still block
+    # until the file is durable.
+    checkpoint_async: bool = False
     # The weighted-kNN monitor on frozen backbone features (knn.py) every N
     # epochs and at the last; 0 disables.
     knn_every_epochs: int = 0
@@ -137,6 +145,26 @@ class TrainConfig:
     # advancing), is written to metrics.jsonl, and the run aborts after
     # this many such steps.
     nan_guard_threshold: int = 10
+    # Stall watchdog (utils/watchdog.py): seconds without a finished step
+    # before the process dumps every thread's stack to
+    # <workdir>/stall_stacks.txt, saves the last finite log step's state and
+    # exits with code 42. 0 disables. Must exceed the longest gap between
+    # steps (an epoch's end: kNN, checkpoint); the first step gets 900 s.
+    watchdog_timeout: float = 0.0
+    # The health gauges computed in the step (obs/health.py: EMA drift,
+    # logit statistics, collapse, queue age), on every training line.
+    health_metrics: bool = True
+    # In-stream alert rules over every logged payload (obs/alerts.py
+    # grammar): "default" = the built-in set, "default,<spec>" extends it,
+    # "none" disables. A fire writes <workdir>/alerts.jsonl and an `alert`
+    # event line.
+    alert_rules: str = "default"
+    # Abort on any fired alert (FatalAlertError) after an emergency
+    # checkpoint of the last finite log step's state.
+    alerts_fatal: bool = False
+    # Seconds after which another process's heartbeat file counts as
+    # stale (the default rules' heartbeat_loss).
+    heartbeat_timeout: float = 120.0
 
     def __post_init__(self):
         if self.prefetch_depth < 1:

@@ -1,5 +1,5 @@
-"""Deterministic fault injection (the `io`, `delay`, `nan` and
-`ckpt_truncate` kinds of moco_tpu/utils/faults.py).
+"""Deterministic fault injection (the `io`, `delay`, `nan`,
+`ckpt_truncate`, `stall` and `preempt` kinds of moco_tpu/utils/faults.py).
 
 A plan is installed from a spec string (`install`, or the `MOCO_FAULTS`
 environment variable, which the training driver reads at its start):
@@ -20,23 +20,32 @@ comma-separated faults, each `kind@key=val[:key=val...]`:
     ckpt_truncate@step=N          halve the checkpoint file written at
                                   step N after the write completes: a
                                   torn write the restore path must survive
+                                  (under async checkpoints, after the
+                                  background write has landed)
+    stall@step=N:seconds=S        sleep S seconds at global step N (once):
+                                  exercises the stall watchdog
+    preempt@step=N                SIGTERM this process at global step N
+                                  (once): a deterministic preemption
 
 Faults are keyed on global steps and per-site call counters, never on
-randomness, so a run is exactly reproducible. The other kinds of the JAX
-module (stall, preemption, kill and the serving and analysis kinds) come
-with the slices that port what they test. With no plan installed every
-hook returns at once.
+randomness, so a run is exactly reproducible. The driver calls the step
+hooks on log steps only: `corrupt_loss` as it reads the loss,
+`maybe_stall` and `maybe_preempt` in the step's deferred processing. The other kinds of the JAX module (kill, slow,
+diverge, deadlock) come with the slices that own their sites: elastic
+training, serving and the analysis. With no plan installed every hook
+returns at once.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import threading
 import time
 from collections import Counter
 from typing import Optional
 
-KINDS = ("io", "delay", "nan", "ckpt_truncate")
+KINDS = ("ckpt_truncate", "io", "nan", "stall", "preempt", "delay")
 _INT_KEYS = ("step", "at", "times")
 _FLOAT_KEYS = ("seconds",)
 _STR_KEYS = ("site",)
@@ -69,12 +78,24 @@ class FaultPlan:
                     raise ValueError(f"unknown fault param {k!r} in {part!r}")
             if kind == "delay" and "seconds" not in kv:
                 raise ValueError(f"delay fault {part!r} needs seconds=<X>")
-            if kind in ("nan", "ckpt_truncate") and "step" not in kv:
+            if kind in ("nan", "ckpt_truncate", "stall", "preempt") and "step" not in kv:
                 raise ValueError(f"{kind} fault {part!r} needs step=<N>")
+            if kind == "stall" and "seconds" not in kv:
+                raise ValueError(f"stall fault {part!r} needs seconds=<S>")
             self.rules.append((kind, kv))
         self._lock = threading.Lock()
         self._counts: Counter = Counter()  # (kind, site) -> calls seen
         self._fired: set = set()  # once-only rules that already fired
+
+    def describe(self) -> list:
+        return [(k, dict(p)) for k, p in self.rules]
+
+    def _fire_once(self, rule_id: int) -> bool:
+        with self._lock:
+            if rule_id in self._fired:
+                return False
+            self._fired.add(rule_id)
+            return True
 
     def _count(self, kind: str, site: str) -> int:
         with self._lock:
@@ -107,17 +128,27 @@ class FaultPlan:
                 return float("nan")
         return loss
 
-    def on_checkpoint_saved(self, path: str, step: int) -> None:
-        """Halve the file of the checkpoint just written at `step` (once
-        per rule): the file is in place and named as a good one, but its
-        payload is short."""
+    def maybe_stall(self, step: int) -> None:
         for i, (kind, p) in enumerate(self.rules):
-            if kind != "ckpt_truncate" or p["step"] != step:
+            if kind == "stall" and p["step"] == step and self._fire_once(i):
+                print(f"injected fault: stalling {p['seconds']}s at step {step}", flush=True)
+                time.sleep(p["seconds"])
+
+    def maybe_preempt(self, step: int) -> None:
+        for i, (kind, p) in enumerate(self.rules):
+            if kind == "preempt" and p["step"] == step and self._fire_once(i):
+                print(f"injected fault: SIGTERM self at step {step}", flush=True)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def on_checkpoint_saved(self, path: str, step: int, wait=None) -> None:
+        """Halve the file of the checkpoint written at `step` (once per
+        rule): the file is in place and named as a good one, but its
+        payload is short. `wait` blocks until an async write has landed."""
+        for i, (kind, p) in enumerate(self.rules):
+            if kind != "ckpt_truncate" or p["step"] != step or not self._fire_once(i):
                 continue
-            with self._lock:
-                if i in self._fired:
-                    continue
-                self._fired.add(i)
+            if wait is not None:
+                wait()
             size = os.path.getsize(path)
             with open(path, "r+b") as f:
                 f.truncate(max(1, size // 2))
@@ -150,6 +181,10 @@ def enabled() -> bool:
     return _PLAN is not None
 
 
+def describe() -> list:
+    return _PLAN.describe() if _PLAN else []
+
+
 def maybe_io_error(site: str) -> None:
     if _PLAN is not None:
         _PLAN.maybe_io_error(site)
@@ -164,6 +199,16 @@ def corrupt_loss(loss: float, step: int) -> float:
     return _PLAN.corrupt_loss(loss, step) if _PLAN is not None else loss
 
 
-def on_checkpoint_saved(path: str, step: int) -> None:
+def maybe_stall(step: int) -> None:
     if _PLAN is not None:
-        _PLAN.on_checkpoint_saved(path, step)
+        _PLAN.maybe_stall(step)
+
+
+def maybe_preempt(step: int) -> None:
+    if _PLAN is not None:
+        _PLAN.maybe_preempt(step)
+
+
+def on_checkpoint_saved(path: str, step: int, wait=None) -> None:
+    if _PLAN is not None:
+        _PLAN.on_checkpoint_saved(path, step, wait=wait)

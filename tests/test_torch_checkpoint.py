@@ -6,10 +6,14 @@ ckpt_truncate fault), the resume compatibility diff, the reference
 `.pth.tar` layout read by the JAX package's `import_reference_state_dict`
 (the JAX encoder on the imported params within 1e-4 of the port's features
 in float32), and `convert.encoder_to_flax` as the inverse of
-`encoder_from_flax` on Flax-initialized trees (exact)."""
+`encoder_from_flax` on Flax-initialized trees (exact); async saves (the
+file holds the state as of `save()` though the next steps update it in
+place, ckpt_truncate, a failed write, a resumed run bit for bit), the
+guard snapshot's emergency payload, and the driver's new config fields."""
 
 import dataclasses
 import os
+import time
 
 import flax.linen as fnn
 import jax
@@ -27,6 +31,7 @@ from moco_tpu.models.vit import create_vit as jax_create_vit
 from moco_tpu_torch import convert
 from moco_tpu_torch.core.moco import build_encoder, build_predictor, create_state, make_train_step
 from moco_tpu_torch.utils import config as pc
+from moco_tpu_torch.utils import checkpoint as checkpoint_module
 from moco_tpu_torch.utils import faults
 from moco_tpu_torch.utils.checkpoint import (
     CheckpointCorruptionError,
@@ -339,3 +344,161 @@ def test_convert_pretrain_matches_jax_export(tmp_path):
     assert set(got["model"]) == set(want["model"])
     for k, v in want["model"].items():
         np.testing.assert_array_equal(got["model"][k], v, err_msg=k)
+
+
+# ------------------------------------------------------------ async saves
+
+
+def _slow_writes(monkeypatch, seconds=0.3):
+    """Delay every background write, so the steps after `save()` surely run
+    before the file is written."""
+    real = checkpoint_module._write_atomic
+
+    def slow(path, payload):
+        time.sleep(seconds)
+        real(path, payload)
+
+    monkeypatch.setattr(checkpoint_module, "_write_atomic", slow)
+
+
+@pytest.mark.parametrize("make_config", [_v2_config, _v3_config], ids=["v2", "v3"])
+def test_async_roundtrip_with_wait(tmp_path, make_config):
+    """An async save restores bit for bit after `wait()`; `all_steps` and
+    `restore` wait on their own."""
+    cfg = make_config()
+    state = _stepped(cfg)
+    mgr = CheckpointManager(str(tmp_path), keep=2, async_save=True)
+    mgr.save(state.step, state_payload(state, cfg.moco.arch, 1), extra={"epoch": 0})
+    mgr.wait()
+    assert mgr.all_steps() == [state.step]
+    fresh = _state(cfg, seed=1)
+    payload, extra = mgr.restore()
+    load_state_payload(fresh, payload)
+    _assert_same_state(state, fresh)
+    assert extra == {"epoch": 0}
+    torch.load(mgr.path(state.step), weights_only=True)
+
+
+def test_async_save_holds_the_state_as_of_save(tmp_path, monkeypatch):
+    """The state is updated in place: two more train steps right after
+    `save()` returns (while the write is held back) must not reach the
+    file, which holds the values of the moment of `save()`, bit for bit.
+    The host buffers are reused, so a second save waits for the first
+    write, and keep-N runs on the background thread."""
+    _slow_writes(monkeypatch)
+    cfg = _v2_config()
+    state = _stepped(cfg)
+    before = {k: v.clone() for k, v in _everything(state).items()}
+    step_at_save, ptr_at_save = state.step, state.queue_ptr
+    mgr = CheckpointManager(str(tmp_path), keep=1, async_save=True)
+    mgr.save(state.step, state_payload(state, cfg.moco.arch, 1))
+    step = make_train_step(cfg, 2, device="cpu")
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        views = rng.standard_normal((2, 8, 16, 16, 3)).astype(np.float32)
+        step(state, {"im_q": torch.from_numpy(views[0]), "im_k": torch.from_numpy(views[1])})
+    moved = _everything(state)
+    assert not torch.equal(moved["queue"], before["queue"])  # the steps did write in place
+    fresh = _state(cfg, seed=1)
+    payload, _ = mgr.restore(step=step_at_save)
+    load_state_payload(fresh, payload)
+    got = _everything(fresh)
+    assert set(got) == set(before)
+    for k, v in before.items():
+        assert torch.equal(got[k], v), k
+    assert (fresh.step, fresh.queue_ptr) == (step_at_save, ptr_at_save)
+    mgr.save(state.step, state_payload(state, cfg.moco.arch, 2))
+    assert mgr.all_steps() == [state.step]  # keep=1 pruned the first file
+
+
+def test_async_ckpt_truncate_still_falls_back(tmp_path, monkeypatch):
+    """Under async saves the fault waits for the write to land, then halves
+    it: the restore falls back to the older step and quarantines the torn
+    file, as with blocking saves."""
+    _slow_writes(monkeypatch, 0.1)
+    faults.install("ckpt_truncate@step=4")
+    try:
+        mgr = CheckpointManager(str(tmp_path), async_save=True)
+        for step in (2, 4):
+            mgr.save(step, {"x": torch.full((64,), float(step))}, extra={"epoch": step})
+    finally:
+        faults.clear()
+    assert mgr.latest_step() == 2
+    assert torch.equal(mgr.restore()[0]["x"], torch.full((64,), 2.0))
+    assert os.listdir(tmp_path / "quarantine") == [os.path.basename(mgr.path(4))]
+
+
+def test_async_write_failure_reaches_the_caller(tmp_path, monkeypatch):
+    def broken(path, payload):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(checkpoint_module, "_write_atomic", broken)
+    monkeypatch.setattr(checkpoint_module.retry, "retry_call", lambda fn, *a, site, **k: fn(*a))
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, {"x": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="async checkpoint write") as err:
+        mgr.wait()
+    assert isinstance(err.value.__cause__, OSError)
+    mgr.save(2, {"x": torch.zeros(2)})
+    with pytest.raises(RuntimeError):
+        mgr.close()
+
+
+def test_async_run_resumes_like_a_continuous_run(tmp_path):
+    """checkpoint_async=True: two epochs in one run against one epoch, its
+    async checkpoint and a resumed second epoch: the same losses and the
+    same final state, bit for bit."""
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.train import train
+
+    data = SyntheticDataset(16, 16)
+    cfg = dataclasses.replace(_v2_config(), workdir=str(tmp_path / "one"), log_every=1,
+                              checkpoint_async=True)
+    whole = train(cfg, dataset=data, device="cpu", num_filters=NF)
+    split = dataclasses.replace(cfg, workdir=str(tmp_path / "two"))
+    first = train(split, dataset=data, device="cpu", num_filters=NF, steps=2)
+    second = train(split, dataset=data, device="cpu", num_filters=NF)
+    assert [r["step"] for r in second["history"]] == [3, 4]
+    assert [r["loss"] for r in whole["history"]] == [
+        r["loss"] for r in first["history"] + second["history"]]
+    _assert_same_state(whole["state"], second["state"])
+    assert CheckpointManager(split.workdir).all_steps() == [2, 4]
+
+
+def test_snapshot_payload_is_the_state_at_take(tmp_path):
+    """The guard's snapshot, saved after the state moved on (the watchdog's
+    and a fatal alert's emergency save), restores the state of the moment
+    of `take`, bit for bit, at that step."""
+    from moco_tpu_torch.train import StateSnapshot
+
+    for cfg in (_v2_config(), _v3_config()):
+        state = _stepped(cfg)
+        snap = StateSnapshot(state)
+        want = {k: v.clone() for k, v in _everything(state).items()}
+        at = (state.step, state.queue_ptr)
+        more = _stepped(cfg, steps=1, seed=3)  # other values, same structure
+        load_state_payload(state, state_payload(more, cfg.moco.arch, 1) | {"step": 9})
+        mgr = CheckpointManager(str(tmp_path / cfg.moco.arch))
+        mgr.save(snap.step, snap.payload(state, cfg.moco.arch, 1))
+        fresh = _state(cfg, seed=1)
+        load_state_payload(fresh, mgr.restore()[0])
+        got = _everything(fresh)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+        assert (fresh.step, fresh.queue_ptr) == at
+
+
+def test_driver_fields_round_trip_and_do_not_block_a_resume():
+    """The fault-tolerance and health fields go through config_to_dict /
+    config_from_dict and, as in JAX, are no resume-compat fields."""
+    cfg = _v2_config()
+    changed = dataclasses.replace(cfg, checkpoint_async=True, watchdog_timeout=15.0,
+                                  health_metrics=False, alert_rules="none", alerts_fatal=True,
+                                  heartbeat_timeout=30.0)
+    assert pc.config_from_dict(pc.config_to_dict(changed)) == changed
+    assert pc.resume_compat_diff({"config": pc.config_to_dict(cfg)}, changed) == []
+    from moco_tpu.utils import config as jc
+
+    for f in ("checkpoint_async", "watchdog_timeout", "health_metrics", "alert_rules",
+              "alerts_fatal", "heartbeat_timeout"):
+        assert getattr(pc.TrainConfig(), f) == getattr(jc.TrainConfig(), f), f

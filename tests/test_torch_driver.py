@@ -107,7 +107,9 @@ def test_nan_guard_matches_jax(tmp_path):
     the end of epoch 1, step 4, holds step 2's parameters, BN statistics,
     queue and optimizer buffers) while the step counter goes on; step 4's
     line is written; step 5's non-finite loss is the second and aborts.
-    Both write the same nonfinite_loss lines and training lines."""
+    Both write the same nonfinite_loss lines and training lines, and, under
+    the default alert rules, the same `alert` line for each (health gauges
+    off on both sides)."""
     spec = "nan@step=3,nan@step=5"
     jcfg = jc.TrainConfig(moco=jc.MocoConfig(**MOCO), optim=jc.OptimConfig(**OPTIM),
                           data=jc.DataConfig(**DATA),
@@ -120,7 +122,8 @@ def test_nan_guard_matches_jax(tmp_path):
             jax_train(jcfg, dataset=JaxSynthetic(num_examples=32, image_size=16))
     finally:
         jax_faults.clear()
-    pcfg = _config(tmp_path / "port", nan_guard_threshold=2, checkpoint_keep=0)
+    pcfg = _config(tmp_path / "port", nan_guard_threshold=2, checkpoint_keep=0,
+                   health_metrics=False)
     faults.install(spec)
     try:
         with pytest.raises(FloatingPointError, match="non-finite"):
@@ -135,6 +138,12 @@ def test_nan_guard_matches_jax(tmp_path):
 
     jlines, plines = _lines(jcfg.workdir), _lines(pcfg.workdir)
     assert summary(plines) == summary(jlines) == ([(3, 1, 1), (5, 2, 2)], [1, 2, 4])
+    # the default alert rules: each nonfinite_loss event fires its alert
+    alerts = [(r["step"], r["epoch"], r["alert"], r["severity"], r["alert/nonfinite_loss"])
+              for r in plines if r.get("event") == "alert"]
+    assert alerts == [(r["step"], r["epoch"], r["alert"], r["severity"], r["alert/nonfinite_loss"])
+                      for r in jlines if r.get("event") == "alert"]
+    assert alerts == [(3, 1, "nonfinite_loss", "warn", 1), (5, 2, "nonfinite_loss", "warn", 1)]
     assert next(r for r in plines if r["step"] == 4 and "loss" in r)["nan_steps"] == 1
     # JAX: the checkpoint of step 4 holds step 2's state
     j2, j4 = _jax_rolled_back(jcfg.workdir, jcfg)
@@ -209,8 +218,8 @@ def test_cli_flags_reach_train(monkeypatch, tmp_path):
         str(tmp_path), 2, 3, 1)
     assert c.data.dataset == "synthetic_learnable" and seen["device"] == "cpu"
     assert pc.PRESETS["imagenet_v2"].workdir is None
-    with pytest.raises(TypeError):
-        pc.TrainConfig(checkpoint_async=True)
+    with pytest.raises(TypeError):  # the cross-host aggregation is not ported
+        pc.TrainConfig(fleet_metrics=True)
 
 
 def test_probe_cli_refuses_without_cuda(tmp_path):

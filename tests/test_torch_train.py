@@ -376,7 +376,7 @@ def _configs(fused):
     data = dict(dataset="synthetic", image_size=16, global_batch=8)
     return (  # the Pallas tile is the JAX config's alone
         jc.TrainConfig(moco=jc.MocoConfig(**moco, fused_block_k=32), optim=jc.OptimConfig(**optim),
-                       data=jc.DataConfig(**data), health_metrics=False),
+                       data=jc.DataConfig(**data)),
         pc.TrainConfig(moco=pc.MocoConfig(**moco), optim=pc.OptimConfig(**optim),
                        data=pc.DataConfig(**data)),
     )
@@ -388,6 +388,13 @@ def _numpy_state(state):
         "step", "params_q", "batch_stats_q", "params_k", "batch_stats_k", "queue", "queue_ptr")}
     tree["trace"] = jax.tree.map(np.asarray, state.opt_state[1][0].trace["enc"])
     return tree
+
+
+def _gauges(metrics) -> dict:
+    """A step's health gauges (its metrics beside loss, accuracy and lr)
+    as float64 numpy values."""
+    return {k: np.asarray(v, np.float64) for k, v in metrics.items()
+            if k not in ("loss", "acc1", "acc5", "lr")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -415,8 +422,10 @@ def _trajectories(fused):
         views = np.random.default_rng(10 + i).standard_normal((2, 8, 16, 16, 3)).astype(np.float32)
         jstate, jm = jstep(jstate, shard_batch(mesh, {"im_q": views[0], "im_k": views[1]}), rng)
         pm = pstep(pstate, {"im_q": _t(views[0]), "im_k": _t(views[1])})
-        hist.append(({k: float(jm[k]) for k in ("loss", "acc1", "acc5")},
-                     {k: float(pm[k]) for k in ("loss", "acc1", "acc5", "lr")}))
+        hist.append(({**{k: float(jm[k]) for k in ("loss", "acc1", "acc5")},
+                      "gauges": _gauges(jm)},
+                     {**{k: float(pm[k]) for k in ("loss", "acc1", "acc5", "lr")},
+                      "gauges": _gauges(pm)}))
     return jstate, pstate, hist
 
 

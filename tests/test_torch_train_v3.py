@@ -58,7 +58,7 @@ def _configs(optimizer="sgd"):
     optim = dict(optimizer=optimizer, lr=0.05, momentum=0.9, weight_decay=0.0, epochs=2, cos=True)
     data = dict(dataset="synthetic", image_size=IMG, global_batch=BATCH)
     return (jc.TrainConfig(moco=jc.MocoConfig(**moco), optim=jc.OptimConfig(**optim),
-                           data=jc.DataConfig(**data), health_metrics=False),
+                           data=jc.DataConfig(**data)),
             pc.TrainConfig(moco=pc.MocoConfig(**moco), optim=pc.OptimConfig(**optim),
                            data=pc.DataConfig(**data)))
 
@@ -79,6 +79,13 @@ def _numpy_state(state):
 
 def _views(i):
     return np.random.default_rng(20 + i).standard_normal((2, BATCH, IMG, IMG, 3)).astype(np.float32)
+
+
+def _gauges(metrics) -> dict:
+    """A step's health gauges (its metrics beside loss, accuracy and lr)
+    as float64 numpy values."""
+    return {k: np.asarray(v, np.float64) for k, v in metrics.items()
+            if k not in ("loss", "acc1", "acc5", "lr")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,8 +117,10 @@ def _trajectories():
         views = _views(i)
         jstate, jm = jstep(jstate, shard_batch(mesh, {"im_q": views[0], "im_k": views[1]}), rng)
         pm = pstep(pstate, {"im_q": _t(views[0]), "im_k": _t(views[1])})
-        hist.append(({k: float(jm[k]) for k in ("loss", "acc1", "acc5")},
-                     {k: float(pm[k]) for k in ("loss", "acc1", "acc5", "lr")}))
+        hist.append(({**{k: float(jm[k]) for k in ("loss", "acc1", "acc5")},
+                      "gauges": _gauges(jm)},
+                     {**{k: float(pm[k]) for k in ("loss", "acc1", "acc5", "lr")},
+                      "gauges": _gauges(pm)}))
     for h in hooks:
         h.remove()
     return init, jstate, pstate, hist, float(min(relu_inputs))
