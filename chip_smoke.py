@@ -125,14 +125,17 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    and gradient g, captured as the step computed them, g scaled by a power
    of two to a largest |g| near 1) the kernels agree with their plain
    versions within phase 10's bf16 tolerance, each tolerance at most 1/8
-   of its output's largest value. Then, on the ring run's final state:
-   one more step on copies of it and one batch, through the
-   kernels and through dense attention (vit_flash_attention=False, which
-   rounds its attention logits to bf16), gives losses within 4.5e-4 of
-   each other and query-encoder features within 3% of their largest
-   value; two wrong attentions (uniform weights, and the kernels without
-   the 1/sqrt(Dh) scale) run as controls: each must fail at least one of
-   the two checks, and each check must fail on at least one of them.
+   of its output's largest value. Then the attention check, on the seeded
+   state and on the ring run's final state: one more step on copies of it
+   and one batch, through the kernels and through the port's plain
+   attention (`attention_reference` forward and its backward, float64
+   logits, p and dS rounded once: the f32-level reference the kernels
+   are held to, where the dense path rounds its logits to bf16), gives
+   losses within 1.5e-4 (LOSS_REL) of each other and query-encoder features within
+   3% of their largest value; two wrong attentions (uniform weights, and
+   the kernels without the 1/sqrt(Dh) scale) run as controls: on each
+   state each must fail at least one of the two checks, and each check
+   must fail on at least one of them.
 12. Timing: step ms, data ms and imgs/s of each mode, with the ring's
    transfer stats and sync mode's data time by stage; each flash kernel,
    its plain version, its
@@ -214,6 +217,28 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    (reason "stall") of the last finite log step, step 4, not of the live
    step 5: queue_ptr 1024, and the rows step 5 wrote still the seeded
    initial queue's; the seconds from the stall to the exit are printed.
+12d. The options of the v1/v2 step at full width, each part 3 warm-up
+   and 10 timed steps through the prefetch ring from a seeded state, the
+   InfoNCE launch counts set to 0 just before and read just after (each
+   kernel once per step, finite losses). (a) `imagenet_v2` with
+   bn_virtual_groups=8 and shuffle="gather_perm" (the reference's 8 GPUs
+   x 32-row BN inside one batch of 256): the last key forward ran on the
+   step's batch permuted by the permutation `step_seed` gives; the keys
+   enqueued on the last step equal the key encoder's 8-group forward on
+   that permuted batch, unpermuted, within 2^-7, and the same forward with
+   whole-batch BN (the control) differs by more; step ms and imgs/s
+   beside a G = 0 run from the same seeded state and data. (b)
+   `imagenet_v2_large_batch` (LARS, momentum-statistics BN, auto_scale
+   ref_batch=4096) with its global batch 8192 cut to LARGE_BATCH: the live
+   lr is the auto-scaled schedule's and the EMA after step 1 runs at
+   0.999 ** kappa; the last step's LARS update equals a float64 LARS on
+   the same gradients, parameters and traces within 1e-5 relative; with
+   remat off and on, from the same state and data, the first-step losses
+   agree within 2^-7 relative; peak GB and step ms of both. (c)
+   `imagenet_v2` with shuffle="none" and key_bn_running_stats (EMAN):
+   after step 1 the key encoder's running statistics are
+   m * k0 + (1 - m) * q1 of the query encoder's, m = min(0.999, 1/10),
+   within 1e-6 relative.
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -269,16 +294,19 @@ RING_CHECK_STEPS = 3  # steps of the ring runs whose batches are held against ba
 V3_BATCH = 256  # vit_b16_v3's global batch 4096 cut to one GPU's share of 16
 BF16_REL = 2.0 ** -7  # bf16 tolerance of a flash output, of its absolute-term sum
 TOL_SHARE = 0.125  # most a flash tolerance may be of its output's largest value
-# flash against dense attention on one v3 step (bf16): the loss, relative,
-# and the query features, of their largest value. Each lies between what
-# an H100 measured for the kernels (2.3e-4 and 0.013 with the CUDA-core
-# kernels, 9.4e-5 and 0.016 with the tensor-core ones) and for the nearer
-# of two wrong attentions (6.9e-4 and 0.055; then 4.7e-4 and 0.051)
-LOSS_REL, FEAT_REL = 4.5e-4, 0.03
+# flash against the plain attention on one v3 step (bf16 q, k and v, the
+# plain version's logits in float64): the loss, relative, and the query
+# features, of their largest value. On an H100, over the seeded and the
+# trained state, the kernels were at most 4.6e-5 and 0.020 off, the nearer
+# of two wrong attentions at least 4.3e-4 (loss) and 0.045 (features)
+LOSS_REL, FEAT_REL = 1.5e-4, 0.03
 # the closed loop (phase 12b): epochs of 3 steps, a kNN bank of 1024 and 256
 # held-out queries, a probe val split of 300 (a padded tail of 44 in batches
 # of 256)
 LOOP_EPOCH_STEPS, KNN_BANK, KNN_TEST, PROBE_VAL = 3, 1024, 256, 300
+# phase 12d: the virtual groups of the reference's 8 GPUs x 32 rows, and the
+# large-batch preset's global batch 8192 cut to what one card holds
+OPTION_GROUPS, LARGE_BATCH = 8, 1024
 
 
 def check(ok: bool, what: str) -> None:
@@ -900,10 +928,24 @@ def v2_run(fi, cfg, dataset, state, mode):
             "q_n": q_n, "k_n": k_n, "queue_n": queue_n, "steps_per_epoch": out["steps_per_epoch"]}
 
 
+def seeded_v2_state(cfg):
+    """A v1/v2 train state of `cfg` on the card from seeded Flax-layout
+    weights (the key encoder from the next seed) and a seeded unit-row
+    queue, through convert.state_from_flax."""
+    from moco_tpu_torch.convert import random_flax_encoder, state_from_flax
+
+    params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
+    params_k, stats_k = random_flax_encoder(cfg.moco, seed=SEED + 1)
+    queue = np.random.default_rng(SEED + 2).standard_normal((K, DIM)).astype(np.float32)
+    queue /= np.linalg.norm(queue, axis=1, keepdims=True)
+    return state_from_flax(cfg, {
+        "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
+        "batch_stats_k": stats_k, "queue": queue, "queue_ptr": 0}, device="cuda")
+
+
 def train_phase(fi):
     """The training path at full width (phase 8), in sync and ring mode, and
     its timings (phase 9)."""
-    from moco_tpu_torch.convert import random_flax_encoder, state_from_flax
     from moco_tpu_torch.data.datasets import SyntheticDataset
     from moco_tpu_torch.train import train
     from moco_tpu_torch.utils.config import PRESETS
@@ -915,13 +957,7 @@ def train_phase(fi):
            cfg.data.image_size, cfg.data.aug_plus, cfg.moco.compute_dtype, t, cfg.device_prefetch,
            cfg.prefetch_depth)
           == ("resnet50", True, K, DIM, 256, IMG, True, "bfloat16", 0.2, True, 2), "imagenet_v2 preset")
-    params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
-    params_k, stats_k = random_flax_encoder(cfg.moco, seed=SEED + 1)
-    queue = np.random.default_rng(SEED + 2).standard_normal((K, DIM)).astype(np.float32)
-    queue /= np.linalg.norm(queue, axis=1, keepdims=True)
-    state = state_from_flax(cfg, {
-        "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
-        "batch_stats_k": stats_k, "queue": queue, "queue_ptr": 0}, device="cuda")
+    state = seeded_v2_state(cfg)
     # what build_dataset("synthetic") gives, with epochs of 20 steps, so a
     # run's 18 steps stay in one epoch's ring
     dataset = SyntheticDataset(num_examples=b * EPOCH_STEPS, image_size=IMG)
@@ -1243,14 +1279,93 @@ def v3_run(fa, cfg, dataset, state, mode):
             "block": (q, k, v, g), "steps_per_epoch": out["steps_per_epoch"]}
 
 
+class PlainAttention(torch.autograd.Function):
+    """The port's plain attention (ops/flash_attention.py
+    `attention_reference` forward, `flash_backward_reference` backward) as
+    an autograd function on the card: f64 logits, p and dS, each rounded
+    once, only q, k, v, out and lse kept for the backward. The reference of
+    the v3 attention check."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        from moco_tpu_torch.ops import flash_attention as fa
+
+        out, lse = fa.attention_reference(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from moco_tpu_torch.ops import flash_attention as fa
+
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_backward_reference(q, k, v, out, lse, g.to(q.dtype),
+                                                 torch.zeros_like(lse), ctx.scale)
+        return dq, dk, dv, None
+
+
+def attention_check(fa, cfg, state, batch, steps_per_epoch, label):
+    """Phase 11's attention check on one state: one more v3 step on copies of
+    `state` and `batch`, with every attention through the kernels, through
+    the plain attention (f32-level logits, `PlainAttention`, the reference)
+    and through two wrong attentions (controls: every key alike, and the
+    kernels without the 1/sqrt(Dh) scale), with the query encoder's
+    features on the same images beside each loss. The kernels must agree
+    with the reference within LOSS_REL (relative) and FEAT_REL (of the
+    features' largest value); every control must fail a check, and every
+    check must fail on a control. Returns the losses and gaps."""
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.models import vit
+
+    kernel_attention = vit.flash_attention
+
+    def plain(q, k, v, scale=None):
+        return PlainAttention.apply(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)
+
+    variants = {"flash": kernel_attention, "plain": plain,
+                "uniform": lambda q, k, v, scale=None: v.mean(2, keepdim=True).expand_as(v),
+                "unscaled": lambda q, k, v, scale=None: kernel_attention(q, k, v, 1.0)}
+    losses, feats = {}, {}
+    for name, attention in variants.items():
+        copy_ = copy.deepcopy(state)
+        set_flash(copy_.encoder_q, True)
+        set_flash(copy_.encoder_k, True)
+        vit.flash_attention = attention
+        try:
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                feats[name] = copy_.encoder_q.backbone(batch["im_q"]).float()
+            losses[name] = make_train_step(cfg, steps_per_epoch, device="cuda")(
+                copy_, batch)["loss"].item()
+        finally:
+            vit.flash_attention = kernel_attention
+        del copy_
+        torch.cuda.empty_cache()
+    scale_f = feats["plain"].abs().max().item()
+    rel = {n: {"loss": abs(losses[n] - losses["plain"]) / abs(losses["plain"]),
+               "features": (feats[n] - feats["plain"]).abs().max().item() / scale_f}
+           for n in variants if n != "plain"}
+    print(f"v3 attention check ({label} state, step {state.step}): losses {json.dumps(losses)}; "
+          f"against the plain attention, relative {json.dumps(rel)} (tolerances: loss "
+          f"{LOSS_REL}, features {FEAT_REL})", flush=True)
+    check(rel["flash"]["loss"] <= LOSS_REL,
+          f"{label}: flash and plain-attention v3 losses differ by {rel['flash']}")
+    check(rel["flash"]["features"] <= FEAT_REL,
+          f"{label}: flash and plain-attention v3 features differ by {rel['flash']}")
+    caught = {n: {c for c, tol in (("loss", LOSS_REL), ("features", FEAT_REL)) if rel[n][c] > tol}
+              for n in ("uniform", "unscaled")}
+    check(all(caught.values()), f"{label}: a control passes both checks meant to catch it: {caught}")
+    check(set().union(*caught.values()) == {"loss", "features"},
+          f"{label}: a check that no control fails: {caught}")
+    return {"step": state.step, "losses": losses, "relative_to_plain": rel}
+
+
 def v3_phase(fa, flash_err):
     """The v3 path at full width (phase 11), in sync and ring mode, and its
     timings (phase 12)."""
     from moco_tpu_torch.convert import random_flax_encoder, random_flax_predictor, state_from_flax
-    from moco_tpu_torch.core.moco import make_train_step
     from moco_tpu_torch.data.datasets import SyntheticDataset
     from moco_tpu_torch.data.pipeline import TwoCropPipeline
-    from moco_tpu_torch.models import vit
     from moco_tpu_torch.train import train
     from moco_tpu_torch.utils.config import PRESETS
 
@@ -1273,12 +1388,10 @@ def v3_phase(fa, flash_err):
         "batch_stats_k": stats_k, "params_pred": params_p, "batch_stats_pred": stats_p},
         device="cuda")
     del params_q, params_k, params_p
-    # the 1024 images of build_dataset("synthetic"), epochs of 4 steps: the
-    # data the dense-attention check below was calibrated on (on a state
-    # trained on 16-step epochs its loss gap read 5.5e-4, beyond the
-    # tolerance and beyond the uniform control's 2.9e-4; ROADMAP.md queue 3)
+    # the 1024 images of build_dataset("synthetic"), epochs of 4 steps
     dataset = SyntheticDataset(image_size=IMG)
     ring_batches_check(cfg, dataset, state)
+    seeded = copy.deepcopy(state)  # the attention check's first state
     runs = {}
     for mode in ("sync", "ring"):  # the same seeded state and data in each
         runs[mode] = v3_run(fa, dataclasses.replace(cfg, device_prefetch=mode == "ring"), dataset,
@@ -1296,46 +1409,10 @@ def v3_phase(fa, flash_err):
     steps = len(hist)
     with TwoCropPipeline(cfg.data, seed=cfg.seed + 1, dataset=dataset, device="cuda") as pipe:
         batch = pipe.batch(0, 0)
-    # one more step on copies of the final state, through the kernels, the
-    # dense attention and two wrong attentions (controls: every key alike,
-    # and the kernels without the 1/sqrt(Dh) scale), with the query
-    # encoder's features on the same images beside each loss
-    kernel_attention = vit.flash_attention
-    variants = {"flash": kernel_attention, "dense": None,
-                "uniform": lambda q, k, v, scale=None: v.mean(2, keepdim=True).expand_as(v),
-                "unscaled": lambda q, k, v, scale=None: kernel_attention(q, k, v, 1.0)}
-    losses, feats = {}, {}
-    for name, attention in variants.items():
-        copy_ = copy.deepcopy(state)
-        set_flash(copy_.encoder_q, attention is not None)
-        set_flash(copy_.encoder_k, attention is not None)
-        vit.flash_attention = attention or kernel_attention
-        try:
-            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
-                feats[name] = copy_.encoder_q.backbone(batch["im_q"]).float()
-            losses[name] = make_train_step(cfg, ring["steps_per_epoch"], device="cuda")(
-                copy_, batch)["loss"].item()
-        finally:
-            vit.flash_attention = kernel_attention
-        del copy_
-        torch.cuda.empty_cache()
-    scale_f = feats["dense"].abs().max().item()
-    rel = {n: {"loss": abs(losses[n] - losses["dense"]) / abs(losses["dense"]),
-               "features": (feats[n] - feats["dense"]).abs().max().item() / scale_f}
-           for n in variants if n != "dense"}
-    print(f"v3 step losses {json.dumps(losses)}; against dense attention, relative "
-          f"{json.dumps(rel)} (tolerances: loss {LOSS_REL}, features {FEAT_REL})", flush=True)
-    check(rel["flash"]["loss"] <= LOSS_REL, f"flash and dense v3 losses differ by {rel['flash']}")
-    check(rel["flash"]["features"] <= FEAT_REL,
-          f"flash and dense v3 features differ by {rel['flash']}")
-    # a wrong attention moves a random-init v3 loss by only 1-3x the bf16
-    # gap, and by how much depends on the trained state: every control must
-    # fail a check, and every check must fail on a control
-    caught = {n: {c for c, tol in (("loss", LOSS_REL), ("features", FEAT_REL)) if rel[n][c] > tol}
-              for n in ("uniform", "unscaled")}
-    check(all(caught.values()), f"a control passes both checks meant to catch it: {caught}")
-    check(set().union(*caught.values()) == {"loss", "features"},
-          f"a check that no control fails: {caught}")
+    checks = {label: attention_check(fa, cfg, st, batch, ring["steps_per_epoch"], label)
+              for label, st in (("seeded", seeded), ("trained", state))}
+    del seeded
+    torch.cuda.empty_cache()
 
     # -- timing (the ring run: the default path) ------------------------------
     timed = hist[TRAIN_WARMUP:]
@@ -1390,10 +1467,249 @@ def v3_phase(fa, flash_err):
               "ring": mode_summary(hist), "sync_ring_loss_max_abs_diff": loss_gap,
               "flash_share_of_step": share, "peak_memory_gb": ring["peak_gb"],
               "peak_memory_gb_sync": runs["sync"]["peak_gb"], "steps_timed": len(timed),
-              "batch": V3_BATCH, "losses": losses, "relative_to_dense": rel,
+              "batch": V3_BATCH, "attention_check": checks,
               "profile": profile_step(train, cfg, dataset, state)}
     print(f"v3 timing: {json.dumps(timing)}", flush=True)
     return kernels, timing
+
+
+# ------------------------------------------------ the options of the v2 step
+
+
+def key_rows(enc, x, inv_perm, groups):
+    """The keys a copy of key encoder `enc`, its BNs in `groups` virtual
+    groups, gives for the permuted batch `x` in train mode (`enc`'s buffers
+    left alone), l2-normalized, bf16 autocast, back in the batch's order."""
+    from moco_tpu_torch.ops.losses import l2_normalize
+    from moco_tpu_torch.parallel.shuffle import unshuffle_gather
+
+    enc = copy.deepcopy(enc).train()
+    for bn in (m for m in enc.modules() if hasattr(m, "virtual_groups")):
+        bn.virtual_groups = groups
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        k = enc(x)
+    return unshuffle_gather(l2_normalize(k.float()), inv_perm)
+
+
+@contextlib.contextmanager
+def last_batch(store: dict):
+    """While open, every train step the driver builds records a clone of its
+    batch's `im_k` in store["im_k"] (the ring recycles its slots)."""
+    import moco_tpu_torch.train as train_module
+
+    make = train_module.make_train_step
+
+    def recording(*args, **kw):
+        step_fn = make(*args, **kw)
+
+        def run(st, batch):
+            store["im_k"] = batch["im_k"].clone()
+            return step_fn(st, batch)
+        return run
+
+    train_module.make_train_step = recording
+    try:
+        yield store
+    finally:
+        train_module.make_train_step = make
+
+
+def options_run(fi, cfg, dataset, state, label, log=None):
+    """TRAIN_WARMUP + TRAIN_TIMED steps of `cfg` from `state` through the
+    ring, the InfoNCE launch counts set to 0 just before and read just
+    after: finite losses and each kernel once per step. Returns the
+    history, launches, medians of the timed steps and the peak memory."""
+    from moco_tpu_torch.train import train
+
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+    out = train(cfg, dataset=dataset, device="cuda", steps=steps, state=state, log=log)
+    launches = {"infonce_fwd": fi.infonce_stats.launches, "infonce_bwd": fi.infonce_dq.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    check(len(hist) == steps and all(np.isfinite(r["loss"]) for r in hist),
+          f"12d {label}: finite losses")
+    check(launches == {"infonce_fwd": steps, "infonce_bwd": steps},
+          f"12d {label}: InfoNCE kernels not launched once per step: {launches}")
+    summary = {**mode_summary(hist), "peak_memory_gb": peak_gb, "launches": launches,
+               "first_loss": hist[0]["loss"], "steps_per_epoch": out["steps_per_epoch"]}
+    print(f"12d {label}: {json.dumps(summary)}", flush=True)
+    return hist, summary
+
+
+def lars_reference(before, lr):
+    """One LARS update in float64 from the captured parameters, gradients and
+    traces (`LARS`'s order: weight decay and the trust ratio where the
+    group decays, x -lr, the trace): {param index: (new param, new trace)}."""
+    out = {}
+    for i, (p, g, trace, group) in before.items():
+        p64, u = p.double(), g.double()
+        if group["decay"]:
+            u = u + group["weight_decay"] * p64
+            pn, un = p64.norm().item(), u.norm().item()
+            u = u * (1.0 if pn == 0.0 or un == 0.0 else group["trust_coefficient"] * pn / un)
+        t = -lr * u + (0.0 if trace is None else group["momentum"] * trace.double())
+        out[i] = (p64 + t, t)
+    return out
+
+
+def step_options_phase(fi):
+    """Phase 12d: the options of the v1/v2 step at full width (module
+    docstring): (a) virtual Shuffle-BN, (b) the large-batch recipe with
+    remat on and off, (c) the EMAN key forward."""
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.parallel.shuffle import make_permutation, step_seed
+    from moco_tpu_torch.utils.config import PRESETS, apply_auto_scale
+    from moco_tpu_torch.utils.schedules import make_lr_schedule
+
+    out = {}
+    base = PRESETS["imagenet_v2"]
+    base = dataclasses.replace(base, data=dataclasses.replace(base.data, dataset="synthetic"))
+    b = base.data.global_batch
+    dataset = SyntheticDataset(num_examples=b * EPOCH_STEPS, image_size=IMG)
+
+    # (a) virtual Shuffle-BN: 8 groups of 32 rows, the keys' forward permuted
+    cfg = dataclasses.replace(base, moco=dataclasses.replace(
+        base.moco, bn_virtual_groups=OPTION_GROUPS, shuffle="gather_perm"))
+    state = seeded_v2_state(cfg)
+    seen = {}
+    hook = state.encoder_k.register_forward_pre_hook(
+        lambda _m, args: seen.__setitem__("x", args[0].detach().clone()))
+    with last_batch(seen):
+        hist, groups = options_run(fi, cfg, dataset, state, f"virtual groups G={OPTION_GROUPS}")
+    hook.remove()
+    last = len(hist) - 1
+    gen = torch.Generator(device="cuda").manual_seed(step_seed(cfg.seed, last))
+    perm, inv_perm = make_permutation(gen, b)
+    check(torch.equal(seen["x"], seen["im_k"][perm]),
+          "12d: the last key forward did not run on the step's permuted batch")
+    enqueued = state.queue[state.queue_ptr - b:state.queue_ptr]
+    recomputed = key_rows(state.encoder_k, seen["x"], inv_perm, OPTION_GROUPS)
+    whole_bn = key_rows(state.encoder_k, seen["x"], inv_perm, 0)  # the control
+    keys = {"recomputed": (enqueued - recomputed).abs().max().item(),
+            "whole_batch_bn": (enqueued - whole_bn).abs().max().item(), "tolerance": BF16_REL}
+    print(f"12d keys of the last step against their recomputation: {json.dumps(keys)}", flush=True)
+    check(keys["recomputed"] <= BF16_REL, f"12d: enqueued keys off their recomputation: {keys}")
+    check(keys["whole_batch_bn"] > BF16_REL,
+          f"12d: whole-batch BN keys pass as the grouped ones (the groups had no effect): {keys}")
+    del state, seen, enqueued, recomputed, whole_bn
+    # G = 0 from the same seeded state, on the same data
+    cfg0 = dataclasses.replace(cfg, moco=dataclasses.replace(cfg.moco, bn_virtual_groups=0))
+    _, whole_run = options_run(fi, cfg0, dataset, seeded_v2_state(cfg0), "whole-batch BN G=0")
+    out["virtual_groups"] = {"G": OPTION_GROUPS, "grouped": groups, "whole_batch": whole_run,
+                             "keys": keys}
+
+    # (b) the large-batch recipe cut to one card: LARS, momentum-statistics BN, auto_scale
+    preset = PRESETS["imagenet_v2_large_batch"]
+    check((preset.optim.optimizer, preset.moco.bn_momentum_stats, preset.auto_scale,
+           preset.data.global_batch) == ("lars", True, "ref_batch=4096", 8192),
+          "imagenet_v2_large_batch preset")
+    ref = dataclasses.replace(preset, data=dataclasses.replace(
+        preset.data, dataset="synthetic", global_batch=LARGE_BATCH))
+    live, info = apply_auto_scale(ref)
+    kappa = LARGE_BATCH / 4096
+    check(info["kappa"] == kappa and live.optim.lr == 4.8 * kappa
+          and live.moco.momentum == 0.999 ** kappa, f"12d: auto_scale {info}")
+    print(f"12d large batch: imagenet_v2_large_batch, cut: global batch "
+          f"{preset.data.global_batch} -> {LARGE_BATCH}; auto_scale {json.dumps(info)}", flush=True)
+    big = SyntheticDataset(num_examples=LARGE_BATCH * EPOCH_STEPS, image_size=IMG)
+    seeded = seeded_v2_state(live)
+    large = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(ref, moco=dataclasses.replace(ref.moco, remat=remat))
+        state = copy.deepcopy(seeded) if not remat else seeded
+        leaf = "head.fc.2.weight"
+        q0 = dict(state.encoder_q.named_parameters())[leaf].detach().clone()
+        k0 = dict(state.encoder_k.named_parameters())[leaf].detach().clone()
+        ema_err, lars, calls = [], {}, [0]
+        opt, real_step = state.optimizer, state.optimizer.step
+
+        def step(*args, **kw):  # the last step's update is captured
+            calls[0] += 1
+            if calls[0] != TRAIN_WARMUP + TRAIN_TIMED:
+                return real_step(*args, **kw)
+            params = [(p, g) for g in opt.param_groups for p in g["params"]]
+            lars["before"] = {i: (p.detach().clone(), p.grad.detach().clone(),
+                                  opt.state[p]["trace"].clone() if "trace" in opt.state[p]
+                                  else None, g) for i, (p, g) in enumerate(params)}
+            lars["lr"] = opt.param_groups[0]["lr"]
+            result = real_step(*args, **kw)
+            lars["after"] = {i: (p.detach().clone(), opt.state[p]["trace"].clone())
+                             for i, (p, _) in enumerate(params)}
+            return result
+
+        def on_step(rec, state=state, q0=q0, k0=k0, ema_err=ema_err):
+            if rec["step"] == 1:
+                k1 = dict(state.encoder_k.named_parameters())[leaf].detach()
+                m = live.moco.momentum
+                ema_err.append((k1 - (k0 * m + q0 * (1.0 - m))).abs().max().item())
+
+        opt.step = step
+        try:
+            hist, summary = options_run(fi, cfg, big, state, f"large batch remat={remat}",
+                                        log=on_step)
+        finally:
+            del opt.step
+        schedule = make_lr_schedule(live.optim, summary["steps_per_epoch"])
+        check(all(r["lr"] == schedule(i) for i, r in enumerate(hist)),
+              f"12d remat={remat}: the live lr is not the auto-scaled schedule's")
+        check(ema_err and ema_err[0] <= 1e-6,
+              f"12d remat={remat}: params_k after step 1 is not the EMA at m**kappa: {ema_err}")
+        check(bool(lars), f"12d remat={remat}: the last LARS update was not captured")
+        want = lars_reference(lars["before"], lars["lr"])
+        rel = {"param": 0.0, "trace": 0.0}
+        for i, (p, t) in lars["after"].items():
+            wp, wt = want[i]
+            rel["param"] = max(rel["param"], (p.double() - wp).abs().max().item()
+                               / max(wp.abs().max().item(), 1e-30))
+            rel["trace"] = max(rel["trace"], (t.double() - wt).abs().max().item()
+                               / max(wt.abs().max().item(), 1e-30))
+        summary["lars_vs_float64"] = {**rel, "lr": lars["lr"], "params": len(want)}
+        print(f"12d LARS update on the card (remat={remat}) vs float64: {json.dumps(rel)}",
+              flush=True)
+        check(rel["param"] <= 1e-5 and rel["trace"] <= 1e-5,
+              f"12d: LARS off the float64 update: {rel}")
+        del lars, want
+        large["remat" if remat else "no_remat"] = summary
+        del state
+        torch.cuda.empty_cache()
+    gap = abs(large["remat"]["first_loss"] - large["no_remat"]["first_loss"])
+    check(gap <= BF16_REL * abs(large["no_remat"]["first_loss"]),
+          f"12d: first-step losses with and without remat differ by {gap}")
+    out["large_batch"] = {"batch": LARGE_BATCH, "cut_from": preset.data.global_batch,
+                          "auto_scale": info, "first_loss_gap": gap, **large}
+    del seeded
+    torch.cuda.empty_cache()
+
+    # (c) the EMAN key forward: eval-mode key BN whose statistics trail the query's
+    cfg = dataclasses.replace(base, moco=dataclasses.replace(
+        base.moco, shuffle="none", key_bn_running_stats=True))
+    state = seeded_v2_state(cfg)
+
+    def stats(enc):
+        return [t.clone() for n, t in enc.state_dict().items() if "running" in n]
+
+    k0, eman = stats(state.encoder_k), {}
+
+    def on_step(rec):
+        if rec["step"] == 1:
+            m = float(min(np.float32(cfg.moco.momentum), np.float32(1.0) / np.float32(10.0)))
+            got, q1 = stats(state.encoder_k), stats(state.encoder_q)
+            eman["max_err"] = max((g - (m * k + (1.0 - m) * q)).abs().max().item()
+                                  / max(1.0, (m * k + (1.0 - m) * q).abs().max().item())
+                                  for g, k, q in zip(got, k0, q1))
+            eman["momentum"] = float(m)
+
+    _, eman_run = options_run(fi, cfg, dataset, state, "EMAN key forward", log=on_step)
+    print(f"12d EMAN key statistics after step 1 vs the EMA of the query's: {json.dumps(eman)}",
+          flush=True)
+    check(eman.get("max_err", 1.0) <= 1e-6, f"12d: EMAN key statistics off the EMA: {eman}")
+    out["eman"] = {**eman_run, "stats_check": eman}
+    del state
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ the closed loop
@@ -2169,6 +2485,10 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir)
     print(json.dumps({"faults": faults_out, "device": smi}))
+    torch.cuda.empty_cache()
+
+    # -- the options of the v2 step: virtual Shuffle-BN, LARS, remat, EMAN ------
+    print(json.dumps({"step_options": step_options_phase(fused_infonce), "device": smi}))
     torch.cuda.empty_cache()
 
     # -- the cell-scan kernel's own times --------------------------------------

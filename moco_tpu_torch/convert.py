@@ -332,10 +332,11 @@ def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
     """A JAX `MocoState`'s contents, as numpy trees, -> the port's
     `TrainState` on `device`. `tree` holds `step`, `params_q`,
     `batch_stats_q`, `params_k` and `batch_stats_k`; for v1/v2 also
-    `queue` (K, dim), `queue_ptr` and, optionally, `trace`: the optax SGD
+    `queue` (K, dim), `queue_ptr` and, optionally, `trace`: the optax
     trace over the query encoder's params (the `"enc"` entry of the
-    TraceState), which becomes SGD's `momentum_buffer`s by the same layout
-    rules; for v3 `params_pred`, `batch_stats_pred` and, optionally, `adam`:
+    TraceState: SGD's, or under `optimizer="lars"` the last element of
+    `optax.lars`'s chain), which becomes SGD's `momentum_buffer`s, or
+    LARS's `trace`s, by the same layout rules; for v3 `params_pred`, `batch_stats_pred` and, optionally, `adam`:
     {"mu", "nu", "count"} of optax's ScaleByAdamState over {"enc", "pred"},
     which become AdamW's `exp_avg`, `exp_avg_sq` and `step` for every
     trained parameter. A v3 head takes its hidden width from the tree's
@@ -358,7 +359,8 @@ def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
             step=step, queue_ptr=int(np.asarray(tree["queue_ptr"])),
         )
         if tree.get("trace") is not None:
-            _load_moments(state, {"momentum_buffer": encoder_from_flax(tree["trace"])}, {})
+            key = "trace" if config.optim.optimizer == "lars" else "momentum_buffer"
+            _load_moments(state, {key: encoder_from_flax(tree["trace"])}, {})
         return state
     predictor = build_predictor(config.moco, mlp_hidden=hidden(tree["params_pred"]))
     predictor.load_state_dict(predictor_from_flax(tree["params_pred"], tree["batch_stats_pred"]))

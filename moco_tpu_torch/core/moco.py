@@ -10,8 +10,17 @@ The v1/v2 step follows the reference's order (moco_tpu/core/moco.py:1061-1316):
 1. EMA of the key encoder's parameters toward the pre-update query
    encoder (:1084-1087), at `ema_momentum(step)`;
 2. key forward with train-mode BN, which updates the key encoder's
-   running statistics, then l2_normalize (:1117-1131);
-3. query forward and l2_normalize;
+   running statistics, then l2_normalize (:1117-1131). With
+   `bn_virtual_groups > 1` (`shuffle_active` on one device, :1101) and
+   shuffle `gather_perm` or `a2a`, the forward runs on the permuted batch
+   and the keys are unshuffled (parallel/shuffle.py), so the loss and the
+   queue see them in the batch's order. Under `key_bn_running_stats`
+   (EMAN) the key forward runs eval-mode BN instead;
+3. query forward and l2_normalize; under `remat` each block of it is
+   recomputed in the backward (models/remat.py). Under EMAN the key
+   encoder's running statistics then move toward the query encoder's
+   updated ones at `ema_momentum(step)`, with `key_bn_stats_warmup`
+   capped at (1 + step) / (10 + step) (:1204-1214);
 4. the fused loss (:1146-1157) unless `fused_infonce` is False, then
    the dense one (:1158-1168); the fused loss takes any K (the JAX gate
    at :731-758 exists for its Pallas tile, which the CUDA kernels do not
@@ -44,8 +53,11 @@ The v3 step (`v3_step`, :875-1059, the single-device branch without ZeRO):
    of q1 and the drift of the updated query encoder (not the predictor)
    from the key encoder; no queue gauges.
 
-One device means no Shuffle-BN collective: the JAX step's
-`shuffle_active` is false there, whatever `shuffle` says.
+One device means no Shuffle-BN collective. The step's permutations come
+from the state's generator, seeded anew each step from (config.seed,
+step) as JAX folds the step into its root key, so a resume or a rollback
+draws the same ones; a batch may carry its own (`perm` for gather_perm,
+`pre` and `post` for a2a), as the parity tests pass JAX's.
 """
 
 from __future__ import annotations
@@ -58,12 +70,13 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from moco_tpu_torch.core.ema import ema_update
+from moco_tpu_torch.core.ema import ema_running_stats, ema_update
 from moco_tpu_torch.core.queue import check_queue_divisibility, enqueue, init_queue
 from moco_tpu_torch.models.heads import ProjectionHead, V3MLPHead
 from moco_tpu_torch.models.resnet import create_resnet
 from moco_tpu_torch.models.vit import create_vit
 from moco_tpu_torch.obs import health
+from moco_tpu_torch.parallel import shuffle as sh
 from moco_tpu_torch.ops.fused_infonce import fused_infonce_loss
 from moco_tpu_torch.ops.losses import cross_entropy, infonce_logits, l2_normalize, topk_accuracy
 from moco_tpu_torch.utils.config import MocoConfig, TrainConfig
@@ -81,8 +94,10 @@ class MoCoEncoder(nn.Module):
         self.backbone = backbone
         self.head = head
 
-    def forward(self, x):
-        return self.head(self.backbone(x))
+    def forward(self, x, remat: bool = False):
+        """`remat` recomputes each backbone block in the backward
+        (models/remat.py)."""
+        return self.head(self.backbone(x, remat=remat))
 
 
 def build_encoder(cfg: MocoConfig, num_filters: int = 64,
@@ -92,14 +107,40 @@ def build_encoder(cfg: MocoConfig, num_filters: int = 64,
     2 behind a ResNet, both ending in the affine-free BN), v1/v2 the Linear
     / MLP ProjectionHead. `num_filters` narrows a ResNet and `mlp_hidden`
     the v3 head for tests, as `create_resnet(num_filters=...)` does in the
-    JAX package."""
+    JAX package.
+
+    The BN fields are checked as `create_backbone` (:92-190) checks them on
+    one device, with its messages: none on a ViT, no virtual groups under
+    syncbn, no barrier without stats rows, and no virtual groups without a
+    key permutation (shuffle 'none' or v3) unless `allow_leaky_bn`, or the
+    EMAN key forward on v1/v2, which reads no batch statistics. JAX's
+    `bn_stats_rows` gate fires only on a data axis of more than one device."""
     vit = cfg.arch.startswith("vit")
+    if vit and (cfg.bn_stats_rows or cfg.bn_virtual_groups > 1 or cfg.bn_momentum_stats):
+        raise ValueError(
+            "bn_stats_rows / bn_virtual_groups / bn_momentum_stats apply "
+            "to ResNet BatchNorm, not ViT archs"
+        )
+    if not vit:
+        if cfg.bn_virtual_groups > 1 and cfg.shuffle == "syncbn":
+            raise ValueError("bn_virtual_groups does not compose with syncbn")
+        if cfg.bn_stats_barrier and not cfg.bn_stats_rows:
+            raise ValueError("bn_stats_barrier requires bn_stats_rows > 0")
+        if (cfg.bn_virtual_groups > 1 and (cfg.shuffle == "none" or cfg.v3)
+                and not cfg.allow_leaky_bn and not (cfg.key_bn_running_stats and not cfg.v3)):
+            raise ValueError(
+                "bn_virtual_groups needs a key permutation: use shuffle='gather_perm' "
+                "or 'a2a' (shuffle='none' and the v3 step would leak per-group stats)"
+            )
     if vit:
         kw = {"patch_size": cfg.vit_patch_size} if cfg.vit_patch_size else {}
         backbone = create_vit(cfg.arch, use_flash_attention=cfg.vit_flash_attention,
                               pool=cfg.vit_pool, **kw)
     else:
-        backbone = create_resnet(cfg.arch, num_filters=num_filters, cifar_stem=cfg.cifar_stem)
+        backbone = create_resnet(
+            cfg.arch, num_filters=num_filters, cifar_stem=cfg.cifar_stem,
+            bn_stats_rows=cfg.bn_stats_rows, bn_stats_barrier=cfg.bn_stats_barrier,
+            bn_virtual_groups=cfg.bn_virtual_groups, bn_momentum_stats=cfg.bn_momentum_stats)
     if cfg.v3:
         num_layers = 3 if vit else 2
         head = V3MLPHead(backbone.num_features, num_layers, mlp_hidden, cfg.dim)
@@ -131,6 +172,8 @@ class TrainState:
     queue_ptr: int
     optimizer: torch.optim.Optimizer
     predictor: Optional[nn.Module] = None
+    # the Shuffle-BN permutations' generator, on the state's device
+    generator: Optional[torch.Generator] = None
 
 
 def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
@@ -142,8 +185,8 @@ def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
     one is given. v1/v2: the queue is drawn from a generator on `device`
     seeded with config.seed unless one is given. v3: no queue; the
     predictor is required. The optimizer runs over the query encoder's
-    trainable parameters and the predictor's (AdamW in the two groups of
-    the decay mask). Both encoders are kept channels-last."""
+    trainable parameters and the predictor's (AdamW and LARS in the two
+    groups of the decay mask). Both encoders are kept channels-last."""
     device = resolve_device(device)
     cfg = config.moco
     if cfg.v3 != (cfg.num_negatives == 0):
@@ -167,12 +210,13 @@ def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
         if tuple(queue.shape) != (cfg.num_negatives, cfg.dim):
             raise ValueError(f"queue {tuple(queue.shape)} != (K, dim) = {(cfg.num_negatives, cfg.dim)}")
     trained = [m for m in (encoder_q, predictor) if m is not None]
-    if config.optim.optimizer == "adamw":
+    if config.optim.optimizer in ("adamw", "lars"):
         params = decay_groups(trained, config.optim.weight_decay)
     else:
         params = [p for m in trained for p in m.parameters() if p.requires_grad]
     optimizer = build_optimizer(config.optim, params)
-    return TrainState(step, encoder_q, encoder_k, queue, int(queue_ptr), optimizer, predictor)
+    return TrainState(step, encoder_q, encoder_k, queue, int(queue_ptr), optimizer, predictor,
+                      torch.Generator(device=device))
 
 
 def make_ema_momentum(cfg: MocoConfig, total_steps: int) -> Callable[[int], float]:
@@ -208,10 +252,29 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
 
     Under compute_dtype="bfloat16" the encoders run under autocast while
     the parameters, BN statistics, head output and loss inputs stay
-    float32, as in JAX."""
+    float32, as in JAX.
+
+    The EMAN key forward is checked as JAX's `make_train_step` checks it
+    (:457-470), with its messages: not on v3, not under gather_perm or
+    a2a."""
     device = resolve_device(device)
     cfg = config.moco
+    if cfg.key_bn_running_stats:
+        if cfg.v3:
+            raise ValueError(
+                "key_bn_running_stats is a v2-step lever; the v3 step "
+                "manages its own momentum encoder"
+            )
+        if cfg.shuffle in ("gather_perm", "a2a"):
+            raise ValueError(
+                "key_bn_running_stats removes batch statistics from the key "
+                "forward, so Shuffle-BN would be pure wasted communication: "
+                "set shuffle='none' (or 'syncbn' for query-side statistics)"
+            )
     global_batch = config.data.global_batch
+    shuffle_active = cfg.bn_virtual_groups > 1  # one device: :1101
+    # the step's permutations: `gather_perm`'s one, `a2a`'s two local ones
+    shuffle = cfg.shuffle if shuffle_active and cfg.shuffle in ("gather_perm", "a2a") else None
     if not cfg.v3:
         check_queue_divisibility(cfg.num_negatives, global_batch)
     schedule = make_lr_schedule(config.optim, steps_per_epoch)
@@ -223,6 +286,43 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
 
     def autocast():
         return torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16)
+
+    def key_forward(state: TrainState, batch: dict):
+        """Keys in the batch's order, l2-normalized: the key forward on the
+        permuted batch under Shuffle-BN, else on the batch itself
+        (eval-mode BN under EMAN)."""
+        im_k = batch["im_k"]
+        if shuffle is not None:
+            state.generator.manual_seed(sh.step_seed(config.seed, state.step))
+        if shuffle == "gather_perm":
+            perm = batch.get("perm")
+            if perm is None:
+                perm, inv_perm = sh.make_permutation(state.generator, global_batch)
+            else:
+                inv_perm = torch.argsort(perm)
+            im_k = sh.shuffle_gather(im_k, perm)
+        elif shuffle == "a2a":
+            pre, post = (batch["pre"], batch["post"]) if "pre" in batch else sh.local_perms(
+                state.generator, global_batch)
+            im_k = sh.balanced_shuffle(im_k, pre, post)
+        state.encoder_k.train(not cfg.key_bn_running_stats)
+        with torch.no_grad(), autocast():
+            k = state.encoder_k(im_k)
+        k = l2_normalize(k.float())
+        if shuffle == "gather_perm":
+            k = sh.unshuffle_gather(k, inv_perm)
+        elif shuffle == "a2a":
+            k = sh.balanced_unshuffle(k, pre, post)
+        return k
+
+    def eman_momentum(step: int) -> float:
+        """The key statistics' momentum: ema_momentum(step), with the warmup
+        min(m, (1 + step) / (10 + step)), in float32 as JAX takes it."""
+        m = torch.tensor(ema_momentum(step), dtype=torch.float32)
+        if cfg.key_bn_stats_warmup:
+            s = torch.tensor(step, dtype=torch.float32)
+            m = torch.minimum(m, (1.0 + s) / (10.0 + s))
+        return float(m)
 
     def check_batch(im_q, im_k):
         if im_q.shape[0] != global_batch or im_k.shape[0] != global_batch:
@@ -243,16 +343,15 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         check_batch(im_q, im_k)
         # (1) EMA before the key forward, on the pre-update query params
         ema_update(state.encoder_k, state.encoder_q, ema_momentum(state.step))
-        # (2) key forward, train-mode BN (its running stats move)
-        state.encoder_k.train()
-        with torch.no_grad(), autocast():
-            k = state.encoder_k(im_k)
-        k = l2_normalize(k.float())
-        # (3) query forward
+        # (2) key forward, train-mode BN (its running stats move) unless EMAN
+        k = key_forward(state, batch)
+        # (3) query forward; under EMAN the key statistics trail the query's
         state.encoder_q.train()
         with autocast():
-            q = state.encoder_q(im_q)
+            q = state.encoder_q(im_q, remat=cfg.remat)
         q = l2_normalize(q.float())
+        if cfg.key_bn_running_stats:
+            ema_running_stats(state.encoder_k, state.encoder_q, eman_momentum(state.step))
         # (4) loss in float32 on the old queue
         if cfg.fused_infonce is not False:  # None or True, for any K
             loss, acc = fused_infonce_loss(q, k, state.queue, cfg.temperature)
@@ -292,7 +391,7 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         state.encoder_q.train()
         state.predictor.train()
         with autocast():
-            preds = state.predictor(state.encoder_q(x_cat))
+            preds = state.predictor(state.encoder_q(x_cat, remat=cfg.remat))
         q1, q2 = l2_normalize(preds.float()).chunk(2)
 
         # (4) the symmetric loss, each term scaled by 2T

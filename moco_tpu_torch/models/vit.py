@@ -27,6 +27,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from moco_tpu_torch.models.remat import remat_block
 from moco_tpu_torch.ops.flash_attention import flash_attention
 
 LN_EPS = 1e-6  # Flax LayerNorm's default
@@ -138,7 +139,9 @@ class VisionTransformer(nn.Module):
     def num_features(self) -> int:
         return self.hidden_dim
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
+        """`remat` recomputes each encoder block in the backward
+        (models/remat.py)."""
         b, h, w, _ = x.shape
         if h % self.patch_size or w % self.patch_size:
             raise ValueError(f"image {h}x{w} not divisible by patch {self.patch_size}")
@@ -151,7 +154,7 @@ class VisionTransformer(nn.Module):
             self.pos_embed = self._sincos(grid).to(x.device)
         x = x + self.pos_embed.to(x.dtype)
         for block in self.blocks:
-            x = block(x)
+            x = remat_block(block, x) if remat else block(x)
         x = self.final_norm(x)
         if self.pool == "cls":
             return x[:, 0].float()

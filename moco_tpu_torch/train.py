@@ -7,8 +7,14 @@ elastic parts).
         --workdir W --epochs 2 --steps-per-epoch 3 --knn-every-epochs 1
     python -m moco_tpu_torch.train --preset vit_b16_v3 --data synthetic --steps 20 \\
         --batch-size 256 --vit-flash-attention
+    python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic --steps 20 \\
+        --bn-virtual-groups 8                  # Shuffle-BN of 8 GPUs on one card
+    python -m moco_tpu_torch.train --preset imagenet_v2_large_batch --data synthetic \\
+        --steps 20 --batch-size 1024 --remat   # LARS, auto_scale to the batch
 
-builds the two-crop pipeline, the encoder and, for v3, the predictor (a
+derives the live lr and EMA momentum from the config's `auto_scale`
+(printing the line JAX's driver prints), builds the two-crop pipeline,
+the encoder and, for v3, the predictor (a
 seeded Flax-layout init carried in through `convert`, or a given state),
 the optimizer and the train state; runs the steps, each epoch's batches
 from the prefetch ring unless `--no-device-prefetch`; and prints one JSON
@@ -110,6 +116,7 @@ from moco_tpu_torch.utils.config import (
     PRESETS,
     ResumeCompatError,
     TrainConfig,
+    apply_auto_scale,
     config_to_dict,
     resume_compat_diff,
 )
@@ -279,6 +286,13 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
     tests."""
     faults.install_from_env()
     device = resolve_device(device)
+    # `config` carries the reference lr and momentum; the live ones follow
+    # from the global batch (utils/config.py `apply_auto_scale`)
+    config, auto_info = apply_auto_scale(config)
+    if auto_info is not None:
+        print0(f"auto-scale: global batch {config.data.global_batch} vs ref "
+               f"{auto_info['ref_batch']} (kappa={auto_info['kappa']:g}) -> "
+               f"lr {auto_info['lr']:g}, EMA momentum {auto_info['momentum']:g}")
     workdir = config.workdir
     with TwoCropPipeline(config.data, seed=config.seed, dataset=dataset, device=device) as pipe:
         steps_per_epoch = config.steps_per_epoch or pipe.steps_per_epoch
@@ -603,6 +617,32 @@ def main(argv=None) -> int:
                     help="global batch (default: the preset's)")
     ap.add_argument("--vit-flash-attention", action="store_true",
                     help="ViT attention through the flash kernels")
+    ap.add_argument("--shuffle", choices=("gather_perm", "a2a", "syncbn", "none"), default=None,
+                    help="BN decorrelation (the reference's Shuffle-BN is gather_perm); on one "
+                         "device it permutes the keys with --bn-virtual-groups only")
+    ap.add_argument("--bn-stats-rows", type=int, default=None,
+                    help="BN training statistics from the first N rows (0 = the whole batch)")
+    ap.add_argument("--bn-stats-barrier", action="store_true", default=None,
+                    help="with --bn-stats-rows: JAX's TPU fusion barrier; no effect here")
+    ap.add_argument("--bn-momentum-stats", action="store_true", default=None,
+                    help="momentum-statistics BN: normalize with, and store, "
+                         "m * running + (1 - m) * batch")
+    ap.add_argument("--bn-virtual-groups", type=int, default=None,
+                    help="virtual Shuffle-BN: per-group BN statistics over G row-groups and "
+                         "the key batch permuted, the reference's G-GPU recipe on one card")
+    ap.add_argument("--key-bn-eval", dest="key_bn_running_stats", action="store_true",
+                    default=None,
+                    help="EMAN key forward: eval-mode key BN whose statistics trail the "
+                         "query encoder's (needs --shuffle none or syncbn); experimental")
+    ap.add_argument("--no-key-bn-stats-warmup", dest="key_bn_stats_warmup",
+                    action="store_false", default=None,
+                    help="without the (1+s)/(10+s) cap on the key statistics' momentum")
+    ap.add_argument("--remat", action="store_true", default=None,
+                    help="recompute the query forward in the backward (less memory)")
+    ap.add_argument("--optimizer", choices=("sgd", "lars", "adamw"), default=None)
+    ap.add_argument("--auto-scale", default=None, metavar="ref_batch=N",
+                    help="lr and momentum are the values at global batch N; the live ones "
+                         "follow from the batch (kappa = batch / N: lr x kappa, m ** kappa)")
     ap.add_argument("--workdir", default=None,
                     help="checkpoints, metrics.jsonl and automatic resume (default: none)")
     ap.add_argument("--epochs", type=int, default=None, help="epochs (default: the preset's)")
@@ -639,17 +679,23 @@ def main(argv=None) -> int:
            "knn_every_epochs": args.knn_every_epochs, "prefetch_depth": args.prefetch_depth,
            "checkpoint_async": args.checkpoint_async, "watchdog_timeout": args.watchdog_timeout,
            "heartbeat_timeout": args.heartbeat_timeout, "alert_rules": args.alert_rules,
-           "alerts_fatal": args.alerts_fatal, "health_metrics": args.health_metrics}
+           "alerts_fatal": args.alerts_fatal, "health_metrics": args.health_metrics,
+           "auto_scale": args.auto_scale}
     top = {k: v for k, v in top.items() if v is not None}
     if args.no_device_prefetch:
         top["device_prefetch"] = False
     config = dataclasses.replace(config, data=dataclasses.replace(config.data, **data), **top)
-    if args.epochs is not None:
-        config = dataclasses.replace(config, optim=dataclasses.replace(config.optim,
-                                                                       epochs=args.epochs))
-    if args.vit_flash_attention:
-        config = dataclasses.replace(
-            config, moco=dataclasses.replace(config.moco, vit_flash_attention=True))
+    optim = {"epochs": args.epochs, "optimizer": args.optimizer}
+    optim = {k: v for k, v in optim.items() if v is not None}
+    moco = {"vit_flash_attention": args.vit_flash_attention or None, "shuffle": args.shuffle,
+            "bn_stats_rows": args.bn_stats_rows, "bn_stats_barrier": args.bn_stats_barrier,
+            "bn_momentum_stats": args.bn_momentum_stats,
+            "bn_virtual_groups": args.bn_virtual_groups,
+            "key_bn_running_stats": args.key_bn_running_stats,
+            "key_bn_stats_warmup": args.key_bn_stats_warmup, "remat": args.remat}
+    moco = {k: v for k, v in moco.items() if v is not None}
+    config = dataclasses.replace(config, optim=dataclasses.replace(config.optim, **optim),
+                                 moco=dataclasses.replace(config.moco, **moco))
     train(config, device=args.device, steps=args.steps,
           log=lambda r: print(json.dumps(r), flush=True))
     return 0

@@ -1,27 +1,29 @@
 """The part of moco_tpu/utils/config.py that the port runs: serving,
-single-device MoCo v1/v2 training and single-device MoCo v3 training of a
-ViT, the driver's checkpoint (async writes included), log, kNN,
-non-finite-guard, watchdog, health-gauge, alert and heartbeat fields, and
-the linear probe's `ProbeConfig`. Same field names, defaults and presets,
-so a preset means the same model and recipe in both packages; `workdir`
-alone differs: None (write nothing, resume nothing) instead of a fixed
-path.
+single-device MoCo v1/v2 training (with every BatchNorm mode, Shuffle-BN
+reduced to one device, the EMAN key forward, remat, SGD or LARS, and
+`auto_scale`) and single-device MoCo v3 training of a ViT, the driver's
+checkpoint (async writes included), log, kNN, non-finite-guard, watchdog,
+health-gauge, alert and heartbeat fields, and the linear probe's
+`ProbeConfig`. Same field names, defaults and presets, so a preset means
+the same model and recipe in both packages; `workdir` alone differs: None
+(write nothing, resume nothing) instead of a fixed path.
 
-Fields of the JAX config that the port does not run yet (the BN modes
-`syncbn_group_size`, `bn_virtual_groups`, `bn_stats_rows`,
-`bn_stats_barrier`, `bn_momentum_stats`, `allow_leaky_bn`,
-`key_bn_running_stats`, `key_bn_stats_warmup`, `remat`,
-`vit_sequence_parallel`; LARS's `trust_coefficient`; the parallel and ZeRO
-fields; the other telemetry fields (`strict_tracing`, `sinks`,
-`metrics_port`, `obs_probe_every`, `fleet_metrics`, the sanitizers); the
-elastic fields) are left out, so a config that asks for one fails at
-construction with a TypeError instead of being ignored. So is `prefetch_donate`: it recycles a consumed staging slot's
-device buffer through XLA's donation, and PyTorch's caching allocator
-already reuses that memory; and `on_device_augment`: the port always
-augments on the device. So are `fused_block_k`, the TPU kernel's tile (see
+`bn_stats_barrier` is validated as in JAX (it needs `bn_stats_rows`) and
+has no effect here: it fences a slice against an XLA fusion on the TPU,
+and eager PyTorch fuses nothing to fence.
+
+Fields of the JAX config that the port does not run yet (`syncbn_group_size`
+and the rest of cross-device BN, `vit_sequence_parallel`; the parallel,
+ZeRO and elastic fields; the other telemetry fields (`strict_tracing`,
+`sinks`, `metrics_port`, `obs_probe_every`, `fleet_metrics`, the
+sanitizers)) are left out, so a config that asks for one fails at
+construction with a TypeError instead of being ignored. So is
+`prefetch_donate`: it recycles a consumed staging slot's device buffer
+through XLA's donation, and PyTorch's caching allocator already reuses
+that memory; and `on_device_augment`: the port always augments on the
+device. So are `fused_block_k`, the TPU kernel's tile (see
 `fused_infonce`), and the presets that need them
-(`imagenet_v2_large_batch`, `vit_b16_v3_huge_batch_zero3`,
-`vit_b16_v3_highres_sp`).
+(`vit_b16_v3_huge_batch_zero3`, `vit_b16_v3_highres_sp`).
 """
 
 from __future__ import annotations
@@ -43,10 +45,34 @@ class MocoConfig:
     momentum_cos: bool = False
     temperature: float = 0.07  # --moco-t (0.2 for the v2 recipe)
     mlp: bool = False  # --mlp (v2)
-    # BN decorrelation across devices. On one device every choice computes
-    # the same step (the JAX step's `shuffle_active` is false there), which
-    # is all the port runs yet.
+    # BN decorrelation: 'gather_perm' (the reference's Shuffle-BN), 'a2a'
+    # (balanced permutation), 'syncbn', 'none'. On one device the key batch
+    # is permuted only with bn_virtual_groups > 1 (the JAX step's
+    # `shuffle_active`): gather_perm as one in-batch permutation, a2a as
+    # its two local ones (parallel/shuffle.py).
     shuffle: str = "gather_perm"
+    # Training BN statistics from the first N rows of the batch (0 = all).
+    bn_stats_rows: int = 0
+    # With bn_stats_rows: JAX's fusion barrier around the subset slice, a
+    # TPU compile workaround, numerically identical; validated, no effect
+    # here (see the module docstring).
+    bn_stats_barrier: bool = False
+    # Virtual Shuffle-BN: per-group BN statistics over G contiguous
+    # row-groups, and the key batch permuted in-batch, the reference's
+    # G-GPU recipe on one device. 0 = off.
+    bn_virtual_groups: int = 0
+    # Lets shuffle='none' compose with bn_virtual_groups / bn_stats_rows
+    # (the leak demonstration); never set in a training recipe.
+    allow_leaky_bn: bool = False
+    # Momentum-statistics BN ("Momentum² Teacher", arXiv:2101.07525): each
+    # training BN normalizes with, and stores, m * running + (1 - m) * batch.
+    bn_momentum_stats: bool = False
+    # The EMAN key forward (arXiv:2101.08482): eval-mode BN in the key
+    # encoder, whose running statistics trail the query encoder's on the
+    # parameters' momentum schedule. Needs shuffle 'none' or 'syncbn'; v1/v2.
+    key_bn_running_stats: bool = False
+    # With key_bn_running_stats: that momentum capped at (1+s)/(10+s).
+    key_bn_stats_warmup: bool = True
     cifar_stem: bool = False
     compute_dtype: str = "bfloat16"
     # False = the dense logits path; anything else = the streaming InfoNCE
@@ -69,6 +95,10 @@ class MocoConfig:
     vit_flash_attention: bool = False
     # ViT feature pooling: "cls" (v3's) or "gap" (global average pool).
     vit_pool: str = "cls"
+    # Recompute the query encoder's forward in the backward
+    # (torch.utils.checkpoint), leaving the BN buffers as the first forward
+    # left them: less activation memory for more FLOPs.
+    remat: bool = False
 
     def __post_init__(self):
         if self.shuffle not in SHUFFLES:
@@ -79,7 +109,7 @@ class MocoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
-    optimizer: str = "sgd"  # sgd | adamw (lars comes with its slice)
+    optimizer: str = "sgd"  # sgd | lars | adamw
     lr: float = 0.03
     momentum: float = 0.9
     weight_decay: float = 1e-4
@@ -87,6 +117,8 @@ class OptimConfig:
     schedule: Tuple[int, ...] = (120, 160)  # step-decay epochs (--schedule)
     warmup_epochs: int = 0
     epochs: int = 200
+    # LARS's trust coefficient (the large-batch preset)
+    trust_coefficient: float = 0.001
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +197,11 @@ class TrainConfig:
     # Seconds after which another process's heartbeat file counts as
     # stale (the default rules' heartbeat_loss).
     heartbeat_timeout: float = 120.0
+    # Batch scaling, "ref_batch=N": optim.lr and moco.momentum are the
+    # values at global batch N, and the live ones follow from the actual
+    # batch with kappa = global_batch / N: lr * kappa, momentum ** kappa
+    # (`apply_auto_scale`). "" = off.
+    auto_scale: str = ""
 
     def __post_init__(self):
         if self.prefetch_depth < 1:
@@ -197,10 +234,26 @@ PRESETS = {
         optim=OptimConfig(lr=0.03, epochs=10, cos=True),
         data=DataConfig(dataset="cifar10", image_size=32, global_batch=256),
     ),
+    "imagenet100_v2": TrainConfig(
+        moco=_v2(MocoConfig()),
+        optim=OptimConfig(lr=0.03, epochs=200, cos=True),
+        data=DataConfig(dataset="imagefolder", aug_plus=True),
+    ),
     "imagenet_v2": TrainConfig(
         moco=_v2(MocoConfig()),
         optim=OptimConfig(lr=0.03, epochs=200, cos=True),
         data=DataConfig(dataset="imagefolder", aug_plus=True),
+    ),
+    # Large batch with LARS, declared at its 4096 reference and run at
+    # 8192 through auto_scale (kappa = 2: lr x 2, momentum ** 2), with
+    # momentum-statistics BN in place of cross-replica statistics.
+    "imagenet_v2_large_batch": TrainConfig(
+        moco=_v2(MocoConfig(), bn_momentum_stats=True),
+        optim=OptimConfig(
+            optimizer="lars", lr=4.8, weight_decay=1e-6, epochs=200, cos=True, warmup_epochs=10
+        ),
+        data=DataConfig(dataset="imagefolder", aug_plus=True, global_batch=8192),
+        auto_scale="ref_batch=4096",
     ),
     # MoCo v3 ViT-B/16: queue-free symmetric loss, AdamW with warmup
     # (arXiv:2104.02057's recipe, lr = 1.5e-4 * batch / 256).
@@ -216,6 +269,48 @@ PRESETS = {
         data=DataConfig(dataset="imagefolder", aug_plus=True, global_batch=4096),
     ),
 }
+
+
+def parse_auto_scale(spec: str) -> Optional[int]:
+    """The `auto_scale` spec ("ref_batch=N", colon-separated key=val as in
+    JAX) -> N; None when unset."""
+    if not spec:
+        return None
+    ref_batch: Optional[int] = None
+    for tok in spec.split(":"):
+        tok = tok.strip()
+        if not tok:
+            continue
+        k, _, v = tok.partition("=")
+        if k == "ref_batch":
+            ref_batch = int(v)
+        else:
+            raise ValueError(f"unknown auto-scale param {k!r} in {spec!r}")
+    if ref_batch is None or ref_batch <= 0:
+        raise ValueError(f"auto-scale spec {spec!r} needs ref_batch=<positive int>")
+    return ref_batch
+
+
+def apply_auto_scale(config: TrainConfig) -> Tuple[TrainConfig, Optional[dict]]:
+    """The live config under the batch-scaling rules: kappa = global_batch /
+    ref_batch, lr * kappa, EMA momentum ** kappa (the BN momentum is not
+    scaled), and the info dict JAX's driver prints; (config, None) without
+    a spec. Derives from the values in `config`, so pass the reference
+    config each time."""
+    ref_batch = parse_auto_scale(config.auto_scale)
+    if ref_batch is None:
+        return config, None
+    kappa = config.data.global_batch / ref_batch
+    lr = config.optim.lr * kappa
+    momentum = config.moco.momentum**kappa
+    derived = dataclasses.replace(
+        config,
+        optim=dataclasses.replace(config.optim, lr=lr),
+        moco=dataclasses.replace(config.moco, momentum=momentum),
+    )
+    info = {"ref_batch": ref_batch, "kappa": kappa, "lr": lr, "momentum": momentum,
+            "ref_lr": config.optim.lr, "ref_momentum": config.moco.momentum}
+    return derived, info
 
 
 def config_to_dict(cfg: TrainConfig) -> dict:

@@ -16,6 +16,8 @@
   groups (`decay_groups`), step for step: torch's decoupled decay
   `p *= 1 - lr*wd` followed by the Adam step equals optax's
   `p -= lr * (adam + wd*p)`, and the bias corrections are the same.
+- `build_optimizer` for `lars`: `LARS`, the chain `optax.lars` builds
+  (class docstring), over the same two groups.
 """
 
 from __future__ import annotations
@@ -75,15 +77,69 @@ def decay_groups(modules, weight_decay: float) -> list[dict]:
                 if p.requires_grad:
                     leaf = flax_leaf_name(sub, name)
                     (keep if leaf in ("bias", "scale") else decay).append(p)
-    return [{"params": decay, "weight_decay": weight_decay},
-            {"params": keep, "weight_decay": 0.0}]
+    return [{"params": decay, "weight_decay": weight_decay, "decay": True},
+            {"params": keep, "weight_decay": 0.0, "decay": False}]
+
+
+class LARS(torch.optim.Optimizer):
+    """LARS as `optax.lars` builds it (moco_tpu/utils/schedules.py:51-88,
+    eps 0, no Nesterov), per parameter p with gradient g, in this order:
+
+    1. u = g + weight_decay * p (`add_decayed_weights`);
+    2. u *= trust_coefficient * |p| / |u|, or by 1 where either norm is 0
+       (`scale_by_trust_ratio`, whole-tensor L2 norms);
+    3. u *= -lr (`scale_by_learning_rate`);
+    4. trace = u + momentum * trace (`trace`, from zeros), p += trace.
+
+    Steps 1 and 2 apply where the group's `decay` is true, the
+    `_bn_and_bias_mask` of `decay_groups`. The lr enters before the trace,
+    so the trace holds lr-scaled updates and a change of lr does not
+    rescale it (torch SGD's buffer holds unscaled ones). The trace is each
+    parameter's `trace` state, with optax's sign."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 0.0,
+                 trust_coefficient: float = 0.001):
+        super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay,
+                                      trust_coefficient=trust_coefficient, decay=True))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("LARS takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            u = [p.grad for p in params]
+            if group["decay"]:
+                if group["weight_decay"]:
+                    u = torch._foreach_add(u, params, alpha=group["weight_decay"])
+                p_norm = torch.stack(torch._foreach_norm(params))
+                u_norm = torch.stack(torch._foreach_norm(u))
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                    group["trust_coefficient"] * p_norm / u_norm)
+                u = torch._foreach_mul(u, list(ratio.unbind()))
+            u = torch._foreach_mul(u, -group["lr"])
+            old, new = [], []
+            for p, update in zip(params, u):
+                st = self.state[p]
+                if "trace" in st:
+                    old.append(st["trace"])
+                    new.append(update)
+                else:  # the trace starts from zeros: zeros * momentum + u
+                    st["trace"] = update
+            if old:
+                torch._foreach_mul_(old, group["momentum"])
+                torch._foreach_add_(old, new)
+            torch._foreach_add_(params, [self.state[p]["trace"] for p in params])
 
 
 def build_optimizer(cfg: OptimConfig, params) -> torch.optim.Optimizer:
-    """SGD as the reference pretrains (`main_moco.py:~L188`), or AdamW as
-    `optax.adamw` (b1 0.9, b2 0.999, eps 1e-8) over `params`, parameters or
-    groups (`decay_groups` for the mask); its lr is set per step from
-    `make_lr_schedule`."""
+    """SGD as the reference pretrains (`main_moco.py:~L188`), LARS as
+    `optax.lars`, or AdamW as `optax.adamw` (b1 0.9, b2 0.999, eps 1e-8)
+    over `params`, parameters or groups (`decay_groups` for the mask; LARS
+    decays and trust-scales every parameter of a bare list); its lr is set
+    per step from `make_lr_schedule`."""
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(
             params, lr=cfg.lr, momentum=cfg.momentum, dampening=0.0,
@@ -93,8 +149,6 @@ def build_optimizer(cfg: OptimConfig, params) -> torch.optim.Optimizer:
         return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                                  weight_decay=cfg.weight_decay)
     if cfg.optimizer == "lars":
-        raise ValueError(
-            "optimizer 'lars' comes with the large-batch slice of the port; "
-            "this slice trains with sgd or adamw"
-        )
+        return LARS(params, lr=cfg.lr, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+                    trust_coefficient=cfg.trust_coefficient)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")

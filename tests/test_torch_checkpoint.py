@@ -502,3 +502,81 @@ def test_driver_fields_round_trip_and_do_not_block_a_resume():
     for f in ("checkpoint_async", "watchdog_timeout", "health_metrics", "alert_rules",
               "alerts_fatal", "heartbeat_timeout"):
         assert getattr(pc.TrainConfig(), f) == getattr(jc.TrainConfig(), f), f
+
+
+def test_bn_and_optimizer_fields_round_trip_and_do_not_block_a_resume():
+    """The BN, EMAN, remat, LARS and auto_scale fields go through
+    config_to_dict / config_from_dict and, as in JAX, are no resume-compat
+    fields; their defaults are JAX's."""
+    from moco_tpu.utils import config as jc
+
+    cfg = _v2_config()
+    changed = dataclasses.replace(
+        cfg, auto_scale="ref_batch=16",
+        moco=dataclasses.replace(cfg.moco, bn_stats_rows=3, bn_stats_barrier=True,
+                                 bn_virtual_groups=2, allow_leaky_bn=True,
+                                 bn_momentum_stats=True, key_bn_running_stats=True,
+                                 key_bn_stats_warmup=False, remat=True),
+        optim=dataclasses.replace(cfg.optim, optimizer="lars", trust_coefficient=0.002))
+    assert pc.config_from_dict(pc.config_to_dict(changed)) == changed
+    assert pc.resume_compat_diff({"config": pc.config_to_dict(cfg)}, changed) == []
+    for section, fields in (("moco", ("bn_stats_rows", "bn_stats_barrier", "bn_virtual_groups",
+                                      "allow_leaky_bn", "bn_momentum_stats",
+                                      "key_bn_running_stats", "key_bn_stats_warmup", "remat")),
+                            ("optim", ("trust_coefficient",))):
+        for f in fields:
+            assert getattr(getattr(pc.TrainConfig(), section), f) == getattr(
+                getattr(jc.TrainConfig(), section), f), f
+    assert pc.TrainConfig().auto_scale == jc.TrainConfig().auto_scale
+
+
+def test_state_from_flax_carries_the_lars_trace():
+    """JAX's LARS state after 3 steps (the large-batch option of
+    test_torch_train.py: LARS, momentum-statistics BN, auto_scale), through
+    state_from_flax: its `trace`s are optax's trace (the chain's last
+    element) exactly, and within rtol 1e-3 / atol 5e-4 of the port's own
+    after the same 3 steps (the trajectories' tolerance)."""
+    from test_torch_train import NF as TRAIN_NF
+    from test_torch_train import _configs, _numpy_state, _trajectories
+
+    variant = "momentum_stats_lars_auto_scale"
+    jstate, pstate, _ = _trajectories(True, variant)
+    pcfg = pc.apply_auto_scale(_configs(True, variant)[1])[0]
+    tree = _numpy_state(jstate, "lars")
+    conv = convert.state_from_flax(pcfg, tree, device="cpu", num_filters=TRAIN_NF)
+    want = convert.encoder_from_flax(tree["trace"])
+    mine = dict(pstate.encoder_q.named_parameters())
+    for name, p in conv.encoder_q.named_parameters():
+        trace = conv.optimizer.state[p]["trace"]
+        assert torch.equal(trace, want[name]), name
+        np.testing.assert_allclose(trace.numpy(), pstate.optimizer.state[mine[name]]["trace"]
+                                   .numpy(), rtol=1e-3, atol=5e-4, err_msg=name)
+        assert "momentum_buffer" not in conv.optimizer.state[p]
+
+
+def test_lars_run_resumes_like_a_continuous_run(tmp_path):
+    """A LARS run with momentum-statistics BN and auto_scale (the
+    large-batch preset's options): two epochs in one run against one
+    epoch, its checkpoint and a resumed second epoch give the same losses
+    and the same final state, LARS's traces included, bit for bit."""
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.train import train
+
+    data = SyntheticDataset(16, 16)
+    base = _v2_config()
+    cfg = dataclasses.replace(
+        base, workdir=str(tmp_path / "one"), log_every=1, auto_scale="ref_batch=16",
+        moco=dataclasses.replace(base.moco, bn_momentum_stats=True),
+        optim=dataclasses.replace(base.optim, optimizer="lars", lr=4.8, weight_decay=1e-6,
+                                  warmup_epochs=1))
+    whole = train(cfg, dataset=data, device="cpu", num_filters=NF)
+    split = dataclasses.replace(cfg, workdir=str(tmp_path / "two"))
+    first = train(split, dataset=data, device="cpu", num_filters=NF, steps=2)
+    second = train(split, dataset=data, device="cpu", num_filters=NF)
+    assert [r["step"] for r in second["history"]] == [3, 4]
+    assert [r["loss"] for r in whole["history"]] == [
+        r["loss"] for r in first["history"] + second["history"]]
+    _assert_same_state(whole["state"], second["state"])
+    assert any(k.endswith(".trace") for k in _everything(second["state"]))
+    lrs = [r["lr"] for r in whole["history"]]  # auto-scaled 4.8 -> 2.4, warmup, cosine
+    np.testing.assert_allclose(lrs, [1.2, 2.4, 1.2, 1.2], rtol=1e-6)

@@ -35,6 +35,7 @@ from moco_tpu.utils import config as jc
 from moco_tpu.utils import schedules as jax_schedules
 from moco_tpu_torch import convert
 from moco_tpu_torch.core import ema, queue
+from moco_tpu_torch.core import moco as port_moco
 from moco_tpu_torch.core.moco import build_encoder, create_state, make_train_step
 from moco_tpu_torch.data.datasets import SyntheticDataset
 from moco_tpu_torch.models import resnet as port_resnet
@@ -252,8 +253,8 @@ def test_sgd_matches_optax_chain():
         opt.step()
         for n, p in tparams.items():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[n]), atol=1e-6)
-    with pytest.raises(ValueError, match="slice"):
-        schedules.build_optimizer(pc.OptimConfig(optimizer="lars"), list(tparams.values()))
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        schedules.build_optimizer(pc.OptimConfig(optimizer="adam"), list(tparams.values()))
 
 
 # --------------------------------------------------------- BatchNorm training
@@ -369,24 +370,48 @@ SPE = 2  # steps per epoch: the 3 steps cross an epoch boundary of the cosine lr
 NF = 16
 
 
-def _configs(fused):
+# The options of the v1/v2 step, each a 3-step trajectory against JAX:
+# (MocoConfig fields, OptimConfig fields, TrainConfig fields). Virtual
+# groups of 2 rows under gather_perm and a2a take JAX's own permutations
+# with the batch; the large-batch variant runs LARS and momentum-statistics
+# BN with auto_scale at kappa = 8 / 16.
+VARIANTS = {
+    "": ({}, {}, {}),
+    "virtual_groups_gather_perm": (dict(bn_virtual_groups=4, shuffle="gather_perm"), {}, {}),
+    "virtual_groups_a2a": (dict(bn_virtual_groups=4, shuffle="a2a"), {}, {}),
+    "stats_rows": (dict(bn_stats_rows=3), {}, {}),
+    "momentum_stats_lars_auto_scale": (
+        dict(bn_momentum_stats=True),
+        dict(optimizer="lars", lr=4.8, weight_decay=1e-6, warmup_epochs=1),
+        dict(auto_scale="ref_batch=16")),
+    "eman": (dict(key_bn_running_stats=True, shuffle="none"), {}, {}),
+    "eman_no_warmup": (dict(key_bn_running_stats=True, key_bn_stats_warmup=False,
+                            shuffle="none"), {}, {}),
+    "remat": (dict(remat=True), {}, {}),
+}
+
+
+def _configs(fused, variant=""):
+    moco_x, optim_x, top_x = VARIANTS[variant]
     moco = dict(arch="resnet18", dim=16, num_negatives=64, temperature=0.2, mlp=True,
-                cifar_stem=True, compute_dtype="float32", fused_infonce=fused)
-    optim = dict(lr=0.05, epochs=2, cos=True)
+                cifar_stem=True, compute_dtype="float32", fused_infonce=fused, **moco_x)
+    optim = dict(dict(lr=0.05, epochs=2, cos=True), **optim_x)
     data = dict(dataset="synthetic", image_size=16, global_batch=8)
     return (  # the Pallas tile is the JAX config's alone
         jc.TrainConfig(moco=jc.MocoConfig(**moco, fused_block_k=32), optim=jc.OptimConfig(**optim),
-                       data=jc.DataConfig(**data)),
+                       data=jc.DataConfig(**data), **top_x),
         pc.TrainConfig(moco=pc.MocoConfig(**moco), optim=pc.OptimConfig(**optim),
-                       data=pc.DataConfig(**data)),
+                       data=pc.DataConfig(**data), **top_x),
     )
 
 
-def _numpy_state(state):
-    """A JAX MocoState's contents as numpy trees, as state_from_flax takes them."""
+def _numpy_state(state, optimizer="sgd"):
+    """A JAX MocoState's contents as numpy trees, as state_from_flax takes
+    them; `trace` is SGD's momentum trace, or LARS's (the chain's last)."""
     tree = {f: jax.tree.map(np.asarray, getattr(state, f)) for f in (
         "step", "params_q", "batch_stats_q", "params_k", "batch_stats_k", "queue", "queue_ptr")}
-    tree["trace"] = jax.tree.map(np.asarray, state.opt_state[1][0].trace["enc"])
+    trace = state.opt_state[-1] if optimizer == "lars" else state.opt_state[1][0]
+    tree["trace"] = jax.tree.map(np.asarray, trace.trace["enc"])
     return tree
 
 
@@ -397,31 +422,54 @@ def _gauges(metrics) -> dict:
             if k not in ("loss", "acc1", "acc5", "lr")}
 
 
+def _jax_permutations(shuffle, rng, step, batch):
+    """The permutations JAX's step draws at `step` on one device, as the
+    port's batch takes them: gather_perm's `perm`, a2a's `pre` and `post`."""
+    step_rng = jax.random.fold_in(rng, step)
+    if shuffle == "gather_perm":
+        return {"perm": jax.random.permutation(step_rng, batch)}
+    local = lambda salt: jax.random.permutation(
+        jax.random.fold_in(jax.random.fold_in(step_rng, salt), 0), batch)
+    return {"pre": local(17), "post": local(29)}
+
+
 @functools.lru_cache(maxsize=None)
-def _trajectories(fused):
+def _trajectories(fused, variant=""):
     """3 steps of JAX make_train_step on a one-device mesh and of the port's,
     the port starting from state_from_flax of the JAX create_state, both
-    fed the same pre-augmented views."""
-    jcfg, pcfg = _configs(fused)
+    fed the same pre-augmented views (and, under Shuffle-BN, the same
+    permutations), both configs through their package's apply_auto_scale."""
+    jcfg, pcfg = _configs(fused, variant)
+    jcfg, jinfo = jc.apply_auto_scale(jcfg)
+    pcfg, pinfo = pc.apply_auto_scale(pcfg)
+    assert jinfo == pinfo
+    m = jcfg.moco
     encoder = FlaxEncoder(
-        backbone=jax_resnet.create_resnet("resnet18", num_filters=NF, cifar_stem=True,
-                                          dtype=jnp.float32),
+        backbone=jax_resnet.create_resnet(
+            "resnet18", num_filters=NF, cifar_stem=True, dtype=jnp.float32,
+            bn_stats_rows=m.bn_stats_rows, bn_virtual_groups=m.bn_virtual_groups,
+            bn_momentum_stats=m.bn_momentum_stats),
         head=FlaxHead(dim=16, mlp=True, dtype=jnp.float32),
     )
     tx = jax_schedules.build_optimizer(jcfg.optim, steps_per_epoch=SPE)
     mesh = create_mesh(num_data=1, num_model=1, devices=jax.devices()[:1])
     jstate = jax_create_state(jax.random.PRNGKey(0), jcfg, encoder, tx, jnp.zeros((1, 16, 16, 3)))
-    pstate = convert.state_from_flax(pcfg, _numpy_state(jstate), device="cpu", num_filters=NF)
+    pstate = convert.state_from_flax(pcfg, _numpy_state(jstate, jcfg.optim.optimizer),
+                                     device="cpu", num_filters=NF)
     jstate = place_state(jstate, mesh)
     jstep = jax_make_train_step(jcfg, encoder, tx, mesh)
     pstep = make_train_step(pcfg, SPE, device="cpu")
-    rng = jax.device_put(jax.random.PRNGKey(3),
-                         jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec()))
+    root = jax.random.PRNGKey(3)
+    rng = jax.device_put(root, jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec()))
     hist = []
     for i in range(3):
         views = np.random.default_rng(10 + i).standard_normal((2, 8, 16, 16, 3)).astype(np.float32)
+        batch = {"im_q": _t(views[0]), "im_k": _t(views[1])}
+        if m.bn_virtual_groups > 1 and m.shuffle in ("gather_perm", "a2a"):
+            batch.update({k: torch.from_numpy(np.asarray(v, np.int64)) for k, v in
+                          _jax_permutations(m.shuffle, root, i, 8).items()})
         jstate, jm = jstep(jstate, shard_batch(mesh, {"im_q": views[0], "im_k": views[1]}), rng)
-        pm = pstep(pstate, {"im_q": _t(views[0]), "im_k": _t(views[1])})
+        pm = pstep(pstate, batch)
         hist.append(({**{k: float(jm[k]) for k in ("loss", "acc1", "acc5")},
                       "gauges": _gauges(jm)},
                      {**{k: float(pm[k]) for k in ("loss", "acc1", "acc5", "lr")},
@@ -429,20 +477,15 @@ def _trajectories(fused):
     return jstate, pstate, hist
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_three_train_steps_match_jax(fused):
+def _assert_trajectories_match(jstate, pstate, hist):
     """Per step: loss rtol 1e-5, acc1/acc5 equal. After 3 steps: params_q,
     params_k and both encoders' BN statistics rtol 1e-3 / atol 5e-4 (the
     tolerance tests/test_fused_train_step.py calibrates for float32
     reassociation amplified by momentum SGD), the queue atol 5e-4, and
-    queue_ptr exact. Fused, JAX runs its Pallas kernel in interpret mode
-    on a 2-tile grid (K=64, block 32)."""
-    jstate, pstate, hist = _trajectories(fused)
+    queue_ptr exact."""
     for step, (jm, pm) in enumerate(hist):
         np.testing.assert_allclose(pm["loss"], jm["loss"], rtol=1e-5, err_msg=f"step {step}")
         assert pm["acc1"] == jm["acc1"] and pm["acc5"] == jm["acc5"], step
-    lrs = [pm["lr"] for _, pm in hist]
-    assert lrs[0] == lrs[1] > lrs[2]  # the epoch boundary of the cosine schedule
     for enc, params, stats in ((pstate.encoder_q, jstate.params_q, jstate.batch_stats_q),
                                (pstate.encoder_k, jstate.params_k, jstate.batch_stats_k)):
         sd = enc.state_dict()
@@ -453,6 +496,44 @@ def test_three_train_steps_match_jax(fused):
                                        err_msg=name)
     np.testing.assert_allclose(pstate.queue.numpy(), np.asarray(jstate.queue), atol=5e-4, rtol=0)
     assert pstate.queue_ptr == int(jstate.queue_ptr) == 24 and pstate.step == int(jstate.step) == 3
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_three_train_steps_match_jax(fused):
+    """`_assert_trajectories_match` on the plain v2 step, fused and dense;
+    fused, JAX runs its Pallas kernel in interpret mode on a 2-tile grid
+    (K=64, block 32)."""
+    jstate, pstate, hist = _trajectories(fused)
+    _assert_trajectories_match(jstate, pstate, hist)
+    lrs = [pm["lr"] for _, pm in hist]
+    assert lrs[0] == lrs[1] > lrs[2]  # the epoch boundary of the cosine schedule
+
+
+@pytest.mark.parametrize("variant", sorted(v for v in VARIANTS if v))
+def test_three_train_steps_of_each_option_match_jax(variant):
+    """`_assert_trajectories_match` for each option of the step (VARIANTS),
+    through the fused loss."""
+    _assert_trajectories_match(*_trajectories(True, variant))
+
+
+def test_remat_leaves_the_step_unchanged():
+    """Remat on and off in the port: the same losses and, after 3 steps,
+    the same parameters, BN statistics, momentum buffers and queue within
+    1e-6 (the recompute runs the same float32 forward)."""
+    _, plain, hist_plain = _trajectories(True)
+    _, remat, hist_remat = _trajectories(True, "remat")
+    for (_, a), (_, b) in zip(hist_plain, hist_remat):
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-6)
+    for enc_a, enc_b in ((plain.encoder_q, remat.encoder_q), (plain.encoder_k, remat.encoder_k)):
+        sd_b = enc_b.state_dict()
+        for name, t in enc_a.state_dict().items():
+            np.testing.assert_allclose(sd_b[name].numpy(), t.numpy(), atol=1e-6, rtol=0,
+                                       err_msg=name)
+    bufs_b = [remat.optimizer.state[p]["momentum_buffer"] for p in remat.encoder_q.parameters()]
+    for p, b in zip(plain.encoder_q.parameters(), bufs_b):
+        np.testing.assert_allclose(b.numpy(), plain.optimizer.state[p]["momentum_buffer"].numpy(),
+                                   atol=1e-6, rtol=0)
+    np.testing.assert_allclose(remat.queue.numpy(), plain.queue.numpy(), atol=1e-6, rtol=0)
 
 
 def test_state_from_flax_carries_the_momentum_trace():
@@ -481,7 +562,8 @@ def test_state_from_flax_carries_the_momentum_trace():
 # ------------------------------------------------------- config, driver, device
 
 
-@pytest.mark.parametrize("preset", ["cifar_smoke", "imagenet_v2", "vit_b16_v3"])
+@pytest.mark.parametrize("preset", ["cifar_smoke", "imagenet100_v2", "imagenet_v2",
+                                    "imagenet_v2_large_batch", "vit_b16_v3"])
 def test_presets_match_the_jax_config_field_for_field(preset):
     ours, theirs = pc.PRESETS[preset], jc.PRESETS[preset]
     for section in ("moco", "optim", "data"):
@@ -491,14 +573,120 @@ def test_presets_match_the_jax_config_field_for_field(preset):
             assert getattr(type(getattr(ours, section))(), f.name) == getattr(
                 type(getattr(theirs, section))(), f.name), (section, f.name)
     assert ours.seed == theirs.seed and ours.steps_per_epoch == theirs.steps_per_epoch
+    assert ours.auto_scale == theirs.auto_scale
     assert pc.PRESETS["imagenet_v2"].moco.temperature == 0.2
 
 
+@pytest.mark.parametrize("preset,batch", [("imagenet_v2_large_batch", None),
+                                          ("imagenet_v2_large_batch", 1024),
+                                          ("imagenet_v2_large_batch", 4096),
+                                          ("imagenet_v2", None)])
+def test_apply_auto_scale_matches_jax(preset, batch):
+    """The live lr and momentum and the info dict equal JAX's exactly (the
+    same float arithmetic), the BN momentum and every other field
+    unscaled; with momentum_cos the ramp starts from m ** kappa."""
+    ours, theirs = pc.PRESETS[preset], jc.PRESETS[preset]
+    if batch is not None:
+        ours = dataclasses.replace(ours, data=dataclasses.replace(ours.data, global_batch=batch))
+        theirs = dataclasses.replace(theirs,
+                                     data=dataclasses.replace(theirs.data, global_batch=batch))
+    (got, got_info), (want, want_info) = pc.apply_auto_scale(ours), jc.apply_auto_scale(theirs)
+    assert got_info == want_info
+    assert (got.optim.lr, got.moco.momentum) == (want.optim.lr, want.moco.momentum)
+    assert dataclasses.replace(got, optim=ours.optim, moco=ours.moco) == ours
+    if got_info is None:
+        assert got == ours
+        return
+    kappa = got.data.global_batch / 4096
+    assert got_info["kappa"] == kappa and got.optim.lr == 4.8 * kappa
+    cos = dataclasses.replace(got.moco, momentum_cos=True)
+    ramp = port_moco.make_ema_momentum(cos, 100)
+    np.testing.assert_allclose(ramp(0), 0.999 ** kappa, rtol=1e-6)
+    assert ramp(100) == 1.0
+
+
+@pytest.mark.parametrize("spec,message", [("ref_batch=0", "needs ref_batch"),
+                                          ("batch=4", "unknown auto-scale param"),
+                                          (":", "needs ref_batch")])
+def test_parse_auto_scale_raises_as_jax(spec, message):
+    for parse in (jc.parse_auto_scale, pc.parse_auto_scale):
+        with pytest.raises(ValueError, match=message):
+            parse(spec)
+    assert pc.parse_auto_scale("ref_batch=256:") == jc.parse_auto_scale("ref_batch=256:") == 256
+
+
+# MocoConfig fields of a gate case -> the message both packages raise, or
+# None where both build. One device: JAX's build_encoder at num_data=None.
+ENCODER_GATES = [
+    (dict(arch="vit_tiny", bn_virtual_groups=2), "apply to ResNet BatchNorm"),
+    (dict(arch="vit_tiny", bn_momentum_stats=True), "apply to ResNet BatchNorm"),
+    (dict(bn_virtual_groups=2, shuffle="syncbn"), "does not compose with syncbn"),
+    (dict(bn_stats_barrier=True), "bn_stats_barrier requires bn_stats_rows > 0"),
+    (dict(bn_virtual_groups=2, shuffle="none"), "needs a key permutation"),
+    (dict(bn_virtual_groups=2, v3=True, num_negatives=0), "needs a key permutation"),
+    (dict(bn_virtual_groups=2, v3=True, num_negatives=0, key_bn_running_stats=True),
+     "needs a key permutation"),
+    (dict(bn_virtual_groups=2, shuffle="none", allow_leaky_bn=True), None),
+    (dict(bn_virtual_groups=2, shuffle="none", key_bn_running_stats=True), None),
+    (dict(bn_virtual_groups=2, shuffle="a2a"), None),
+    (dict(bn_stats_rows=3, shuffle="none"), None),
+    (dict(bn_stats_rows=3, bn_stats_barrier=True), None),
+    (dict(bn_momentum_stats=True, shuffle="none"), None),
+]
+
+
+@pytest.mark.parametrize("fields,message", ENCODER_GATES)
+def test_build_encoder_gates_match_jax(fields, message):
+    """build_encoder refuses what JAX's refuses on one device, message for
+    message, and builds what it builds."""
+    from moco_tpu.core.moco import build_encoder as jax_build_encoder
+
+    base = dict(arch="resnet18", dim=16, num_negatives=64, cifar_stem=True,
+                vit_patch_size=8)
+    jcfg, pcfg = jc.MocoConfig(**{**base, **fields}), pc.MocoConfig(**{**base, **fields})
+    if message is None:
+        jax_build_encoder(jcfg)
+        build_encoder(pcfg, num_filters=4, mlp_hidden=8)
+        return
+    with pytest.raises(ValueError, match=message) as want:
+        jax_build_encoder(jcfg)
+    with pytest.raises(ValueError, match=message) as got:
+        build_encoder(pcfg, num_filters=4, mlp_hidden=8)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("fields", [dict(v3=True, num_negatives=0, shuffle="none"),
+                                    dict(shuffle="gather_perm"), dict(shuffle="a2a")])
+def test_make_train_step_gates_the_eman_key_forward_as_jax(fields):
+    """key_bn_running_stats with v3, gather_perm or a2a: make_train_step
+    raises JAX's ValueError, message for message."""
+    moco = {**dict(arch="resnet18", dim=16, num_negatives=64, cifar_stem=True,
+                   key_bn_running_stats=True), **fields}
+    data = dict(global_batch=8, image_size=16)
+    jcfg = jc.TrainConfig(moco=jc.MocoConfig(**moco), data=jc.DataConfig(**data))
+    pcfg = pc.TrainConfig(moco=pc.MocoConfig(**moco), data=pc.DataConfig(**data))
+    mesh = create_mesh(num_data=1, num_model=1, devices=jax.devices()[:1])
+    with pytest.raises(ValueError) as want:
+        jax_make_train_step(jcfg, None, None, mesh)
+    with pytest.raises(ValueError) as got:
+        make_train_step(pcfg, 1, device="cpu")
+    assert str(got.value) == str(want.value)
+
+
 def test_config_rejects_what_the_slice_does_not_run():
-    for field in ("bn_virtual_groups", "key_bn_running_stats", "remat", "fused_block_k",
-                  "vit_sequence_parallel"):
+    """Cross-device BN, sequence parallelism, the Pallas tile, and the
+    parallel, ZeRO and elastic fields stay out of the port's config."""
+    for field in ("syncbn_group_size", "fused_block_k", "vit_sequence_parallel"):
         with pytest.raises(TypeError):
             pc.MocoConfig(**{field: 1})
+    for field, value in (("parallel", jc.ParallelConfig()), ("elastic", True),
+                         ("prefetch_donate", True), ("strict_tracing", True)):
+        with pytest.raises(TypeError):
+            pc.TrainConfig(**{field: value})
+    assert not hasattr(pc, "ParallelConfig")
+    port_fields = {f.name for c in (pc.TrainConfig, pc.MocoConfig, pc.OptimConfig,
+                                    pc.DataConfig) for f in dataclasses.fields(c)}
+    assert not port_fields & {f.name for f in dataclasses.fields(jc.ParallelConfig)}
 
 
 @pytest.mark.parametrize("fused", [None, True, False])
@@ -539,14 +727,38 @@ def test_train_driver_runs_on_cpu():
         assert all(np.isfinite(rec[k]) for k in ("loss", "acc1", "acc5", "lr", "step_ms"))
 
 
-def test_train_cli_builds_a_preset(capsys):
+def test_train_cli_builds_a_preset(capsys, monkeypatch):
     """`python -m moco_tpu_torch.train` wiring: the preset, the dataset
-    override and the device reach train(); zero steps print nothing."""
+    override and the device reach train(); zero steps print nothing. The
+    BN, EMAN, remat, optimizer and auto-scale flags reach the config
+    train() is given, on imagenet100_v2."""
     assert train_main(["--preset", "cifar_smoke", "--data", "synthetic", "--steps", "0",
                        "--device", "cpu"]) == 0
     assert capsys.readouterr().out == ""
     with pytest.raises(ValueError, match="cifar10 needs data_dir"):
         train_main(["--preset", "cifar_smoke", "--steps", "0", "--device", "cpu"])
+    from moco_tpu_torch import train as train_module
+
+    seen = []
+    monkeypatch.setattr(train_module, "train", lambda cfg, **kw: seen.append((cfg, kw)))
+    common = ["--preset", "imagenet100_v2", "--data", "synthetic", "--steps", "0",
+              "--device", "cpu"]
+    assert train_main(common + ["--shuffle", "a2a", "--bn-virtual-groups", "8", "--remat",
+                                "--optimizer", "lars", "--auto-scale", "ref_batch=512"]) == 0
+    assert train_main(common + ["--shuffle", "none", "--key-bn-eval", "--no-key-bn-stats-warmup",
+                                "--bn-stats-rows", "32", "--bn-stats-barrier",
+                                "--bn-momentum-stats"]) == 0
+    assert train_main(common) == 0
+    (a, kw), (b, _), (plain, _) = seen
+    assert kw == {"device": "cpu", "steps": 0, "log": kw["log"]}
+    assert (a.moco.shuffle, a.moco.bn_virtual_groups, a.moco.remat, a.optim.optimizer,
+            a.auto_scale) == ("a2a", 8, True, "lars", "ref_batch=512")
+    assert (b.moco.shuffle, b.moco.key_bn_running_stats, b.moco.key_bn_stats_warmup,
+            b.moco.bn_stats_rows, b.moco.bn_stats_barrier, b.moco.bn_momentum_stats) == (
+        "none", True, False, 32, True, True)
+    want = pc.PRESETS["imagenet100_v2"]
+    assert plain == dataclasses.replace(want, data=dataclasses.replace(want.data,
+                                                                       dataset="synthetic"))
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

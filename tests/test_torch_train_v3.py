@@ -164,6 +164,34 @@ def test_three_v3_steps_match_jax():
     assert pstate.step == int(jstate.step) == 3 and pstate.queue is None
 
 
+def test_remat_leaves_the_v3_step_unchanged():
+    """The v3 step with remat (the query encoder's forward recomputed in the
+    backward) from the same initial state and views: the same losses and,
+    after 3 steps, the same query and key encoders, BN statistics included,
+    predictor and momentum buffers within 1e-6 of the step without it."""
+    init, _, plain, hist = _trajectories()[:4]
+    _, pcfg = _configs()
+    pcfg = dataclasses.replace(pcfg, moco=dataclasses.replace(pcfg.moco, remat=True))
+    state = convert.state_from_flax(pcfg, init, device="cpu")
+    step = make_train_step(pcfg, SPE, device="cpu")
+    for i, (_, pm) in enumerate(hist):
+        views = _views(i)
+        got = step(state, {"im_q": _t(views[0]), "im_k": _t(views[1])})
+        np.testing.assert_allclose(float(got["loss"]), pm["loss"], rtol=1e-6)
+    for a, b in ((plain.encoder_q, state.encoder_q), (plain.encoder_k, state.encoder_k),
+                 (plain.predictor, state.predictor)):
+        sd = b.state_dict()
+        for name, t in a.state_dict().items():
+            np.testing.assert_allclose(sd[name].numpy(), t.numpy(), atol=1e-6, rtol=0,
+                                       err_msg=name)
+    mine = [p for g in state.optimizer.param_groups for p in g["params"]]
+    theirs = [p for g in plain.optimizer.param_groups for p in g["params"]]
+    for p, q in zip(mine, theirs):
+        for k, v in plain.optimizer.state[q].items():
+            np.testing.assert_allclose(state.optimizer.state[p][k].numpy(), v.numpy(),
+                                       atol=1e-6, rtol=0)
+
+
 def test_state_from_flax_carries_a_v3_state_and_adam_moments():
     """A JAX v3 state with AdamW moments (filled with numpy values) becomes
     a port state holding every parameter, statistic, moment and the count
