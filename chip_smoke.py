@@ -239,6 +239,47 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    after step 1 the key encoder's running statistics are
    m * k0 + (1 - m) * q1 of the query encoder's, m = min(0.999, 1/10),
    within 1e-6 relative.
+12e. Train to serve, at full width, in a temporary workdir deleted at the
+   end. (a) train(imagenet_v2, workdir=W) for 3 ring steps from phase 8's
+   seeded state and data, a checkpoint at step 3; load_serving_encoder(W)
+   (its restore timed) gives the key encoder bit-equal to the trained
+   state's and the queue and pointer bit-equal to its; a bf16 engine
+   (buckets 1/8/32/128), EmbeddingIndex.from_train_queue with
+   train_ivf(nlist=256, nprobe=16), a ServeServer with a JsonlSink (the
+   checkpoint's step and params_digest as its identity): /embed, then
+   /neighbors in exact, ivf and ivf_fused, the IVF kernel's launch count
+   set to 0 just before these requests and required above 0 after them;
+   /admin/model gives the step and digest; every metrics.jsonl line passes
+   obs/schema.py; ivf_fused against ivf and exact against a float64 host
+   oracle as in phase 5 (no recall floor: a 3-step queue is mostly the
+   seeded init); bf16 against an f32 engine, cosine >= 0.99. (b) `python
+   -m moco_tpu_torch.serve.replica_main --ckpt-dir W --port <free>
+   --buckets 1,8,32` as a subprocess on the card, timed from spawn to a
+   healthy /healthz: its /neighbors rows (exact, its default) within
+   cosine 0.999 of (a)'s engine at the same bucket, its ids equal to (a)'s
+   exact tier's but where two rows' float64 scores lie within twice the
+   rows' embedding gap (a near-tie), its /admin/model digest (a)'s; SIGTERM
+   -> exit 0 and "drained (clean)"; its metrics.jsonl valid. (c)
+   train(vit_b16_v3, batch 256, vit_flash_attention=True, workdir=W3) for 2
+   steps from phase 11's seeded state, a checkpoint at step 2;
+   load_serving_encoder(W3) gives queue None and the key encoder bit-equal
+   to the trained one; a bf16 engine at 224 px behind a ServeServer
+   without an index: /embed answers, /neighbors answers 503; with the flash
+   counts set to 0 before the engine's warmup, the forward's launches equal
+   12 x the engine's encoder forwards, all flash_fwd_mma_kernel; the ViT
+   engine's ms per bucket; its embeddings against an f32 engine whose
+   attention is the port's plain attention_reference, cosine >= 0.99. (d)
+   train_lincls on W3 (2 epochs of 512 learnable 224-px images at batch 256,
+   a val split of 300): finite losses, sanity_check inside, the flash
+   forward launched; evaluate_lincls gives the best epoch's acc1; the probe
+   and eval steps timed on one batch. (e) convert_pretrain W3 -> .pth: the
+   150 timm names of ViT-B/16 with a cls token exactly; block 0's fused
+   qkv.weight @ x equals the three projections within 1e-5 of their largest
+   value; the export loaded back into a port ViT (qkv split, pos_embed
+   equal to its fixed buffer) gives the probe backbone's bf16 features bit
+   for bit through the flash kernel. Through (c)-(e) every flash forward
+   launch is flash_fwd_mma_kernel and no flash backward launches; the
+   phase's IVF and flash forward launches are added to the kernels line.
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -269,7 +310,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import signal
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -307,6 +350,8 @@ LOOP_EPOCH_STEPS, KNN_BANK, KNN_TEST, PROBE_VAL = 3, 1024, 256, 300
 # phase 12d: the virtual groups of the reference's 8 GPUs x 32 rows, and the
 # large-batch preset's global batch 8192 cut to what one card holds
 OPTION_GROUPS, LARGE_BATCH = 8, 1024
+# phase 12e: the steps that write the two checkpoints, and the replica's buckets
+SERVE_V2_STEPS, SERVE_V3_STEPS, REPLICA_BUCKETS = 3, 2, "1,8,32"
 
 
 def check(ok: bool, what: str) -> None:
@@ -1360,10 +1405,24 @@ def attention_check(fa, cfg, state, batch, steps_per_epoch, label):
     return {"step": state.step, "losses": losses, "relative_to_plain": rel}
 
 
+def seeded_v3_state(cfg):
+    """A v3 train state of `cfg` on the card from seeded Flax-layout weights
+    (the key encoder and the predictor from the next seeds), through
+    convert.state_from_flax."""
+    from moco_tpu_torch.convert import random_flax_encoder, random_flax_predictor, state_from_flax
+
+    params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
+    params_k, stats_k = random_flax_encoder(cfg.moco, seed=SEED + 1)
+    params_p, stats_p = random_flax_predictor(cfg.moco, seed=SEED + 2)
+    return state_from_flax(cfg, {
+        "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
+        "batch_stats_k": stats_k, "params_pred": params_p, "batch_stats_pred": stats_p},
+        device="cuda")
+
+
 def v3_phase(fa, flash_err):
     """The v3 path at full width (phase 11), in sync and ring mode, and its
     timings (phase 12)."""
-    from moco_tpu_torch.convert import random_flax_encoder, random_flax_predictor, state_from_flax
     from moco_tpu_torch.data.datasets import SyntheticDataset
     from moco_tpu_torch.data.pipeline import TwoCropPipeline
     from moco_tpu_torch.train import train
@@ -1380,14 +1439,7 @@ def v3_phase(fa, flash_err):
         data=dataclasses.replace(preset.data, dataset="synthetic", global_batch=V3_BATCH))
     print(f"v3 path: vit_b16_v3 with vit_flash_attention=True; cut: global batch "
           f"{preset.data.global_batch} -> {V3_BATCH}", flush=True)
-    params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
-    params_k, stats_k = random_flax_encoder(cfg.moco, seed=SEED + 1)
-    params_p, stats_p = random_flax_predictor(cfg.moco, seed=SEED + 2)
-    state = state_from_flax(cfg, {
-        "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
-        "batch_stats_k": stats_k, "params_pred": params_p, "batch_stats_pred": stats_p},
-        device="cuda")
-    del params_q, params_k, params_p
+    state = seeded_v3_state(cfg)
     # the 1024 images of build_dataset("synthetic"), epochs of 4 steps
     dataset = SyntheticDataset(image_size=IMG)
     ring_batches_check(cfg, dataset, state)
@@ -2331,6 +2383,386 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
     return out
 
 
+# ------------------------------------------------------------ train to serve
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def get(port, path, timeout=30):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def count_forwards(engine) -> dict:
+    """Counts `engine`'s encoder forwards (one per padded bucket executed)
+    in the returned dict's "n"."""
+    counter = {"n": 0}
+    forward = engine.forward
+
+    def counted(raw):
+        counter["n"] += 1
+        return forward(raw)
+
+    engine.forward = counted
+    return counter
+
+
+def zero_flash(fa) -> None:
+    for _, fn, _ in FLASH:
+        wrapper = getattr(fa, fn)
+        wrapper.launches = 0
+        wrapper.kernel_launches = dict.fromkeys(wrapper.kernel_launches, 0)
+
+
+def same_weights(a, b, what: str) -> None:
+    sa, sb = a.state_dict(), b.state_dict()
+    check(list(sa) == list(sb), f"{what}: names differ")
+    for k in sa:
+        check(torch.equal(sa[k], sb[k].to(sa[k].device)), f"{what}: {k} differs")
+
+
+def ids_agree(emb_a, ids_a, emb_b, ids_b, rows, what):
+    """Top-k ids of two embeddings of the same images against the same rows
+    (a replica's and the in-process engine's): where they differ, the two
+    rows' float64 scores under `emb_a` lie within twice the largest
+    |emb_a - emb_b| (a unit row's score moves by at most that norm, and so
+    does the k-th largest) plus SCORE_TOL: a near-tie. Returns the number
+    of such swaps."""
+    a = emb_a.astype(np.float64)
+    delta = float(np.linalg.norm(a - emb_b.astype(np.float64), axis=1).max())
+    swaps = 0
+    for m, j in zip(*np.nonzero(ids_a != ids_b)):
+        gap = abs(a[m] @ rows[ids_a[m, j]].astype(np.float64)
+                  - a[m] @ rows[ids_b[m, j]].astype(np.float64))
+        check(gap <= 2 * delta + SCORE_TOL, f"{what}: ids differ at ({m}, {j}) with a score gap "
+              f"{gap:.3g} > 2 x {delta:.3g} + {SCORE_TOL}")
+        swaps += 1
+    return swaps
+
+
+def timm_to_vit(sd: dict) -> dict:
+    """The export's timm names back into the port's ViT names (the fused
+    qkv split into its [q; k; v] rows); `pos_embed` is the port's fixed
+    buffer, not a parameter, and is left out."""
+    out = {}
+    for k, v in sd.items():
+        if k == "pos_embed":
+            continue
+        if ".attn.qkv." in k:
+            for name, part in zip(("query", "key", "value"), v.chunk(3)):
+                out[k.replace("qkv", name)] = part
+            continue
+        k = k.replace("patch_embed.proj.", "patch_embed.").replace("attn.proj.", "attn.out.")
+        out["final_norm." + k[5:] if k.startswith("norm.") else k] = v
+    return out
+
+
+def vit_timm_names(depth: int) -> set:
+    """The names `vit_to_timm` gives a ViT of `depth` blocks with a cls
+    token: 12 per block and 6 more, 150 for ViT-B/16."""
+    names = {"patch_embed.proj.weight", "patch_embed.proj.bias", "cls_token", "pos_embed",
+             "norm.weight", "norm.bias"}
+    for i in range(depth):
+        names |= {f"blocks.{i}.{m}.{leaf}" for leaf in ("weight", "bias") for m in (
+            "norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")}
+    return names
+
+
+def host_topk(feats, rows):
+    """(scores, ids) of the TOPK rows of each feature by float64 host cosine."""
+    sims = feats.astype(np.float64) @ rows.T.astype(np.float64)
+    ids = np.argsort(-sims, axis=1)[:, :TOPK]
+    return np.take_along_axis(sims, ids, 1), ids
+
+
+def train_to_serve_phase(ivf_scan, fa, workdir):
+    """Phase 12e: train to serve at full width (module docstring), in
+    `workdir`; returns (its numbers, this phase's launches by kernel)."""
+    from moco_tpu_torch import convert_pretrain, lincls
+    from moco_tpu_torch.data.datasets import LearnableSyntheticDataset, SyntheticDataset
+    from moco_tpu_torch.models import vit
+    from moco_tpu_torch.obs.quality import encoder_digest
+    from moco_tpu_torch.obs.schema import read_metrics, validate_file
+    from moco_tpu_torch.obs.sinks import JsonlSink
+    from moco_tpu_torch.serve.engine import InferenceEngine, load_serving_encoder
+    from moco_tpu_torch.serve.index import QUERY_MODES, EmbeddingIndex
+    from moco_tpu_torch.serve.server import ServeServer
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.utils.checkpoint import CheckpointManager
+    from moco_tpu_torch.utils.config import PRESETS, ProbeConfig
+
+    out, launches = {}, {}
+    phase_t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"12e: {what} at {time.perf_counter() - phase_t0:.1f} s", flush=True)
+
+    imgs = np.random.default_rng(SEED + 12).integers(0, 256, (32, IMG, IMG, 3), np.uint8)
+
+    # (a) a v2 checkpoint from the seeded state and data of phase 8, served
+    preset = PRESETS["imagenet_v2"]
+    v2_dir = os.path.join(workdir, "v2")
+    cfg = dataclasses.replace(preset, data=dataclasses.replace(preset.data, dataset="synthetic"),
+                              steps_per_epoch=SERVE_V2_STEPS, workdir=v2_dir, knn_every_epochs=0)
+    b = cfg.data.global_batch
+    run = train(cfg, dataset=SyntheticDataset(num_examples=b * EPOCH_STEPS, image_size=IMG),
+                device="cuda", steps=SERVE_V2_STEPS, state=seeded_v2_state(cfg))
+    trained = run["state"]
+    check(trained.step == SERVE_V2_STEPS and all(np.isfinite(r["loss"]) for r in run["history"]),
+          "12e: v2 steps or losses")
+    check(CheckpointManager(v2_dir).all_steps() == [SERVE_V2_STEPS], "12e: v2 checkpoint")
+    lap("(a) v2 trained and checkpointed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encoder, queue, ptr, _ = load_serving_encoder(v2_dir, device="cuda")
+    torch.cuda.synchronize()
+    out["v2_restore_ms"] = (time.perf_counter() - t0) * 1e3
+    same_weights(encoder, trained.encoder_k, "12e: restored key encoder")
+    check(torch.equal(queue, trained.queue.cpu()) and ptr == trained.queue_ptr
+          == SERVE_V2_STEPS * b, "12e: restored queue or pointer")
+    del run, trained
+    torch.cuda.empty_cache()
+    rows = queue.numpy()
+    model_step = CheckpointManager(v2_dir).latest_step()
+    digest = encoder_digest(encoder)
+    engine = InferenceEngine(encoder, IMG, device="cuda")  # bf16, buckets 1/8/32/128
+    engine.warmup()
+    index = EmbeddingIndex.from_train_queue(queue, ptr, device="cuda")
+    out["ivf"] = index.train_ivf(nlist=NLIST, nprobe=NPROBE)
+    index.prepare(engine.buckets, TOPK, modes=QUERY_MODES)
+    index.freeze()
+    lap("(a) engine warm, IVF trained and prepared")
+    sink = JsonlSink(os.path.join(v2_dir, "serve"))
+    server = ServeServer(engine, index=index, slo_ms=1000, neighbors_k=TOPK, warmup=False,
+                         sink=sink, metrics_flush_s=0.5, workdir=os.path.join(v2_dir, "serve"),
+                         model_step=model_step, model_digest=digest)
+    try:
+        embedded = {n: np.asarray(post(server.port, "/embed", imgs[:n])["embedding"], np.float32)
+                    for n in (1, 8, 32)}
+        ivf_scan.fused_cell_scores.launches = 0  # the requests' launches from here
+        neighbors = {mode: post(server.port, f"/neighbors?mode={mode}", imgs)
+                     for mode in QUERY_MODES}
+        launches["ivf_cell_scores"] = ivf_scan.fused_cell_scores.launches
+        model = get(server.port, "/admin/model")
+        stats = get(server.port, "/stats")
+    finally:
+        server.close()
+        sink.close()
+    check(launches["ivf_cell_scores"] > 0, "12e: the ivf_fused requests did not launch the kernel")
+    check(model == {"model_step": SERVE_V2_STEPS, "model_digest": digest,
+                    "ingest_ckpt_step": None, "replica": 0}, f"12e: /admin/model {model}")
+    check(stats["serve/recompiles_after_warmup"] == 0, "12e: recompiles after warmup")
+    metrics_path = os.path.join(v2_dir, "serve", "metrics.jsonl")
+    errors = validate_file(metrics_path)
+    check(errors == [] and read_metrics(metrics_path), f"12e: serve metrics.jsonl {errors[:3]}")
+    for n, emb in embedded.items():
+        check(np.isfinite(emb).all() and np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-3,
+              f"12e: /embed n={n}")
+    feats = engine.forward(torch.from_numpy(imgs).cuda()).cpu().numpy()
+    _, per_mode, _ = engine.embed_and_query_modes(imgs, index, TOPK, modes=QUERY_MODES)
+    out["swaps_fused_vs_ivf"] = same_topk(feats, rows, per_mode["ivf_fused"], per_mode["ivf"],
+                                          "12e: ivf_fused vs ivf")
+    out["swaps_exact_vs_oracle"] = same_topk(feats, rows, per_mode["exact"],
+                                             host_topk(feats, rows), "12e: exact vs host oracle")
+    # the HTTP answer against the oracle of its own embeddings: the batcher's
+    # thread may round the bf16 forward otherwise than this one
+    http_emb = np.asarray(neighbors["exact"]["embedding"], np.float32)
+    out["swaps_http_exact_vs_oracle"] = same_topk(
+        http_emb, rows, (np.asarray(neighbors["exact"]["scores"]),
+                         np.asarray(neighbors["exact"]["indices"])),
+        host_topk(http_emb, rows), "12e: /neighbors exact vs host oracle")
+    out["http_vs_in_process_max_abs"] = float(np.abs(http_emb - feats).max())
+    out["ivf_recall_vs_exact"] = float(np.mean(
+        [len(set(a) & set(b)) / TOPK for a, b in zip(per_mode["ivf"][1], per_mode["exact"][1])]))
+    f32_feats, _ = InferenceEngine(encoder, IMG, device="cuda", dtype=torch.float32).embed(imgs)
+    out["bf16_vs_f32_min_cosine"] = float((f32_feats * feats).sum(1).min())
+    check(out["bf16_vs_f32_min_cosine"] >= 0.99, f"12e: bf16 vs f32 engine {out}")
+    emb8, _, ids8, _ = engine.embed_and_query(imgs[:8], index, TOPK)  # bucket 8, as the replica
+    del index, engine
+    torch.cuda.empty_cache()
+    lap("(a) served and checked")
+
+    # (b) the replica process on the same checkpoint
+    port = free_port()
+    log_path = os.path.join(workdir, "replica.log")
+    cmd = [sys.executable, "-m", "moco_tpu_torch.serve.replica_main", "--ckpt-dir", v2_dir,
+           "--port", str(port), "--buckets", REPLICA_BUCKETS, "--device", "cuda",
+           "--workdir", os.path.join(workdir, "replica")]
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=log, stderr=subprocess.STDOUT, text=True)
+        try:
+            while True:
+                check(proc.poll() is None, "12e: the replica exited before it served")
+                check(time.perf_counter() - t0 < 300, "12e: the replica never became healthy")
+                try:
+                    health = get(port, "/healthz", timeout=2)
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            out["replica_spawn_to_healthy_s"] = time.perf_counter() - t0
+            lap("(b) replica healthy")
+            check(health["ok"] and health["warm"], f"12e: replica /healthz {health}")
+            rep = post(port, "/neighbors", imgs[:8])  # the replica's default tier: exact
+            rep_emb = np.asarray(rep["embedding"], np.float32)
+            out["replica_min_cosine"] = float((rep_emb * emb8).sum(1).min())
+            check(out["replica_min_cosine"] >= 0.999, f"12e: replica /embed rows {out}")
+            out["replica_exact_swaps"] = ids_agree(rep_emb, np.asarray(rep["indices"]), emb8,
+                                                   ids8, rows, "12e: replica exact ids")
+            check(get(port, "/admin/model")["model_digest"] == digest, "12e: replica digest")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        replica_log = f.read()
+    check(rc == 0 and "drained (clean)" in replica_log, f"12e: replica exit {rc}: "
+          f"{replica_log[-2000:]}")
+    errors = validate_file(os.path.join(workdir, "replica", "metrics.jsonl"))
+    check(errors == [], f"12e: replica metrics.jsonl {errors[:3]}")
+    del encoder, queue, rows
+    torch.cuda.empty_cache()
+    lap("(b) replica drained")
+
+    # (c) a v3 checkpoint (flash attention), served without a queue
+    preset = PRESETS["vit_b16_v3"]
+    v3_dir = os.path.join(workdir, "v3")
+    cfg3 = dataclasses.replace(
+        preset, moco=dataclasses.replace(preset.moco, vit_flash_attention=True),
+        data=dataclasses.replace(preset.data, dataset="synthetic", global_batch=V3_BATCH),
+        steps_per_epoch=SERVE_V3_STEPS, workdir=v3_dir, knn_every_epochs=0)
+    run = train(cfg3, dataset=SyntheticDataset(image_size=IMG), device="cuda",
+                steps=SERVE_V3_STEPS, state=seeded_v3_state(cfg3))
+    trained = run["state"]
+    check(trained.step == SERVE_V3_STEPS and all(np.isfinite(r["loss"]) for r in run["history"]),
+          "12e: v3 steps or losses")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encoder, queue, ptr, _ = load_serving_encoder(v3_dir, device="cuda")
+    torch.cuda.synchronize()
+    out["v3_restore_ms"] = (time.perf_counter() - t0) * 1e3
+    check(queue is None and ptr == 0, "12e: a v3 checkpoint gave a queue")
+    same_weights(encoder, trained.encoder_k, "12e: restored v3 key encoder")
+    del run, trained
+    torch.cuda.empty_cache()
+    lap("(c) v3 trained, checkpointed and restored")
+    depth = len(encoder.backbone.blocks)
+    engine = InferenceEngine(encoder, IMG, device="cuda")
+    forwards = count_forwards(engine)
+    zero_flash(fa)  # the phase's flash launches from here: serving, probe, export
+    engine.warmup()
+    server = ServeServer(engine, index=None, slo_ms=1000, warmup=False)
+    try:
+        vit_emb = np.asarray(post(server.port, "/embed", imgs[:8])["embedding"], np.float32)
+        try:
+            post(server.port, "/neighbors", imgs[:8])
+            status = 200
+        except urllib.error.HTTPError as e:
+            status = e.code
+            e.close()
+    finally:
+        server.close()
+    check(status == 503, f"12e: v3 /neighbors answered {status}, not 503")
+    check(np.isfinite(vit_emb).all() and vit_emb.shape == (8, cfg3.moco.dim), "12e: v3 /embed")
+    out["vit_engine_ms"] = {b: host_ms(lambda b=b: engine.embed(imgs[:b])) for b in (1, 8, 32)}
+    served = flash_kernel_launches(fa)
+    check(fa.flash_forward.launches == depth * forwards["n"]
+          and served["flash_fwd_mma_kernel"] == fa.flash_forward.launches
+          and sum(served.values()) == fa.flash_forward.launches,
+          f"12e: ViT serving flash launches {served} over {forwards['n']} forwards")
+    out["vit_serving"] = {"forwards": forwards["n"], "flash_fwd_launches": served}
+    kernel_attention = vit.flash_attention
+    vit.flash_attention = lambda q, k, v, scale=None: fa.attention_reference(
+        q, k, v, q.shape[-1] ** -0.5)[0]
+    try:
+        plain, _ = InferenceEngine(encoder, IMG, buckets=(8,), device="cuda",
+                                   dtype=torch.float32).embed(imgs[:8])
+    finally:
+        vit.flash_attention = kernel_attention
+    out["vit_vs_plain_f32_min_cosine"] = float((plain * vit_emb).sum(1).min())
+    check(out["vit_vs_plain_f32_min_cosine"] >= 0.99, f"12e: ViT vs plain attention {out}")
+    del engine, encoder
+    torch.cuda.empty_cache()
+    lap("(c) ViT served and checked")
+
+    # (d) the ViT probe and its evaluation
+    probe_dir = os.path.join(workdir, "v3_probe")
+    val = LearnableSyntheticDataset(PROBE_VAL, IMG, train=False)
+    probe = ProbeConfig(epochs=2, num_classes=8)
+    before = fa.flash_forward.launches
+    t0 = time.perf_counter()
+    res = lincls.train_lincls(v3_dir, probe, train_dataset=LearnableSyntheticDataset(512, IMG),
+                              val_dataset=val, workdir=probe_dir, device="cuda")
+    out["vit_probe_run_s"] = time.perf_counter() - t0  # sanity_check passed inside
+    losses = [r["loss"] for r in read_metrics(os.path.join(probe_dir, "metrics.jsonl"))
+              if r.get("split") == "train"]
+    check(losses and all(np.isfinite(losses)) and np.isfinite(res["loss"])
+          and res["count"] == PROBE_VAL, f"12e: ViT probe {res}, train losses {losses}")
+    best = lincls.evaluate_lincls(v3_dir, workdir=probe_dir, val_dataset=val, device="cuda")
+    check(best["acc1"] == res["best_acc1"], f"12e: evaluate_lincls {best} vs {res}")
+    out["vit_probe_top1"] = res["best_acc1"]
+    backbone, pretrained, _ = lincls.load_pretrained_backbone(v3_dir, device="cuda")
+    fc = lincls.LinearClassifier(backbone.num_features, 8).cuda()
+    optimizer, schedule = lincls._probe_tx(probe, 2, fc.parameters())
+    step = lincls.make_probe_step(backbone, fc, optimizer, schedule, "bfloat16")
+    evaluate = lincls.make_eval_step(backbone, fc, "bfloat16")
+    x = torch.randn(256, IMG, IMG, 3, device="cuda")
+    y = torch.randint(0, 8, (256,), device="cuda")
+    out["vit_probe_imgs_per_s"] = 256 / host_ms(lambda: step(0, x, y)) * 1e3
+    out["vit_eval_imgs_per_s"] = 256 / host_ms(lambda: evaluate(x, y, torch.ones(256, device="cuda"))) * 1e3
+    lincls.sanity_check(backbone, pretrained)
+    probe_launches = fa.flash_forward.launches - before
+    check(probe_launches > 0, "12e: the ViT probe launched no flash forward")
+    lap("(d) ViT probed")
+
+    # (e) the ViT export to timm names
+    pth = os.path.join(workdir, "vit_b16.pth")
+    convert_pretrain.main([v3_dir, pth])
+    sd = torch.load(pth, weights_only=True)
+    names = vit_timm_names(depth)
+    check(set(sd) == names and (cfg3.moco.arch != "vit_b16" or len(sd) == 150),
+          f"12e: export names {sorted(set(sd) ^ names)[:6]}")
+    out["export_tensors"] = len(sd)
+    block = backbone.blocks[0].attn
+    xt = torch.randn(64, backbone.hidden_dim, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(SEED))
+    fused = xt @ sd["blocks.0.attn.qkv.weight"].cuda().T + sd["blocks.0.attn.qkv.bias"].cuda()
+    with torch.no_grad():
+        parts = torch.cat([p(xt) for p in (block.query, block.key, block.value)], dim=1)
+    out["export_qkv_max_abs_diff"] = (fused - parts).abs().max().item()
+    check(out["export_qkv_max_abs_diff"] <= 1e-5 * parts.abs().max().item() + 1e-6,
+          f"12e: export qkv {out['export_qkv_max_abs_diff']}")
+    exported = vit.create_vit(cfg3.moco.arch, image_size=IMG, use_flash_attention=True,
+                              patch_size=backbone.patch_size)
+    exported.load_state_dict(timm_to_vit(sd), strict=True)
+    check(torch.equal(sd["pos_embed"], exported.pos_embed), "12e: exported pos_embed")
+    exported = exported.to("cuda", memory_format=torch.channels_last).eval()
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        check(torch.equal(exported(x[:8]), backbone(x[:8])), "12e: the export's features differ")
+    launches["flash_fwd"] = fa.flash_forward.launches
+    totals = flash_kernel_launches(fa)
+    check(totals["flash_fwd_mma_kernel"] == launches["flash_fwd"]
+          and fa.flash_dq.launches == fa.flash_dkv.launches == 0,
+          f"12e: flash launches {totals}, dq {fa.flash_dq.launches}, dkv {fa.flash_dkv.launches}")
+    out["flash_fwd_launches"] = {"serving": served, "probe_and_eval": probe_launches,
+                                 "all": totals}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"train to serve in {out['phase_s']:.1f} s: restore v2 {out['v2_restore_ms']:.1f} ms, "
+          f"v3 {out['v3_restore_ms']:.1f} ms; replica healthy after "
+          f"{out['replica_spawn_to_healthy_s']:.1f} s; ViT engine ms {out['vit_engine_ms']}; "
+          f"ViT probe {out['vit_probe_imgs_per_s']:.0f} imgs/s; launches {launches}", flush=True)
+    return out, launches
+
+
 def post(port, path, imgs):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=imgs.tobytes(),
@@ -2491,9 +2923,24 @@ def main() -> int:
     print(json.dumps({"step_options": step_options_phase(fused_infonce), "device": smi}))
     torch.cuda.empty_cache()
 
+    # -- train to serve: a v2 and a v3 checkpoint served, the ViT probed, exported --
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        serve_out, serve_launches = train_to_serve_phase(ivf_scan, fa, workdir)
+    finally:
+        shutil.rmtree(workdir)
+    print(json.dumps({"train_to_serve": serve_out, "device": smi}))
+    torch.cuda.empty_cache()
+
     # -- the cell-scan kernel's own times --------------------------------------
     ivf_kernel = ivf_timing_phase(ivf_scan, feats_t, cell_rows, probes, buckets,
-                                  launches["ivf_cell_scores"], max_err)
+                                  launches["ivf_cell_scores"] + serve_launches["ivf_cell_scores"],
+                                  max_err)
+    ivf_kernel["launches_12e"] = serve_launches["ivf_cell_scores"]
+    for rec in v3_kernels:
+        if rec["name"] == "flash_fwd":
+            rec["launches"] += serve_launches["flash_fwd"]
+            rec["launches_12e"] = serve_launches["flash_fwd"]
     kernels = [ivf_kernel, *train_kernels, *v3_kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)

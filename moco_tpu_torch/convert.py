@@ -542,3 +542,39 @@ def encoder_to_flax(sd: dict, num_heads: Optional[int] = None) -> tuple[dict, di
     if hstats:
         stats["head"] = hstats
     return params, stats
+
+
+def vit_to_timm(sd: dict, patch_size: int, image_size: int = 224) -> Dict[str, np.ndarray]:
+    """The port's ViT backbone tensors -> timm `vision_transformer` names,
+    the same names and values as `moco_tpu/export.py:148` `vit_to_timm`:
+    the q/k/v projections fused into `attn.qkv` with rows ordered
+    [q; k; v], `out` as `attn.proj`, the patch embedding as
+    `patch_embed.proj`, `final_norm` as `norm`, and the fixed 2-D sin-cos
+    position embedding for `image_size` exported as timm's `pos_embed`
+    (with a cls slot only where the backbone has a cls token: gap pooling
+    exports no `cls_token`). The MLP is tanh-GELU: build the timm model
+    with `act_layer=partial(nn.GELU, approximate='tanh')` to reproduce the
+    forward."""
+    from moco_tpu_torch.models.vit import sincos_2d_posembed
+
+    out = {"patch_embed.proj.weight": _np_of(sd["patch_embed.weight"]),
+           "patch_embed.proj.bias": _np_of(sd["patch_embed.bias"])}
+    dim = out["patch_embed.proj.bias"].shape[0]
+    has_cls = "cls_token" in sd
+    if has_cls:
+        out["cls_token"] = _np_of(sd["cls_token"])
+    out["pos_embed"] = sincos_2d_posembed(dim, image_size // patch_size, cls_token=has_cls)
+    i = 0
+    while f"blocks.{i}.norm1.weight" in sd:
+        pre = f"blocks.{i}"
+        for name in ("norm1", "norm2", "mlp.fc1", "mlp.fc2"):
+            for leaf in ("weight", "bias"):
+                out[f"{pre}.{name}.{leaf}"] = _np_of(sd[f"{pre}.{name}.{leaf}"])
+        for leaf in ("weight", "bias"):
+            out[f"{pre}.attn.qkv.{leaf}"] = np.concatenate(
+                [_np_of(sd[f"{pre}.attn.{p}.{leaf}"]) for p in ("query", "key", "value")])
+            out[f"{pre}.attn.proj.{leaf}"] = _np_of(sd[f"{pre}.attn.out.{leaf}"])
+        i += 1
+    out["norm.weight"] = _np_of(sd["final_norm.weight"])
+    out["norm.bias"] = _np_of(sd["final_norm.bias"])
+    return out

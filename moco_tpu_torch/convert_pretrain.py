@@ -1,19 +1,21 @@
 """Convert a port pretraining checkpoint for transfer evaluation (the
 counterpart of the root convert_pretrain.py and moco_tpu/export.py:47-146).
 
-    python -m moco_tpu_torch.convert_pretrain WORKDIR out.pth   # torchvision-named state_dict
-    python -m moco_tpu_torch.convert_pretrain WORKDIR out.pkl   # detectron2 pickle
+    python -m moco_tpu_torch.convert_pretrain WORKDIR out.pth   # ResNet: torchvision names
+                                                                # ViT: timm names
+    python -m moco_tpu_torch.convert_pretrain WORKDIR out.pkl   # detectron2 pickle (ResNet)
 
 The query encoder's backbone of the newest good checkpoint under WORKDIR,
-without the projection head. The `.pth` holds the backbone's tensors under
-torchvision names, BN `num_batches_tracked` included, so it loads with
-strict=True into the port's backbone (and with strict=False, as
-`main_lincls.py` loads, into a torchvision ResNet). The detectron2 pickle
-is the reference converter's envelope
-(`detection/convert-pretrain-to-detectron2.py`): detectron2's ResNet names,
-numpy values, `{"model", "__author__": "MOCO", "matching_heuristics": True}`.
-ResNet checkpoints only; the ViT export comes with the ViT probe
-(`lincls.build_backbone` refuses a ViT).
+without the projection head; the architecture comes from the checkpoint's
+config. A ResNet's `.pth` holds the backbone's tensors under torchvision
+names, BN `num_batches_tracked` included, so it loads with strict=True
+into the port's backbone (and with strict=False, as `main_lincls.py`
+loads, into a torchvision ResNet). A ViT's `.pth` holds timm
+`vision_transformer` names (`convert.vit_to_timm`, as the root
+convert_pretrain.py writes them). The detectron2 pickle is the reference
+converter's envelope (`detection/convert-pretrain-to-detectron2.py`):
+detectron2's ResNet names, numpy values, `{"model", "__author__": "MOCO",
+"matching_heuristics": True}`; a ViT is refused there.
 """
 
 from __future__ import annotations
@@ -26,15 +28,24 @@ from typing import Dict
 import numpy as np
 import torch
 
+from moco_tpu_torch.convert import vit_to_timm
 from moco_tpu_torch.lincls import load_pretrained_backbone
+
+D2_VIT_REFUSAL = ("detectron2 export is the R50-C4 detection recipe (ResNet only); "
+                  "ViT checkpoints export as a timm state dict (.pth)")
 
 
 def pretrained_backbone_state(workdir: str) -> tuple[Dict[str, torch.Tensor], str]:
-    """(torchvision-named tensors of the query encoder's backbone, arch)
-    from the newest good checkpoint under `workdir`: the probe's surgery,
-    on the CPU."""
+    """(the query encoder's backbone tensors, arch) from the newest good
+    checkpoint under `workdir`, the probe's surgery on the CPU: a ResNet's
+    under torchvision names, a ViT's under timm names."""
     backbone, _, config = load_pretrained_backbone(workdir, device="cpu")
-    return {k: v.contiguous() for k, v in backbone.state_dict().items()}, config.moco.arch
+    sd = {k: v.contiguous() for k, v in backbone.state_dict().items()}
+    if config.moco.arch.startswith("vit"):
+        timm = vit_to_timm(sd, patch_size=backbone.patch_size,
+                           image_size=config.data.image_size)
+        sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in timm.items()}
+    return sd, config.moco.arch
 
 
 def torchvision_to_detectron2(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -75,6 +86,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     state, arch = pretrained_backbone_state(args.workdir)
     fmt = args.format or ("torch" if args.output.endswith(".pth") else "d2")
+    if fmt == "d2" and arch.startswith("vit"):
+        raise SystemExit(D2_VIT_REFUSAL)
     if fmt == "d2":
         save_detectron2_pickle(state, args.output)
     else:

@@ -18,7 +18,11 @@ Reference semantics:
 - a checkpoint per epoch and `model_best` by val top-1 (`~L250-260`);
   `evaluate_lincls` scores `model_best`, or the latest epoch without one.
 
-The ViT probe comes with a later slice; a ViT checkpoint is refused.
+The backbone is a ResNet or a ViT, as the checkpoint's config says
+(`moco_tpu/lincls.py:169-175`); a ViT has no BN, so only its weights are
+frozen and checked. `restore_pretrain_state` is the eval side's shared
+restore: the probe, `convert_pretrain` and the serving engine
+(`serve/engine.py::load_serving_encoder`) all read a checkpoint through it.
 """
 
 from __future__ import annotations
@@ -26,18 +30,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
 
+from moco_tpu_torch.core.moco import build_encoder
 from moco_tpu_torch.data.pipeline import EvalPipeline, LabeledPipeline
 from moco_tpu_torch.models.heads import LinearClassifier
 from moco_tpu_torch.models.resnet import create_resnet
+from moco_tpu_torch.models.vit import create_vit
 from moco_tpu_torch.ops.losses import cross_entropy, topk_accuracy
 from moco_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     best_exists,
+    load_encoder_reference,
     restore_best,
     save_best,
 )
@@ -58,16 +65,82 @@ from moco_tpu_torch.utils.schedules import build_optimizer, make_lr_schedule
 FC_KEYS = ("fc.weight", "fc.bias")
 
 
-def build_backbone(moco: MocoConfig, sd: dict, device) -> nn.Module:
-    """A ResNet backbone as the checkpoint's `sd` (torchvision names) shapes
-    it (its width read off `conv1`), loaded from it, on `device`
-    channels-last, frozen and in eval mode. A missing BN
-    `num_batches_tracked` is allowed; any other missing or extra key
-    raises."""
+SIDES = ("q", "k")
+
+
+class PretrainState(NamedTuple):
+    """What the eval side reads from a pretraining checkpoint."""
+
+    encoders: dict  # side -> MoCoEncoder (backbone + head), loaded, in eval mode
+    tensors: dict  # side -> the checkpoint's reference-named tensors of that encoder
+    queue: Optional[torch.Tensor]  # (K, dim) f32 rows on the CPU; None for v3
+    queue_ptr: int
+    step: int
+    config: TrainConfig
+
+
+def _widths(sd: dict) -> dict:
+    """The widths `build_encoder` takes, read off an encoder's
+    reference-named tensors: a ResNet's stem width and a v3 head's hidden
+    width (tests narrow both)."""
+    out = {}
+    if "conv1.weight" in sd:
+        out["num_filters"] = int(sd["conv1.weight"].shape[0])
+    if "fc.fc0.weight" in sd:
+        out["mlp_hidden"] = int(sd["fc.fc0.weight"].shape[0])
+    return out
+
+
+def restore_pretrain_state(workdir: str, config: Optional[TrainConfig] = None,
+                           sides=("q",), device="cuda") -> PretrainState:
+    """The newest good pretraining checkpoint under `workdir`
+    (`CheckpointManager.restore`, which falls back past a corrupt file),
+    read for evaluation: the encoder of each requested side rebuilt by
+    `build_encoder(config.moco)` at the checkpoint's widths and loaded
+    through `load_encoder_reference` (every key accounted for), on `device`
+    in eval mode; the queue's rows (stored (dim, K), returned (K, dim)) and
+    its pointer. The config comes from the checkpoint's extras unless one
+    is given.
+
+    The counterpart of `moco_tpu/lincls.py:68`. The port has no ZeRO, so a
+    checkpoint always holds whole tensors and nothing is unsharded."""
+    sides = tuple(sides)
+    if not sides or any(s not in SIDES for s in sides):
+        raise ValueError(f"sides must be drawn from {SIDES}, got {sides!r}")
+    device = resolve_device(device)
+    payload, extra = CheckpointManager(workdir).restore()
+    if config is None:
+        if "config" not in extra:
+            raise KeyError(f"checkpoint under {workdir} carries no config: pass one")
+        config = config_from_dict(extra["config"])
+    sd = payload["state_dict"]
+    encoders, tensors = {}, {}
+    for side in sides:
+        prefix = f"module.encoder_{side}."
+        tensors[side] = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        encoder = build_encoder(config.moco, **_widths(tensors[side]))
+        load_encoder_reference(encoder, tensors[side])
+        encoders[side] = encoder.to(device).eval()
+    queue = sd.get("module.queue")
+    queue_ptr = int(sd["module.queue_ptr"].reshape(-1)[0]) if queue is not None else 0
+    queue = queue.t().contiguous().float() if queue is not None else None
+    return PretrainState(encoders, tensors, queue, queue_ptr, int(payload["step"]), config)
+
+
+def build_backbone(moco: MocoConfig, sd: dict, device, image_size: int = 224) -> nn.Module:
+    """The backbone the checkpoint's `sd` (reference names, no head) shapes,
+    loaded from it, on `device`, frozen and in eval mode: a ResNet
+    (`moco.arch` resnet*, its width read off `conv1`, channels-last) or a
+    ViT (`create_vit` with the config's patch size, pooling and attention,
+    for `image_size`). A missing BN `num_batches_tracked` is allowed; any
+    other missing or extra key raises."""
     if moco.arch.startswith("vit"):
-        raise ValueError("the ViT probe comes with a later slice of the port")
-    backbone = create_resnet(moco.arch, num_filters=int(sd["conv1.weight"].shape[0]),
-                             cifar_stem=moco.cifar_stem)
+        kw = {"patch_size": moco.vit_patch_size} if moco.vit_patch_size else {}
+        backbone = create_vit(moco.arch, image_size=image_size, pool=moco.vit_pool,
+                              use_flash_attention=moco.vit_flash_attention, **kw)
+    else:
+        backbone = create_resnet(moco.arch, num_filters=int(sd["conv1.weight"].shape[0]),
+                                 cifar_stem=moco.cifar_stem)
     names = set(backbone.state_dict())
     missing = sorted(k for k in names - set(sd) if not k.endswith("num_batches_tracked"))
     if missing or set(sd) - names:
@@ -80,22 +153,19 @@ def build_backbone(moco: MocoConfig, sd: dict, device) -> nn.Module:
 
 def load_pretrained_backbone(workdir: str, config: Optional[TrainConfig] = None,
                              side: str = "q", device="cuda") -> tuple[nn.Module, dict, TrainConfig]:
-    """Checkpoint surgery on the newest good pretraining checkpoint: the
-    backbone of encoder `side` ("q", the probe's and the reference's, or
-    "k", the EMA key encoder), built by `build_backbone`; returns (backbone,
-    its checkpoint tensors, the config, from the checkpoint's extras unless
-    given)."""
-    if side not in ("q", "k"):
+    """Checkpoint surgery on the newest good pretraining checkpoint, through
+    `restore_pretrain_state`: the backbone of encoder `side` ("q", the
+    probe's and the reference's, or "k", the EMA key encoder) without its
+    head, on `device` channels-last, frozen and in eval mode; returns
+    (backbone, its checkpoint tensors, the config, from the checkpoint's
+    extras unless given)."""
+    if side not in SIDES:
         raise ValueError(f"side must be 'q' or 'k', got {side!r}")
-    payload, extra = CheckpointManager(workdir).restore()
-    if config is None:
-        if "config" not in extra:
-            raise KeyError(f"checkpoint under {workdir} carries no config: pass one")
-        config = config_from_dict(extra["config"])
-    prefix = f"module.encoder_{side}."
-    sd = {k[len(prefix):]: v for k, v in payload["state_dict"].items()
-          if k.startswith(prefix) and not k[len(prefix):].startswith("fc.")}
-    return build_backbone(config.moco, sd, resolve_device(device)), sd, config
+    restored = restore_pretrain_state(workdir, config, sides=(side,), device=device)
+    backbone = restored.encoders[side].backbone
+    backbone = backbone.to(memory_format=torch.channels_last).eval().requires_grad_(False)
+    sd = {k: v for k, v in restored.tensors[side].items() if not k.startswith("fc.")}
+    return backbone, sd, restored.config
 
 
 def _autocast(device: torch.device, compute_dtype: str):
@@ -282,7 +352,8 @@ def evaluate_lincls(pretrain_workdir: str, workdir: Optional[str] = None, val_da
         print(f"no model_best; evaluating latest epoch {saved.get('epoch')}", flush=True)
     sd = payload["state_dict"]
     backbone = build_backbone(pretrain_config.moco,
-                              {k: v for k, v in sd.items() if k not in FC_KEYS}, device)
+                              {k: v for k, v in sd.items() if k not in FC_KEYS}, device,
+                              image_size=pretrain_config.data.image_size)
     classifier = LinearClassifier(backbone.num_features, int(sd["fc.weight"].shape[0]))
     classifier.load_state_dict({"weight": sd["fc.weight"], "bias": sd["fc.bias"]})
     classifier = classifier.to(device)

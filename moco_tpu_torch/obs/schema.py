@@ -15,10 +15,17 @@ Line kinds (all carry `step` int + `time` float):
   and an `alert/<rule>` gauge);
 - *aux lines*: neither (the kNN monitor's `knn_top1` line).
 
+Serving lines (serve/server.py's metrics flusher) carry the `serve/*`
+family: latency and occupancy gauges, counters, the per-bucket and per-tier
+counts (numbers, or null before the first request), the latency histogram
+(a structured payload), the retrieval tier's gauges, and the served model's
+identity, whose digest is the one string in the family. An explicit field
+validator wins over its prefix family.
+
 Numbers are finite or null: NaN/Inf literals are rejected at parse time
 (`loads_strict`), matching the writer's scrubbing. The JAX schema's
-serving, fleet, ZeRO, rescale and promotion families come with the slices
-that write them; a field this copy does not list passes unchecked, as in
+fleet, ZeRO, rescale and promotion families come with the slices that
+write them; a field this copy does not list passes unchecked, as in
 the original.
 """
 
@@ -55,6 +62,29 @@ def _num_list(v: Any) -> bool:
 
 def _counter_map(v: Any) -> bool:
     return isinstance(v, dict) and all(isinstance(k, str) and _int_like(n) for k, n in v.items())
+
+
+def _str_or_null(v: Any) -> bool:
+    return v is None or isinstance(v, str)
+
+
+def _latency_hist(v: Any) -> bool:
+    """The latency histogram: ascending finite bucket bounds (ms), one count
+    per bucket plus the +Inf slot (per bucket, not cumulative), and the
+    sum / count pair."""
+    if not isinstance(v, dict):
+        return False
+    le, counts = v.get("le"), v.get("counts")
+    return (
+        isinstance(le, list)
+        and all(_num(x) for x in le)
+        and le == sorted(le)
+        and isinstance(counts, list)
+        and len(counts) == len(le) + 1
+        and all(_int_like(c) and c >= 0 for c in counts)
+        and _num(v.get("sum"))
+        and _int_like(v.get("count"))
+    )
 
 
 # field -> validator; a field listed here, when present, must satisfy it
@@ -95,14 +125,35 @@ FIELD_VALIDATORS = {
     # alert event lines (obs/alerts.py)
     "alert": lambda v: isinstance(v, str),
     "severity": lambda v: v in ("warn", "fatal"),
+    # serving (serve/server.py): the IVF probe width (null on the exact
+    # tier), whether any scoring runs int8 (0/1), the streaming-ingest row
+    # counter, the engine's quantization tier (0 off, 1 w8, 2 w8a8), the
+    # IVF's unplaced rows and mean cell fill (null before train_ivf)
+    "serve/nprobe": lambda v: v is None or (_int_like(v) and v >= 1),
+    "serve/int8": lambda v: v in (0, 1),
+    "serve/ingested_rows": _int_like,
+    "serve/quant_tier": lambda v: v in (0, 1, 2),
+    "serve/ivf_spill": lambda v: v is None or (_int_like(v) and v >= 0),
+    "serve/ivf_occupancy": lambda v: v is None or (_num(v) and 0.0 <= v <= 1.0),
+    "serve/latency_hist": _latency_hist,
+    # the served model's identity (obs/quality.py): its checkpoint step and
+    # parameter digest (null for a hand-built engine), and the checkpoint
+    # step of the last ingested block (null without one)
+    "serve/model_step": lambda v: v is None or _int_like(v),
+    "serve/model_digest": _str_or_null,
+    "serve/ingest_ckpt_step": lambda v: v is None or _int_like(v),
 }
 
-# key-prefix families sharing one validator: the per-group EMA drift and
-# the per-rule alert gauge; an explicit FIELD_VALIDATORS entry wins, else
-# the longest matching prefix
+# key-prefix families sharing one validator: the per-group EMA drift, the
+# per-rule alert gauge and the serving family (p50_ms / p99_ms null before
+# the first request, occupancy before the first flush; qps, requests,
+# slo_violations, slo_ms, recompiles_after_warmup, index_rows and the
+# bucket_<b> / mode_<tier> counts numeric); an explicit FIELD_VALIDATORS
+# entry wins, else the longest matching prefix
 PREFIX_VALIDATORS = {
     "ema_drift/": _num_or_null,
     "alert/": _num,
+    "serve/": _num_or_null,
 }
 
 

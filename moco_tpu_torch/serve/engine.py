@@ -11,8 +11,14 @@ that proves it.
 Forward: uint8 NHWC -> /255 -> per-channel normalize (the eval recipe's
 statistics) -> encoder -> f32 -> L2-normalize. On the card the encoder
 runs in bf16 under `torch.autocast` with f32 weights, as the JAX package
-serves in bf16 on accelerators; on the CPU it runs in f32. Whole-model
-capture (CUDA graphs) is later work.
+serves in bf16 on accelerators; on the CPU it runs in f32. The encoder is a
+ResNet or a ViT: `channels_last` reorders only 4-D tensors (the
+convolutions, a ViT's patch embedding), never a Linear's weight.
+Whole-model capture (CUDA graphs) is later work.
+
+`load_serving_encoder` reads a pretraining checkpoint for serving: its key
+(EMA) encoder and its queue, which `EmbeddingIndex.from_train_queue` turns
+into the index `/neighbors` answers from.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from torch import nn
 
 from moco_tpu_torch.data.augment import eval_stats, normalize
+from moco_tpu_torch.lincls import restore_pretrain_state
 from moco_tpu_torch.ops.losses import l2_normalize
 from moco_tpu_torch.utils.device import resolve_device
 
@@ -32,6 +39,26 @@ DEFAULT_BUCKETS = (1, 8, 32, 128)
 
 class EngineRecompileError(RuntimeError):
     """A batch shape arrived after warmup that is not one of the buckets."""
+
+
+def load_serving_encoder(workdir: str, config=None, side: str = "k", device="cuda"):
+    """(encoder, queue, queue_ptr, config) for serving from the newest good
+    pretraining checkpoint under `workdir`, the counterpart of
+    `moco_tpu/serve/engine.py:129`: the whole encoder of `side` (the key,
+    EMA side by default; backbone and head, so embeddings live in the
+    queue's space) on `device` in eval mode, the queue's (K, dim) f32 rows
+    on the CPU and its pointer, and the config (the checkpoint's unless
+    given), through the eval side's shared restore
+    (`lincls.restore_pretrain_state`). The serving dtype is the engine's
+    choice, not the checkpoint's.
+
+    A queue-free (v3) checkpoint gives `queue=None`, where JAX gives its
+    one-row placeholder: the port's v3 state keeps no queue, so its
+    checkpoint has none to return."""
+    if side not in ("q", "k"):
+        raise ValueError(f"side must be 'q' or 'k', got {side!r}")
+    restored = restore_pretrain_state(workdir, config, sides=(side,), device=device)
+    return restored.encoders[side], restored.queue, restored.queue_ptr, restored.config
 
 
 class InferenceEngine:
@@ -181,4 +208,4 @@ class InferenceEngine:
         )
 
 
-__all__ = ["DEFAULT_BUCKETS", "EngineRecompileError", "InferenceEngine"]
+__all__ = ["DEFAULT_BUCKETS", "EngineRecompileError", "InferenceEngine", "load_serving_encoder"]

@@ -9,7 +9,11 @@ in float32), and `convert.encoder_to_flax` as the inverse of
 `encoder_from_flax` on Flax-initialized trees (exact); async saves (the
 file holds the state as of `save()` though the next steps update it in
 place, ckpt_truncate, a failed write, a resumed run bit for bit), the
-guard snapshot's emergency payload, and the driver's new config fields."""
+guard snapshot's emergency payload, and the driver's new config fields; the
+eval side's shared restore (`lincls.restore_pretrain_state`): both encoders
+bit for bit at the checkpoint's widths, the queue's rows and pointer, a v3
+checkpoint's missing queue, the config from the extras or given, and the
+fall-back past a torn newest file."""
 
 import dataclasses
 import os
@@ -580,3 +584,56 @@ def test_lars_run_resumes_like_a_continuous_run(tmp_path):
     assert any(k.endswith(".trace") for k in _everything(second["state"]))
     lrs = [r["lr"] for r in whole["history"]]  # auto-scaled 4.8 -> 2.4, warmup, cosine
     np.testing.assert_allclose(lrs, [1.2, 2.4, 1.2, 1.2], rtol=1e-6)
+
+
+# ------------------------------------------------- the eval side's restore
+
+
+@pytest.mark.parametrize("make_config", [_v2_config, _v3_config], ids=["v2", "v3"])
+def test_restore_pretrain_state_reads_both_sides_bit_for_bit(tmp_path, make_config):
+    """Both sides rebuilt at the checkpoint's widths (a ResNet's stem 4
+    wide, a v3 head 32 wide) and loaded bit for bit, in eval mode; the
+    queue back as (K, dim) rows with its pointer, or None for v3; the
+    step; the config from the extras."""
+    from moco_tpu_torch.lincls import restore_pretrain_state
+
+    cfg = make_config()
+    state = _stepped(cfg)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state.step, state_payload(state, cfg.moco.arch, 1),
+             extra={"epoch": 0, "config": pc.config_to_dict(cfg)})
+    restored = restore_pretrain_state(str(tmp_path), sides=("q", "k"), device="cpu")
+    assert restored.config == cfg and restored.step == state.step == 2
+    for side, enc in (("q", state.encoder_q), ("k", state.encoder_k)):
+        got, want = restored.encoders[side].state_dict(), enc.state_dict()
+        assert list(got) == list(want) and not restored.encoders[side].training
+        for k in want:
+            assert torch.equal(got[k], want[k]), (side, k)
+    if cfg.moco.v3:
+        assert restored.queue is None and restored.queue_ptr == 0
+    else:
+        assert torch.equal(restored.queue, state.queue) and restored.queue.shape == (64, 16)
+        assert restored.queue_ptr == state.queue_ptr == 16
+    only_k = restore_pretrain_state(str(tmp_path), sides=("k",), device="cpu")
+    assert set(only_k.encoders) == {"k"}
+    with pytest.raises(ValueError, match="sides"):
+        restore_pretrain_state(str(tmp_path), sides=("x",), device="cpu")
+
+
+def test_restore_pretrain_state_config_and_fallback(tmp_path):
+    """Without a config in the extras one must be passed (and a passed one
+    is used as given); a torn newest checkpoint is quarantined and the
+    next older one read."""
+    from moco_tpu_torch.lincls import restore_pretrain_state
+
+    cfg = _v2_config()
+    state = _stepped(cfg)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state_payload(state, "resnet18", 1), extra={"epoch": 0})
+    with pytest.raises(KeyError, match="carries no config"):
+        restore_pretrain_state(str(tmp_path), device="cpu")
+    assert restore_pretrain_state(str(tmp_path), cfg, device="cpu").step == 1
+    mgr.save(2, state_payload(state, "resnet18", 1), extra={"epoch": 1})
+    _truncate(mgr.path(2))
+    restored = restore_pretrain_state(str(tmp_path), cfg, device="cpu")
+    assert restored.step == 1 and mgr.all_steps() == [1]

@@ -4,7 +4,10 @@ on tie-free features (`torch.topk` and `lax.top_k` may order equal scores
 differently, as tests/test_torch_index.py notes), `extract_features` the
 same features within 1e-5 and the same labels, and `knn_eval` the same
 decisions on a small LearnableSyntheticDataset wherever the two packages'
-feature difference cannot move them (see `test_knn_eval_matches_jax`)."""
+feature difference cannot move them (see `test_knn_eval_matches_jax`);
+`extract_features` on a ViT-tiny with flash attention (the v3 driver's
+monitor; JAX's Pallas kernels in interpret mode, the port's plain
+attention) within 1e-5 as well."""
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +18,12 @@ import torch
 from moco_tpu import knn as jax_knn
 from moco_tpu.data.datasets import LearnableSyntheticDataset as JaxLearnable
 from moco_tpu.models import resnet as jax_resnet
+from moco_tpu.models import vit as jax_vit
 from moco_tpu_torch import convert, knn
 from moco_tpu_torch.data.datasets import LearnableSyntheticDataset
 from moco_tpu_torch.models import resnet as port_resnet
+from moco_tpu_torch.models import vit as port_vit
+from test_torch_vit import fill
 
 NF, IMG, CLASSES = 8, 32, 8
 
@@ -125,3 +131,26 @@ def test_knn_eval_matches_jax(backbones):
     assert want == pytest.approx(100.0 * np.mean(want_pred == jty))
     assert got == pytest.approx(100.0 * np.mean(got_pred == jty))
     assert abs(got - want) <= 100.0 * (1.0 - robust.mean()) + 1e-9
+
+
+def test_extract_features_matches_jax_on_a_vit():
+    """The monitor's extract on the v3 backbone: vit_tiny at 48 px, patch 4
+    (145 tokens: JAX's flash path runs its Pallas kernels, in interpret
+    mode), the same seeded weights in both packages; features within 1e-5,
+    labels equal. `knn_eval` takes any backbone that maps NHWC images to
+    features, so nothing in knn.py is ResNet-specific."""
+    size = 48
+    mod = jax_vit.create_vit("vit_tiny", image_size=size, patch_size=4, use_flash_attention=True,
+                             dtype=jnp.float32)
+    params = fill(jax.eval_shape(lambda: mod.init(jax.random.PRNGKey(0),
+                                                  jnp.zeros((1, size, size, 3))))["params"],
+                  seed=6)
+    port = port_vit.create_vit("vit_tiny", image_size=size, patch_size=4,
+                               use_flash_attention=True)
+    port.load_state_dict(convert._tensors(convert.vit_from_flax(params)))
+    want_f, want_y = jax_knn.extract_features(mod, params, {}, JaxLearnable(12, size),
+                                              batch_size=8, image_size=size)
+    got_f, got_y = knn.extract_features(port, LearnableSyntheticDataset(12, size), batch_size=8,
+                                        image_size=size, device="cpu")
+    np.testing.assert_array_equal(got_y, want_y)
+    np.testing.assert_allclose(got_f, want_f, atol=1e-5, rtol=0)

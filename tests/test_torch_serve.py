@@ -285,7 +285,7 @@ def test_http_embed_round_trip(server, engine):
     imgs = images(5, seed=11)
     out = _post(srv, "/embed", imgs)
     np.testing.assert_allclose(np.asarray(out["embedding"]), engine.embed(imgs)[0], atol=1e-5)
-    assert _get(srv, "/healthz") == {"ok": True, "warm": True}
+    assert _get(srv, "/healthz") == {"ok": True, "warm": True, "draining": False, "replica": 0}
     bad = urllib.request.Request(
         f"http://127.0.0.1:{srv.port}/embed", data=b"xx", headers={"X-Image-Shape": "1,2,3"}
     )
@@ -327,12 +327,14 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(moco_tpu_torch.__path__, 'moco_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    names = out.stdout.split()
+    assert len(names) >= 14
+    assert {"moco_tpu_torch.obs.quality", "moco_tpu_torch.serve.replica_main"} <= set(names)
 
 
 def test_port_names_no_jax_module_in_any_import():
