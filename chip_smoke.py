@@ -212,10 +212,11 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    step 4 (reason "alert"). (b) The watchdog, last: `python -m
    moco_tpu_torch.train --preset imagenet_v2 --data synthetic --epochs 2
    --steps-per-epoch 3 --watchdog-timeout 15` with
-   MOCO_FAULTS=stall@step=4:seconds=120 exits with code 42, leaves
-   stall_stacks.txt, one `stall` line and an emergency checkpoint
-   (reason "stall") of the last finite log step, step 4, not of the live
-   step 5: queue_ptr 1024, and the rows step 5 wrote still the seeded
+   MOCO_FAULTS=stall@step=6:seconds=120 (the last log step's deferred
+   read) exits with code 42, leaves stall_stacks.txt, one `stall` line and
+   an emergency checkpoint (reason "stall") of the last log step whose
+   loss the deferred read found finite, step 4, not of the live step 6:
+   queue_ptr 1024, and the rows steps 5 and 6 wrote still the seeded
    initial queue's; the seconds from the stall to the exit are printed.
 12d. The options of the v1/v2 step at full width, each part 3 warm-up
    and 10 timed steps through the prefetch ring from a seeded state, the
@@ -280,6 +281,52 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    for bit through the flash kernel. Through (c)-(e) every flash forward
    launch is flash_fwd_mma_kernel and no flash backward launches; the
    phase's IVF and flash forward launches are added to the kernels line.
+12f. Observability, at full width, in a temporary workdir deleted at the
+   end. (a) train(imagenet_v2) for 3 warm-up and 10 timed ring steps from
+   phase 8's seeded state and data with a workdir, log_every=1,
+   obs_probe_every=5, sinks jsonl,csv (tensorboard where a writer is
+   importable; else its constructor must raise JAX's RuntimeError) and a
+   check sink, and metrics_port on a free port, the InfoNCE counts set to
+   0 just before and read just after (once per step): every metrics.jsonl
+   line passes obs/schema.py and carries t_data, t_step, t_dispatch and
+   t_device (sampled from step 0 on), the memory gauges and
+   hbm_state_bytes; the last line's hbm_peak_bytes equals
+   torch.cuda.max_memory_allocated() as the line is written (no line's
+   exceeds it; the ring may allocate between a line's read and its
+   write); the CSV's rows
+   equal the JSONL's; a scrape of /metrics from the log callback, mid-run,
+   holds the loss gauge; trace.json loads, every step, data_wait and
+   device_wait span lies inside an epoch span, and device_wait appears on
+   the sampled steps only; and the step function, run under
+   torch.cuda.set_sync_debug_mode("warn"), raises no synchronization
+   warning on its thread. (b) From the same state and data, 15 ring steps
+   with obs_probe_every=0 (the in-flight window alone) and twice with
+   obs_probe_every=1 (a wait around every step): imgs/s over the 10 timed
+   steps (the host clock from the first timed step's dispatch to the
+   dispatch after the last's), the medians of t_dispatch and t_device of
+   the first every-step run; the losses of the window run within the
+   larger of 2^-7 relative and the two every-step runs' gap (printed) of
+   the first every-step run's; the final queue_ptr and step equal. (c)
+   Phase 4's bf16 engine and K = 65536 IVF index (nlist 256, nprobe 16)
+   behind a ServeServer with reqtrace, a JsonlSink, the serve_default
+   alerts, slo_ms 100 and recall_sample_every=4: after one request that
+   warms the batcher thread, 64 two-image /neighbors?mode=ivf_fused
+   requests from 4 client threads, the IVF count
+   set to 0 before them and above 0 after them; distinct request ids;
+   flushed lines valid, with the five serve/trace_<stage>_ms means, the
+   burn rates and serve/recall_estimate; in /debug/flight every request's
+   stage sum within 5% (or 1 ms) of its total_ms. Then
+   slow@site=serve.engine_execute:ms=200 over the same requests: a burn
+   rule fires (after any the warm-up request fired) and its flight_*.json
+   holds slowed requests among its slowest, each blaming engine_execute
+   for at least 200 ms. The tracing cost:
+   /neighbors p50 and p99 of the same requests with reqtrace on and off,
+   in turns (on, off, off, on), each server warmed by one request. The phase's InfoNCE and IVF launches are
+   added to the kernels line.
+   Earlier phases that read a record's step_ms or a `log` callback's state
+   run with obs_probe_every=1: a wait around every step, as the loop did
+   before the in-flight window, and each record's `log` call before the
+   next step's dispatch.
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -996,7 +1043,9 @@ def train_phase(fi):
     from moco_tpu_torch.utils.config import PRESETS
 
     cfg = PRESETS["imagenet_v2"]
-    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"))
+    # the probe waits around every step, so each record has its step_ms
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="synthetic"),
+                              obs_probe_every=1)
     t, b = cfg.moco.temperature, cfg.data.global_batch
     check((cfg.moco.arch, cfg.moco.mlp, cfg.moco.num_negatives, cfg.moco.dim, b,
            cfg.data.image_size, cfg.data.aug_plus, cfg.moco.compute_dtype, t, cfg.device_prefetch,
@@ -1436,7 +1485,8 @@ def v3_phase(fa, flash_err):
           "vit_b16_v3 preset")
     cfg = dataclasses.replace(
         preset, moco=dataclasses.replace(m, vit_flash_attention=True),
-        data=dataclasses.replace(preset.data, dataset="synthetic", global_batch=V3_BATCH))
+        data=dataclasses.replace(preset.data, dataset="synthetic", global_batch=V3_BATCH),
+        obs_probe_every=1)  # a wait around every step: each record has its step_ms
     print(f"v3 path: vit_b16_v3 with vit_flash_attention=True; cut: global batch "
           f"{preset.data.global_batch} -> {V3_BATCH}", flush=True)
     state = seeded_v3_state(cfg)
@@ -1618,7 +1668,9 @@ def step_options_phase(fi):
 
     out = {}
     base = PRESETS["imagenet_v2"]
-    base = dataclasses.replace(base, data=dataclasses.replace(base.data, dataset="synthetic"))
+    # the probe waits around every step (step_ms on every record)
+    base = dataclasses.replace(base, data=dataclasses.replace(base.data, dataset="synthetic"),
+                               obs_probe_every=1)
     b = base.data.global_batch
     dataset = SyntheticDataset(num_examples=b * EPOCH_STEPS, image_size=IMG)
 
@@ -1659,7 +1711,7 @@ def step_options_phase(fi):
            preset.data.global_batch) == ("lars", True, "ref_batch=4096", 8192),
           "imagenet_v2_large_batch preset")
     ref = dataclasses.replace(preset, data=dataclasses.replace(
-        preset.data, dataset="synthetic", global_batch=LARGE_BATCH))
+        preset.data, dataset="synthetic", global_batch=LARGE_BATCH), obs_probe_every=1)
     live, info = apply_auto_scale(ref)
     kappa = LARGE_BATCH / 4096
     check(info["kappa"] == kappa and live.optim.lr == 4.8 * kappa
@@ -1826,7 +1878,8 @@ def closed_loop_phase(fi, workdir):
     cfg = dataclasses.replace(
         preset, data=dataclasses.replace(preset.data, dataset="synthetic_learnable"),
         optim=dataclasses.replace(preset.optim, epochs=2), steps_per_epoch=LOOP_EPOCH_STEPS,
-        workdir=pre, knn_every_epochs=1, checkpoint_keep=2)
+        workdir=pre, knn_every_epochs=1, checkpoint_keep=2,
+        obs_probe_every=1)  # each record's `log` call before the next step, as the guard reads
     train_set = LearnableSyntheticDataset(256 * LOOP_EPOCH_STEPS, IMG)
     knn_sets = (LearnableSyntheticDataset(KNN_BANK, IMG),
                 LearnableSyntheticDataset(KNN_TEST, IMG, train=False))
@@ -2107,9 +2160,11 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
             torch.cuda.synchronize()
 
     preset = PRESETS[preset_name]
+    # the probe waits around every step: step_ms on every record, and each
+    # record's `log` call before the next step (the timers below key on it)
     base = dataclasses.replace(preset, data=dataclasses.replace(preset.data, dataset="synthetic"),
                                optim=dataclasses.replace(preset.optim, epochs=2),
-                               steps_per_epoch=spe)
+                               steps_per_epoch=spe, obs_probe_every=1)
     b, img, kk, dim = (base.data.global_batch, base.data.image_size, base.moco.num_negatives,
                        base.moco.dim)
     data = SyntheticDataset(b * spe, img)
@@ -2320,7 +2375,9 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
     # (b) the watchdog: a stalled training process exits with 42 after
     # saving the last finite log step's state
     wd_dir = os.path.join(workdir, "watchdog")
-    env = {**os.environ, "MOCO_FAULTS": "stall@step=4:seconds=120"}
+    # the stall lands at the last log step's deferred read (step 6, after
+    # the loop): the good snapshot is then step 4's, promoted at step 5
+    env = {**os.environ, "MOCO_FAULTS": "stall@step=6:seconds=120"}
     cmd = [sys.executable, "-m", "moco_tpu_torch.train", "--preset", preset_name, "--data",
            "synthetic", "--workdir", wd_dir, "--epochs", "2", "--steps-per-epoch", str(spe),
            "--watchdog-timeout", "15", "--device", device]
@@ -2359,14 +2416,14 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
     payload, extra = wmgr.restore(step=4)
     check((extra["reason"], extra["epoch"], extra["emergency"]) == ("stall", 0, True),
           f"watchdog: extras {extra}")
-    # the snapshot of step 4, not the live state of step 5: pointer at 4 batches, and
-    # the rows step 5 wrote still hold the seeded initial queue
+    # the snapshot of step 4, not the live state of step 6: pointer at 4 batches, and
+    # the rows steps 5 and 6 wrote still hold the seeded initial queue
     queue = payload["state_dict"]["module.queue"].t().to(device)
     init = init_queue(torch.Generator(device=device).manual_seed(base.seed), kk, dim,
                       device=device)
     ptr = int(payload["state_dict"]["module.queue_ptr"][0])
     check(ptr == 4 * b % kk, f"watchdog: queue_ptr {ptr}")
-    check(torch.equal(queue[4 * b:5 * b], init[4 * b:5 * b])
+    check(torch.equal(queue[4 * b:6 * b], init[4 * b:6 * b])
           and not torch.equal(queue[3 * b:4 * b], init[3 * b:4 * b]),
           "watchdog: the checkpoint is not the state of step 4")
     out["phase_s"] = time.perf_counter() - phase_t0
@@ -2763,6 +2820,351 @@ def train_to_serve_phase(ivf_scan, fa, workdir):
     return out, launches
 
 
+# ------------------------------------------------------------ observability
+
+OBS_PROBE_EVERY = 5  # 12f(a): a probe sample every 5 steps
+OBS_REQUESTS, OBS_CLIENTS, OBS_SLO_MS = 64, 4, 100.0  # 12f(c)
+BURN_ALERTS = ("alert:slo_burn_fast", "alert:slo_burn_slow")  # obs/slo.py's burn rules
+
+
+def sync_warnings_in(step_fn, seen: list):
+    """`step_fn` with CUDA's sync debug mode on ("warn") around each call:
+    every synchronizing call inside it warns, and the warnings raised on
+    the calling thread while it runs are appended to `seen`."""
+    import threading
+    import warnings
+
+    def run(state, batch):
+        me = threading.current_thread()
+        shown = warnings.showwarning
+
+        def record(message, category, filename, lineno, file=None, line=None):
+            if threading.current_thread() is me:
+                seen.append(f"{filename}:{lineno}: {message}")
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = record
+                return step_fn(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
+def timed_dispatches(step_fn, stamps: list):
+    """`step_fn` that appends the host clock at each call's start."""
+    def run(state, batch):
+        stamps.append(time.perf_counter())
+        return step_fn(state, batch)
+    return run
+
+
+def observability_phase(fi, ivf_scan, workdir):
+    """Phase 12f: training telemetry, the in-flight window against a wait
+    after every step, and the serving request waterfall (module docstring),
+    in `workdir`; returns (its readings, its kernel launches)."""
+    import threading
+
+    from moco_tpu_torch import train as train_module
+    from moco_tpu_torch.convert import encoder_from_flax, random_flax_encoder
+    from moco_tpu_torch.core.moco import build_encoder
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.obs import sinks as obs_sinks
+    from moco_tpu_torch.obs.flight import read_flight_dumps
+    from moco_tpu_torch.obs.reqtrace import STAGES
+    from moco_tpu_torch.obs.schema import read_metrics, validate_file
+    from moco_tpu_torch.serve.engine import InferenceEngine
+    from moco_tpu_torch.serve.index import QUERY_MODES, EmbeddingIndex
+    from moco_tpu_torch.serve.server import ServeServer
+    from moco_tpu_torch.utils import faults
+    from moco_tpu_torch.utils.config import PRESETS
+
+    out, launches = {}, {}
+    phase_t0 = time.perf_counter()
+    preset = PRESETS["imagenet_v2"]
+    base = dataclasses.replace(preset, data=dataclasses.replace(preset.data, dataset="synthetic"))
+    b = base.data.global_batch
+    dataset = SyntheticDataset(num_examples=b * EPOCH_STEPS, image_size=IMG)
+    seeded = seeded_v2_state(base)
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+
+    # (a) the run's telemetry: sinks, /metrics, the probe, the trace
+    a_dir = os.path.join(workdir, "a")
+    try:
+        obs_sinks.TensorBoardSink(os.path.join(workdir, "tb_probe")).close()
+        tb = True
+    except RuntimeError as e:  # no writer on this machine: JAX's error, and no other
+        check(str(e).startswith("TensorBoardSink needs `tensorboardX` or `torch`"), f"tb: {e}")
+        tb = False
+    peaks = []
+
+    class PeakCheck(obs_sinks.Sink):
+        """Each training line's hbm_peak_bytes beside the allocator's peak
+        read as the line is written."""
+
+        def __init__(self, workdir):
+            del workdir
+
+        def write(self, step, payload):
+            if "loss" in payload:
+                peaks.append((payload["hbm_peak_bytes"], torch.cuda.max_memory_allocated()))
+
+    obs_sinks.register_sink("peakcheck", PeakCheck)
+    metrics_port = free_port()
+    cfg = dataclasses.replace(
+        base, workdir=a_dir, log_every=1, obs_probe_every=OBS_PROBE_EVERY,
+        sinks="jsonl,csv" + (",tensorboard" if tb else "") + ",peakcheck",
+        metrics_port=metrics_port, steps_per_epoch=EPOCH_STEPS)
+    scrape, sync_seen = {}, []
+
+    def on_a(rec):
+        if rec["step"] == steps // 2:  # while the run goes, from the log callback's thread
+            with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics",
+                                        timeout=30) as r:
+                scrape["text"] = r.read().decode()
+
+    make = train_module.make_train_step
+    train_module.make_train_step = lambda *a, **kw: sync_warnings_in(make(*a, **kw), sync_seen)
+    fi.infonce_stats.launches = fi.infonce_dq.launches = 0  # counts from here on are the path's
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        run_a = train_module.train(cfg, dataset=dataset, device="cuda", steps=steps,
+                                   state=copy.deepcopy(seeded), log=on_a)
+    finally:
+        train_module.make_train_step = make
+        obs_sinks.SINK_REGISTRY.pop("peakcheck")
+    launches["a"] = {"infonce_fwd": fi.infonce_stats.launches,
+                     "infonce_bwd": fi.infonce_dq.launches}
+    check(launches["a"] == {"infonce_fwd": steps, "infonce_bwd": steps},
+          f"12f(a): InfoNCE launches {launches['a']} over {steps} steps")
+    check(all(np.isfinite(r["loss"]) for r in run_a["history"]), "12f(a): finite losses")
+    metrics_path = os.path.join(a_dir, "metrics.jsonl")
+    errors = validate_file(metrics_path)
+    check(errors == [], f"12f(a): metrics.jsonl schema: {errors[:3]}")
+    lines = [r for r in read_metrics(metrics_path) if "loss" in r]
+    check([r["step"] for r in lines] == list(range(1, steps + 1)), "12f(a): one line per step")
+    check(all(k in r for r in lines for k in ("t_data", "t_step", "t_dispatch", "t_device",
+                                               "hbm_live_bytes", "hbm_state_bytes")),
+          "12f(a): a line lacks the probe's or the memory gauges' fields")
+    # the ring's thread may allocate between a line's read and its write;
+    # at the last line the ring has made its last batch
+    check(len(peaks) == steps and all(line <= now for line, now in peaks)
+          and peaks[-1][0] == peaks[-1][1],
+          f"12f(a): hbm_peak_bytes against max_memory_allocated: {peaks}")
+    with open(os.path.join(a_dir, "metrics.csv"), newline="") as f:
+        import csv
+        rows = list(csv.DictReader(f))
+    all_lines = read_metrics(metrics_path)
+    check(len(rows) == len(all_lines) and all(
+        row[k] == (json.dumps(v) if isinstance(v, (list, dict)) else "" if v is None else str(v))
+        for row, line in zip(rows, all_lines) for k, v in line.items() if k != "time"),
+        "12f(a): the CSV's rows differ from metrics.jsonl")
+    check("moco_loss " in scrape.get("text", ""), "12f(a): /metrics scrape holds no loss gauge")
+    with open(os.path.join(a_dir, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    epochs = [e for e in events if e["name"] == "epoch"]
+    inner = [e for e in events if e["name"] in ("step", "data_wait", "device_wait")]
+    check(all(any(ep["tid"] == e["tid"] and ep["ts"] <= e["ts"]
+                  and e["ts"] + e["dur"] <= ep["ts"] + ep["dur"] + 1.0 for ep in epochs)
+              for e in inner), "12f(a): a step span outside every epoch span")
+    sampled = sorted({e["args"]["step"] for e in inner if e["name"] == "device_wait"})
+    check(sampled == [s for s in range(steps) if s % OBS_PROBE_EVERY == 0],
+          f"12f(a): device_wait on steps {sampled}")
+    check(sync_seen == [], f"12f(a): the step function synchronized: {sync_seen[:3]}")
+    hist = run_a["history"]
+    out["a"] = {
+        "sinks": cfg.sinks, "tensorboard": tb, "lines": len(lines),
+        "t_data_ms_median": float(np.median([r["t_data"] for r in lines])) * 1e3,
+        "t_step_ms_median": float(np.median([r["t_step"] for r in lines[TRAIN_WARMUP:]])) * 1e3,
+        "t_dispatch_ms_sampled": [r["t_dispatch"] * 1e3 for r in hist if "t_dispatch" in r],
+        "t_device_ms_sampled": [r["t_device"] * 1e3 for r in hist if "t_device" in r],
+        "hbm_peak_bytes": lines[-1]["hbm_peak_bytes"],
+        "hbm_state_bytes": lines[-1]["hbm_state_bytes"],
+        "hbm_headroom_bytes": lines[-1]["hbm_headroom_bytes"],
+        "step_sync_warnings": len(sync_seen), "trace_spans": len(events)}
+
+    # (b) the window against a wait after every step, from the same state and data
+    runs = {}
+    fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+    for label, every in (("window", 0), ("every", 1), ("every_again", 1)):
+        stamps = []
+        train_module.make_train_step = lambda *a, _s=stamps, **kw: timed_dispatches(
+            make(*a, **kw), _s)
+        try:
+            rcfg = dataclasses.replace(base, obs_probe_every=every, steps_per_epoch=EPOCH_STEPS)
+            run = train_module.train(rcfg, dataset=dataset, device="cuda", steps=steps + 2,
+                                     state=copy.deepcopy(seeded))
+        finally:
+            train_module.make_train_step = make
+        runs[label] = run
+        # 10 timed steps: from the first timed step's dispatch to the one
+        # after the last's (the window keeps dispatch at the card's pace)
+        wall = stamps[TRAIN_WARMUP + TRAIN_TIMED] - stamps[TRAIN_WARMUP]
+        out.setdefault("b", {})[f"imgs_per_s_{label}"] = TRAIN_TIMED * b / wall
+    launches["b"] = {"infonce_fwd": fi.infonce_stats.launches,
+                     "infonce_bwd": fi.infonce_dq.launches}
+    check(launches["b"] == {"infonce_fwd": 3 * (steps + 2), "infonce_bwd": 3 * (steps + 2)},
+          f"12f(b): InfoNCE launches {launches['b']}")
+    loss = {k: np.asarray([r["loss"] for r in run["history"]]) for k, run in runs.items()}
+    gap = float(np.max(np.abs(loss["every"] - loss["every_again"])))
+    diff = float(np.max(np.abs(loss["window"] - loss["every"])))
+    tol = max(2.0 ** -7 * float(np.max(np.abs(loss["every"]))), gap)
+    timed_hist = runs["every"]["history"][TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]
+    out["b"].update({
+        "t_dispatch_ms_median": float(np.median([r["t_dispatch"] for r in timed_hist])) * 1e3,
+        "t_device_ms_median": float(np.median([r["t_device"] for r in timed_hist])) * 1e3,
+        "step_ms_median_every": float(np.median([r["step_ms"] for r in timed_hist])),
+        "loss_max_diff_window_vs_every": diff, "loss_max_diff_every_vs_every": gap,
+        "loss_tolerance": tol})
+    check(diff <= tol, f"12f(b): losses differ by {diff} > {tol} (every-step runs {gap} apart)")
+    for k in ("every", "every_again"):
+        check((runs[k]["state"].queue_ptr, runs[k]["state"].step)
+              == (runs["window"]["state"].queue_ptr, runs["window"]["state"].step),
+              f"12f(b): final queue_ptr / step differ ({k})")
+    print(f"12f(b): imgs/s window {out['b']['imgs_per_s_window']:.1f}, wait every step "
+          f"{out['b']['imgs_per_s_every']:.1f} / {out['b']['imgs_per_s_every_again']:.1f}; "
+          f"t_dispatch {out['b']['t_dispatch_ms_median']:.2f} ms, t_device "
+          f"{out['b']['t_device_ms_median']:.2f} ms; loss gap {diff:.3g} (every-step runs "
+          f"{gap:.3g} apart)", flush=True)
+    del runs, run_a, seeded
+    torch.cuda.empty_cache()
+
+    # (c) the request waterfall behind phase 4's engine and index
+    params, stats = random_flax_encoder(base.moco, seed=SEED)
+    model = build_encoder(base.moco)
+    model.load_state_dict(encoder_from_flax(params, stats))
+    rng = np.random.default_rng(SEED)
+    rows = unit_rows(rng, K, DIM)
+    engine = InferenceEngine(model, IMG, device="cuda")
+    engine.warmup()
+    index = EmbeddingIndex(K, DIM, device="cuda")
+    index.snapshot(rows)
+    index.train_ivf(nlist=NLIST, nprobe=NPROBE)
+    index.prepare(engine.buckets, TOPK, modes=QUERY_MODES)
+    index.freeze()
+    reqs = [rng.integers(0, 256, (2, IMG, IMG, 3), np.uint8) for _ in range(OBS_REQUESTS)]
+
+    def serve(server, path="/neighbors?mode=ivf_fused"):
+        """Every request from OBS_CLIENTS client threads: (responses,
+        client-side latencies in ms), in request order."""
+        got, lat = [None] * len(reqs), [None] * len(reqs)
+
+        def client(k):
+            for j in range(k, len(reqs), OBS_CLIENTS):
+                t0 = time.perf_counter()
+                got[j] = post(server.port, path, reqs[j])
+                lat[j] = (time.perf_counter() - t0) * 1e3
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(OBS_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(all(g is not None for g in got), "12f(c): a request went unanswered")
+        return got, lat
+
+    c_dir = os.path.join(workdir, "c")
+    sink = obs_sinks.JsonlSink(c_dir)
+    server = ServeServer(engine, index=index, port=0, slo_ms=OBS_SLO_MS, neighbors_k=TOPK,
+                         neighbors_mode="ivf_fused", warmup=False, reqtrace=True, sink=sink,
+                         metrics_flush_s=0.25, workdir=c_dir, alert_spec="serve_default",
+                         recall_sample_every=4)
+    try:
+        # a first request warms the batcher thread (its first forward pays
+        # the thread's own library setup, ~1.5 s: PERF.md)
+        warm = post(server.port, "/neighbors?mode=ivf_fused", reqs[0])
+        ivf_scan.fused_cell_scores.launches = 0  # counts from here on are the path's
+        answers, _ = serve(server)
+        launches["c"] = {"ivf_cell_scores": ivf_scan.fused_cell_scores.launches}
+        time.sleep(0.6)  # a flush after the last request
+        flight = get(server.port, "/debug/flight")
+        slow_ms = 2 * OBS_SLO_MS
+        # the warm-up request alone may have burned the budget already
+        earlier = {path for path, _ in read_flight_dumps(c_dir)}
+        faults.install(f"slow@site=serve.engine_execute:ms={slow_ms:g}")
+        try:
+            slowed, _ = serve(server)
+        finally:
+            faults.clear()
+        deadline = time.time() + 15.0
+        while time.time() < deadline and not any(
+                path not in earlier and rec.get("reason") in BURN_ALERTS
+                for path, rec in read_flight_dumps(c_dir)):
+            time.sleep(0.1)
+    finally:
+        server.close()
+        sink.close()
+    check(launches["c"]["ivf_cell_scores"] > 0, "12f(c): the requests launched no cell scan")
+    ids = [a["request_id"] for a in [warm] + answers + slowed]
+    check(len(set(ids)) == len(ids), "12f(c): request ids repeat")
+    errors = validate_file(os.path.join(c_dir, "metrics.jsonl"))
+    check(errors == [], f"12f(c): metrics.jsonl schema: {errors[:3]}")
+    slines = read_metrics(os.path.join(c_dir, "metrics.jsonl"))
+    stages = ("queue_wait", "batch_assemble", "engine_execute", "index_query", "scatter")
+    traced = [r for r in slines if all(f"serve/trace_{s}_ms" in r for s in stages)]
+    check(traced and all(r.get("serve/burn_rate_60s") is not None for r in traced),
+          "12f(c): no line with the five stage means and the burn rates")
+    recall = [r["serve/recall_estimate"] for r in slines
+              if r.get("serve/recall_estimate") is not None]
+    check(recall, "12f(c): no recall estimate")
+    worst = max(abs(sum(s["dur_ms"] for s in w["stages"]) - w["total_ms"])
+                - max(0.05 * w["total_ms"], 1.0) for w in flight["requests"])
+    check(len(flight["requests"]) == OBS_REQUESTS + 1 and worst <= 0,
+          f"12f(c): a request's stage sum is off its total_ms by {worst:.3f} ms past the limit")
+    alerts = [rec for path, rec in read_flight_dumps(c_dir)
+              if path not in earlier and rec.get("reason") in BURN_ALERTS]
+    check(alerts, "12f(c): no burn alert dumped the flight recorder after the slow fault")
+    # the dump's slowest requests include slowed ones, and each of those
+    # blames engine_execute for at least the injected time
+    slowed_ids = {a["request_id"] for a in slowed}
+    blamed = [{s["stage"]: s["dur_ms"] for s in w["stages"]} for w in alerts[0]["slowest"]
+              if w["request_id"] in slowed_ids]
+    check(blamed and all(max(st, key=st.get) == "engine_execute"
+                         and st["engine_execute"] >= slow_ms for st in blamed),
+          f"12f(c): the dump's slowed requests do not blame engine_execute: {blamed[:2]}")
+
+    # the tracing cost: the same requests with reqtrace on and off, in turns
+    lat = {True: [], False: []}
+    for on in (True, False, False, True):
+        server = ServeServer(engine, index=index, port=0, slo_ms=OBS_SLO_MS, neighbors_k=TOPK,
+                             neighbors_mode="ivf_fused", warmup=False, reqtrace=on,
+                             alert_spec="serve_default" if on else "")
+        try:
+            post(server.port, "/neighbors?mode=ivf_fused", reqs[0])  # the thread's warm-up
+            lat[on] += serve(server)[1]
+        finally:
+            server.close()
+    pct = {on: (float(np.percentile(v, 50)), float(np.percentile(v, 99))) for on, v in lat.items()}
+    out["c"] = {
+        "requests": len(ids), "launches": launches["c"]["ivf_cell_scores"],
+        # each stage's median over the clean requests (/debug/flight)
+        "trace_stage_ms_median": {s: float(np.median([
+            sum(x["dur_ms"] for x in w["stages"] if x["stage"] == s)
+            for w in flight["requests"][1:]])) for s in STAGES},
+        "total_ms_median": float(np.median([w["total_ms"] for w in flight["requests"][1:]])),
+        "recall_estimate": recall[-1], "alert": alerts[0]["reason"],
+        "warm_up_request_engine_execute_ms": next(
+            x["dur_ms"] for x in flight["requests"][0]["stages"]
+            if x["stage"] == "engine_execute"),
+        "slowest_engine_execute_ms": [st["engine_execute"] for st in blamed[:3]],
+        "stage_sum_worst_excess_ms": worst,
+        "p50_ms_traced": pct[True][0], "p99_ms_traced": pct[True][1],
+        "p50_ms_untraced": pct[False][0], "p99_ms_untraced": pct[False][1],
+        "trace_overhead_pct_p50": (pct[True][0] / pct[False][0] - 1.0) * 100.0}
+    del server, engine, index, model
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"observability in {out['phase_s']:.1f} s: window {out['b']['imgs_per_s_window']:.1f} "
+          f"vs every step {out['b']['imgs_per_s_every']:.1f} imgs/s; /neighbors p50 "
+          f"{pct[True][0]:.2f} ms traced, {pct[False][0]:.2f} untraced; launches {launches}",
+          flush=True)
+    return out, launches
+
+
 def post(port, path, imgs):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=imgs.tobytes(),
@@ -2932,11 +3334,26 @@ def main() -> int:
     print(json.dumps({"train_to_serve": serve_out, "device": smi}))
     torch.cuda.empty_cache()
 
+    # -- observability: the run's telemetry, the window, the request waterfall --
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        obs_out, obs_launches = observability_phase(fused_infonce, ivf_scan, workdir)
+    finally:
+        shutil.rmtree(workdir)
+    print(json.dumps({"observability": obs_out, "device": smi}))
+    torch.cuda.empty_cache()
+    obs_infonce = {k: obs_launches["a"][k] + obs_launches["b"][k]
+                   for k in ("infonce_fwd", "infonce_bwd")}
+    for rec in train_kernels:
+        rec["launches"] += obs_infonce[rec["name"]]
+        rec["launches_12f"] = obs_infonce[rec["name"]]
+
     # -- the cell-scan kernel's own times --------------------------------------
     ivf_kernel = ivf_timing_phase(ivf_scan, feats_t, cell_rows, probes, buckets,
-                                  launches["ivf_cell_scores"] + serve_launches["ivf_cell_scores"],
-                                  max_err)
+                                  launches["ivf_cell_scores"] + serve_launches["ivf_cell_scores"]
+                                  + obs_launches["c"]["ivf_cell_scores"], max_err)
     ivf_kernel["launches_12e"] = serve_launches["ivf_cell_scores"]
+    ivf_kernel["launches_12f"] = obs_launches["c"]["ivf_cell_scores"]
     for rec in v3_kernels:
         if rec["name"] == "flash_fwd":
             rec["launches"] += serve_launches["flash_fwd"]

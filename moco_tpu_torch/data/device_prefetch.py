@@ -39,6 +39,7 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
+from moco_tpu_torch.obs.trace import span as obs_span
 from moco_tpu_torch.utils import faults
 from moco_tpu_torch.utils.locks import make_lock
 
@@ -69,13 +70,16 @@ def _ring_loop(host_iter: Iterator, transfer: Callable, q: queue.Queue,
         if device.type == "cuda":
             torch.cuda.set_device(device)
             stream = torch.cuda.Stream(device)
+        seq = 0
         with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
             for item in host_iter:
                 if stop.is_set():
                     return
                 t0 = time.perf_counter()
-                faults.maybe_delay(H2D_SITE)
-                batch, nbytes = transfer(item)
+                with obs_span("transfer", seq=seq):
+                    faults.maybe_delay(H2D_SITE)
+                    batch, nbytes = transfer(item)
+                seq += 1
                 ready = None
                 if stream is not None:
                     ready = torch.cuda.Event()

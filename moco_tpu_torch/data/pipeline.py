@@ -57,6 +57,7 @@ from moco_tpu_torch.data.augment import (
 )
 from moco_tpu_torch.data.datasets import build_dataset, draw_rrc_uniforms, rrc_boxes_from_uniforms
 from moco_tpu_torch.data.device_prefetch import DevicePrefetchRing, _responsive_put
+from moco_tpu_torch.obs.trace import span as obs_span
 from moco_tpu_torch.utils import faults, retry
 from moco_tpu_torch.utils.config import DataConfig
 from moco_tpu_torch.utils.device import resolve_device
@@ -340,7 +341,10 @@ class _HostPipeline:
                 raise
             return slot, np.asarray(labels, np.int32)
 
-        return retry.retry_call(_load, site="data.read")
+        # on the decode thread's track: decode time that overlaps the step
+        # shows as such, instead of inflating the step's data wait
+        with obs_span("host_decode", n=len(indices)):
+            return retry.retry_call(_load, site="data.read")
 
     def _local_crop_batch(self, global_indices: np.ndarray, epoch: int, step: int,
                           n_crops: int, scale: tuple, out_size: int) -> tuple[np.ndarray, np.ndarray]:
@@ -359,9 +363,10 @@ class _HostPipeline:
         u = draw_rrc_uniforms(rng, self.batch_size * n_crops)
         boxes = rrc_boxes_from_uniforms(u, np.repeat(dims, n_crops, axis=0), scale=scale)
         boxes = boxes.reshape(len(global_indices), n_crops, 4)
-        faults.maybe_delay("data.read")
-        raw, labels = retry.retry_call(self.dataset.load_crop_batch, global_indices, boxes,
-                                       out_size, pool=self._pool, site="data.read")
+        with obs_span("host_decode", n=len(global_indices), crops=n_crops):
+            faults.maybe_delay("data.read")
+            raw, labels = retry.retry_call(self.dataset.load_crop_batch, global_indices, boxes,
+                                           out_size, pool=self._pool, site="data.read")
         return raw, np.asarray(labels, np.int32)
 
     def epoch_order(self, epoch: int) -> np.ndarray:
@@ -470,7 +475,8 @@ class _AugmentedPipeline(_HostPipeline):
             copied = torch.cuda.Event()
             copied.record()
         try:
-            out = self.augment(hb, raw)
+            with obs_span("augment_dispatch", step=hb.step):
+                out = self.augment(hb, raw)
         finally:
             hb.slots.release(hb.slot, copied)
         return self._output(out, hb), hb.wire_bytes

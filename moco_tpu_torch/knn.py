@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from moco_tpu_torch.data.augment import eval_stats, normalize
+from moco_tpu_torch.obs.trace import span as obs_span
 from moco_tpu_torch.ops.losses import l2_normalize
 from moco_tpu_torch.serve.index import topk_cosine
 from moco_tpu_torch.utils.device import resolve_device
@@ -90,9 +91,14 @@ def knn_eval(backbone, train_dataset, test_dataset, num_classes: int, k: int = 2
              device="cuda", compute_dtype: str = "float32") -> float:
     """kNN top-1 (%) of the frozen backbone's features: the bank from
     `train_dataset`, the queries from `test_dataset`."""
-    train_f, train_y = extract_features(backbone, train_dataset, batch_size, image_size,
-                                        device, compute_dtype)
-    test_f, test_y = extract_features(backbone, test_dataset, batch_size, image_size,
-                                      device, compute_dtype)
-    preds = knn_classify(train_f, train_y, test_f, num_classes, k, temperature, device=device)
+    with obs_span("knn_eval", bank=len(train_dataset), test=len(test_dataset)):
+        with obs_span("knn_extract_bank"):
+            train_f, train_y = extract_features(backbone, train_dataset, batch_size,
+                                                image_size, device, compute_dtype)
+        with obs_span("knn_extract_test"):
+            test_f, test_y = extract_features(backbone, test_dataset, batch_size, image_size,
+                                              device, compute_dtype)
+        with obs_span("knn_classify"):
+            preds = knn_classify(train_f, train_y, test_f, num_classes, k, temperature,
+                                 device=device)
     return float(100.0 * np.mean(preds == test_y))

@@ -4,10 +4,14 @@ moco_tpu/obs/schema.py that its lines use (stdlib only, like the original).
 Line kinds (all carry `step` int + `time` float):
 
 - *training lines*: `loss` present -> require `epoch`/`lr`/`acc1`/`acc5`;
-  optionally the step times (`t_data`/`t_step`), the input-wire gauges of
-  the prefetch ring (`t_transfer`/`transfer_bytes`/`prefetch_depth_live`),
-  the health gauges (`ema_drift`, `ema_drift/<group>`, `logit_*`,
-  `feature_*`, `queue_age_*`), and the fault counters
+  optionally the step times (`t_data`/`t_step`, and `t_dispatch`/
+  `t_device` from the probe's latest sampled step), the device-memory
+  gauges (`hbm_live_bytes`/`hbm_peak_bytes`/`hbm_headroom_bytes`, number
+  or null) and the state's bytes (`hbm_state_bytes`), the input-wire
+  gauges of the prefetch ring
+  (`t_transfer`/`transfer_bytes`/`prefetch_depth_live`), the health
+  gauges (`ema_drift`, `ema_drift/<group>`, `logit_*`, `feature_*`,
+  `queue_age_*`), and the fault counters
   (`nan_steps`/`decode_failures`/`io_retries` when nonzero);
 - *event lines*: `event` in EVENT_KINDS instead of the metric fields: the
   guard's `nonfinite_loss`, the watchdog's `stall` (with its
@@ -18,9 +22,12 @@ Line kinds (all carry `step` int + `time` float):
 Serving lines (serve/server.py's metrics flusher) carry the `serve/*`
 family: latency and occupancy gauges, counters, the per-bucket and per-tier
 counts (numbers, or null before the first request), the latency histogram
-(a structured payload), the retrieval tier's gauges, and the served model's
-identity, whose digest is the one string in the family. An explicit field
-validator wins over its prefix family.
+(a structured payload), the retrieval tier's gauges and the sampled
+recall, the request-trace stage means (`serve/trace_<stage>_ms`), the SLO
+burn rates (`serve/burn_rate_<w>s`, and the freshness twin), the p99
+exemplar, and the served model's identity; the exemplar's request id and
+the model digest are the strings in the family. An explicit field
+validator wins over its prefix family, else the longest prefix.
 
 Numbers are finite or null: NaN/Inf literals are rejected at parse time
 (`loads_strict`), matching the writer's scrubbing. The JAX schema's
@@ -68,6 +75,10 @@ def _str_or_null(v: Any) -> bool:
     return v is None or isinstance(v, str)
 
 
+def _nonneg_or_null(v: Any) -> bool:
+    return v is None or (_num(v) and v >= 0)
+
+
 def _latency_hist(v: Any) -> bool:
     """The latency histogram: ascending finite bucket bounds (ms), one count
     per bucket plus the +Inf slot (per bucket, not cumulative), and the
@@ -97,9 +108,17 @@ FIELD_VALIDATORS = {
     "acc1": _num_or_null,
     "acc5": _num_or_null,
     "knn_top1": _num_or_null,
-    # step times
+    # step times (obs/stepstats.py)
     "t_data": _num,
     "t_step": _num,
+    "t_dispatch": _num_or_null,
+    "t_device": _num,
+    # device memory (null where there is no card) and the train state's
+    # bytes
+    "hbm_live_bytes": _num_or_null,
+    "hbm_peak_bytes": _num_or_null,
+    "hbm_headroom_bytes": _num_or_null,
+    "hbm_state_bytes": _int_like,
     # input wire (the prefetch ring): the last batch's transfer seconds,
     # its uint8 bytes, and the staged batches resident when it was taken
     "t_transfer": _num,
@@ -136,6 +155,17 @@ FIELD_VALIDATORS = {
     "serve/ivf_spill": lambda v: v is None or (_int_like(v) and v >= 0),
     "serve/ivf_occupancy": lambda v: v is None or (_num(v) and 0.0 <= v <= 1.0),
     "serve/latency_hist": _latency_hist,
+    # request-scoped serving (obs/reqtrace.py, obs/slo.py): the sampled
+    # recall of the approximate tier (null until a sample), the p99
+    # exemplar's request id (a string) and latency, the declared SLO
+    # objective, the measured tracing overhead, and the freshness
+    # objective (a replica without one omits it)
+    "serve/recall_estimate": lambda v: v is None or (_num(v) and 0.0 <= v <= 1.0),
+    "serve/p99_exemplar": _str_or_null,
+    "serve/p99_exemplar_ms": _nonneg_or_null,
+    "serve/slo_objective": lambda v: _num(v) and 0.0 < v < 1.0,
+    "serve/trace_overhead_pct": _num_or_null,
+    "serve/fresh_max_age_s": lambda v: _num(v) and v > 0,
     # the served model's identity (obs/quality.py): its checkpoint step and
     # parameter digest (null for a hand-built engine), and the checkpoint
     # step of the last ingested block (null without one)
@@ -154,6 +184,11 @@ PREFIX_VALIDATORS = {
     "ema_drift/": _num_or_null,
     "alert/": _num,
     "serve/": _num_or_null,
+    # stage means (ms) and burn rates: null while a window is empty, never
+    # negative
+    "serve/trace_": _nonneg_or_null,
+    "serve/burn_rate_": _nonneg_or_null,
+    "serve/fresh_burn_rate_": _nonneg_or_null,
 }
 
 
@@ -215,6 +250,11 @@ def validate_lines(lines: Iterable[str]) -> list[str]:
 def validate_file(path: str) -> list[str]:
     with open(path) as f:
         return validate_lines(f)
+
+
+def required_train_keys() -> tuple:
+    """The keys every training line carries."""
+    return TRAIN_REQUIRED + ("t_data", "t_step", "hbm_live_bytes")
 
 
 def read_metrics(path: str) -> list[dict]:

@@ -11,8 +11,19 @@ The submit queue is bounded, every blocking put polls a stop flag,
 `close()` fails all pending futures with `BatcherClosedError` and joins
 the thread, and `drain()` flushes what was accepted before it closes.
 
-Request tracing, the SLO burn tracker and the fault-injection hooks of
-the JAX package come with the observability slice.
+Request tracing (obs/reqtrace.py): a future may carry a `RequestTrace`;
+the batcher thread stamps `queue_wait` (per request) and the stages its
+flush shares with every rider (`batch_assemble`, `engine_execute`,
+`index_query`, `scatter`) onto it, perf_counter pairs only. A `run_batch`
+with a keyword-only `stages` parameter splits `engine_execute` from
+`index_query` (the engine waits on the card inside each stage's window
+to do so). With `reqtrace=True` the batcher allocates traces for submits
+that carry none; with tracing off the per-request cost is a `None` check.
+`ServeMetrics` keeps the stage means (`serve/trace_<stage>_ms`), the SLO
+burn rates of an attached `SLOBurnTracker` (`serve/burn_rate_<w>s`), the
+sampled online recall (`serve/recall_estimate`) and the p99 exemplar.
+The `slow@site=serve.batch_assemble` and `serve.scatter` faults sleep
+inside their stages.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from moco_tpu_torch.obs.reqtrace import RequestIdAllocator, RequestTrace
+from moco_tpu_torch.utils import faults
 from moco_tpu_torch.utils.locks import make_lock
 
 # cumulative latency histogram bounds (ms) of `serve/latency_hist`
@@ -56,11 +69,12 @@ class ServeFuture:
     the batcher scatters this request's rows back (or fails it)."""
 
     def __init__(self, num_rows: int, submitted_at: float, want_neighbors: bool,
-                 mode: Optional[str] = None):
+                 mode: Optional[str] = None, trace: Optional[RequestTrace] = None):
         self.num_rows = num_rows
         self.submitted_at = submitted_at
         self.want_neighbors = want_neighbors
         self.mode = mode  # neighbor tier this rider asked for (None = default)
+        self.trace = trace  # request-scoped waterfall (None = tracing off)
         self._done = threading.Event()
         self._value: Optional[dict] = None
         self._error: Optional[BaseException] = None
@@ -85,12 +99,19 @@ class ServeFuture:
 
 
 class ServeMetrics:
-    """Thread-safe serving gauges; `payload()` is the `serve/*` line."""
+    """Thread-safe serving gauges; `payload()` is the `serve/*` line. `burn`
+    (obs/slo.py) gets one ok/violation observation per completed request."""
 
-    def __init__(self, slo_ms: float):
+    def __init__(self, slo_ms: float, burn=None):
         self.slo_ms = float(slo_ms)
         self._lock = make_lock("serve.metrics")
         self._latencies_ms: deque = deque(maxlen=LATENCY_WINDOW)
+        self._recalls: deque = deque(maxlen=LATENCY_WINDOW)
+        self.burn = burn
+        self._exemplar: Optional[tuple[float, str]] = None  # (ms, request_id)
+        # per-stage request-trace sums over the current payload window
+        self._stage_sums_ms: dict[str, float] = {}
+        self._stage_reqs = 0
         self._bucket_counts: dict[int, int] = {}
         self._valid_rows = 0
         self._padded_rows = 0
@@ -104,7 +125,16 @@ class ServeMetrics:
         # the rest under "default"
         self._mode_counts: dict[str, int] = {}
 
-    def record_request(self, latency_s: float, mode: Optional[str] = None) -> None:
+    def record_recall(self, recall: float) -> None:
+        """One sampled recall@k observation of the approximate tier against
+        the exact one on the same queries; `serve/recall_estimate` is the
+        window's mean."""
+        with self._lock:
+            self._recalls.append(float(recall))
+
+    def record_request(self, latency_s: float, request_id: Optional[str] = None,
+                       trace: Optional[RequestTrace] = None,
+                       mode: Optional[str] = None) -> None:
         ms = latency_s * 1e3
         with self._lock:
             key = mode or "default"
@@ -116,6 +146,14 @@ class ServeMetrics:
                 self._violations += 1
             self._hist_counts[bisect_left(LATENCY_BUCKETS_MS, ms)] += 1
             self._hist_sum_ms += ms
+            if request_id is not None and (self._exemplar is None or ms > self._exemplar[0]):
+                self._exemplar = (ms, request_id)
+            if trace is not None:
+                for stage, dur_ms in trace.stage_ms().items():
+                    self._stage_sums_ms[stage] = self._stage_sums_ms.get(stage, 0.0) + dur_ms
+                self._stage_reqs += 1
+        if self.burn is not None:
+            self.burn.record(ms <= self.slo_ms)
 
     def record_flush(self, executed: list[tuple[int, int]]) -> None:
         with self._lock:
@@ -125,8 +163,8 @@ class ServeMetrics:
                 self._valid_rows += valid
 
     def payload(self) -> dict:
-        """`serve/*` fields; qps is over the window since the previous
-        payload() call."""
+        """`serve/*` fields; qps, the stage means and the exemplar are over
+        the window since the previous payload() call."""
         with self._lock:
             now = time.perf_counter()
             qps = self._win_completed / max(now - self._win_t0, 1e-9)
@@ -145,17 +183,38 @@ class ServeMetrics:
                 "serve/requests": self._completed,
                 "serve/slo_violations": self._violations,
                 "serve/slo_ms": self.slo_ms,
+                # null until the first sample (and without the estimator)
+                "serve/recall_estimate": (
+                    sum(self._recalls) / len(self._recalls) if self._recalls else None
+                ),
                 "serve/latency_hist": {
                     "le": list(LATENCY_BUCKETS_MS),
                     "counts": list(self._hist_counts),
                     "sum": round(self._hist_sum_ms, 3),
                     "count": self._completed,
+                    **({"exemplar": {"request_id": self._exemplar[1],
+                                     "latency_ms": round(self._exemplar[0], 3)}}
+                       if self._exemplar is not None else {}),
                 },
+                # the window's worst request (null with tracing off)
+                "serve/p99_exemplar": self._exemplar[1] if self._exemplar is not None else None,
+                "serve/p99_exemplar_ms": (
+                    round(self._exemplar[0], 3) if self._exemplar is not None else None
+                ),
             }
+            if self._stage_reqs:
+                for stage, total in sorted(self._stage_sums_ms.items()):
+                    out[f"serve/trace_{stage}_ms"] = round(total / self._stage_reqs, 3)
+                out["serve/trace_requests"] = self._stage_reqs
+            self._exemplar = None
+            self._stage_sums_ms = {}
+            self._stage_reqs = 0
             for bucket, count in sorted(self._bucket_counts.items()):
                 out[f"serve/bucket_{bucket}"] = count
             for m, count in sorted(self._mode_counts.items()):
                 out[f"serve/mode_{m}"] = count
+        if self.burn is not None:
+            out.update(self.burn.payload())
         return out
 
 
@@ -164,9 +223,13 @@ class ContinuousBatcher:
 
     `run_batch(images, want_neighbors) -> (dict of row-arrays, executed)`;
     a `run_batch` with three positional parameters also receives the
-    sorted tuple of the neighbor modes the micro-batch's riders asked for.
-    Every returned array's rows align with the input rows, so the scatter
-    is a slice. `max_batch` is normally the engine's largest bucket."""
+    sorted tuple of the neighbor modes the micro-batch's riders asked for,
+    and one with a keyword-only `stages` parameter gets a dict to
+    accumulate `engine_execute` / `index_query` seconds in when a rider is
+    traced. Every returned array's rows align with the input rows, so the
+    scatter is a slice. `max_batch` is normally the engine's largest
+    bucket; `reqtrace=True` allocates a trace (ids `r<replica_index>-<n>`)
+    for each submit that carries none."""
 
     def __init__(
         self,
@@ -175,15 +238,20 @@ class ContinuousBatcher:
         slo_ms: float = 100.0,
         queue_depth: int = 256,
         metrics: Optional[ServeMetrics] = None,
+        reqtrace: bool = False,
+        replica_index: int = 0,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self._run_batch = run_batch
+        params = inspect.signature(run_batch).parameters
         positional = [
-            p for p in inspect.signature(run_batch).parameters.values()
+            p for p in params.values()
             if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
         ]
         self._pass_modes = len(positional) >= 3
+        self._pass_stages = "stages" in params
+        self._ids = RequestIdAllocator(replica_index) if reqtrace else None
         self.max_batch = int(max_batch)
         self.slo_ms = float(slo_ms)
         # half the SLO budget may be spent coalescing; the rest belongs
@@ -200,13 +268,17 @@ class ContinuousBatcher:
     # -- client side -----------------------------------------------------
 
     def submit(self, images: np.ndarray, want_neighbors: bool = False,
-               mode: Optional[str] = None) -> ServeFuture:
-        """Enqueue an (n, H, W, C) uint8 request; returns its future.
-        Raises BatcherClosedError when the batcher is shut or draining."""
+               mode: Optional[str] = None, trace: Optional[RequestTrace] = None) -> ServeFuture:
+        """Enqueue an (n, H, W, C) uint8 request; returns its future. `trace`
+        is an ingress-stamped RequestTrace (allocated under reqtrace=True
+        when None). Raises BatcherClosedError when the batcher is shut or
+        draining."""
         images = np.asarray(images, np.uint8)
         if images.ndim != 4 or images.shape[0] < 1:
             raise ValueError(f"request must be (n>=1, H, W, C) uint8, got {images.shape}")
-        fut = ServeFuture(images.shape[0], time.perf_counter(), want_neighbors, mode)
+        if trace is None and self._ids is not None:
+            trace = self._ids.new_trace(images.shape[0])
+        fut = ServeFuture(images.shape[0], time.perf_counter(), want_neighbors, mode, trace)
         if self._draining.is_set():
             raise BatcherClosedError("batcher is draining")
         if self._stop.is_set() or not _responsive_put(self._q, self._stop, (images, fut)):
@@ -218,27 +290,64 @@ class ContinuousBatcher:
     def _flush(self, pending: list) -> None:
         if not pending:
             return
+        # queue_wait closes for every rider as its flush begins; the other
+        # stages are shared by the flush's riders (obs/reqtrace.py)
+        t_flush = time.perf_counter()
+        tracing = any(f.trace is not None for _, f in pending)
+        if tracing:
+            for _, fut in pending:
+                if fut.trace is not None:
+                    fut.trace.stamp("queue_wait", fut.submitted_at, t_flush)
+        faults.maybe_slow("serve.batch_assemble")
         images = np.concatenate([img for img, _ in pending])
+        t_assembled = time.perf_counter()
         want_neighbors = any(f.want_neighbors for _, f in pending)
+        kw = {"stages": {}} if (tracing and self._pass_stages) else {}
         try:
+            t_run0 = time.perf_counter()
             if self._pass_modes:
                 modes = tuple(sorted(
                     {f.mode for _, f in pending if f.want_neighbors and f.mode}
                 ))
-                results, executed = self._run_batch(images, want_neighbors, modes)
+                results, executed = self._run_batch(images, want_neighbors, modes, **kw)
             else:
-                results, executed = self._run_batch(images, want_neighbors)
+                results, executed = self._run_batch(images, want_neighbors, **kw)
+            t_run1 = time.perf_counter()
         except Exception as e:  # the batch's riders get the error, the thread lives on
             for _, fut in pending:
                 fut._fail(e)
             return
         self.metrics.record_flush(executed)
+        if tracing:
+            # contiguous engine / query intervals from the run's start: the
+            # durations are exact; host time the stages did not cover rides
+            # the engine stage
+            stages = kw.get("stages")
+            if stages:
+                engine_s = stages.get("engine_execute", 0.0)
+                query_s = stages.get("index_query", 0.0)
+                engine_s += max((t_run1 - t_run0) - engine_s - query_s, 0.0)
+            else:
+                engine_s, query_s = t_run1 - t_run0, 0.0
+        faults.maybe_slow("serve.scatter")
+        t_scatter = time.perf_counter()
         offset = 0
         for _, fut in pending:
             rows = slice(offset, offset + fut.num_rows)
+            tr = fut.trace
+            if tr is not None:
+                tr.stamp("batch_assemble", t_flush, t_assembled)
+                tr.stamp("engine_execute", t_run0, t_run0 + engine_s)
+                if query_s > 0.0:
+                    tr.stamp("index_query", t_run0 + engine_s, t_run0 + engine_s + query_s)
+                # scatter closes at THIS request's resolve, so its stage sum
+                # tracks its measured latency
+                tr.stamp("scatter", t_scatter, time.perf_counter())
             fut._resolve({k: v[rows] for k, v in results.items()})
             offset += fut.num_rows
-            self.metrics.record_request(fut.latency_s, mode=fut.mode)
+            self.metrics.record_request(fut.latency_s,
+                                        request_id=tr.req_id if tr is not None else None,
+                                        trace=tr, mode=fut.mode)
 
     def _loop(self) -> None:
         pending: list = []

@@ -16,6 +16,15 @@ ResNet or a ViT: `channels_last` reorders only 4-D tensors (the
 convolutions, a ViT's patch embedding), never a Linear's weight.
 Whole-model capture (CUDA graphs) is later work.
 
+Request tracing: `embed`, `embed_and_query` and `embed_and_query_modes`
+take `stages`, a dict they add `engine_execute` and `index_query` seconds
+to. Timing a stage waits for the card inside its window (the forward's
+stream after the encoder; the index query returns host arrays), so the
+split is honest under asynchronous launches; that wait is the tracing
+cost. Each chunk's forward is a `serve_embed` span and each query a
+`serve_query` span, and `slow@site=serve.engine_execute` sleeps inside
+the engine stage.
+
 `load_serving_encoder` reads a pretraining checkpoint for serving: its key
 (EMA) encoder and its queue, which `EmbeddingIndex.from_train_queue` turns
 into the index `/neighbors` answers from.
@@ -25,13 +34,17 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import time
+
 import numpy as np
 import torch
 from torch import nn
 
 from moco_tpu_torch.data.augment import eval_stats, normalize
 from moco_tpu_torch.lincls import restore_pretrain_state
+from moco_tpu_torch.obs.trace import span as obs_span
 from moco_tpu_torch.ops.losses import l2_normalize
+from moco_tpu_torch.utils import faults
 from moco_tpu_torch.utils.device import resolve_device
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
@@ -138,6 +151,9 @@ class InferenceEngine:
     def _run_bucket(self, padded: np.ndarray) -> torch.Tensor:
         """One forward on an exactly-bucket-shaped uint8 batch; the result
         stays on the device."""
+        # the request trace's engine_execute stage
+        # (slow@site=serve.engine_execute)
+        faults.maybe_slow("serve.engine_execute")
         bucket = padded.shape[0]
         if bucket not in self._prepared:
             self._prepare(bucket)
@@ -163,19 +179,37 @@ class InferenceEngine:
                 padded[: chunk.shape[0]] = chunk
             yield padded, chunk.shape[0], bucket
 
-    def embed(self, images: np.ndarray) -> tuple[np.ndarray, list[Tuple[int, int]]]:
+    def _forward_stage(self, padded: np.ndarray, n: int, bucket: int,
+                       stages: Optional[dict]) -> torch.Tensor:
+        """One chunk's forward in its `serve_embed` span; with `stages`, the
+        card is waited on inside the engine_execute window."""
+        with obs_span("serve_embed", bucket=bucket, valid=n):
+            if stages is None:
+                return self._run_bucket(padded)
+            t0 = time.perf_counter()
+            feats = self._run_bucket(padded)
+            if feats.is_cuda:
+                torch.cuda.current_stream(feats.device).synchronize()
+            stages["engine_execute"] = (stages.get("engine_execute", 0.0)
+                                        + time.perf_counter() - t0)
+            return feats
+
+    def embed(self, images: np.ndarray, stages: Optional[dict] = None
+              ) -> tuple[np.ndarray, list[Tuple[int, int]]]:
         """L2-normalized (n, dim) f32 embeddings of an (n, H, W, 3) uint8
         batch, plus the executed (bucket, valid_rows) pairs. Padding rows
-        are sliced away before anything downstream sees them."""
+        are sliced away before anything downstream sees them. `stages`: the
+        request trace's seconds (module docstring)."""
         outs, executed = [], []
         for padded, n, bucket in self._padded_chunks(images):
-            outs.append(self._run_bucket(padded)[:n].cpu().numpy())
+            outs.append(self._forward_stage(padded, n, bucket, stages)[:n].cpu().numpy())
             executed.append((bucket, n))
         return np.concatenate(outs), executed
 
-    def embed_and_query(self, images: np.ndarray, index, k: int):
+    def embed_and_query(self, images: np.ndarray, index, k: int,
+                        stages: Optional[dict] = None):
         """(embeddings, scores, indices, executed) against the exact tier."""
-        emb, per_mode, executed = self.embed_and_query_modes(images, index, k)
+        emb, per_mode, executed = self.embed_and_query_modes(images, index, k, stages=stages)
         scores, idx = per_mode["exact"]
         return emb, scores, idx, executed
 
@@ -186,17 +220,24 @@ class InferenceEngine:
         k: int,
         modes: Sequence[str] = ("exact",),
         nprobe: Optional[int] = None,
+        stages: Optional[dict] = None,
     ) -> tuple[np.ndarray, dict, list[Tuple[int, int]]]:
         """(embeddings, {mode: (scores, indices)}, executed): one forward
         per padded chunk, then one index query per requested tier on the
         same device features, at the padded bucket shape the index was
-        prepared for; padding rows' results are sliced away."""
+        prepared for; padding rows' results are sliced away. `stages`: the
+        request trace's engine_execute / index_query seconds."""
         outs, executed = [], []
         per_mode: dict = {mode: ([], []) for mode in modes}
         for padded, n, bucket in self._padded_chunks(images):
-            feats = self._run_bucket(padded)  # (bucket, dim) on the device
+            feats = self._forward_stage(padded, n, bucket, stages)  # (bucket, dim), device
             for mode in modes:
-                scores, idx = index.query(feats, k, mode=mode, nprobe=nprobe)
+                with obs_span("serve_query", bucket=bucket, k=k, mode=mode):
+                    t0 = time.perf_counter()
+                    scores, idx = index.query(feats, k, mode=mode, nprobe=nprobe)  # host arrays
+                    if stages is not None:
+                        stages["index_query"] = (stages.get("index_query", 0.0)
+                                                 + time.perf_counter() - t0)
                 per_mode[mode][0].append(scores[:n])
                 per_mode[mode][1].append(idx[:n])
             outs.append(feats[:n].cpu().numpy())

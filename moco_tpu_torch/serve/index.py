@@ -32,6 +32,7 @@ import torch
 
 from moco_tpu_torch.ops.ivf_scan import fused_cell_scores
 from moco_tpu_torch.ops.losses import l2_normalize
+from moco_tpu_torch.utils import faults
 from moco_tpu_torch.utils.device import resolve_device
 
 DEFAULT_KMEANS_ITERS = 10
@@ -446,6 +447,8 @@ class EmbeddingIndex:
         (mode, m, k, nprobe) must be a prepared shape. Modes: "exact" (the
         oracle), "ivf" (`nprobe` cells, default the trained width),
         "ivf_fused" (the same scan through the cell-scan kernel)."""
+        # the request trace's index_query stage (slow@site=serve.index_query)
+        faults.maybe_slow("serve.index_query")
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         m, k = q.shape[0], int(k)
         np_eff = self._require(mode, nprobe)

@@ -17,47 +17,79 @@ Endpoints:
 - `GET /healthz` — `{"ok": true, "warm": ..., "draining": false}` once
   warm; `ok` turns false while draining, so a router stops sending here
   before intake shuts.
+- `GET /debug/flight` — the flight recorder's snapshot (the slowest
+  requests' waterfalls first, then the ring and the recent metric lines),
+  also dumped to `<workdir>/flight_<ts>.json` when there is a workdir.
 - `POST /admin/drain` (`?timeout=` seconds, default 30) — `drain()`:
   answers once every accepted request has been flushed, or the timeout
   passed (`"drained": false`).
 
 Requests flow through the ContinuousBatcher, so concurrent clients share
 padded-bucket executions; handler threads only block on their own
-future. With a `sink` (e.g. obs/sinks.py's `JsonlSink`), a flusher thread
-writes the `/stats` gauges every `metrics_flush_s` seconds (obs/schema.py's
-`serve/*` family); a failing sink never takes serving down. `close()`
-joins the flusher, the HTTP thread and the batcher, then writes a final
-line.
+future. A flusher thread takes the `/stats` gauges every `metrics_flush_s`
+seconds, feeds the flight recorder and the alert engine, renders the
+request spans, and writes the line to the `sink` when there is one (e.g.
+obs/sinks.py's `JsonlSink`; obs/schema.py's `serve/*` family); a failing
+sink never takes serving down. `close()` joins the flusher, the HTTP
+thread and the batcher, then flushes a final line.
 
-Request tracing, the flight recorder, alerts, the SLO burn and freshness
-trackers, the recall estimator, `/ingest` and `/debug/flight` of the JAX
-server come with a later slice: the constructor refuses their arguments.
+Request-scoped observability (obs/{reqtrace,slo,flight}.py), as in the JAX
+server: with `reqtrace=True` (the default) every request gets a
+replica-scoped id (`request_id` in its response; an `X-Trace-Id` /
+`X-Parent-Span` context is adopted) and a stage-stamped waterfall
+(`ingress -> queue_wait -> batch_assemble -> engine_execute ->
+index_query -> scatter -> respond`; `respond` runs from the result's
+resolve, so the handler thread's wake counts in it, where JAX's starts
+once the thread runs). Completed waterfalls feed a bounded
+flight-recorder ring, the `serve/trace_<stage>_ms` means, the latency
+histogram's p99 exemplar and, with a `workdir`, Perfetto request spans in
+`trace_events.s<replica>.jsonl` (anchored by `heartbeat.s<replica>.json`).
+An `SLOBurnTracker` turns `slo_ms` into `serve/burn_rate_<w>s`; an
+`AlertEngine` over the flushed lines (`alert_spec="serve_default"`:
+obs/slo.py's rules) dumps the flight recorder when a rule fires. With an
+approximate `neighbors_mode`, every `recall_sample_every`-th neighbors
+micro-batch also runs the exact tier on the same features and records
+the top-k overlap (`serve/recall_estimate`). The `slow@site=serve.ingress`
+and `serve.respond` faults sleep in the handler's stages. `metrics_port`
+and `process_index` apply `obs/sinks.py::resolve_serve_port`'s offset
+rule to a non-zero `port`.
+
+The freshness SLO and `/ingest` come with a later slice: the constructor
+refuses `fresh_max_age_s` and `fresh_objective`.
 """
 
 from __future__ import annotations
 
 import http.server
 import json
+import os
+import socket
 import sys
 import threading
+import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
 
+from moco_tpu_torch.obs import ctxprop
+from moco_tpu_torch.obs.alerts import AlertEngine, parse_rules
+from moco_tpu_torch.obs.flight import FlightRecorder
+from moco_tpu_torch.obs.reqtrace import RequestIdAllocator, emit_request_spans
+from moco_tpu_torch.obs.sinks import resolve_serve_port
+from moco_tpu_torch.obs.slo import DEFAULT_WINDOWS, SLOBurnTracker, serve_alert_spec
+from moco_tpu_torch.obs.trace import Tracer, get_tracer
 from moco_tpu_torch.serve.batcher import BatcherClosedError, ContinuousBatcher, ServeMetrics
 from moco_tpu_torch.serve.index import QUERY_MODES
+from moco_tpu_torch.utils import faults
 from moco_tpu_torch.utils.locks import make_lock
 
 DEFAULT_NEIGHBORS_K = 5
-# the JAX server's arguments for what comes with a later slice of the port:
-# request tracing, the flight recorder, alerts, the SLO burn and freshness
-# trackers, the recall estimator and the metrics port's offset rule. Each
-# is accepted only with a value that asks for none of it (False, None, 0).
-LATER_SLICE_ARGS = frozenset({
-    "reqtrace", "flight_requests", "alert_spec", "slo_objective", "burn_windows",
-    "fresh_max_age_s", "fresh_objective", "recall_sample_every", "metrics_port",
-    "process_index",
-})
+DEFAULT_RECALL_SAMPLE_EVERY = 8
+# the JAX server's arguments for the freshness SLO, which comes with the
+# port's `/ingest`: each is accepted only with a value that asks for none
+# of it (None, 0)
+LATER_SLICE_ARGS = frozenset({"fresh_max_age_s", "fresh_objective"})
 
 
 class _QuietHTTPServer(http.server.ThreadingHTTPServer):
@@ -80,7 +112,8 @@ class ServeServer:
     and every mode is accepted. `sink=None` keeps the gauges in-process
     (`/stats` only). `workdir` and `replica_index` name this replica;
     `model_step` and `model_digest` are the served model's identity
-    (obs/quality.py)."""
+    (obs/quality.py). The request-scoped observability arguments and their
+    defaults are JAX's (module docstring)."""
 
     def __init__(
         self,
@@ -88,15 +121,23 @@ class ServeServer:
         index=None,
         host: str = "127.0.0.1",
         port: int = 0,
+        metrics_port: int = 0,
+        process_index: int = 0,
         slo_ms: float = 100.0,
         neighbors_k: int = DEFAULT_NEIGHBORS_K,
         neighbors_mode: str = "exact",
         nprobe: int = 0,
+        recall_sample_every: int = DEFAULT_RECALL_SAMPLE_EVERY,
         sink=None,
         metrics_flush_s: float = 1.0,
         warmup: bool = True,
         workdir: Optional[str] = None,
         replica_index: int = 0,
+        reqtrace: bool = True,
+        slo_objective: float = 0.99,
+        burn_windows=DEFAULT_WINDOWS,
+        alert_spec: str = "serve_default",
+        flight_requests: int = 512,
         model_step: Optional[int] = None,
         model_digest: Optional[str] = None,
         **later,
@@ -106,28 +147,55 @@ class ServeServer:
                 raise TypeError(f"ServeServer() got an unexpected keyword argument {name!r}")
             if value:
                 raise ValueError(
-                    f"ServeServer({name}={value!r}): request tracing, the flight recorder, "
-                    "alerts, the SLO burn and freshness trackers and the recall estimator "
-                    "come with a later slice of the port"
+                    f"ServeServer({name}={value!r}): the freshness SLO comes with a later "
+                    "slice of the port (with /ingest)"
                 )
         if neighbors_mode not in QUERY_MODES:
             raise ValueError(
                 f"neighbors_mode must be one of {QUERY_MODES}, got {neighbors_mode!r}"
             )
-        if sink is not None and not metrics_flush_s > 0:
+        if not metrics_flush_s > 0:
             raise ValueError(f"metrics_flush_s must be > 0, got {metrics_flush_s}")
         self.engine = engine
         self.index = index
         self.neighbors_k = int(neighbors_k)
         self.neighbors_mode = neighbors_mode
         self.nprobe = int(nprobe) or None
+        self.recall_sample_every = int(recall_sample_every)
         self.workdir = workdir
         self.replica_index = int(replica_index)
         self.model_step = int(model_step) if model_step is not None else None
         self.model_digest = model_digest
         # the checkpoint step of the last /ingest block: none without /ingest
         self.ingest_ckpt_step = None
-        self.metrics = ServeMetrics(slo_ms)
+        # request-scoped observability: replica-tagged ids and waterfalls,
+        # burn rates over the declared SLO, the flight recorder, and the
+        # alert engine that dumps it; all off the request path but the stamps
+        self._ids = RequestIdAllocator(self.replica_index) if reqtrace else None
+        burn = SLOBurnTracker(slo_ms, objective=slo_objective, windows=burn_windows)
+        self.metrics = ServeMetrics(slo_ms, burn=burn)
+        self.flight = FlightRecorder(max_requests=flight_requests, replica=self.replica_index)
+        spec = (serve_alert_spec(slo_ms, windows=burn.windows)
+                if alert_spec == "serve_default" else alert_spec)
+        self._alerts = (AlertEngine(parse_rules(spec), workdir=workdir,
+                                    process_index=self.replica_index, on_fire=self._on_alert)
+                        if spec else None)
+        # the request spans' stream: the process's tracer when one is
+        # installed (a training run in this process), else this replica's
+        # own beside the training family, anchored for trace_merge
+        self._tracer = get_tracer()
+        self._own_tracer = None
+        if self._tracer is None and workdir:
+            self._own_tracer = self._tracer = Tracer(
+                jsonl_path=os.path.join(workdir, f"trace_events.s{self.replica_index}.jsonl"),
+                process_index=self.replica_index)
+        if workdir and self._tracer is not None:
+            self._write_serve_anchor()
+        # completed traces awaiting span emission, drained by the flusher;
+        # bounded, so a stalled flusher drops spans rather than grow
+        self._span_pending: deque = deque(maxlen=4 * flight_requests)
+        self._lane = 0
+        self._neighbor_flushes = 0
         self._sink = sink
         self._flush_step = 0
         self._stop = threading.Event()
@@ -172,10 +240,20 @@ class ServeServer:
                         "ingest_ckpt_step": server.ingest_ckpt_step,
                         "replica": server.replica_index,
                     })
+                elif path == "/debug/flight":
+                    # the ring on demand: dumped to disk when there is a
+                    # workdir, returned either way
+                    body = server.flight.snapshot()
+                    if server.workdir:
+                        body["dump_path"] = server.flight.dump(
+                            server.workdir, reason="debug_request",
+                            extra={"slo_ms": server.metrics.slo_ms})
+                    self._json(200, body)
                 else:
                     self.send_error(404)
 
             def do_POST(self):  # noqa: N802
+                t_arrival = time.perf_counter()
                 path, _, query = self.path.partition("?")
                 if path == "/admin/drain":
                     self._handle_drain(query)
@@ -183,6 +261,7 @@ class ServeServer:
                 if path not in ("/embed", "/neighbors"):
                     self.send_error(404)
                     return
+                faults.maybe_slow("serve.ingress")
                 try:
                     images = self._read_images()
                 except ValueError as e:
@@ -199,12 +278,26 @@ class ServeServer:
                         f"(serving: {sorted(server._prepared_modes)})"
                     })
                     return
+                # a propagated trace context (the fleet's front door) makes
+                # this waterfall a child of the sender's span
+                ctx = ctxprop.parse(self.headers.get("X-Trace-Id"),
+                                    self.headers.get("X-Parent-Span"))
+                trace = None
+                if server._ids is not None:
+                    # backdated to the arrival: ingress covers the body read
+                    trace = server._ids.new_trace(images.shape[0], t0=t_arrival, ctx=ctx)
+                    trace.stamp("ingress", t_arrival, time.perf_counter())
                 try:
-                    fut = server.batcher.submit(images, want_neighbors=want_neighbors, mode=mode)
+                    fut = server.batcher.submit(images, want_neighbors=want_neighbors,
+                                                mode=mode, trace=trace)
                     out = fut.result(timeout=30.0)
                 except (BatcherClosedError, TimeoutError) as e:
                     self._json(503, {"error": str(e)})
                     return
+                # respond runs from the result's resolve: this thread's wake
+                # after it belongs to the request's answer too
+                t_respond = fut.submitted_at + fut.latency_s
+                faults.maybe_slow("serve.respond")
                 body = {"embedding": out["embedding"].tolist()}
                 if want_neighbors:
                     k = _query_k(query, server.neighbors_k)
@@ -212,7 +305,16 @@ class ServeServer:
                     body["indices"] = out[f"indices:{eff}"][:, :k].tolist()
                     body["scores"] = out[f"scores:{eff}"][:, :k].tolist()
                     body["mode"] = eff
+                if trace is not None:
+                    body["request_id"] = trace.req_id
+                    if trace.trace_id is not None:
+                        # the waterfall as stamped so far rides back to the
+                        # sender, which stitches this hop in band
+                        body["trace"] = trace.waterfall()
                 self._json(200, body)
+                if trace is not None:
+                    trace.stamp("respond", t_respond, time.perf_counter())
+                    server._complete(trace)
 
             def _handle_drain(self, query: str) -> None:
                 """Drain synchronously: the answer comes once every accepted
@@ -252,38 +354,103 @@ class ServeServer:
             def log_message(self, *a):  # silence per-request stderr lines
                 pass
 
-        self._server = _QuietHTTPServer((host, port), Handler)
+        self._server = _QuietHTTPServer(
+            (host, resolve_serve_port(port, metrics_port, process_index)), Handler)
         self.host = host
         self.port = self._server.server_address[1]
         self._thread = threading.Thread(
             target=self._server.serve_forever, name="serve_http", daemon=True
         )
         self._thread.start()
-        self._flusher = None
-        if sink is not None:
-            self._flusher = threading.Thread(
-                target=self._flush_loop, args=(float(metrics_flush_s),),
-                name="serve_metrics_flush", daemon=True,
-            )
-            self._flusher.start()
+        self._flusher = threading.Thread(
+            target=self._flush_loop, args=(float(metrics_flush_s),),
+            name="serve_metrics_flush", daemon=True,
+        )
+        self._flusher.start()
 
-    def _run_batch(self, images, want_neighbors, modes=()):
+    def _run_batch(self, images, want_neighbors, modes=(), *, stages=None):
         """Batcher thread body: one padded engine execution per flush,
-        then one index query per requested tier on the same features."""
+        then one index query per requested tier on the same features. With
+        an approximate tier among them, every `recall_sample_every`-th
+        neighbors flush also runs the exact tier and records the top-k
+        overlap. `stages` (the batcher's request-trace contract) splits
+        engine_execute from index_query."""
         if want_neighbors and self.index is not None:
             requested = {self.neighbors_mode, *modes}
+            approx = next((m for m in (self.neighbors_mode, *sorted(requested))
+                           if m.startswith("ivf")), None)
+            sample_recall = False
+            if approx is not None and self.recall_sample_every > 0:
+                self._neighbor_flushes += 1
+                if self._neighbor_flushes % self.recall_sample_every == 0:
+                    sample_recall = True
+                    requested.add("exact")
             with self._index_lock:
                 emb, per_mode, executed = self.engine.embed_and_query_modes(
                     images, self.index, self.neighbors_k,
-                    modes=tuple(sorted(requested)), nprobe=self.nprobe,
+                    modes=tuple(sorted(requested)), nprobe=self.nprobe, stages=stages,
                 )
+            if sample_recall:
+                exact_idx, approx_idx = per_mode["exact"][1], per_mode[approx][1]
+                overlap = np.asarray([len(set(exact_idx[i]) & set(approx_idx[i]))
+                                      for i in range(exact_idx.shape[0])])
+                self.metrics.record_recall(float(overlap.mean()) / exact_idx.shape[1])
             results = {"embedding": emb}
             for m, (scores, idx) in per_mode.items():
                 results[f"scores:{m}"] = scores
                 results[f"indices:{m}"] = idx
             return results, executed
-        emb, executed = self.engine.embed(images)
+        emb, executed = self.engine.embed(images, stages=stages)
         return {"embedding": emb}, executed
+
+    # -- request-scoped observability ------------------------------------
+
+    def _complete(self, trace) -> None:
+        """A request finished responding: its waterfall goes to the flight
+        ring and the span queue (both O(1); the flusher renders spans)."""
+        self.flight.record_request(trace.waterfall())
+        self._span_pending.append(trace)
+
+    def _drain_spans(self) -> None:
+        """The flusher's side of `_complete`: queued waterfalls as Perfetto
+        spans on the virtual request lanes."""
+        if self._tracer is None:
+            self._span_pending.clear()
+            return
+        while True:
+            try:
+                trace = self._span_pending.popleft()
+            except IndexError:
+                break
+            emit_request_spans(self._tracer, trace, self._lane)
+            self._lane += 1  # the flusher's alone (close() joins it first)
+
+    def _on_alert(self, alert: dict) -> None:
+        """AlertEngine hook, at the firing edge: dump the flight recorder
+        and write an `alert` event line."""
+        if self.workdir:
+            try:
+                self.flight.dump(self.workdir, reason=f"alert:{alert['rule']}",
+                                 extra={"alert": alert, "slo_ms": self.metrics.slo_ms,
+                                        "replica": self.replica_index})
+            except Exception as e:  # the dump must never take serving down
+                print(f"WARNING: flight dump failed: {e!r}", flush=True)
+        if self._sink is not None:
+            self._sink.write(self._flush_step, {
+                "event": "alert", "alert": alert["rule"], "severity": alert["severity"],
+                f"alert/{alert['rule']}": 1.0})
+
+    def _write_serve_anchor(self) -> None:
+        """Atomic `heartbeat.s<replica>.json` with the tracer's wall anchor,
+        which scripts/trace_merge.py aligns this replica's spans by."""
+        rec = {"process": self.replica_index, "role": "serve", "host": socket.gethostname(),
+               "pid": os.getpid(), "time": time.time(),
+               "trace_wall_t0": self._tracer.wall_t0}
+        path = os.path.join(self.workdir, f"heartbeat.s{self.replica_index}.json")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(rec, f)
+        os.replace(tmp, path)
 
     def stats(self) -> dict:
         """The `serve/*` gauges (`moco_tpu/serve/server.py:650`'s, for the
@@ -315,11 +482,20 @@ class ServeServer:
             self._write_metrics()
 
     def _write_metrics(self) -> None:
-        """One line of the gauges to the sink (the flusher thread, then
-        `close()` once the flusher is joined: one writer at a time)."""
+        """One off-path observability turn (the flusher thread, then
+        `close()` once the flusher is joined: one writer at a time): the
+        gauges into the flight ring and the alert engine (a fired rule
+        dumps the ring through `_on_alert`), the pending request spans,
+        then the line to the sink."""
         self._flush_step += 1
         try:
-            self._sink.write(self._flush_step, self.stats())
+            payload = self.stats()
+            self.flight.record_metrics(self._flush_step, payload)
+            if self._alerts is not None:
+                self._alerts.observe(self._flush_step, payload)
+            self._drain_spans()
+            if self._sink is not None:
+                self._sink.write(self._flush_step, payload)
         except Exception as e:  # metrics must never take serving down
             print(f"WARNING: serve metrics sink failed: {e!r}", flush=True)
 
@@ -339,14 +515,16 @@ class ServeServer:
         """Shut down the flusher, HTTP and the batcher, joining their
         threads; then a final metrics line lands in the sink."""
         self._stop.set()
-        if self._flusher is not None:
-            self._flusher.join(timeout=5.0)
+        self._flusher.join(timeout=5.0)
         self._server.shutdown()
         self._server.server_close()
         self._thread.join(timeout=5.0)
         self.batcher.close()
-        if self._sink is not None:
-            self._write_metrics()
+        self._write_metrics()
+        if self._alerts is not None:
+            self._alerts.close()
+        if self._own_tracer is not None:
+            self._own_tracer.close()
 
 
 def _query_param(query: str, name: str) -> str | None:
@@ -366,4 +544,5 @@ def _query_k(query: str, default: int) -> int:
     return default
 
 
-__all__ = ["DEFAULT_NEIGHBORS_K", "LATER_SLICE_ARGS", "ServeServer"]
+__all__ = ["DEFAULT_NEIGHBORS_K", "DEFAULT_RECALL_SAMPLE_EVERY", "LATER_SLICE_ARGS",
+           "ServeServer"]

@@ -1,6 +1,5 @@
 """MoCo pretraining on one device, v1/v2 or v3 (moco_tpu/train.py `train` /
-`_train_impl` without the mesh, ZeRO, fleet aggregation, tracing and
-elastic parts).
+`_train_impl` without the mesh, ZeRO, fleet aggregation and elastic parts).
 
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic --steps 20
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic_learnable \\
@@ -18,8 +17,23 @@ the encoder and, for v3, the predictor (a
 seeded Flax-layout init carried in through `convert`, or a given state),
 the optimizer and the train state; runs the steps, each epoch's batches
 from the prefetch ring unless `--no-device-prefetch`; and prints one JSON
-line per step: loss, acc1, acc5, lr, data and step milliseconds, imgs/s
-and the ring's transfer stats.
+line per step: loss, acc1, acc5, lr, data milliseconds, imgs/s, the
+ring's transfer stats, and step milliseconds on the probe's sampled steps.
+
+The loop keeps steps in flight, as JAX's does (moco_tpu/train.py): it
+records a CUDA event after each dispatched step and, once more than
+`max(prefetch_depth, 1)` steps are in flight, waits on the oldest one's
+event only. Each step's loss and accuracies are copied to pinned host
+memory on the stream (non-blocking) before its event, and read once the
+step has left the window; a log step copies every metric tensor so, in one
+copy, and its deferred processing reads them after the next step has been
+dispatched. The card is waited on only there, at the window's oldest
+step, at an epoch's end, and on the steps the step-time probe samples
+(`obs_probe_every`): before such a step (the steps in flight, then, once
+its batch is in hand, the batch's device work, inside `data_wait`) and
+after its dispatch (inside `device_wait`), so `t_device` and the record's
+`step_ms` are the step's own. `obs_probe_every=1` waits around every step,
+as a synchronous loop would.
 
 With a workdir (`config.workdir`, `--workdir`) the loop is closed as the
 JAX driver closes it:
@@ -36,13 +50,26 @@ JAX driver closes it:
   of the last.
 
 The non-finite guard runs with or without a workdir: on log steps the loss
-is checked, as in JAX one step late (after the next step has run, which
-the rollback then discards too). A finite log step refreshes a snapshot of
+is checked, as in JAX one step late (after the next step has been
+dispatched, which the rollback then discards too). Each log step copies
 the state (both encoders with their BN statistics, the queue and its
-pointer, the predictor, the optimizer's buffers; device buffers allocated
-once); a non-finite one counts toward `nan_guard_threshold`, writes a
-`nonfinite_loss` event, and restores the snapshot while the step counter
-keeps advancing; at the threshold the run raises `FloatingPointError`.
+pointer, the predictor, the optimizer's buffers) into a staging snapshot
+on the stream; its deferred processing promotes it to the good snapshot
+once the loss reads finite. A non-finite one counts toward
+`nan_guard_threshold`, writes a `nonfinite_loss` event, and restores the
+good snapshot while the step counter keeps advancing; at the threshold the
+run raises `FloatingPointError`.
+
+Telemetry, as in JAX: with a workdir a span tracer (obs/trace.py) is
+installed for the run: `epoch`, `data_wait`, `step` and `device_wait`
+here, the pipeline's `host_decode` / `augment_dispatch`, the ring's
+`transfer`, the checkpoint and kNN spans, streamed to
+`trace_events.jsonl` and exported as `trace.json` (Perfetto) at the end;
+the lines go through `build_sinks(config.sinks, ...)` (metrics.jsonl and
+csv / tensorboard, and `/metrics` on `metrics_port`), each training line
+with the probe's times, the device-memory gauges and the state's bytes
+(`hbm_state_bytes`); `profile_dir` / `profile_steps` record a
+torch.profiler trace of the run or of global steps [a, b).
 
 Fault tolerance and health, as in the JAX driver:
 
@@ -69,11 +96,12 @@ Fault tolerance and health, as in the JAX driver:
   payload and `nonfinite_loss` event: one `alert` event line per fire;
   under `alerts_fatal`, an emergency checkpoint of the snapshot
   (`reason="alert"`), then `FatalAlertError`;
-- the fault hooks `stall@step=N:seconds=S` and `preempt@step=N`, run at a
-  log step's deferred processing.
+- the fault hooks `nan@step=N` (at the deferred read of the loss),
+  `stall@step=N:seconds=S` and `preempt@step=N`, run at a log step's
+  deferred processing.
 
 Without a workdir nothing is written: no checkpoint, emergency or not, no
-metrics, heartbeat or alerts.jsonl; preemption still stops the run.
+metrics, heartbeat, alerts.jsonl or trace; preemption still stops the run.
 """
 
 from __future__ import annotations
@@ -87,6 +115,7 @@ import signal
 import sys
 import threading
 import time
+from collections import deque
 from typing import Callable, Optional
 
 import numpy as np
@@ -110,6 +139,10 @@ from moco_tpu_torch.data.pipeline import TwoCropPipeline
 from moco_tpu_torch.knn import knn_eval
 from moco_tpu_torch.obs.alerts import AlertEngine, FatalAlertError, parse_rules
 from moco_tpu_torch.obs.fleet import Heartbeat
+from moco_tpu_torch.obs.sinks import build_sinks, flatten_tensors, unflatten_host
+from moco_tpu_torch.obs.stepstats import StepTimeProbe, memory_payload, tree_shard_bytes
+from moco_tpu_torch.obs.trace import Tracer, set_tracer
+from moco_tpu_torch.obs.trace import span as obs_span
 from moco_tpu_torch.utils import faults, retry
 from moco_tpu_torch.utils.checkpoint import CheckpointManager, load_state_payload, state_payload
 from moco_tpu_torch.utils.config import (
@@ -121,15 +154,57 @@ from moco_tpu_torch.utils.config import (
     resume_compat_diff,
 )
 from moco_tpu_torch.utils.device import resolve_device
-from moco_tpu_torch.utils.metrics import AverageMeter, MetricWriter, ProgressMeter, print0
+from moco_tpu_torch.utils.metrics import (
+    AverageMeter,
+    ProfilerWindow,
+    ProgressMeter,
+    parse_profile_steps,
+    print0,
+    profiler_trace,
+)
 from moco_tpu_torch.utils.watchdog import StepWatchdog
 
 
-def _sync(device: torch.device) -> None:
-    """Wait for the current stream: the step's work and, in ring mode, the
-    batch it waited on, but not the ring's work on later batches."""
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+def _record_event(device: torch.device) -> Optional[torch.cuda.Event]:
+    """An event after the work issued so far on the current stream (None
+    on the CPU, where every op has finished when it returns)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _wait(target, why: str) -> None:
+    """The loop's one way to wait on the card: a step's event (`why`
+    "window", "log", or "drain" at an epoch's end) or a device's current
+    stream ("probe"); a no-op on the CPU. The prefetch ring's work on
+    later batches keeps running on its own stream."""
+    del why  # names the wait site for tests that count them
+    if isinstance(target, torch.cuda.Event):
+        target.synchronize()
+    elif isinstance(target, torch.device) and target.type == "cuda":
+        torch.cuda.current_stream(target).synchronize()
+
+
+class _MetricsFetch:
+    """A step's metric tensors on their way to the host: flattened into one
+    buffer and copied on the current stream (non-blocking, into pinned
+    memory, on a card), so that the step's event covers the copy. Read
+    `values()` only once that event has been waited on."""
+
+    def __init__(self, metrics: dict, keys: list):
+        self.keys = keys
+        flat, self.layout = flatten_tensors([metrics[k] for k in keys])
+        if flat.is_cuda:
+            self.host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
+        else:
+            self.host = flat
+
+    def values(self) -> dict:
+        return {k: float(v) if v.ndim == 0 else v.tolist()
+                for k, v in zip(self.keys, unflatten_host(self.host, self.layout))}
 
 
 def _seeded_state(config: TrainConfig, device, num_filters: int) -> TrainState:
@@ -145,24 +220,44 @@ def _seeded_state(config: TrainConfig, device, num_filters: int) -> TrainState:
     return create_state(config, encoder, device=device, predictor=predictor)
 
 
+class _Copy:
+    """One buffer of a StateSnapshot: device copies of the state's tensors
+    and optimizer buffers, the queue pointer and the step."""
+
+    def __init__(self):
+        self.saved: Optional[list] = None
+        self.opt_keys: list = []
+        self.opt_saved: list = []
+        self.queue_ptr = 0
+        self.step = 0
+
+
 class StateSnapshot:
-    """A copy of everything a rollback restores: the parameters and BN
+    """Copies of everything a rollback restores: the parameters and BN
     statistics of both encoders and the predictor, the queue and its
-    pointer, and the optimizer's per-parameter state. The copies live in
-    buffers allocated on the first `take` (and again only when the
-    optimizer's state grows, as SGD's momentum buffers appear at its first
-    step); `take` and `restore` are one batched device copy each.
-    `state.step` is not restored: the step counter keeps advancing across
-    a rollback. `step` records the step it was taken at, and `payload`
-    gives a checkpoint of it (the watchdog's and fatal alerts' emergency
-    saves)."""
+    pointer, and the optimizer's per-parameter state, in a pair of
+    buffers. `take` copies the state into the staging buffer (one batched
+    device copy on the stream; the buffers are allocated on first use and
+    again only when the optimizer's state grows, as SGD's momentum buffers
+    appear at its first step); `promote` makes the staging copy the good
+    one; `restore` and `payload` read the good one. A snapshot starts with
+    the state it is built from as its good copy. `state.step` is not
+    restored: the step counter keeps advancing across a rollback. `step`
+    is the good copy's step, and `payload` gives a checkpoint of it (the
+    watchdog's and fatal alerts' emergency saves)."""
 
     def __init__(self, state: TrainState):
-        self._saved: Optional[list] = None
-        self._opt_keys: list = []
-        self._opt_saved: list = []
-        self.queue_ptr = state.queue_ptr
+        self._good, self._staging = _Copy(), _Copy()
         self.take(state)
+        self.promote()
+
+    @property
+    def step(self) -> int:
+        return self._good.step
+
+    @property
+    def queue_ptr(self) -> int:
+        return self._good.queue_ptr
 
     @staticmethod
     def _tensors(state: TrainState) -> list:
@@ -187,39 +282,45 @@ class StateSnapshot:
 
     @torch.no_grad()
     def take(self, state: TrainState) -> None:
+        c = self._staging
         live = self._tensors(state)
-        if self._saved is None:
-            self._saved = [torch.empty_like(t) for t in live]
+        if c.saved is None:
+            c.saved = [torch.empty_like(t) for t in live]
         keys, opt = self._opt_state(state)
-        if keys != self._opt_keys:
-            self._opt_keys, self._opt_saved = keys, [torch.empty_like(t) for t in opt]
-        torch._foreach_copy_(self._saved, live)
+        if keys != c.opt_keys:
+            c.opt_keys, c.opt_saved = keys, [torch.empty_like(t) for t in opt]
+        torch._foreach_copy_(c.saved, live)
         if opt:
-            torch._foreach_copy_(self._opt_saved, opt)
-        self.queue_ptr = state.queue_ptr
-        self.step = state.step
+            torch._foreach_copy_(c.opt_saved, opt)
+        c.queue_ptr = state.queue_ptr
+        c.step = state.step
+
+    def promote(self) -> None:
+        self._good, self._staging = self._staging, self._good
 
     def payload(self, state: TrainState, arch: str, epoch: int) -> dict:
-        """`state_payload`'s layout with the snapshot's copies in place of
-        `state`'s live tensors; save it at `self.step`."""
-        it = iter(self._saved)
+        """`state_payload`'s layout with the good copy in place of `state`'s
+        live tensors; save it at `self.step`."""
+        c = self._good
+        it = iter(c.saved)
         sds = {side: None if m is None else {k: next(it) for k in m.state_dict(keep_vars=True)}
                for side, m in (("q", state.encoder_q), ("k", state.encoder_k),
                                ("predictor", state.predictor))}
         queue = next(it) if state.queue is not None else None
         by_param: dict = {}
-        for (pid, k), t in zip(self._opt_keys, self._opt_saved):
+        for (pid, k), t in zip(c.opt_keys, c.opt_saved):
             by_param.setdefault(pid, {})[k] = t
         opt = state.optimizer.state_dict()
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
         opt["state"] = {i: by_param[id(p)] for i, p in enumerate(params) if id(p) in by_param}
         return state_payload(state, arch, epoch, tensors={
-            **sds, "queue": queue, "queue_ptr": self.queue_ptr, "optimizer": opt})
+            **sds, "queue": queue, "queue_ptr": c.queue_ptr, "optimizer": opt})
 
     @torch.no_grad()
     def restore(self, state: TrainState) -> None:
-        torch._foreach_copy_(self._tensors(state), self._saved)
-        saved = dict(zip(self._opt_keys, self._opt_saved))
+        c = self._good
+        torch._foreach_copy_(self._tensors(state), c.saved)
+        saved = dict(zip(c.opt_keys, c.opt_saved))
         for group in state.optimizer.param_groups:
             for p in group["params"]:
                 st = state.optimizer.state.get(p)
@@ -232,7 +333,7 @@ class StateSnapshot:
                         del st[k]
                 if not st:
                     del state.optimizer.state[p]
-        state.queue_ptr = self.queue_ptr
+        state.queue_ptr = c.queue_ptr
 
 
 def _num_classes(dataset) -> int:
@@ -247,25 +348,10 @@ def _num_classes(dataset) -> int:
     return int(np.max(np.asarray(labels)) + 1)
 
 
-def _fetch_gauges(metrics: dict) -> dict:
-    """The step's health gauges (its tensors beside loss and accuracy) as
-    Python numbers, in one device-to-host copy."""
-    keys = [k for k, v in metrics.items()
-            if torch.is_tensor(v) and k not in ("loss", "acc1", "acc5")]
-    if not keys:
-        return {}
-    flat = torch.cat([metrics[k].reshape(-1).float() for k in keys]).tolist()
-    out, at = {}, 0
-    for k in keys:
-        n = metrics[k].numel()
-        out[k] = flat[at] if metrics[k].dim() == 0 else flat[at:at + n]
-        at += n
-    return out
-
-
 def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int] = None,
           state: Optional[TrainState] = None, num_filters: int = 64,
-          log: Optional[Callable[[dict], None]] = None, knn_datasets=None) -> dict:
+          log: Optional[Callable[[dict], None]] = None, knn_datasets=None,
+          profile_dir: Optional[str] = None, profile_steps: Optional[tuple] = None) -> dict:
     """Run `steps` train steps (default: to the end of epoch
     config.optim.epochs - 1) from `state` (default: a fresh seeded one),
     or from the newest checkpoint under `config.workdir` when there is
@@ -277,13 +363,39 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
     Each epoch's batches come from `pipe.epoch(e, device=config.device_prefetch,
     depth=config.prefetch_depth)`: the prefetch ring by default, made
     serially when device_prefetch is False. Each step's record holds loss,
-    acc1, acc5, lr, data_ms (the wait for the batch), step_ms, imgs_per_s
-    and the ring's transfer stats, and on log steps the health gauges;
-    `log` is called with each record. Host times end in a synchronize of
-    the current stream, so they are the step's own. `knn_datasets` is the
-    (bank, test) pair of the kNN monitor (default: built from config.data,
-    train and held-out splits); `num_filters` narrows a fresh encoder for
-    tests."""
+    acc1, acc5, lr, data_ms (the wait for the batch), imgs_per_s (the
+    batch over its loop iteration's wall time), the ring's transfer stats,
+    on log steps the health gauges, and on the probe's sampled steps
+    t_dispatch and t_device (seconds) and their sum as step_ms. It is
+    filled once the step has left the in-flight window, and `log` is
+    called with it then, in step order: with `obs_probe_every=1`, before
+    the next step is dispatched.
+    `knn_datasets` is the (bank, test) pair of the kNN monitor (default:
+    built from config.data, train and held-out splits); `num_filters`
+    narrows a fresh encoder for tests. `profile_dir` records a
+    torch.profiler trace of the whole run, or of global steps
+    `profile_steps = (a, b)` (into `profile_dir`, default
+    `<workdir>/profile`)."""
+    workdir = config.workdir
+    if profile_steps is not None and not (profile_dir or workdir):
+        raise ValueError("profile_steps needs a profile_dir or a workdir")
+    tracer = Tracer(os.path.join(workdir, "trace_events.jsonl")) if workdir else None
+    prev_tracer = set_tracer(tracer) if tracer is not None else None
+    try:
+        return _train_impl(config, dataset, device, steps, state, num_filters, log,
+                           knn_datasets, profile_dir, profile_steps)
+    finally:
+        if tracer is not None:
+            try:
+                tracer.export_chrome(os.path.join(workdir, "trace.json"))
+            except Exception as e:  # telemetry must never mask the real error
+                print(f"WARNING: chrome trace export failed: {e!r}", flush=True)
+            set_tracer(prev_tracer)
+            tracer.close()
+
+
+def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters, log,
+                knn_datasets, profile_dir, profile_steps) -> dict:
     faults.install_from_env()
     device = resolve_device(device)
     # `config` carries the reference lr and momentum; the live ones follow
@@ -327,10 +439,22 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
                               train=split, num_workers=config.data.num_workers,
                               cache_dir=config.data.cache_dir) for split in (True, False))
             knn_classes = _num_classes(knn_pair[0])
-        writer = MetricWriter(workdir) if workdir and total else None
+        # the sink fan-out (obs/sinks.py): metrics.jsonl always, plus
+        # config.sinks; metrics_port > 0 serves Prometheus text on /metrics
+        writer = (build_sinks(config.sinks, workdir, metrics_port=config.metrics_port,
+                              metrics_host=config.metrics_host) if workdir and total else None)
+        if writer is not None and writer.prometheus is not None:
+            print(f"metrics endpoint: http://{writer.prometheus.host}:"
+                  f"{writer.prometheus.port}/metrics", flush=True)
         snapshot = StateSnapshot(state)
         guard = {"nan_steps": 0, "epoch": epoch}
         flush_anchor = {"wall": time.perf_counter(), "gstep": state.step}
+        probe = StepTimeProbe(config.obs_probe_every)
+        profile_window: Optional[ProfilerWindow] = None
+        if profile_steps is not None:
+            profile_window = ProfilerWindow(profile_dir or os.path.join(workdir, "profile"),
+                                            *profile_steps)
+            profile_dir = None  # the window replaces the whole-run trace
         history: list = []
         last_avg: dict = {}
         arch = config.moco.arch
@@ -386,49 +510,86 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
                                       f"at step {gstep} (alerts_fatal); emergency checkpoint "
                                       f"saved{where}")
 
+        # -- the in-flight window --------------------------------------
+        # `waited["upto"]`: the newest step known finished on the card;
+        # `inflight`: the dispatched steps whose records are not filled yet
+        pipeline_depth = max(int(config.prefetch_depth), 1)
+        waited = {"upto": state.step}
+        inflight: deque = deque()
+
+        def settle(entry: dict, why: str) -> None:
+            """Wait until `entry`'s step (and every older one) has finished."""
+            if entry["gstep"] > waited["upto"]:
+                _wait(entry["event"], why)
+                waited["upto"] = entry["gstep"]
+
+        def harvest() -> None:
+            """Fill the records of the finished steps from their host copies
+            (a log step's loss as the guard sees it) and hand each to `log`,
+            in step order."""
+            while inflight and inflight[0]["gstep"] <= waited["upto"]:
+                e = inflight.popleft()
+                m = e["fetch"].values()
+                if e["log_step"]:
+                    m["loss"] = faults.corrupt_loss(m["loss"], e["gstep"])
+                e["record"].update(m)
+                if log is not None:
+                    log(e["record"])
+
         def flush(p: dict, meters: dict, progress: ProgressMeter) -> None:
-            """A log step's deferred processing, run after the next step (or
-            at the epoch's end): the fault hooks, the guard, then the
-            metrics line, the heartbeat and the alert engine."""
-            faults.maybe_stall(p["gstep"])
-            faults.maybe_preempt(p["gstep"])
-            if not p["finite"]:
+            """A log step's deferred processing, run after the next step's
+            dispatch (or at the epoch's end): one read of its metrics, the
+            fault hooks, the guard, then the metrics line, the heartbeat
+            and the alert engine."""
+            settle(p, "log")
+            m = p["fetch"].values()
+            gstep, record = p["gstep"], p["record"]
+            m["loss"] = faults.corrupt_loss(m["loss"], gstep)
+            faults.maybe_stall(gstep)
+            faults.maybe_preempt(gstep)
+            if not math.isfinite(m["loss"]):
                 guard["nan_steps"] += 1
                 if writer is not None:
-                    writer.write(p["gstep"], {"epoch": p["epoch"], "event": "nonfinite_loss",
-                                              "nan_steps": guard["nan_steps"]})
+                    writer.write(gstep, {"epoch": p["epoch"], "event": "nonfinite_loss",
+                                         "nan_steps": guard["nan_steps"]})
                     writer.fsync()
                 if engine is not None:
-                    handle_alerts(p["gstep"], p["epoch"], engine.observe(
-                        p["gstep"], {"event": "nonfinite_loss", "nan_steps": guard["nan_steps"]}))
-                print0(f"WARNING: non-finite loss at step {p['gstep']} "
+                    handle_alerts(gstep, p["epoch"], engine.observe(
+                        gstep, {"event": "nonfinite_loss", "nan_steps": guard["nan_steps"]}))
+                print0(f"WARNING: non-finite loss at step {gstep} "
                        f"({guard['nan_steps']}/{config.nan_guard_threshold}): update skipped",
                        flush=True)
                 if guard["nan_steps"] >= config.nan_guard_threshold:
                     raise FloatingPointError(
                         f"aborting: {guard['nan_steps']} non-finite loss steps (threshold "
-                        f"{config.nan_guard_threshold}); last at step {p['gstep']}, epoch "
-                        f"{p['epoch']}, lr {p['lr']:.3e}")
+                        f"{config.nan_guard_threshold}); last at step {gstep}, epoch "
+                        f"{p['epoch']}, lr {record['lr']:.3e}")
                 snapshot.restore(state)  # the step counter keeps advancing
                 return
+            snapshot.promote()  # this log step's state is good
             bs = config.data.global_batch
             for name in ("loss", "acc1", "acc5"):
-                meters[name].update(p[name], bs)
+                meters[name].update(m[name], bs)
             now = time.perf_counter()
-            t_step = (now - flush_anchor["wall"]) / max(p["gstep"] - flush_anchor["gstep"], 1)
-            flush_anchor["wall"], flush_anchor["gstep"] = now, p["gstep"]
+            t_step = (now - flush_anchor["wall"]) / max(gstep - flush_anchor["gstep"], 1)
+            flush_anchor["wall"], flush_anchor["gstep"] = now, gstep
             meters["time"].update(t_step)
-            meters["data"].update(p["data_ms"] / 1e3)
+            meters["data"].update(record["data_ms"] / 1e3)
+            # re-pin the probe to THIS step's data wait: later iterations
+            # overwrote it before this deferred flush ran
+            probe.data_wait(record["data_ms"] / 1e3)
+            probe.step_done(t_step)
             progress.display(p["i"])
             if heartbeat is not None:
-                heartbeat.beat(step=p["gstep"], epoch=p["epoch"])
+                heartbeat.beat(step=gstep, epoch=p["epoch"])
             if writer is None and engine is None:
                 return
-            payload = {"epoch": p["epoch"], "lr": p["lr"], "loss": p["loss"], "acc1": p["acc1"],
-                       "acc5": p["acc5"], **p["gauges"], "t_data": p["data_ms"] / 1e3,
-                       "t_step": t_step}
-            payload.update({k: p[k] for k in ("t_transfer", "transfer_bytes",
-                                              "prefetch_depth_live") if k in p})
+            payload = {"epoch": p["epoch"], "lr": record["lr"], **m, **probe.payload(),
+                       **memory_payload(device),
+                       "hbm_state_bytes": tree_shard_bytes(StateSnapshot._tensors(state)
+                                                           + StateSnapshot._opt_state(state)[1])}
+            payload.update({k: record[k] for k in ("t_transfer", "transfer_bytes",
+                                                   "prefetch_depth_live") if k in record})
             if guard["nan_steps"]:
                 payload["nan_steps"] = guard["nan_steps"]
             decode_failures = getattr(pipe.dataset, "decode_failures", 0)
@@ -438,9 +599,9 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
             if io_retries:
                 payload["io_retries"] = io_retries
             if writer is not None:
-                writer.write(p["gstep"], payload)
+                writer.write(gstep, payload)
             if engine is not None:
-                handle_alerts(p["gstep"], p["epoch"], engine.observe(p["gstep"], payload))
+                handle_alerts(gstep, p["epoch"], engine.observe(gstep, payload))
 
         # graceful preemption: the flag is read after each step
         preempted = {"count": 0}
@@ -488,103 +649,143 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
 
         stop_now = False
         try:
-            while len(history) < total:
-                stop = min(steps_per_epoch, i + total - len(history))
-                meters = {"time": AverageMeter("Time", ":6.3f"),
-                          "data": AverageMeter("Data", ":6.3f"),
-                          "loss": AverageMeter("Loss", ":.4e"),
-                          "acc1": AverageMeter("Acc@1", ":6.2f"),
-                          "acc5": AverageMeter("Acc@5", ":6.2f")}
-                progress = ProgressMeter(steps_per_epoch, list(meters.values()),
-                                         prefix=f"Epoch: [{epoch}]")
-                guard["epoch"] = epoch
-                it = pipe.epoch(epoch, device=config.device_prefetch,
-                                depth=config.prefetch_depth, start=i, stop=stop)
-                pending = None
-                finished = stop == steps_per_epoch
-                try:
-                    for i in range(i, stop):
-                        t0 = time.perf_counter()
-                        batch = next(it, None)
-                        if batch is None:  # the dataset holds fewer steps than the epoch
-                            finished = True
+            with profiler_trace(profile_dir):
+                while len(history) < total:
+                    stop = min(steps_per_epoch, i + total - len(history))
+                    meters = {"time": AverageMeter("Time", ":6.3f"),
+                              "data": AverageMeter("Data", ":6.3f"),
+                              "loss": AverageMeter("Loss", ":.4e"),
+                              "acc1": AverageMeter("Acc@1", ":6.2f"),
+                              "acc5": AverageMeter("Acc@5", ":6.2f")}
+                    progress = ProgressMeter(steps_per_epoch, list(meters.values()),
+                                             prefix=f"Epoch: [{epoch}]")
+                    guard["epoch"] = epoch
+                    finished = stop == steps_per_epoch
+                    with obs_span("epoch", epoch=epoch):
+                        it = pipe.epoch(epoch, device=config.device_prefetch,
+                                        depth=config.prefetch_depth, start=i, stop=stop)
+                        pending = None
+                        try:
+                            for i in range(i, stop):
+                                gstep = state.step
+                                if profile_window is not None:
+                                    profile_window.on_step(gstep)
+                                sampled = probe.should_sample(gstep)
+                                if sampled:  # the steps in flight finish first
+                                    with obs_span("device_wait", step=gstep):
+                                        _wait(device, "probe")
+                                    waited["upto"] = gstep
+                                t0 = time.perf_counter()
+                                with obs_span("data_wait", step=gstep):
+                                    batch = next(it, None)
+                                    if sampled and batch is not None:
+                                        # and the batch's device work, so
+                                        # the wait after the dispatch is
+                                        # the step's own
+                                        _wait(device, "probe")
+                                if batch is None:  # the dataset holds fewer steps
+                                    finished = True
+                                    break
+                                t_data = time.perf_counter() - t0
+                                probe.data_wait(t_data)
+                                log_step = (i % config.log_every == 0
+                                            or i == steps_per_epoch - 1
+                                            or len(history) + 1 == total)
+                                t_disp0 = time.perf_counter()
+                                with obs_span("step", step=gstep):
+                                    metrics = step_fn(state, batch)
+                                    keys = ([k for k, v in metrics.items() if torch.is_tensor(v)]
+                                            if log_step else ["loss", "acc1", "acc5"])
+                                    fetch = _MetricsFetch(metrics, keys)
+                                    event = _record_event(device)
+                                t_dispatch = time.perf_counter() - t_disp0
+                                probe.dispatched(t_dispatch)
+                                record = {"step": state.step, "lr": metrics["lr"],
+                                          "data_ms": t_data * 1e3}
+                                if sampled:
+                                    with obs_span("device_wait", step=gstep):
+                                        t_dev0 = time.perf_counter()
+                                        _wait(device, "probe")
+                                        t_device = time.perf_counter() - t_dev0
+                                    waited["upto"] = state.step
+                                    probe.device_block(t_device)
+                                    record.update(step_ms=(t_dispatch + t_device) * 1e3,
+                                                  t_dispatch=t_dispatch, t_device=t_device)
+                                stats = getattr(it, "stats_payload", None)
+                                if stats is not None:
+                                    record.update(stats())
+                                entry = {"gstep": state.step, "i": i, "epoch": epoch,
+                                         "record": record, "fetch": fetch, "event": event,
+                                         "log_step": log_step}
+                                history.append(record)
+                                inflight.append(entry)
+                                # the window: wait on the oldest step only
+                                if state.step - waited["upto"] > pipeline_depth:
+                                    settle(inflight[-1 - pipeline_depth], "window")
+                                if wd is not None:
+                                    wd.beat()
+                                if pending is not None:
+                                    flush(pending, meters, progress)
+                                    pending = None
+                                if log_step:
+                                    # the state as of this step, on the
+                                    # stream: good once its loss reads finite
+                                    snapshot.take(state)
+                                record["imgs_per_s"] = (config.data.global_batch
+                                                        / (time.perf_counter() - t0))
+                                harvest()
+                                if preempted["count"]:  # this step's line is not written
+                                    stop_now = True
+                                    break
+                                if log_step:
+                                    pending = entry
+                            if pending is not None and not stop_now:
+                                flush(pending, meters, progress)
+                                pending = None
+                        finally:
+                            it.close()
+                        # the epoch's last records: their steps have finished
+                        # (or are about to: the epoch's end waits on them)
+                        if inflight:
+                            settle(inflight[-1], "drain")
+                            harvest()
+                        if finished or stop_now:
+                            last_avg = {"epoch": epoch,
+                                        **{k: meters[k].avg for k in ("loss", "acc1", "acc5")}}
+                        if stop_now:
+                            # mid-epoch: the previous epoch is the last completed one,
+                            # so a resume redoes this one from its start
+                            if writer is not None:
+                                writer.write(state.step, {"epoch": epoch, "event": "preempt"})
+                            emergency_save(state, epoch - 1, "preempt")
+                            if writer is not None:
+                                writer.fsync()
+                            print0(f"preempted mid-epoch {epoch}: state saved at step "
+                                   f"{state.step}; resume will redo epoch {epoch}", flush=True)
                             break
-                        _sync(device)
-                        t1 = time.perf_counter()
-                        metrics = step_fn(state, batch)
-                        _sync(device)
-                        t2 = time.perf_counter()
-                        record = {
-                            "step": state.step, "loss": float(metrics["loss"]),
-                            "acc1": float(metrics["acc1"]), "acc5": float(metrics["acc5"]),
-                            "lr": metrics["lr"], "data_ms": (t1 - t0) * 1e3,
-                            "step_ms": (t2 - t1) * 1e3,
-                            "imgs_per_s": config.data.global_batch / (t2 - t0),
-                        }
-                        stats = getattr(it, "stats_payload", None)
-                        if stats is not None:
-                            record.update(stats())
-                        history.append(record)
-                        if wd is not None:
-                            wd.beat()
-                        if pending is not None:
-                            flush(pending, meters, progress)
-                            pending = None
-                        if preempted["count"]:  # this step's line is not written, as in JAX
-                            stop_now = True
-                            if log is not None:
-                                log(record)
-                            break
-                        last = len(history) == total
-                        if i % config.log_every == 0 or i == steps_per_epoch - 1 or last:
-                            record["loss"] = faults.corrupt_loss(record["loss"], state.step)
-                            finite = math.isfinite(record["loss"])
-                            if finite:  # the state as of this step, good unless proven not
-                                snapshot.take(state)
-                            gauges = _fetch_gauges(metrics)
-                            record.update(gauges)
-                            pending = {**record, "i": i, "gstep": state.step, "epoch": epoch,
-                                       "finite": finite, "gauges": gauges}
-                        if log is not None:
-                            log(record)
-                    if pending is not None and not stop_now:
-                        flush(pending, meters, progress)
-                finally:
-                    it.close()
-                if finished or stop_now:
-                    last_avg = {"epoch": epoch, **{k: meters[k].avg for k in ("loss", "acc1",
-                                                                                "acc5")}}
-                if stop_now:
-                    # mid-epoch: the previous epoch is the last completed one,
-                    # so a resume redoes this one from its start
-                    if writer is not None:
-                        writer.write(state.step, {"epoch": epoch, "event": "preempt"})
-                    emergency_save(state, epoch - 1, "preempt")
-                    if writer is not None:
-                        writer.fsync()
-                    print0(f"preempted mid-epoch {epoch}: state saved at step {state.step}; "
-                           f"resume will redo epoch {epoch}", flush=True)
-                    break
-                if finished:
-                    last_epoch = epoch == config.optim.epochs - 1
-                    if knn_pair is not None and (epoch % config.knn_every_epochs == 0
-                                                 or last_epoch):
-                        top1 = knn_eval(state.encoder_q.backbone, *knn_pair,
-                                        num_classes=knn_classes,
-                                        k=min(config.knn_k, len(knn_pair[0])),
-                                        temperature=config.knn_temperature,
-                                        image_size=config.data.image_size, device=device,
-                                        compute_dtype=config.moco.compute_dtype)
-                        print0(f"Epoch [{epoch}] kNN top-1: {top1:.2f}%")
-                        last_avg["knn_top1"] = top1
-                        if writer is not None:
-                            writer.write(state.step, {"epoch": epoch, "knn_top1": top1})
-                    if ckpt is not None and (last_epoch
-                                             or epoch % config.checkpoint_every_epochs == 0):
-                        ckpt.save(state.step, state_payload(state, arch, epoch + 1),
-                                  extra={"epoch": epoch, "config": config_to_dict(config)})
-                epoch, i = epoch + 1, 0
+                        if finished:
+                            last_epoch = epoch == config.optim.epochs - 1
+                            if knn_pair is not None and (epoch % config.knn_every_epochs == 0
+                                                         or last_epoch):
+                                top1 = knn_eval(state.encoder_q.backbone, *knn_pair,
+                                                num_classes=knn_classes,
+                                                k=min(config.knn_k, len(knn_pair[0])),
+                                                temperature=config.knn_temperature,
+                                                image_size=config.data.image_size, device=device,
+                                                compute_dtype=config.moco.compute_dtype)
+                                print0(f"Epoch [{epoch}] kNN top-1: {top1:.2f}%")
+                                last_avg["knn_top1"] = top1
+                                if writer is not None:
+                                    writer.write(state.step, {"epoch": epoch, "knn_top1": top1})
+                            if ckpt is not None and (last_epoch
+                                                     or epoch % config.checkpoint_every_epochs == 0):
+                                ckpt.save(state.step, state_payload(state, arch, epoch + 1),
+                                          extra={"epoch": epoch,
+                                                 "config": config_to_dict(config)})
+                    epoch, i = epoch + 1, 0
         finally:
+            if profile_window is not None:
+                profile_window.close()  # stop a still-open capture window
             if wd is not None:
                 wd.stop()
             if engine is not None:
@@ -669,6 +870,20 @@ def main(argv=None) -> int:
                     default=None,
                     help="no health gauges in the step (EMA drift, logit statistics, "
                          "collapse, queue age)")
+    ap.add_argument("--sinks", default=None,
+                    help="comma list of metric sinks (jsonl,csv,tensorboard); the JSONL "
+                         "sink is always included")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus text format on this port's /metrics (0 = off)")
+    ap.add_argument("--metrics-host", default=None,
+                    help="bind address of the /metrics endpoint (default 127.0.0.1)")
+    ap.add_argument("--obs-probe-every", type=int, default=None,
+                    help="every N steps wait on the card around the step to split host "
+                         "dispatch from device time (default 50; 0 = never)")
+    ap.add_argument("--profile-dir", default=None, help="torch.profiler trace output dir")
+    ap.add_argument("--profile-steps", default=None, metavar="A:B",
+                    help="profile exactly global steps [A, B) (into --profile-dir or "
+                         "workdir/profile) instead of the whole run")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     config = PRESETS[args.preset]
@@ -680,7 +895,9 @@ def main(argv=None) -> int:
            "checkpoint_async": args.checkpoint_async, "watchdog_timeout": args.watchdog_timeout,
            "heartbeat_timeout": args.heartbeat_timeout, "alert_rules": args.alert_rules,
            "alerts_fatal": args.alerts_fatal, "health_metrics": args.health_metrics,
-           "auto_scale": args.auto_scale}
+           "auto_scale": args.auto_scale, "sinks": args.sinks,
+           "metrics_port": args.metrics_port, "metrics_host": args.metrics_host,
+           "obs_probe_every": args.obs_probe_every}
     top = {k: v for k, v in top.items() if v is not None}
     if args.no_device_prefetch:
         top["device_prefetch"] = False
@@ -696,8 +913,12 @@ def main(argv=None) -> int:
     moco = {k: v for k, v in moco.items() if v is not None}
     config = dataclasses.replace(config, optim=dataclasses.replace(config.optim, **optim),
                                  moco=dataclasses.replace(config.moco, **moco))
+    profile = {"profile_dir": args.profile_dir,
+               "profile_steps": (parse_profile_steps(args.profile_steps)
+                                 if args.profile_steps else None)}
     train(config, device=args.device, steps=args.steps,
-          log=lambda r: print(json.dumps(r), flush=True))
+          log=lambda r: print(json.dumps(r), flush=True),
+          **{k: v for k, v in profile.items() if v is not None})
     return 0
 
 

@@ -51,6 +51,7 @@ import torch
 
 from moco_tpu_torch.core.moco import TrainState
 from moco_tpu_torch.models.heads import ProjectionHead
+from moco_tpu_torch.obs.trace import span as obs_span
 from moco_tpu_torch.utils import faults, retry
 
 _NAME = re.compile(r"^checkpoint_(\d+)\.pth\.tar$")
@@ -132,15 +133,16 @@ class CheckpointManager:
         del force
         payload = {**payload, "step": int(step), "extra": json.dumps(extra or {})}
         path = self.path(step)
-        if self.async_save:
-            self.wait()  # the previous write still reads the host buffers
-            payload = self._snapshot(payload)
-            self._writer = threading.Thread(target=self._write_in_background,
-                                            args=(path, payload), name="moco-ckpt-writer",
-                                            daemon=True)
-            self._writer.start()
-        else:
-            self._write(path, payload)
+        with obs_span("checkpoint_save", step=int(step), asynchronous=self.async_save):
+            if self.async_save:
+                self.wait()  # the previous write still reads the host buffers
+                payload = self._snapshot(payload)
+                self._writer = threading.Thread(target=self._write_in_background,
+                                                args=(path, payload), name="moco-ckpt-writer",
+                                                daemon=True)
+                self._writer.start()
+            else:
+                self._write(path, payload)
         faults.on_checkpoint_saved(path, int(step), wait=self.wait)
         return path
 
@@ -266,7 +268,8 @@ class CheckpointManager:
             if validate_extra is not None:
                 validate_extra(extra)  # incompatibility propagates, no quarantine
             try:
-                payload = retry.retry_call(_load, self.path(s), site="ckpt.restore")
+                with obs_span("checkpoint_restore", step=s):
+                    payload = retry.retry_call(_load, self.path(s), site="ckpt.restore")
             except Exception as e:  # a defect of this file: quarantine it
                 if explicit:
                     raise

@@ -3,7 +3,8 @@ single-device MoCo v1/v2 training (with every BatchNorm mode, Shuffle-BN
 reduced to one device, the EMAN key forward, remat, SGD or LARS, and
 `auto_scale`) and single-device MoCo v3 training of a ViT, the driver's
 checkpoint (async writes included), log, kNN, non-finite-guard, watchdog,
-health-gauge, alert and heartbeat fields, and the linear probe's
+health-gauge, alert and heartbeat fields, the telemetry fields (`sinks`,
+`metrics_port`, `metrics_host`, `obs_probe_every`), and the linear probe's
 `ProbeConfig`. Same field names, defaults and presets, so a preset means
 the same model and recipe in both packages; `workdir` alone differs: None
 (write nothing, resume nothing) instead of a fixed path.
@@ -15,8 +16,7 @@ and eager PyTorch fuses nothing to fence.
 Fields of the JAX config that the port does not run yet (`syncbn_group_size`
 and the rest of cross-device BN, `vit_sequence_parallel`; the parallel,
 ZeRO and elastic fields; the other telemetry fields (`strict_tracing`,
-`sinks`, `metrics_port`, `obs_probe_every`, `fleet_metrics`, the
-sanitizers)) are left out, so a config that asks for one fails at
+`fleet_metrics`, the sanitizers)) are left out, so a config that asks for one fails at
 construction with a TypeError instead of being ignored. So is
 `prefetch_donate`: it recycles a consumed staging slot's device buffer
 through XLA's donation, and PyTorch's caching allocator already reuses
@@ -186,6 +186,18 @@ class TrainConfig:
     # The health gauges computed in the step (obs/health.py: EMA drift,
     # logit statistics, collapse, queue age), on every training line.
     health_metrics: bool = True
+    # Metric sinks (obs/sinks.py registry), a comma list of "jsonl", "csv",
+    # "tensorboard"; the JSONL sink is always included.
+    sinks: str = "jsonl"
+    # Prometheus text format on http://<metrics_host>:<metrics_port>/metrics
+    # (an in-process daemon thread) while the run goes; 0 = off.
+    metrics_port: int = 0
+    metrics_host: str = "127.0.0.1"
+    # Step-time probe (obs/stepstats.py): every N steps the loop waits on
+    # the card after the step's dispatch, splitting host dispatch from
+    # device time (t_dispatch / t_device on the next training line); the
+    # other steps stay in flight. 0 = never (t_data / t_step still logged).
+    obs_probe_every: int = 50
     # In-stream alert rules over every logged payload (obs/alerts.py
     # grammar): "default" = the built-in set, "default,<spec>" extends it,
     # "none" disables. A fire writes <workdir>/alerts.jsonl and an `alert`

@@ -1,5 +1,6 @@
 """Deterministic fault injection (the `io`, `delay`, `nan`,
-`ckpt_truncate`, `stall` and `preempt` kinds of moco_tpu/utils/faults.py).
+`ckpt_truncate`, `stall`, `preempt` and `slow` kinds of
+moco_tpu/utils/faults.py).
 
 A plan is installed from a spec string (`install`, or the `MOCO_FAULTS`
 environment variable, which the training driver reads at its start):
@@ -26,13 +27,24 @@ comma-separated faults, each `kind@key=val[:key=val...]`:
                                   exercises the stall watchdog
     preempt@step=N                SIGTERM this process at global step N
                                   (once): a deterministic preemption
+    slow@site=S:ms=X[:at=K:times=M]
+                                  sleep X milliseconds on calls K..K+M-1
+                                  (default: every call) at serving-stage
+                                  site S (serve.ingress,
+                                  serve.batch_assemble,
+                                  serve.engine_execute, serve.index_query,
+                                  serve.scatter, serve.respond), inside
+                                  that stage's stamped interval, so the
+                                  request trace and the flight recorder
+                                  attribute the tail to that stage
 
 Faults are keyed on global steps and per-site call counters, never on
 randomness, so a run is exactly reproducible. The driver calls the step
 hooks on log steps only: `corrupt_loss` as it reads the loss,
-`maybe_stall` and `maybe_preempt` in the step's deferred processing. The other kinds of the JAX module (kill, slow,
-diverge, deadlock) come with the slices that own their sites: elastic
-training, serving and the analysis. With no plan installed every hook
+`maybe_stall` and `maybe_preempt` in the step's deferred processing. The
+other kinds of the JAX module (kill, diverge, deadlock) come with the
+slices that own their sites: elastic training, the serving fleet and the
+analysis. With no plan installed every hook
 returns at once.
 """
 
@@ -45,9 +57,9 @@ import time
 from collections import Counter
 from typing import Optional
 
-KINDS = ("ckpt_truncate", "io", "nan", "stall", "preempt", "delay")
+KINDS = ("ckpt_truncate", "io", "nan", "stall", "preempt", "delay", "slow")
 _INT_KEYS = ("step", "at", "times")
-_FLOAT_KEYS = ("seconds",)
+_FLOAT_KEYS = ("seconds", "ms")
 _STR_KEYS = ("site",)
 
 
@@ -78,6 +90,8 @@ class FaultPlan:
                     raise ValueError(f"unknown fault param {k!r} in {part!r}")
             if kind == "delay" and "seconds" not in kv:
                 raise ValueError(f"delay fault {part!r} needs seconds=<X>")
+            if kind == "slow" and "ms" not in kv:
+                raise ValueError(f"slow fault {part!r} needs ms=<X>")
             if kind in ("nan", "ckpt_truncate", "stall", "preempt") and "step" not in kv:
                 raise ValueError(f"{kind} fault {part!r} needs step=<N>")
             if kind == "stall" and "seconds" not in kv:
@@ -121,6 +135,18 @@ class FaultPlan:
             at, times = p.get("at", 1), p.get("times")
             if n >= at and (times is None or n < at + times):
                 time.sleep(p["seconds"])
+
+    def maybe_slow(self, site: str) -> None:
+        """Millisecond sleep at a serving-stage site: `delay`'s twin for the
+        request path, on its own counters, so a slow@ and a delay@ rule on
+        one site do not move each other's schedules."""
+        n = self._count("slow", site)
+        for kind, p in self.rules:
+            if kind != "slow" or p.get("site", site) != site:
+                continue
+            at, times = p.get("at", 1), p.get("times")
+            if n >= at and (times is None or n < at + times):
+                time.sleep(p["ms"] / 1e3)
 
     def corrupt_loss(self, loss: float, step: int) -> float:
         for kind, p in self.rules:
@@ -193,6 +219,11 @@ def maybe_io_error(site: str) -> None:
 def maybe_delay(site: str) -> None:
     if _PLAN is not None:
         _PLAN.maybe_delay(site)
+
+
+def maybe_slow(site: str) -> None:
+    if _PLAN is not None:
+        _PLAN.maybe_slow(site)
 
 
 def corrupt_loss(loss: float, step: int) -> float:

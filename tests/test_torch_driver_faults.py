@@ -150,10 +150,9 @@ def test_watchdog_emergency_path_matches_jax(tmp_path, monkeypatch):
     the `stall` line (step 0, the epoch, the timeout), saves the guard's
     state with reason="stall" and extras epoch -1 (mid-epoch 0), and calls
     its exit_fn with 42, here a recorder, so both runs go on to their end.
-    The saved step differs by design: JAX's guard holds the last log step
-    whose loss its deferred fetch has checked (step 1), the port's
-    snapshot the last log step whose loss it read finite (step 2, read at
-    once: the port has no deferred fetch)."""
+    Both save the same step: the last log step whose loss the deferred
+    fetch has read finite (step 1; the port's staged snapshot of step 2 is
+    promoted only after the stall)."""
     exits = {"jax": [], "port": []}
 
     def recording(cls, key):
@@ -168,13 +167,13 @@ def test_watchdog_emergency_path_matches_jax(tmp_path, monkeypatch):
     jcfg, pcfg = _configs(tmp_path, epochs=1, watchdog_timeout=4.0)
     _run_both(jcfg, pcfg, 48, "stall@step=2:seconds=10")
     assert exits == {"jax": [42], "port": [42]}
-    for cfg, step in ((jcfg, 1), (pcfg, 2)):
+    for cfg in (jcfg, pcfg):
         assert "Thread" in open(os.path.join(cfg.workdir, "stall_stacks.txt")).read()
         stall = [r for r in _lines(cfg.workdir) if r.get("event") == "stall"]
         assert [(r["step"], r["epoch"], r["watchdog_timeout"]) for r in stall] == [(0, 0, 4.0)]
     jmgr, pmgr = JaxCheckpointManager(jcfg.workdir), CheckpointManager(pcfg.workdir)
-    assert jmgr.all_steps() == [1, 3] and pmgr.all_steps() == [2, 3]
-    assert _emergency(pmgr, 2) == _emergency(jmgr, 1) == {
+    assert jmgr.all_steps() == pmgr.all_steps() == [1, 3]
+    assert _emergency(pmgr, 1) == _emergency(jmgr, 1) == {
         "epoch": -1, "emergency": True, "reason": "stall"}
     jmgr.close()
     assert [r["alert"] for r in _lines(pcfg.workdir) if r.get("event") == "alert"] == []

@@ -322,20 +322,22 @@ def test_server_lines_identity_and_drain(tmp_path, v2_ckpt):
 
 
 def test_server_refuses_later_slice_arguments(v2_ckpt):
-    """Request tracing, alerts, the freshness SLO and the rest come with a
-    later slice: asking for one raises, the value that asks for none is
-    accepted, and an unknown argument is a TypeError; the replica's CLI
-    refuses a freshness objective."""
+    """The freshness SLO comes with a later slice (with /ingest): asking for
+    it raises, the value that asks for none is accepted, and an unknown
+    argument is a TypeError. Request tracing, SLO burn, alerts, the flight
+    recorder, recall and the ports' offset rule are accepted with JAX's
+    values. The replica's CLI refuses a freshness objective."""
     workdir, _ = v2_ckpt
     encoder, *_ = load_serving_encoder(workdir, device="cpu")
     engine = InferenceEngine(encoder, IMG, buckets=(1,), device="cpu")
-    for kw in ({"reqtrace": True}, {"alert_spec": "serve_default"}, {"fresh_max_age_s": 30.0},
-               {"slo_objective": 0.99}):
+    for kw in ({"fresh_max_age_s": 30.0}, {"fresh_objective": 0.99}):
         with pytest.raises(ValueError, match="later slice"):
             ServeServer(engine, **kw)
     with pytest.raises(TypeError, match="unexpected keyword"):
         ServeServer(engine, tracing=True)
-    srv = ServeServer(engine, reqtrace=False, fresh_max_age_s=None, metrics_port=0)
+    srv = ServeServer(engine, reqtrace=True, alert_spec="serve_default", slo_objective=0.99,
+                      burn_windows=(60, 600), flight_requests=512, recall_sample_every=8,
+                      fresh_max_age_s=None, metrics_port=0, process_index=0)
     srv.close()
     with pytest.raises(SystemExit, match="freshness SLO comes with a later slice"):
         replica_main.main(["--ckpt-dir", workdir, "--port", "0", "--device", "cpu",

@@ -717,10 +717,13 @@ def test_train_step_takes_the_fused_loss_for_any_k(monkeypatch, fused):
 
 
 def test_train_driver_runs_on_cpu():
+    """Two steps; the probe samples every step (`obs_probe_every=1`), so every
+    record carries step_ms."""
     cfg = pc.PRESETS["cifar_smoke"]
     cfg = dataclasses.replace(
         cfg, moco=dataclasses.replace(cfg.moco, num_negatives=64, dim=16),
-        data=dataclasses.replace(cfg.data, dataset="synthetic", global_batch=16))
+        data=dataclasses.replace(cfg.data, dataset="synthetic", global_batch=16),
+        obs_probe_every=1)
     out = train(cfg, dataset=SyntheticDataset(64, 32), device="cpu", steps=2, num_filters=4)
     assert len(out["history"]) == 2 and out["state"].queue_ptr == 32
     for rec in out["history"]:

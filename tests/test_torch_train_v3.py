@@ -266,7 +266,8 @@ def test_ema_momentum_ramp_matches_jax_and_the_v2_step_uses_it():
 def test_v3_train_driver_runs_on_cpu():
     _, cfg = _configs("adamw")
     cfg = dataclasses.replace(cfg, moco=dataclasses.replace(cfg.moco, vit_patch_size=8),
-                              data=dataclasses.replace(cfg.data, image_size=32, global_batch=8))
+                              data=dataclasses.replace(cfg.data, image_size=32, global_batch=8),
+                              obs_probe_every=1)  # step_ms on every record
     out = train(cfg, dataset=SyntheticDataset(32, 32), device="cpu", steps=2)
     state = out["state"]
     assert len(out["history"]) == 2 and state.step == 2 and state.queue is None
