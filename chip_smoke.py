@@ -309,8 +309,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    the first every-step run's; the final queue_ptr and step equal. (c)
    Phase 4's bf16 engine and K = 65536 IVF index (nlist 256, nprobe 16)
    behind a ServeServer with reqtrace, a JsonlSink, the serve_default
-   alerts, slo_ms 100 and recall_sample_every=4: after one request that
-   warms the batcher thread, 64 two-image /neighbors?mode=ivf_fused
+   alerts, slo_ms 100 and recall_sample_every=4: after one request (its
+   engine_execute printed), 64 two-image /neighbors?mode=ivf_fused
    requests from 4 client threads, the IVF count
    set to 0 before them and above 0 after them; distinct request ids;
    flushed lines valid, with the five serve/trace_<stage>_ms means, the
@@ -327,6 +327,54 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    run with obs_probe_every=1: a wait around every step, as the loop did
    before the in-flight window, and each record's `log` call before the
    next step's dispatch.
+12g. Serving, the rest, at full width, in a temporary workdir deleted at
+   the end. (a) Phase 4's K = 65536 index (its seeded clustered rows, IVF
+   nlist 256 / nprobe 16) with enable_int8(), every tier prepared for the
+   engine's buckets: exact_i8, ivf_i8 and ivf_fused_i8 on phase 4's
+   features at m = 1 / 8 / 32 / 128, k = 5: every score within 0.02 (JAX's
+   rescale bound) of the float64 cosine of its pair; the IVF twins' recall@5
+   against exact_i8, pooled over the four m, no lower than ivf_fused's
+   against exact less 0.02 (each printed, no absolute floor); exact_i8's
+   `torch._int_mm` accumulators bit-equal to the float64 product of the same
+   int8 values; host ms per tier and m; the rows' bytes at rest. (b) 12e's
+   trained v2 checkpoint served in tiers off (bf16), w8 and w8a8, buckets
+   1 / 8 / 32 / 128: the calibration from 256 seeded held-out 224-px images,
+   written, read back bitwise and validated; every row's cosine to an f32
+   engine >= 0.99 (JAX's QUANT_COSINE_FLOOR) and 0 recompiles after every
+   bucket; each quantized engine's int8 tensors unchanged (storage and
+   checksum) on every bucket; the int8 route against its emulation on one
+   bucket-8 batch: every layer's int32 accumulator equal to the float64
+   emulation's, the embeddings within 1e-5 of the f32 emulation's; the int8
+   bytes at rest; ms per bucket per tier (CUDA events, f32 beside them) and
+   the w8a8 forward's extra peak memory at bucket 128 (its im2col). (c) A
+   ServeServer with the w8a8 engine over (a)'s index, neighbors_mode
+   ivf_fused, recall sampled on every flush: 64 two-image /neighbors
+   requests and 16 with ?mode=ivf_fused_i8 from 4 threads; the recall
+   estimate reported, serve/quant_tier 2 and serve/int8 1, 0 recompiles,
+   the cell scan launched, the lines schema-valid. Then 3 more v2 ring
+   steps from 12e's checkpoint (its copy) write step 6 (InfoNCE once per
+   step); `replica_main` serves the step-3 copy with --fresh-max-age-s 30
+   and a fault plan that stalls its first /ingest after the ones below by
+   90 s; `python -m moco_tpu_torch.serve.serve_ingest --once` sends step
+   6's whole queue oldest-first (65536 rows, in blocks of 8192), an
+   incremental poll from step
+   3's head the 768 rows the trainer enqueued: serve/ingested_rows 66304 and
+   serve/ingest_ckpt_step 6; an index in this process that took the same
+   blocks answers each of the 768 rows and every 64th slot with its own row
+   as top-1 on exact and exact_i8, or with a row whose score lies within
+   1e-6 (exact) or 0.02 (exact_i8) of its own: the 768 rows sit at two
+   slots, since the incremental block re-sends rows the whole queue
+   brought (counted, with the largest gap). The stalled ingest: fresh_burn_fast fires in the
+   replica's alerts.jsonl after it began and before it returned, with the
+   burn below 14.4 on the last line before it; SIGTERM drains to exit 0.
+   (d) During the stall: a fresh thread's first bucket-8 forward after the
+   engine's warm-up on this one, and its next 16 (no pass); on other fresh
+   threads the cuBLAS handle, a matmul and a tiny convolution before the
+   first forwards at buckets 8 and 32, and the batcher's own pass before 17
+   forwards; then a fresh ServeServer (bf16 engine, (a)'s index): the
+   first of 17 sequential /neighbors requests' engine_execute within 3x the
+   median of the next 16. The phase's cell-scan and InfoNCE launches are
+   added to the kernels line (`launches_12g`).
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -399,6 +447,8 @@ LOOP_EPOCH_STEPS, KNN_BANK, KNN_TEST, PROBE_VAL = 3, 1024, 256, 300
 OPTION_GROUPS, LARGE_BATCH = 8, 1024
 # phase 12e: the steps that write the two checkpoints, and the replica's buckets
 SERVE_V2_STEPS, SERVE_V3_STEPS, REPLICA_BUCKETS = 3, 2, "1,8,32"
+BUCKETS = (1, 8, 32, 128)  # the engine's default buckets
+F32_MODES = ("exact", "ivf", "ivf_fused")  # the index's f32 tiers (the int8 ones: 12g)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2548,7 +2598,7 @@ def train_to_serve_phase(ivf_scan, fa, workdir):
     from moco_tpu_torch.obs.schema import read_metrics, validate_file
     from moco_tpu_torch.obs.sinks import JsonlSink
     from moco_tpu_torch.serve.engine import InferenceEngine, load_serving_encoder
-    from moco_tpu_torch.serve.index import QUERY_MODES, EmbeddingIndex
+    from moco_tpu_torch.serve.index import EmbeddingIndex
     from moco_tpu_torch.serve.server import ServeServer
     from moco_tpu_torch.train import train
     from moco_tpu_torch.utils.checkpoint import CheckpointManager
@@ -2592,7 +2642,7 @@ def train_to_serve_phase(ivf_scan, fa, workdir):
     engine.warmup()
     index = EmbeddingIndex.from_train_queue(queue, ptr, device="cuda")
     out["ivf"] = index.train_ivf(nlist=NLIST, nprobe=NPROBE)
-    index.prepare(engine.buckets, TOPK, modes=QUERY_MODES)
+    index.prepare(engine.buckets, TOPK, modes=F32_MODES)
     index.freeze()
     lap("(a) engine warm, IVF trained and prepared")
     sink = JsonlSink(os.path.join(v2_dir, "serve"))
@@ -2604,7 +2654,7 @@ def train_to_serve_phase(ivf_scan, fa, workdir):
                     for n in (1, 8, 32)}
         ivf_scan.fused_cell_scores.launches = 0  # the requests' launches from here
         neighbors = {mode: post(server.port, f"/neighbors?mode={mode}", imgs)
-                     for mode in QUERY_MODES}
+                     for mode in F32_MODES}
         launches["ivf_cell_scores"] = ivf_scan.fused_cell_scores.launches
         model = get(server.port, "/admin/model")
         stats = get(server.port, "/stats")
@@ -2622,7 +2672,7 @@ def train_to_serve_phase(ivf_scan, fa, workdir):
         check(np.isfinite(emb).all() and np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-3,
               f"12e: /embed n={n}")
     feats = engine.forward(torch.from_numpy(imgs).cuda()).cpu().numpy()
-    _, per_mode, _ = engine.embed_and_query_modes(imgs, index, TOPK, modes=QUERY_MODES)
+    _, per_mode, _ = engine.embed_and_query_modes(imgs, index, TOPK, modes=F32_MODES)
     out["swaps_fused_vs_ivf"] = same_topk(feats, rows, per_mode["ivf_fused"], per_mode["ivf"],
                                           "12e: ivf_fused vs ivf")
     out["swaps_exact_vs_oracle"] = same_topk(feats, rows, per_mode["exact"],
@@ -2878,7 +2928,7 @@ def observability_phase(fi, ivf_scan, workdir):
     from moco_tpu_torch.obs.reqtrace import STAGES
     from moco_tpu_torch.obs.schema import read_metrics, validate_file
     from moco_tpu_torch.serve.engine import InferenceEngine
-    from moco_tpu_torch.serve.index import QUERY_MODES, EmbeddingIndex
+    from moco_tpu_torch.serve.index import EmbeddingIndex
     from moco_tpu_torch.serve.server import ServeServer
     from moco_tpu_torch.utils import faults
     from moco_tpu_torch.utils.config import PRESETS
@@ -3044,7 +3094,7 @@ def observability_phase(fi, ivf_scan, workdir):
     index = EmbeddingIndex(K, DIM, device="cuda")
     index.snapshot(rows)
     index.train_ivf(nlist=NLIST, nprobe=NPROBE)
-    index.prepare(engine.buckets, TOPK, modes=QUERY_MODES)
+    index.prepare(engine.buckets, TOPK, modes=F32_MODES)
     index.freeze()
     reqs = [rng.integers(0, 256, (2, IMG, IMG, 3), np.uint8) for _ in range(OBS_REQUESTS)]
 
@@ -3074,8 +3124,8 @@ def observability_phase(fi, ivf_scan, workdir):
                          metrics_flush_s=0.25, workdir=c_dir, alert_spec="serve_default",
                          recall_sample_every=4)
     try:
-        # a first request warms the batcher thread (its first forward pays
-        # the thread's own library setup, ~1.5 s: PERF.md)
+        # one request before the counted ones (the batcher thread warms itself
+        # before the port is bound: phase 12g(d))
         warm = post(server.port, "/neighbors?mode=ivf_fused", reqs[0])
         ivf_scan.fused_cell_scores.launches = 0  # counts from here on are the path's
         answers, _ = serve(server)
@@ -3165,6 +3215,509 @@ def observability_phase(fi, ivf_scan, workdir):
     return out, launches
 
 
+# ------------------------------------------------------------ serving, the rest
+
+I8_MODES = ("exact_i8", "ivf_i8", "ivf_fused_i8")
+I8_SCORE_TOL = 0.02  # JAX's rescale bound on an int8 score (tests/test_serve_ivf.py:142-159)
+I8_RECALL_SLACK = 0.02  # what the IVF twins may lose in int8 beyond the f32 ivf_fused
+QUANT_COSINE_FLOOR = 0.99  # JAX's floor for a quantized tier (scripts/perf_ledger.py:48)
+CALIB_N = 256  # 12g(b): held-out images behind the w8a8 calibration
+G_REQUESTS, G_RIDERS, G_CLIENTS = 64, 16, 4  # 12g(c): /neighbors requests, int8 riders, threads
+INGEST_BLOCK = 8192  # serve_ingest's rows per POST in 12g(c): 9 POSTs for its 66304 rows
+# 12g(c): the replica's freshness objective, above its spawn-to-ingest time
+# (its rows are stamped at its start), and the stall of an ingest past it
+# (the replica is stopped once the burn alert fires, ~1/6 of its 60 s
+# window's observations bad past the objective: the stall's end is a bound)
+FRESH_MAX_AGE_S, STALL_S = 30.0, 90.0
+FIRST_FLUSH_NEXT, FIRST_FLUSH_RATIO = 16, 3.0  # 12g(d)
+
+
+def on_thread(fn):
+    """`fn()` run on a new thread; its result."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # re-raised on the caller's thread
+            box["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def sync_ms(fn) -> float:
+    """Wall ms of `fn()` ending in a device sync."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def int8_index_part(feats_t, out):
+    """12g(a): the int8 tiers of phase 4's index against its f32 tiers and
+    a float64 oracle; returns the index (int8-enabled, every tier prepared
+    for the engine's buckets, frozen)."""
+    from moco_tpu_torch.ops.int8 import int8_matmul
+    from moco_tpu_torch.serve.index import QUERY_MODES, EmbeddingIndex, _quantize_rows_int8
+
+    rows = unit_rows(np.random.default_rng(SEED), K, DIM)  # phase 4's rows
+    index = EmbeddingIndex(K, DIM, device="cuda")
+    index.snapshot(rows)
+    index.train_ivf(nlist=NLIST, nprobe=NPROBE)
+    index.enable_int8()
+    index.prepare(BUCKETS, TOPK, modes=QUERY_MODES)
+    index.freeze()
+    feats = feats_t.cpu().numpy()
+    sims = feats.astype(np.float64) @ rows.T.astype(np.float64)
+    hits = {mode: [] for mode in ("ivf_fused", "ivf_i8", "ivf_fused_i8")}
+    err, recall = {}, {}
+    for m in BUCKETS:
+        got = {mode: index.query(feats_t[:m], TOPK, mode=mode) for mode in QUERY_MODES}
+        for mode in I8_MODES:
+            s, ids = got[mode]
+            check(((ids >= 0) & (ids < K)).all(), f"12g(a): {mode} m={m} ids out of range")
+            e = float(np.abs(s - np.take_along_axis(sims[:m], ids, 1)).max())
+            err[mode] = max(err.get(mode, 0.0), e)
+            check(e <= I8_SCORE_TOL, f"12g(a): {mode} m={m} score {e:.4f} off the f32 cosine")
+        for mode, ref in (("ivf_fused", "exact"), ("ivf_i8", "exact_i8"),
+                          ("ivf_fused_i8", "exact_i8")):
+            hits[mode] += [len(set(a) & set(b)) / TOPK
+                           for a, b in zip(got[mode][1], got[ref][1])]
+        recall[m] = {mode: float(np.mean(hits[mode][-m:])) for mode in hits}
+        recall[m]["exact_i8_vs_exact"] = float(np.mean(
+            [len(set(a) & set(b)) / TOPK for a, b in zip(got["exact_i8"][1], got["exact"][1])]))
+    pooled = {mode: float(np.mean(v)) for mode, v in hits.items()}
+    for mode in ("ivf_i8", "ivf_fused_i8"):
+        check(pooled[mode] >= pooled["ivf_fused"] - I8_RECALL_SLACK,
+              f"12g(a): {mode} recall {pooled[mode]:.3f} vs ivf_fused {pooled['ivf_fused']:.3f}")
+    q8, _ = _quantize_rows_int8(feats_t)
+    acc = int8_matmul(q8, index._rows_i8)[:, :K]
+    emulated = q8.double() @ index._rows_i8[:K, :DIM].double().T
+    check(torch.equal(acc.double(), emulated), "12g(a): exact_i8's _int_mm accumulators "
+          "differ from the float64 emulation")
+    out["index"] = {
+        "score_err_max": err, "recall_by_m": recall, "recall_pooled": pooled,
+        "int_mm_accumulators_bit_equal": True, "bytes": index.int8_bytes,
+        "host_ms": {mode: {m: host_ms(lambda m=m, mode=mode: index.query(
+            feats_t[:m], TOPK, mode=mode)) for m in BUCKETS} for mode in QUERY_MODES},
+    }
+    print(f"12g(a): recall pooled {pooled}; int8 score error {err}; bytes {index.int8_bytes}; "
+          f"host ms {out['index']['host_ms']}", flush=True)
+    return index
+
+
+def capture_accumulators(engine, raw):
+    """Each int8 layer's accumulator of one forward of `raw`, in order."""
+    from moco_tpu_torch.serve.quant import _Int8Layer
+
+    layers = [m for m in engine.module.modules() if isinstance(m, _Int8Layer)]
+    accs: list = []
+    for m in layers:
+        m.capture = accs
+    try:
+        engine.forward(raw)
+    finally:
+        for m in layers:
+            m.capture = None
+    return accs
+
+
+def engine_tiers_part(encoder, workdir, out):
+    """12g(b): the off, w8 and w8a8 engines against an f32 one; returns
+    {tier: engine} (warm, buckets 1/8/32/128)."""
+    from moco_tpu_torch.serve import quant
+    from moco_tpu_torch.serve.engine import InferenceEngine
+    from moco_tpu_torch.serve.quant import _Int8Layer
+
+    held_out = np.random.default_rng(SEED + 14).integers(0, 256, (CALIB_N, IMG, IMG, 3), np.uint8)
+    imgs = np.random.default_rng(SEED + 15).integers(0, 256, (128, IMG, IMG, 3), np.uint8)
+    t0 = time.perf_counter()
+    calib = quant.calibrate_encoder(encoder, held_out, IMG)
+    out["calibration_s"] = time.perf_counter() - t0
+    path = quant.save_calibration(workdir, calib)
+    loaded = quant.load_calibration(path)
+    check(loaded == calib and json.dumps(loaded, sort_keys=True) == json.dumps(calib, sort_keys=True),
+          "12g(b): the calibration artifact did not read back bitwise")
+    quant.validate_calibration(loaded, encoder, IMG)
+    f32 = InferenceEngine(encoder, IMG, device="cuda", dtype=torch.float32)
+    engines = {"off": InferenceEngine(encoder, IMG, device="cuda"),
+               "w8": InferenceEngine(encoder, IMG, device="cuda", engine_quant="w8"),
+               "w8a8": InferenceEngine(encoder, IMG, device="cuda", engine_quant="w8a8",
+                                       calibration=loaded)}
+    check(engines["w8a8"].int8_compute and engines["w8a8"].dtype == torch.float32,
+          "12g(b): the w8a8 engine does not run true int8 products in f32")
+    ref = {}
+    for n in BUCKETS:
+        ref[n], _ = f32.embed(imgs[:n])
+    cosine = {}
+    for tier, eng in engines.items():
+        eng.warmup()
+        cosine[tier] = {}
+        for n in BUCKETS:
+            emb, executed = eng.embed(imgs[:n])
+            check(executed == [(n, n)] and eng.recompiles_after_warmup == 0,
+                  f"12g(b): {tier} bucket {n} executed {executed} or recompiled")
+            cosine[tier][n] = float((emb * ref[n]).sum(1).min())
+            check(np.isfinite(emb).all() and cosine[tier][n] >= QUANT_COSINE_FLOOR,
+                  f"12g(b): {tier} bucket {n} min cosine to f32 {cosine[tier][n]:.5f}")
+        if tier != "off":
+            check(eng.int8_audit() == {b: True for b in BUCKETS},
+                  f"12g(b): {tier} int8 tensors moved or changed: {eng.int8_audit()}")
+    # the int8 route against its emulation: float64 sums bit for bit, f32 within 1e-5
+    raw8 = torch.from_numpy(imgs[:8]).cuda()
+    emu = {dt: InferenceEngine(encoder, IMG, buckets=(8,), device="cuda", engine_quant="w8a8",
+                               calibration=loaded, int8_compute=False) for dt in ("f64", "f32")}
+    for m in emu["f64"].module.modules():
+        if isinstance(m, _Int8Layer):
+            m.emulation_dtype = torch.float64
+    got, want = capture_accumulators(engines["w8a8"], raw8), capture_accumulators(emu["f64"], raw8)
+    check(len(got) == len(want) == len(calib["amax"]) and all(
+        a.dtype == torch.int32 and torch.equal(a.double(), b) for a, b in zip(got, want)),
+        "12g(b): an int8 layer's accumulator differs from the float64 emulation")
+    del got, want
+    route_err = float((engines["w8a8"].forward(raw8) - emu["f32"].forward(raw8)).abs().max())
+    check(route_err <= 1e-5, f"12g(b): int8 route vs f32 emulation {route_err}")
+    del emu
+    torch.cuda.empty_cache()
+    raws = {b: torch.from_numpy(imgs[:b]).cuda() for b in BUCKETS}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engines["w8a8"].forward(raws[128])
+    torch.cuda.synchronize()
+    out["w8a8_bucket128_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["engine"] = {
+        "layers": len(calib["amax"]), "cosine_min": cosine, "int8_route_vs_f32_emulation": route_err,
+        "accumulators_bit_equal_f64": True,
+        "bytes": {tier: eng.int8_bytes for tier, eng in engines.items()},
+        "ms": {tier: {b: cuda_ms(lambda b=b, eng=eng: eng.forward(raws[b]), iters=10, warm=2)
+                      for b in BUCKETS} for tier, eng in ({"f32": f32} | engines).items()},
+    }
+    print(f"12g(b): min cosine to f32 {cosine}; device ms per bucket {out['engine']['ms']}; "
+          f"w8a8 peak at bucket 128 +{out['w8a8_bucket128_peak_extra_bytes'] / 1e6:.1f} MB; "
+          f"bytes {out['engine']['bytes']}", flush=True)
+    return engines
+
+
+def first_flush_anatomy(engine, imgs):
+    """What the first forward on a new thread pays after the engine's
+    warm-up on another: (i) a fresh thread's first bucket-8 forward and the
+    next 16; (ii) on another fresh thread, the cuBLAS handle and a tiny
+    matmul, then a tiny convolution (the cuDNN handle), then the first and
+    second forward at bucket 8 and at bucket 32; (iii) a fresh thread that
+    first runs its own pass over the buckets (`warm_bucket`), then 17
+    forwards at bucket 8."""
+    raw8 = torch.from_numpy(imgs[:8]).cuda()
+    raw32 = torch.from_numpy(imgs[:32]).cuda()
+
+    def forwards(n):
+        return [sync_ms(lambda: engine.forward(raw8)) for _ in range(n)]
+
+    def handles_first():
+        a = torch.randn(64, 64, device="cuda")
+        x = torch.randn(1, 8, 8, 8, device="cuda")
+        w = torch.randn(8, 8, 3, 3, device="cuda")
+        return {"blas_handle_ms": sync_ms(torch.cuda.current_blas_handle),
+                "matmul_ms": sync_ms(lambda: a @ a),
+                "conv_ms": sync_ms(lambda: torch.nn.functional.conv2d(x, w)),
+                "bucket8_ms": forwards(2),
+                "bucket32_ms": [sync_ms(lambda: engine.forward(raw32)) for _ in range(2)]}
+
+    def pass_first():
+        t0 = time.perf_counter()
+        for b in engine.buckets:
+            engine.warm_bucket(b)
+        return {"pass_ms": (time.perf_counter() - t0) * 1e3, "bucket8_ms": forwards(17)}
+
+    cold = on_thread(lambda: forwards(1 + FIRST_FLUSH_NEXT))
+    return {"no_pass": {"first_ms": cold[0], "next_median_ms": float(np.median(cold[1:]))},
+            "handles_first": on_thread(handles_first),
+            "own_pass": on_thread(pass_first)}
+
+
+def serving_rest_phase(fi, ivf_scan, feats_t, v2_dir, workdir):
+    """Phase 12g: serving, the rest (module docstring), in `workdir`, from
+    phase 4's features and 12e's v2 checkpoint under `v2_dir`; returns (its
+    numbers, this phase's launches by kernel)."""
+    import threading
+
+    from moco_tpu_torch.obs.alerts import read_alerts
+    from moco_tpu_torch.obs.schema import read_metrics, validate_file
+    from moco_tpu_torch.obs.sinks import JsonlSink
+    from moco_tpu_torch.serve import serve_ingest
+    from moco_tpu_torch.serve.engine import load_serving_encoder
+    from moco_tpu_torch.serve.index import EmbeddingIndex
+    from moco_tpu_torch.serve.server import ServeServer
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.utils.checkpoint import CheckpointManager
+    from moco_tpu_torch.utils.config import PRESETS
+
+    out, launches = {}, {}
+    phase_t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"12g: {what} at {time.perf_counter() - phase_t0:.1f} s", flush=True)
+
+    ivf_scan.fused_cell_scores.launches = 0  # counts from here on are the phase's
+    index = int8_index_part(feats_t, out)
+    lap("(a) int8 index tiers")
+    encoder, queue3, ptr3, _ = load_serving_encoder(v2_dir, device="cuda")
+    engines = engine_tiers_part(encoder, workdir, out)
+    lap("(b) engine tiers")
+
+    # (c) serve: the w8a8 engine over the int8-enabled IVF index
+    rng = np.random.default_rng(SEED + 16)
+    reqs = [rng.integers(0, 256, (2, IMG, IMG, 3), np.uint8) for _ in range(G_REQUESTS + G_RIDERS)]
+    paths = ["/neighbors"] * G_REQUESTS + ["/neighbors?mode=ivf_fused_i8"] * G_RIDERS
+    c_dir = os.path.join(workdir, "serve")
+    sink = JsonlSink(c_dir)
+    server = ServeServer(engines["w8a8"], index=index, port=0, slo_ms=1000, neighbors_k=TOPK,
+                         neighbors_mode="ivf_fused", warmup=False, recall_sample_every=1,
+                         sink=sink, metrics_flush_s=0.25, workdir=c_dir)
+    got = [None] * len(reqs)
+    try:
+        before = ivf_scan.fused_cell_scores.launches
+
+        def client(k):
+            for j in range(k, len(reqs), G_CLIENTS):
+                got[j] = post(server.port, paths[j], reqs[j])
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(G_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        served_launches = ivf_scan.fused_cell_scores.launches - before
+        time.sleep(0.6)  # a flush after the last request
+        stats = get(server.port, "/stats")
+    finally:
+        server.close()
+        sink.close()
+    check(all(g is not None for g in got), "12g(c): a request went unanswered")
+    check([g["mode"] for g in got] == ["ivf_fused"] * G_REQUESTS + ["ivf_fused_i8"] * G_RIDERS,
+          "12g(c): the replies' modes")
+    check(stats["serve/quant_tier"] == 2 and stats["serve/int8"] == 1,
+          f"12g(c): quant gauges {stats['serve/quant_tier']}, {stats['serve/int8']}")
+    check(stats["serve/recompiles_after_warmup"] == 0, "12g(c): recompiles after warmup")
+    check(stats["serve/recall_estimate"] is not None, "12g(c): no recall estimate")
+    check(served_launches > 0, "12g(c): the ivf_fused requests launched no cell scan")
+    errors = validate_file(os.path.join(c_dir, "metrics.jsonl"))
+    check(errors == [], f"12g(c): serve metrics.jsonl {errors[:3]}")
+    out["serve"] = {"requests": len(got), "recall_estimate": stats["serve/recall_estimate"],
+                    "ivf_launches": served_launches, "p50_ms": stats["serve/p50_ms"],
+                    "p99_ms": stats["serve/p99_ms"]}
+    lap("(c) served")
+
+    # (c) ingest: 3 more ring steps write a newer checkpoint; the replica
+    # serves the older one and takes the newer one's rows over /ingest
+    preset = PRESETS["imagenet_v2"]
+    t_dir, g_dir = os.path.join(workdir, "train"), os.path.join(workdir, "replica_ckpt")
+    shutil.copytree(v2_dir, t_dir)
+    shutil.copytree(v2_dir, g_dir)
+    cfg = dataclasses.replace(preset, data=dataclasses.replace(preset.data, dataset="synthetic"),
+                              steps_per_epoch=SERVE_V2_STEPS, workdir=t_dir, knn_every_epochs=0,
+                              obs_probe_every=1)
+    b = cfg.data.global_batch
+    fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+    run = train(cfg, dataset=SyntheticDataset(num_examples=b * EPOCH_STEPS, image_size=IMG),
+                device="cuda", steps=SERVE_V2_STEPS)
+    launches["infonce"] = {"infonce_fwd": fi.infonce_stats.launches,
+                           "infonce_bwd": fi.infonce_dq.launches}
+    new_step = 2 * SERVE_V2_STEPS
+    check(run["state"].step == new_step and CheckpointManager(t_dir).latest_step() == new_step
+          and launches["infonce"] == {"infonce_fwd": SERVE_V2_STEPS,
+                                      "infonce_bwd": SERVE_V2_STEPS},
+          f"12g(c): resumed training {run['state'].step}, launches {launches['infonce']}")
+    del run
+    torch.cuda.empty_cache()
+    lap("(c) a newer checkpoint written")
+    queue6, ptr6 = serve_ingest.read_queue(t_dir)
+    enqueued = SERVE_V2_STEPS * b
+    check(ptr6 == (ptr3 + enqueued) % K, f"12g(c): heads {ptr3} -> {ptr6}")
+    posts = -(-K // INGEST_BLOCK) + -(-enqueued // INGEST_BLOCK)
+    port = free_port()
+    rep_dir = os.path.join(workdir, "replica")
+    log_path = os.path.join(workdir, "replica.log")
+    cmd = [sys.executable, "-m", "moco_tpu_torch.serve.replica_main", "--ckpt-dir", g_dir,
+           "--port", str(port), "--buckets", REPLICA_BUCKETS, "--device", "cuda",
+           "--workdir", rep_dir, "--metrics-flush-s", "0.25",
+           "--fresh-max-age-s", f"{FRESH_MAX_AGE_S:g}"]
+    env = dict(os.environ, MOCO_FAULTS=f"delay@site=ingest:seconds={STALL_S:g}:at={posts + 1}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    url = f"http://127.0.0.1:{port}"
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                text=True)
+        try:
+            while True:
+                check(proc.poll() is None, "12g(c): the replica exited before it served")
+                check(time.perf_counter() - t0 < 300, "12g(c): the replica never became healthy")
+                try:
+                    health = get(port, "/healthz", timeout=2)
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            check(health["ok"] and health["warm"], f"12g(c): replica /healthz {health}")
+            out["replica_spawn_to_healthy_s"] = time.perf_counter() - t0
+            lap(f"(c) replica healthy {out['replica_spawn_to_healthy_s']:.1f} s after its spawn")
+            t1 = time.perf_counter()
+            ing = subprocess.run(
+                [sys.executable, "-m", "moco_tpu_torch.serve.serve_ingest", "--ckpt-dir", t_dir,
+                 "--server", url, "--once", "--block", str(INGEST_BLOCK)],
+                cwd=here, capture_output=True, text=True, timeout=300)
+            out["serve_ingest_once_s"] = time.perf_counter() - t1
+            check(ing.returncode == 0 and f"step {new_step}: ingested {K} fresh rows" in ing.stdout,
+                  f"12g(c): serve_ingest --once rc {ing.returncode}: {ing.stdout[-500:]} "
+                  f"{ing.stderr[-2000:]}")
+            print(f"12g(c): serve_ingest --once in {out['serve_ingest_once_s']:.1f} s: "
+                  f"{ing.stdout.strip()}", flush=True)
+            seen = {"step": SERVE_V2_STEPS, "ptr": ptr3}  # the replica's own checkpoint
+            fresh = serve_ingest.poll_once(t_dir, url, seen, block=INGEST_BLOCK)
+            check(fresh == enqueued and seen == {"step": new_step, "ptr": ptr6},
+                  f"12g(c): the incremental poll sent {fresh} rows, not {enqueued}")
+            rstats = get(port, "/stats")
+            check(rstats["serve/ingested_rows"] == K + enqueued
+                  and rstats["serve/ingest_ckpt_step"] == new_step
+                  and get(port, "/admin/model")["ingest_ckpt_step"] == new_step,
+                  f"12g(c): replica ingested {rstats['serve/ingested_rows']} rows, step "
+                  f"{rstats['serve/ingest_ckpt_step']}")
+            out["ingest"] = {"rows_once": K, "rows_enqueued": enqueued,
+                             "replica_row_age_max_s": rstats["serve/row_age_max_s"]}
+            lap("(c) ingested")
+
+            # the stall: one more block waits STALL_S in the replica's /ingest
+            t_stall = time.time()
+            stalled = {}
+
+            def stalled_post():
+                # one POST, no retries: the replica may be stopped while it waits
+                req = urllib.request.Request(url + "/ingest", data=queue6[:128].tobytes(),
+                                             headers={"X-Rows-Shape": f"128,{DIM}"})
+                try:
+                    with urllib.request.urlopen(req, timeout=STALL_S + 60.0) as r:
+                        stalled["reply"] = json.loads(r.read())
+                except OSError as e:
+                    stalled["error"] = repr(e)
+                stalled["t"] = time.time()
+
+            stall_thread = threading.Thread(target=stalled_post, daemon=True)
+            stall_thread.start()
+
+            # meanwhile: each ingested row is its own top-1 through an index
+            # in this process that took the same blocks in the same order
+            mirror = EmbeddingIndex.from_train_queue(queue3, ptr3, device="cuda")
+            mirror.add(serve_ingest.fresh_rows(queue6, None, ptr6))
+            mirror.add(serve_ingest.fresh_rows(queue6, ptr3, ptr6))
+            mirror.enable_int8()
+            slots = np.concatenate([(ptr3 + np.arange(enqueued)) % K,
+                                    np.arange(0, K, 64)])
+            stored = mirror.rows[torch.from_numpy(slots).cuda()]
+            # the incremental block re-sends rows the whole queue already
+            # brought, so 768 rows sit at two slots: either answers
+            swaps, gap_max = {}, {}
+            for mode, tol in (("exact", 1e-6), ("exact_i8", I8_SCORE_TOL)):
+                swaps[mode], gap_max[mode] = 0, 0.0
+                for lo in range(0, len(slots), 128):
+                    q, want = stored[lo : lo + 128], slots[lo : lo + 128]
+                    pad = 128 - q.shape[0]
+                    if pad:
+                        q = torch.cat([q, torch.zeros(pad, DIM, device="cuda")])
+                    ids = mirror.query(q, 1, mode=mode)[1][: len(want), 0]
+                    for r in np.nonzero(ids != want)[0]:  # a near-duplicate row
+                        qr = stored[lo + r].double()
+                        gap = float(qr @ qr - qr @ mirror.rows[int(ids[r])].double())
+                        check(gap <= tol, f"12g(c): ingested row at slot {want[r]} answers "
+                              f"{ids[r]} on {mode}, score gap {gap:.3g} > {tol}")
+                        swaps[mode] += 1
+                        gap_max[mode] = max(gap_max[mode], gap)
+            out["ingest"]["own_top1_rows"] = int(len(slots))
+            out["ingest"]["answered_by_another_slot"] = swaps
+            out["ingest"]["their_score_gap_max"] = gap_max
+            del mirror, stored
+            torch.cuda.empty_cache()
+            lap("(c) own top-1 checked")
+
+            # (d) the batcher's first flush, while the replica's ingest stalls
+            d_imgs = np.random.default_rng(SEED + 17).integers(
+                0, 256, (2 * (1 + FIRST_FLUSH_NEXT), IMG, IMG, 3), np.uint8)
+            out["first_flush"] = {"anatomy": first_flush_anatomy(engines["off"], d_imgs)}
+            d_dir = os.path.join(workdir, "first_flush")
+            d_server = ServeServer(engines["off"], index=index, port=0, slo_ms=1000,
+                                   neighbors_k=TOPK, neighbors_mode="ivf_fused", warmup=False,
+                                   workdir=d_dir, alert_spec="")
+            try:
+                check(get(d_server.port, "/healthz")["warm"], "12g(d): not warm")
+                for j in range(1 + FIRST_FLUSH_NEXT):
+                    post(d_server.port, "/neighbors", d_imgs[2 * j : 2 * j + 2])
+                flight = get(d_server.port, "/debug/flight")
+                warm_pass_s = d_server.batcher.warm_s
+            finally:
+                d_server.close()
+            # the ring holds the requests in the order they completed: one at a time
+            execs = [next(x["dur_ms"] for x in w["stages"] if x["stage"] == "engine_execute")
+                     for w in flight["requests"]]
+            check(len(execs) == 1 + FIRST_FLUSH_NEXT, f"12g(d): {len(execs)} requests traced")
+            first, median = execs[0], float(np.median(execs[1:]))
+            out["first_flush"].update({"first_engine_execute_ms": first,
+                                       "next_median_ms": median, "warm_pass_s": warm_pass_s})
+            print(f"12g(d): first request's engine_execute {first:.2f} ms, median of the next "
+                  f"{FIRST_FLUSH_NEXT} {median:.2f} ms (batcher pass {warm_pass_s:.2f} s); "
+                  f"anatomy {out['first_flush']['anatomy']}", flush=True)
+            check(first <= FIRST_FLUSH_RATIO * median, f"12g(d): the first request's "
+                  f"engine_execute {first:.2f} ms > {FIRST_FLUSH_RATIO} x {median:.2f} ms")
+            lap("(d) first flush")
+
+            # the stall's burn alert, in the replica's alerts.jsonl
+            alerts_path = os.path.join(rep_dir, "alerts.jsonl")
+            deadline = time.time() + STALL_S + 30.0
+            fired = []
+            while time.time() < deadline and not fired and "t" not in stalled:
+                fired = [a for a in read_alerts(alerts_path)
+                         if a["rule"] == "fresh_burn_fast" and a["time"] > t_stall]
+                time.sleep(0.25)
+            check(fired, f"12g(c): no fresh_burn_fast in the replica's alerts after the stall "
+                  f"({read_alerts(alerts_path)[-3:]}; the stalled ingest {stalled})")
+            check("t" not in stalled or stalled["t"] > fired[0]["time"],
+                  f"12g(c): the stalled ingest returned before the alert: {stalled}")
+            lines = read_metrics(os.path.join(rep_dir, "metrics.jsonl"))
+            before_stall = [r for r in lines if r["time"] < t_stall
+                            and r.get("serve/fresh_burn_rate_60s") is not None]
+            check(before_stall and before_stall[-1]["serve/fresh_burn_rate_60s"] < 14.4,
+                  "12g(c): the freshness budget was burning before the stall")
+            out["stall"] = {"fired_after_s": fired[0]["time"] - t_stall,
+                            "burn_before": before_stall[-1]["serve/fresh_burn_rate_60s"],
+                            "fired_value": fired[0]["value"]}
+            lap("(c) stall alert")
+            proc.send_signal(signal.SIGTERM)  # the stalled ingest still waits in its handler
+            rc = proc.wait(timeout=60)
+            stall_thread.join(timeout=10)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        replica_log = f.read()
+    check(rc == 0 and "drained (clean)" in replica_log, f"12g(c): replica exit {rc}: "
+          f"{replica_log[-2000:]}")
+    errors = validate_file(os.path.join(rep_dir, "metrics.jsonl"))
+    check(errors == [], f"12g(c): replica metrics.jsonl {errors[:3]}")
+    launches["ivf_cell_scores"] = ivf_scan.fused_cell_scores.launches
+    check(launches["ivf_cell_scores"] > 0, "12g: the phase launched no cell scan")
+    del engines, index, encoder
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"serving, the rest in {out['phase_s']:.1f} s: launches {launches}", flush=True)
+    return out, launches
+
+
 def post(port, path, imgs):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=imgs.tobytes(),
@@ -3186,7 +3739,7 @@ def main() -> int:
     from moco_tpu_torch.ops import build, fused_infonce, ivf_scan
     from moco_tpu_torch.ops import flash_attention as fa
     from moco_tpu_torch.serve.engine import InferenceEngine
-    from moco_tpu_torch.serve.index import QUERY_MODES, EmbeddingIndex
+    from moco_tpu_torch.serve.index import EmbeddingIndex
     from moco_tpu_torch.serve.server import ServeServer
     from moco_tpu_torch.utils.config import PRESETS
 
@@ -3220,7 +3773,7 @@ def main() -> int:
     index.snapshot(rows)
     ivf = index.train_ivf(nlist=NLIST, nprobe=NPROBE)
     check(ivf["cell_cap"] == 2 * K // NLIST and ivf["nprobe"] == NPROBE, f"ivf layout {ivf}")
-    index.prepare(engine.buckets, TOPK, modes=QUERY_MODES)
+    index.prepare(engine.buckets, TOPK, modes=F32_MODES)
     index.freeze()
     server = ServeServer(engine, index=index, port=0, slo_ms=1000, neighbors_k=TOPK,
                          neighbors_mode="ivf_fused", warmup=False)
@@ -3261,7 +3814,7 @@ def main() -> int:
 
     feats_t = engine.forward(torch.from_numpy(imgs).cuda())  # (128, 128) f32 on the card
     feats = feats_t.cpu().numpy()
-    _, per_mode, _ = engine.embed_and_query_modes(imgs, index, TOPK, modes=QUERY_MODES)
+    _, per_mode, _ = engine.embed_and_query_modes(imgs, index, TOPK, modes=F32_MODES)
     swaps_fused = same_topk(feats, rows, per_mode["ivf_fused"], per_mode["ivf"], "ivf_fused vs ivf")
     sims = feats.astype(np.float64) @ rows.T.astype(np.float64)
     oi = np.argsort(-sims, axis=1)[:, :TOPK]
@@ -3281,7 +3834,7 @@ def main() -> int:
     query_ms = {
         mode: {b: host_ms(lambda b=b, mode=mode: index.query(feats_t[:b], TOPK, mode=mode))
                for b in engine.buckets}
-        for mode in QUERY_MODES
+        for mode in F32_MODES
     }
     print(json.dumps({"engine_ms": engine_ms, "query_ms": query_ms, "device": smi}))
     # kept for the kernel's own timing at the end: the cell-major copy of the
@@ -3326,11 +3879,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- train to serve: a v2 and a v3 checkpoint served, the ViT probed, exported --
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    # its v2 checkpoint stays for phase 12g
+    serve_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
-        serve_out, serve_launches = train_to_serve_phase(ivf_scan, fa, workdir)
-    finally:
-        shutil.rmtree(workdir)
+        serve_out, serve_launches = train_to_serve_phase(ivf_scan, fa, serve_dir)
+    except BaseException:
+        shutil.rmtree(serve_dir)
+        raise
     print(json.dumps({"train_to_serve": serve_out, "device": smi}))
     torch.cuda.empty_cache()
 
@@ -3338,22 +3893,39 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
     try:
         obs_out, obs_launches = observability_phase(fused_infonce, ivf_scan, workdir)
+    except BaseException:
+        shutil.rmtree(serve_dir)
+        raise
     finally:
         shutil.rmtree(workdir)
     print(json.dumps({"observability": obs_out, "device": smi}))
     torch.cuda.empty_cache()
+
+    # -- serving, the rest: int8 tiers, quantized engines, ingest, freshness ----
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    try:
+        rest_out, rest_launches = serving_rest_phase(
+            fused_infonce, ivf_scan, feats_t, os.path.join(serve_dir, "v2"), workdir)
+    finally:
+        shutil.rmtree(workdir)
+        shutil.rmtree(serve_dir)
+    print(json.dumps({"serving_rest": rest_out, "device": smi}))
+    torch.cuda.empty_cache()
     obs_infonce = {k: obs_launches["a"][k] + obs_launches["b"][k]
                    for k in ("infonce_fwd", "infonce_bwd")}
     for rec in train_kernels:
-        rec["launches"] += obs_infonce[rec["name"]]
+        rec["launches"] += obs_infonce[rec["name"]] + rest_launches["infonce"][rec["name"]]
         rec["launches_12f"] = obs_infonce[rec["name"]]
+        rec["launches_12g"] = rest_launches["infonce"][rec["name"]]
 
     # -- the cell-scan kernel's own times --------------------------------------
     ivf_kernel = ivf_timing_phase(ivf_scan, feats_t, cell_rows, probes, buckets,
                                   launches["ivf_cell_scores"] + serve_launches["ivf_cell_scores"]
-                                  + obs_launches["c"]["ivf_cell_scores"], max_err)
+                                  + obs_launches["c"]["ivf_cell_scores"]
+                                  + rest_launches["ivf_cell_scores"], max_err)
     ivf_kernel["launches_12e"] = serve_launches["ivf_cell_scores"]
     ivf_kernel["launches_12f"] = obs_launches["c"]["ivf_cell_scores"]
+    ivf_kernel["launches_12g"] = rest_launches["ivf_cell_scores"]
     for rec in v3_kernels:
         if rec["name"] == "flash_fwd":
             rec["launches"] += serve_launches["flash_fwd"]

@@ -23,8 +23,9 @@ dumps the flight recorder when a rule fires.
 
 Stdlib-only, like every obs module the report tooling imports: the
 port's copy of moco_tpu/obs/slo.py. The freshness pair
-(`FreshnessBurnTracker`, `fresh_alert_spec`) waits for the port's
-`/ingest`, which stamps the rows it reads.
+(`FreshnessBurnTracker`, `fresh_alert_spec`) is armed by the server's
+`fresh_max_age_s` (serve/server.py), fed by the index's ingest stamps that
+`/ingest` writes.
 """
 
 from __future__ import annotations

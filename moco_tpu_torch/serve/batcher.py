@@ -11,6 +11,15 @@ The submit queue is bounded, every blocking put polls a stop flag,
 `close()` fails all pending futures with `BatcherClosedError` and joins
 the thread, and `drain()` flushes what was accepted before it closes.
 
+A `warmup` callable runs on the batcher thread before it takes its first
+request, and `wait_warm()` blocks until it has (re-raising its error).
+PyTorch keeps state per thread behind each convolution shape (not just
+its cuDNN and cuBLAS handles), so a warm-up on the thread that built the
+engine leaves the thread that serves cold: on an H100 its first flush of
+each bucket paid over a second (PERF.md §5). The server's pass runs every
+prepared shape once on this thread; `warm_thread_ident` records which
+thread ran it.
+
 Request tracing (obs/reqtrace.py): a future may carry a `RequestTrace`;
 the batcher thread stamps `queue_wait` (per request) and the stages its
 flush shares with every rider (`batch_assemble`, `engine_execute`,
@@ -240,6 +249,7 @@ class ContinuousBatcher:
         metrics: Optional[ServeMetrics] = None,
         reqtrace: bool = False,
         replica_index: int = 0,
+        warmup: Optional[Callable[[], None]] = None,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -262,8 +272,45 @@ class ContinuousBatcher:
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._drained = threading.Event()
+        self._warmup = warmup
+        self._warm = threading.Event()
+        self._warm_error: Optional[BaseException] = None
+        self.warm_thread_ident: Optional[int] = None  # the thread the warm-up ran on
+        self.warm_s: Optional[float] = None  # how long it took
         self._thread = threading.Thread(target=self._loop, name="serve_batcher", daemon=True)
         self._thread.start()
+
+    # -- warm-up ---------------------------------------------------------
+
+    def _run_warmup(self) -> bool:
+        """The batcher thread's own warm-up, before any request; False when
+        it raised (the batcher then stops, and `wait_warm` re-raises)."""
+        t0 = time.perf_counter()
+        try:
+            if self._warmup is not None:
+                self._warmup()
+                self.warm_thread_ident = threading.get_ident()
+        except BaseException as e:  # surfaced by wait_warm on the caller's thread
+            self._warm_error = e
+            self._stop.set()
+            return False
+        finally:
+            self.warm_s = time.perf_counter() - t0
+            self._warm.set()
+        return True
+
+    def wait_warm(self, timeout: Optional[float] = None) -> bool:
+        """Block until the batcher thread's warm-up has run: True once it
+        has, False on timeout; its error, if it raised, is raised here."""
+        done = self._warm.wait(timeout)
+        if self._warm_error is not None:
+            raise self._warm_error
+        return done
+
+    @property
+    def warm(self) -> bool:
+        """The warm-up ran, without error."""
+        return self._warm.is_set() and self._warm_error is None
 
     # -- client side -----------------------------------------------------
 
@@ -352,6 +399,10 @@ class ContinuousBatcher:
     def _loop(self) -> None:
         pending: list = []
         rows = 0
+        if not self._run_warmup():
+            self._fail_queued("batcher warm-up failed")
+            self._drained.set()
+            return
         while not self._stop.is_set():
             draining = self._draining.is_set()
             if pending:

@@ -15,16 +15,40 @@ device, FIFO and snapshot ingest, and top-k cosine queries in three tiers:
   cell_cap, d) candidate gather; on a CPU index the kernel's plain
   version runs instead.
 
+An **int8 scoring path** (`enable_int8`) twins each tier: a symmetric
+per-row int8 mirror of the store (`q = round(127 x / max|x|)`, one f32
+scale per row, zero rows at scale 1), kept fresh by every snapshot, FIFO
+write and wrap; queries are quantized the same way, scores accumulate in
+int32 and are rescaled to f32 as `acc * q_scale * row_scale`, under
+JAX's mask and top-k contract:
+
+- **exact_i8**: one (m, K) int8 product through `torch._int_mm`
+  (`ops/int8.py`; the mirror is kept padded to multiples of 8);
+- **ivf_i8** / **ivf_fused_i8**: the composed and the looped IVF scans on
+  the gathered int8 candidates, their products taken in f32 on the int8
+  values. Each product is at most 127^2 and a row sums d of them, so the
+  f32 sums are exact integers while d * 127^2 < 2^24, i.e. d <= 1040
+  (d = 128: 2.06e6); a wider index sums in float64, also exactly. The
+  int8 twins do not reach the cell-scan kernel, as in JAX.
+
+Every written row carries a wall-clock ingest stamp (a host float64 per
+slot, NaN for never written): `snapshot` stamps the rows it loads and
+`add` the slots it overwrites, at `now` (the clock unless given);
+`row_age_stats` reads the valid rows' ages, the raw signal of the
+serving freshness SLO.
+
 PyTorch runs eagerly, so there is nothing to compile ahead of time; the
 `prepare` / `freeze` contract is kept all the same: `prepare` runs each
 (mode, m, k, nprobe) shape once, and after `freeze` an unprepared shape
 raises `IndexRecompileError`, which is what keeps serving traffic on the
-engine's padded buckets. The int8 tiers and mesh sharding come in later
-slices.
+engine's padded buckets. `warm` runs every prepared shape once more on the
+calling thread (the serving batcher's warm-up pass). Mesh sharding comes
+with the fleet.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,12 +56,15 @@ import torch
 
 from moco_tpu_torch.ops.ivf_scan import fused_cell_scores
 from moco_tpu_torch.ops.losses import l2_normalize
+from moco_tpu_torch.ops.int8 import int8_matmul
 from moco_tpu_torch.utils import faults
 from moco_tpu_torch.utils.device import resolve_device
 
 DEFAULT_KMEANS_ITERS = 10
-QUERY_MODES = ("exact", "ivf", "ivf_fused")
-INT8_MODES = ("exact_i8", "ivf_i8", "ivf_fused_i8")  # the int8 slice
+# modes query()/prepare() understand; "*_i8" score in int8 (enable_int8)
+QUERY_MODES = ("exact", "ivf", "exact_i8", "ivf_i8", "ivf_fused", "ivf_fused_i8")
+# the largest d whose int8 candidate products sum exactly in f32: d * 127^2 < 2^24
+I8_F32_EXACT_DIM = (2**24 - 1) // 127**2
 
 
 def fifo_write(rows: torch.Tensor, ptr: int, values: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -91,38 +118,90 @@ def _assign_top2(rows: torch.Tensor, centroids: torch.Tensor) -> tuple[torch.Ten
     return first.int(), torch.argmax(masked, dim=1).int()
 
 
+def _quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: q = round(x / s), s = max|x| / 127 per row
+    in f32 (a zero row gets scale 1, so padding stays exactly zero). The
+    division by 127 is a product with the f32 reciprocal, as XLA compiles
+    JAX's jitted `/ 127.0`: the scales are JAX's bit for bit."""
+    s = x.abs().amax(dim=-1).float() * torch.tensor(1.0 / 127.0, dtype=torch.float32,
+                                                      device=x.device)
+    s = torch.where(s <= 0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(x.float() / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _i8_scores(q8, cand) -> torch.Tensor:
+    """(m, L) int8-grid products of queries (m, d) with their gathered
+    int8 candidates (m, L, d), exact (module docstring): in f32 up to
+    `I8_F32_EXACT_DIM`, in float64 beyond."""
+    dt = torch.float32 if q8.shape[-1] <= I8_F32_EXACT_DIM else torch.float64
+    return torch.bmm(cand.to(dt), q8.to(dt)[:, :, None])[:, :, 0].float()
+
+
+def _exact_topk_int8(queries, rows_i8, row_scale, num_rows: int, dim: int, valid_count: int,
+                     k: int):
+    """The exact scan's int8 twin: per-row quantized queries against the
+    int8 mirror ((K', d') padded to multiples of 8; only its first
+    `num_rows` rows and `dim` columns hold rows) through `int8_matmul`,
+    int32 accumulation, f32 rescale, `topk_cosine`'s mask and top-k."""
+    q8, qs = _quantize_rows_int8(queries)
+    if rows_i8.shape[1] != dim:
+        q8 = torch.nn.functional.pad(q8, (0, rows_i8.shape[1] - dim))
+    acc = int8_matmul(q8, rows_i8)[:, :num_rows]
+    sims = acc.float() * qs[:, None] * row_scale[None, :]
+    invalid = torch.arange(num_rows, device=sims.device) >= valid_count
+    return torch.topk(sims.masked_fill(invalid[None, :], -torch.inf), k)
+
+
 def _probe(queries, centroids, nprobe: int) -> torch.Tensor:
     """The `nprobe` nearest cells per query, (m, nprobe), best first."""
     return torch.topk(queries @ centroids.T, nprobe).indices
 
 
-def _ivf_topk(queries, rows, centroids, cell_ids, valid_count: int, k: int, nprobe: int):
+def _ivf_topk(queries, rows, centroids, cell_ids, valid_count: int, k: int, nprobe: int,
+              row_scale=None, num_rows: Optional[int] = None):
     """Composed IVF scan: probes -> one gather of the probed cells' rows
     (m, nprobe*cell_cap, d) -> batched dot -> mask -> top-k, mapped back
-    to row ids. Padded slots carry id == capacity and score -inf."""
+    to row ids. Padded slots carry id == capacity and score -inf. With
+    `row_scale`, `rows` is the int8 mirror and the candidates are scored on
+    the int8 grid (`_i8_scores`) and rescaled."""
     m = queries.shape[0]
+    num_rows = rows.shape[0] if num_rows is None else num_rows
     cand_ids = cell_ids[_probe(queries, centroids, nprobe)].reshape(m, -1)
-    cand = rows[cand_ids.clamp_max(rows.shape[0] - 1).long()]
-    sims = torch.bmm(cand, queries[:, :, None])[:, :, 0]
+    safe = cand_ids.clamp_max(num_rows - 1).long()
+    cand = rows[safe]
+    if row_scale is None:
+        sims = torch.bmm(cand, queries[:, :, None])[:, :, 0]
+    else:
+        q8, qs = _quantize_rows_int8(queries)
+        sims = _i8_scores(q8, cand[..., : queries.shape[1]]) * qs[:, None] * row_scale[safe]
     sims = sims.masked_fill(cand_ids >= valid_count, -torch.inf)
     scores, local = torch.topk(sims, k)
     return scores, cand_ids.gather(1, local)
 
 
-def _ivf_topk_fused(queries, rows, centroids, cell_ids, valid_count: int, k: int, nprobe: int):
+def _ivf_topk_fused(queries, rows, centroids, cell_ids, valid_count: int, k: int, nprobe: int,
+                    row_scale=None, num_rows: Optional[int] = None):
     """The fused scan as a loop: one probed cell per query per step, folded
     into a running top-k (the k carried best + the cell's cell_cap
     scores). Same candidates as `_ivf_topk`; -inf tail slots carry the
-    sentinel id `capacity`."""
+    sentinel id `capacity`. With `row_scale`, the int8 twin (as
+    `_ivf_topk`)."""
     m = queries.shape[0]
-    num_rows = rows.shape[0]
+    num_rows = rows.shape[0] if num_rows is None else num_rows
     probes = _probe(queries, centroids, nprobe)
+    if row_scale is not None:
+        q8, qs = _quantize_rows_int8(queries)
     best_s = torch.full((m, k), -torch.inf, device=queries.device)
     best_i = torch.full((m, k), num_rows, dtype=cell_ids.dtype, device=queries.device)
     for j in range(nprobe):
         ids = cell_ids[probes[:, j]]
-        cand = rows[ids.clamp_max(num_rows - 1).long()]
-        sims = torch.bmm(cand, queries[:, :, None])[:, :, 0]
+        safe = ids.clamp_max(num_rows - 1).long()
+        cand = rows[safe]
+        if row_scale is None:
+            sims = torch.bmm(cand, queries[:, :, None])[:, :, 0]
+        else:
+            sims = _i8_scores(q8, cand[..., : queries.shape[1]]) * qs[:, None] * row_scale[safe]
         sims = sims.masked_fill(ids >= valid_count, -torch.inf)
         merged_s = torch.cat([best_s, sims], dim=1)
         merged_i = torch.cat([best_i, ids], dim=1)
@@ -164,6 +243,13 @@ class EmbeddingIndex:
         self.count = 0  # valid rows
         self._ptr = 0  # FIFO write head
         self.rows = torch.zeros((self.capacity, self.dim), device=self.device)
+        # wall-clock ingest stamps (the freshness SLO): one host float64 per
+        # slot, NaN = never written
+        self._row_time = np.full(self.capacity, np.nan, np.float64)
+        # the int8 mirror (enable_int8): (K', d') int8, padded to multiples
+        # of 8 for `int8_matmul`, and one f32 scale per row
+        self._rows_i8: Optional[torch.Tensor] = None
+        self._row_scale: Optional[torch.Tensor] = None
         self._prepared: set = set()
         self._frozen = False
         self.prepares = 0
@@ -172,9 +258,11 @@ class EmbeddingIndex:
 
     # -- ingest ----------------------------------------------------------
 
-    def snapshot(self, embeddings, normalized: bool = True) -> None:
+    def snapshot(self, embeddings, normalized: bool = True, now: Optional[float] = None) -> None:
         """Replace the contents with `embeddings` (n <= capacity rows) and
-        reset the FIFO head. A trained IVF goes stale (retrain)."""
+        reset the FIFO head. A trained IVF goes stale (retrain); the int8
+        mirror is requantized. Every loaded row is stamped at `now` (the
+        wall clock unless given)."""
         embs = torch.as_tensor(np.asarray(embeddings), dtype=torch.float32)
         n = embs.shape[0]
         if n > self.capacity or embs.shape[1] != self.dim:
@@ -187,13 +275,29 @@ class EmbeddingIndex:
         self.rows[:n] = embs.to(self.device)
         self.count = n
         self._ptr = n % self.capacity
+        self._row_time[:] = np.nan
+        self._row_time[:n] = time.time() if now is None else now
         self._ivf = None
+        if self._rows_i8 is not None:
+            self._requantize_all()
 
-    def add(self, embeddings) -> None:
+    def _write_block(self, block: torch.Tensor, ptr: int) -> None:
+        """One no-wrap block write at `ptr`: the rows, then the int8 mirror
+        when enabled."""
+        fifo_write(self.rows, ptr, block)
+        if self._rows_i8 is not None:
+            q, s = _quantize_rows_int8(block)
+            self._rows_i8[ptr : ptr + q.shape[0], : self.dim] = q
+            self._row_scale[ptr : ptr + q.shape[0]] = s
+
+    def add(self, embeddings, now: Optional[float] = None) -> None:
         """FIFO ingest of an (N, dim) block at the write head; a block
-        crossing the end splits into two writes. IVF cell membership
-        follows incrementally."""
-        embs = torch.as_tensor(np.asarray(embeddings), dtype=torch.float32)
+        crossing the end splits into two writes. IVF cell membership and the
+        int8 mirror follow incrementally, and every overwritten slot is
+        stamped at `now` (the wall clock unless given): FIFO eviction is
+        what takes the oldest stamp away with its row."""
+        # a copy: an HTTP body's rows arrive in a read-only buffer
+        embs = torch.from_numpy(np.array(embeddings, dtype=np.float32))
         n = embs.shape[0]
         if n == 0:
             return
@@ -209,9 +313,10 @@ class EmbeddingIndex:
             written.append((0, embs[head:]))
         overwritten = np.concatenate([np.arange(p, p + b.shape[0]) for p, b in written])
         for p, block in written:
-            fifo_write(self.rows, p, block.to(self.device))
+            self._write_block(block.to(self.device), p)
         if self._ivf is not None:
             self._ivf_reassign(overwritten, embs)
+        self._row_time[overwritten] = time.time() if now is None else now
         self._ptr = (self._ptr + n) % self.capacity
         self.count = min(self.count + n, self.capacity)
 
@@ -227,6 +332,46 @@ class EmbeddingIndex:
         idx.count = rows.shape[0] if count is None else int(count)
         idx._ptr = int(queue_ptr)
         return idx
+
+    def row_age_stats(self, now: Optional[float] = None) -> dict:
+        """Wall-clock staleness of the valid rows: max and mean seconds since
+        each row's stamp; None for both while no valid row is stamped. `now`
+        is injectable for tests."""
+        now = time.time() if now is None else now
+        stamps = self._row_time[: self.count]
+        valid = stamps[np.isfinite(stamps)]
+        if valid.size == 0:
+            return {"row_age_max_s": None, "row_age_mean_s": None}
+        ages = np.maximum(now - valid, 0.0)
+        return {"row_age_max_s": float(ages.max()), "row_age_mean_s": float(ages.mean())}
+
+    # -- int8 scoring path ----------------------------------------------
+
+    def enable_int8(self) -> None:
+        """Build the per-row int8 mirror of the store. From here on the
+        `*_i8` modes answer, and every snapshot and FIFO write keeps the
+        mirror fresh."""
+        if self._rows_i8 is None:
+            self._requantize_all()
+
+    @property
+    def int8_enabled(self) -> bool:
+        return self._rows_i8 is not None
+
+    def _requantize_all(self) -> None:
+        q, s = _quantize_rows_int8(self.rows)
+        pad_rows, pad_cols = -self.capacity % 8, -self.dim % 8
+        self._rows_i8 = torch.nn.functional.pad(q, (0, pad_cols, 0, pad_rows)).contiguous()
+        self._row_scale = s
+
+    @property
+    def int8_bytes(self) -> dict:
+        """Bytes at rest of the rows: `int8` (the mirror), `scales` (its
+        per-row scales), `f32` (the rows themselves)."""
+        if self._rows_i8 is None:
+            return {"int8": 0, "scales": 0, "f32": self.rows.numel() * 4}
+        return {"int8": self._rows_i8.numel(), "scales": self._row_scale.numel() * 4,
+                "f32": self.rows.numel() * 4}
 
     # -- IVF build + maintenance -----------------------------------------
 
@@ -373,10 +518,10 @@ class EmbeddingIndex:
     # -- query -----------------------------------------------------------
 
     def _require(self, mode: str, nprobe: Optional[int]) -> int:
-        if mode in INT8_MODES:
-            raise ValueError(f"mode {mode!r}: the int8 tiers come with a later slice of the port")
         if mode not in QUERY_MODES:
             raise ValueError(f"unknown query mode {mode!r}; one of {QUERY_MODES}")
+        if mode.endswith("_i8") and self._rows_i8 is None:
+            raise ValueError(f"mode {mode!r} needs enable_int8() first")
         if mode.startswith("ivf"):
             if self._ivf is None:
                 raise ValueError(f"mode {mode!r} needs train_ivf() first")
@@ -390,7 +535,7 @@ class EmbeddingIndex:
                 "not prepared before freeze() — serving must pad to a prepared "
                 "bucket (engine bucket set)"
             )
-        if mode != "exact" and k > nprobe * self._ivf["cell_cap"]:
+        if mode.startswith("ivf") and k > nprobe * self._ivf["cell_cap"]:
             raise ValueError(
                 f"k={k} exceeds the candidate pool nprobe*cell_cap="
                 f"{nprobe * self._ivf['cell_cap']}; raise nprobe"
@@ -426,10 +571,28 @@ class EmbeddingIndex:
             return 0
         return self.prepares - self._warm_prepares
 
+    def warm(self, feats: torch.Tensor) -> None:
+        """Run every prepared shape whose m is `feats`'s rows once on the
+        calling thread, on `feats`: a thread's own warm-up pass, which
+        prepares nothing and passes no fault hook."""
+        m = feats.shape[0]
+        for mode, pm, k, nprobe in sorted(self._prepared):
+            if pm == m:
+                self._run(feats, k, mode, nprobe)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _run(self, q: torch.Tensor, k: int, mode: str, nprobe: int):
         if mode == "exact":
             return topk_cosine(q, self.rows, k, valid_count=self.count)
+        if mode == "exact_i8":
+            return _exact_topk_int8(q, self._rows_i8, self._row_scale, self.capacity, self.dim,
+                                    self.count, k)
         ivf = self._ivf
+        if mode in ("ivf_i8", "ivf_fused_i8"):
+            scan = _ivf_topk if mode == "ivf_i8" else _ivf_topk_fused
+            return scan(q, self._rows_i8, ivf["centroids"], self._ivf_device_cells(), self.count,
+                        k, nprobe, row_scale=self._row_scale, num_rows=self.capacity)
         if mode == "ivf":
             return _ivf_topk(
                 q, self.rows, ivf["centroids"], self._ivf_device_cells(), self.count, k, nprobe
@@ -446,7 +609,8 @@ class EmbeddingIndex:
         per query. `queries` is an (m, dim) array or tensor; once frozen,
         (mode, m, k, nprobe) must be a prepared shape. Modes: "exact" (the
         oracle), "ivf" (`nprobe` cells, default the trained width),
-        "ivf_fused" (the same scan through the cell-scan kernel)."""
+        "ivf_fused" (the same scan through the cell-scan kernel), and their
+        int8 twins "exact_i8", "ivf_i8" and "ivf_fused_i8"."""
         # the request trace's index_query stage (slow@site=serve.index_query)
         faults.maybe_slow("serve.index_query")
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
@@ -462,6 +626,7 @@ __all__ = [
     "DEFAULT_KMEANS_ITERS",
     "EmbeddingIndex",
     "IndexRecompileError",
+    "I8_F32_EXACT_DIM",
     "QUERY_MODES",
     "fifo_write",
     "kmeans_fit",

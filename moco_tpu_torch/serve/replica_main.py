@@ -3,7 +3,8 @@ moco_tpu/serve/replica_main.py.
 
     python -m moco_tpu_torch.serve.replica_main --ckpt-dir /run/workdir \\
         --port 8001 [--replica-index 1] [--workdir /fleet/replica1] \\
-        [--buckets 1,8,32] [--slo-ms 1000] [--neighbors-mode exact] [--device cuda]
+        [--buckets 1,8,32] [--slo-ms 1000] [--neighbors-mode exact] \\
+        [--fresh-max-age-s 60] [--device cuda]
 
 Loads the newest good checkpoint's key encoder (`load_serving_encoder`),
 wraps its queue as the serving index (`EmbeddingIndex.from_train_queue`;
@@ -14,12 +15,13 @@ replica. The served model's identity is the checkpoint's step and the
 digest of its parameters (obs/quality.py). With `--workdir`, the
 `serve/*` gauges go to `<workdir>/metrics.jsonl` every `--metrics-flush-s`.
 
+`--fresh-max-age-s` above 0 declares the freshness SLO (the oldest index
+row's age in wall seconds) and arms its burn alerts; `/ingest` keeps the
+rows fresh (`python -m moco_tpu_torch.serve.serve_ingest`).
+
 Faults install from `MOCO_FAULTS`. SIGTERM or SIGINT drains: intake stops,
 every accepted request is flushed (`ServeServer.drain`), the server and
 the sink close, and the process exits 0.
-
-The freshness SLO (`--fresh-max-age-s` above 0) comes with a later slice
-and is refused.
 """
 
 from __future__ import annotations
@@ -44,17 +46,14 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-flush-s", type=float, default=1.0)
     ap.add_argument("--drain-timeout-s", type=float, default=30.0)
     ap.add_argument("--fresh-max-age-s", type=float, default=0.0,
-                    help="freshness SLO (max index-row age, s): comes with a later slice; "
-                    "only 0 (no objective) is accepted")
+                    help="freshness SLO: max index-row age in wall seconds "
+                    "(0 = no freshness objective declared)")
     ap.add_argument("--device", default="cuda")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.fresh_max_age_s > 0:
-        raise SystemExit("--fresh-max-age-s: the freshness SLO comes with a later slice "
-                         "of the port")
 
     from moco_tpu_torch.obs.quality import encoder_digest
     from moco_tpu_torch.obs.sinks import JsonlSink
@@ -92,6 +91,7 @@ def main(argv=None) -> int:
         neighbors_k=args.neighbors_k, neighbors_mode=args.neighbors_mode, sink=sink,
         metrics_flush_s=args.metrics_flush_s, workdir=args.workdir,
         replica_index=args.replica_index, model_step=model_step, model_digest=model_digest,
+        fresh_max_age_s=args.fresh_max_age_s or None,
     )
     print(f"replica {args.replica_index} serving on http://{args.host}:{server.port} "
           f"(buckets={buckets})", flush=True)

@@ -7,16 +7,27 @@ Endpoints:
   header (h/w/c must match the engine). Response JSON:
   `{"embedding": [[...f32...]]}`.
 - `POST /neighbors` — same body; `?k=5` (default the prepared k, and
-  capped at it) and `?mode=exact|ivf|ivf_fused` (default: the server's
-  `neighbors_mode`). Response adds `{"indices", "scores", "mode"}`: the
-  top-k cosine rows of the EmbeddingIndex.
+  capped at it) and `?mode=exact|ivf|ivf_fused|exact_i8|ivf_i8|ivf_fused_i8`
+  (default: the server's `neighbors_mode`). Response adds `{"indices",
+  "scores", "mode"}`: the top-k cosine rows of the EmbeddingIndex; the
+  `*_i8` modes score on its int8 mirror.
+- `POST /ingest` — body: raw float32 rows, `X-Rows-Shape: n,d` header,
+  and optionally `X-Ckpt-Step`, the training checkpoint step the rows come
+  from. FIFO-ingests the block into the live index (the path
+  `python -m moco_tpu_torch.serve.serve_ingest` drives from a training
+  run's checkpoints): IVF cell membership and the int8 mirror follow, and
+  every written row is stamped (the freshness SLO's signal). The body is
+  read outside the index lock; the dim check, `index.add` and the counters
+  run inside it. 503 without an index; `delay@site=ingest` stalls here,
+  before the body read.
 - `GET /stats` — the live `serve/*` gauges as JSON.
 - `GET /admin/model` — the served model's identity: the checkpoint step
-  and parameter digest of the encoder answering here (and the last
-  ingest's checkpoint step, null: the port has no `/ingest` yet).
-- `GET /healthz` — `{"ok": true, "warm": ..., "draining": false}` once
-  warm; `ok` turns false while draining, so a router stops sending here
-  before intake shuts.
+  and parameter digest of the encoder answering here, and the last
+  ingest's checkpoint step.
+- `GET /healthz` — `{"ok": true, "warm": ..., "draining": false}`; `warm`
+  once the batcher thread's own warm-up pass has run (before the port is
+  bound at all) and nothing recompiled since; `ok` turns false while
+  draining, so a router stops sending here before intake shuts.
 - `GET /debug/flight` — the flight recorder's snapshot (the slowest
   requests' waterfalls first, then the ring and the recent metric lines),
   also dumped to `<workdir>/flight_<ts>.json` when there is a workdir.
@@ -54,8 +65,18 @@ and `serve.respond` faults sleep in the handler's stages. `metrics_port`
 and `process_index` apply `obs/sinks.py::resolve_serve_port`'s offset
 rule to a non-zero `port`.
 
-The freshness SLO and `/ingest` come with a later slice: the constructor
-refuses `fresh_max_age_s` and `fresh_objective`.
+A declared freshness objective (`fresh_max_age_s`, `fresh_objective`)
+arms a `FreshnessBurnTracker` (`serve/fresh_burn_rate_<w>s`) and, under
+`alert_spec="serve_default"`, its burn alerts (`fresh_alert_spec`): each
+flush samples the index's oldest row age under the index lock and records
+it outside it.
+
+The batcher thread warms itself: before the port is bound it runs every
+engine bucket and every prepared index shape once (`_warm_pass`), since
+PyTorch's per-thread library state would otherwise make its first flush
+pay that setup (PERF.md). With `warmup=False` the caller still warms and
+prepares the engine and index; the batcher thread makes its own pass all
+the same, over the shapes already prepared, so nothing recompiles.
 """
 
 from __future__ import annotations
@@ -77,7 +98,13 @@ from moco_tpu_torch.obs.alerts import AlertEngine, parse_rules
 from moco_tpu_torch.obs.flight import FlightRecorder
 from moco_tpu_torch.obs.reqtrace import RequestIdAllocator, emit_request_spans
 from moco_tpu_torch.obs.sinks import resolve_serve_port
-from moco_tpu_torch.obs.slo import DEFAULT_WINDOWS, SLOBurnTracker, serve_alert_spec
+from moco_tpu_torch.obs.slo import (
+    DEFAULT_WINDOWS,
+    FreshnessBurnTracker,
+    SLOBurnTracker,
+    fresh_alert_spec,
+    serve_alert_spec,
+)
 from moco_tpu_torch.obs.trace import Tracer, get_tracer
 from moco_tpu_torch.serve.batcher import BatcherClosedError, ContinuousBatcher, ServeMetrics
 from moco_tpu_torch.serve.index import QUERY_MODES
@@ -86,10 +113,7 @@ from moco_tpu_torch.utils.locks import make_lock
 
 DEFAULT_NEIGHBORS_K = 5
 DEFAULT_RECALL_SAMPLE_EVERY = 8
-# the JAX server's arguments for the freshness SLO, which comes with the
-# port's `/ingest`: each is accepted only with a value that asks for none
-# of it (None, 0)
-LATER_SLICE_ARGS = frozenset({"fresh_max_age_s", "fresh_objective"})
+QUANT_TIERS = {"off": 0, "w8": 1, "w8a8": 2}  # the serve/quant_tier gauge
 
 
 class _QuietHTTPServer(http.server.ThreadingHTTPServer):
@@ -107,9 +131,10 @@ class ServeServer:
     ephemeral port; `self.port` is the bound one. `index=None` serves
     `/embed` only (`/neighbors` answers 503). With `warmup=True` the
     engine warms up and the index is prepared for the engine's buckets in
-    the exact tier and `neighbors_mode`, then frozen, before the port is
-    bound; with `warmup=False` the caller has warmed and prepared them,
-    and every mode is accepted. `sink=None` keeps the gauges in-process
+    the exact tier and `neighbors_mode`, then frozen; with `warmup=False`
+    the caller has warmed and prepared them, and every mode is accepted.
+    Either way the batcher thread then runs its own pass over the prepared
+    shapes before the port is bound. `sink=None` keeps the gauges in-process
     (`/stats` only). `workdir` and `replica_index` name this replica;
     `model_step` and `model_digest` are the served model's identity
     (obs/quality.py). The request-scoped observability arguments and their
@@ -140,16 +165,9 @@ class ServeServer:
         flight_requests: int = 512,
         model_step: Optional[int] = None,
         model_digest: Optional[str] = None,
-        **later,
+        fresh_max_age_s: Optional[float] = None,
+        fresh_objective: float = 0.99,
     ):
-        for name, value in later.items():
-            if name not in LATER_SLICE_ARGS:
-                raise TypeError(f"ServeServer() got an unexpected keyword argument {name!r}")
-            if value:
-                raise ValueError(
-                    f"ServeServer({name}={value!r}): the freshness SLO comes with a later "
-                    "slice of the port (with /ingest)"
-                )
         if neighbors_mode not in QUERY_MODES:
             raise ValueError(
                 f"neighbors_mode must be one of {QUERY_MODES}, got {neighbors_mode!r}"
@@ -166,8 +184,10 @@ class ServeServer:
         self.replica_index = int(replica_index)
         self.model_step = int(model_step) if model_step is not None else None
         self.model_digest = model_digest
-        # the checkpoint step of the last /ingest block: none without /ingest
+        # the checkpoint step of the last /ingest block (X-Ckpt-Step) and the
+        # rows ingested since the start, both under the index lock
         self.ingest_ckpt_step = None
+        self.ingested_rows = 0
         # request-scoped observability: replica-tagged ids and waterfalls,
         # burn rates over the declared SLO, the flight recorder, and the
         # alert engine that dumps it; all off the request path but the stamps
@@ -175,8 +195,16 @@ class ServeServer:
         burn = SLOBurnTracker(slo_ms, objective=slo_objective, windows=burn_windows)
         self.metrics = ServeMetrics(slo_ms, burn=burn)
         self.flight = FlightRecorder(max_requests=flight_requests, replica=self.replica_index)
+        # the freshness SLO: a declared max index-row age in wall seconds; one
+        # observation per flush off the index's ingest stamps
+        self.fresh = (FreshnessBurnTracker(fresh_max_age_s, objective=fresh_objective,
+                                           windows=burn_windows)
+                      if fresh_max_age_s else None)
         spec = (serve_alert_spec(slo_ms, windows=burn.windows)
                 if alert_spec == "serve_default" else alert_spec)
+        if self.fresh is not None and alert_spec == "serve_default":
+            # a declared freshness objective arms its burn alerts too
+            spec = ",".join(x for x in (spec, fresh_alert_spec(windows=burn.windows)) if x)
         self._alerts = (AlertEngine(parse_rules(spec), workdir=workdir,
                                     process_index=self.replica_index, on_fire=self._on_alert)
                         if spec else None)
@@ -216,8 +244,11 @@ class ServeServer:
                 )
                 index.freeze()
         self.batcher = ContinuousBatcher(
-            self._run_batch, max_batch=engine.buckets[-1], slo_ms=slo_ms, metrics=self.metrics
+            self._run_batch, max_batch=engine.buckets[-1], slo_ms=slo_ms, metrics=self.metrics,
+            warmup=self._warm_pass,
         )
+        # the batcher thread's own pass has run before the port is bound
+        self.batcher.wait_warm()
         server = self
 
         class Handler(http.server.BaseHTTPRequestHandler):
@@ -227,17 +258,20 @@ class ServeServer:
                     draining = server._draining.is_set()
                     self._json(200, {
                         "ok": not draining and not server.batcher.closed,
-                        "warm": server.engine.recompiles_after_warmup == 0,
+                        "warm": (server.batcher.warm
+                                 and server.engine.recompiles_after_warmup == 0),
                         "draining": draining,
                         "replica": server.replica_index,
                     })
                 elif path == "/stats":
                     self._json(200, server.stats())
                 elif path == "/admin/model":
+                    with server._index_lock:
+                        ingest_step = server.ingest_ckpt_step
                     self._json(200, {
                         "model_step": server.model_step,
                         "model_digest": server.model_digest,
-                        "ingest_ckpt_step": server.ingest_ckpt_step,
+                        "ingest_ckpt_step": ingest_step,
                         "replica": server.replica_index,
                     })
                 elif path == "/debug/flight":
@@ -255,6 +289,9 @@ class ServeServer:
             def do_POST(self):  # noqa: N802
                 t_arrival = time.perf_counter()
                 path, _, query = self.path.partition("?")
+                if path == "/ingest":
+                    self._handle_ingest()
+                    return
                 if path == "/admin/drain":
                     self._handle_drain(query)
                     return
@@ -328,6 +365,48 @@ class ServeServer:
                 self._json(200, {"draining": True, "drained": drained,
                                  "replica": server.replica_index})
 
+            def _handle_ingest(self) -> None:
+                """FIFO-ingest a raw f32 row block into the live index."""
+                if server.index is None:
+                    self._json(503, {"error": "no embedding index attached"})
+                    return
+                # delay@site=ingest stalls here, before the body read and
+                # outside the index lock: rows age while the block is stuck
+                faults.maybe_delay("ingest")
+                try:
+                    shape_hdr = self.headers.get("X-Rows-Shape", "")
+                    try:
+                        n, d = (int(x) for x in shape_hdr.split(","))
+                    except ValueError:
+                        raise ValueError(f"bad X-Rows-Shape header {shape_hdr!r}")
+                    ckpt_hdr = self.headers.get("X-Ckpt-Step")
+                    ckpt_step = None
+                    if ckpt_hdr:
+                        try:
+                            ckpt_step = int(ckpt_hdr)
+                        except ValueError:
+                            raise ValueError(f"bad X-Ckpt-Step header {ckpt_hdr!r}")
+                    length = int(self.headers.get("Content-Length", 0))
+                    if length != n * d * 4:
+                        raise ValueError(f"Content-Length {length} != n*d*4 = {n * d * 4}")
+                    # the socket read stays outside the lock; the dim check,
+                    # the write and the counters are one step inside it
+                    rows = np.frombuffer(self.rfile.read(length), np.float32).reshape(n, d)
+                    with server._index_lock:
+                        if d != server.index.dim:
+                            raise ValueError(f"row dim {d} != index dim {server.index.dim}")
+                        server.index.add(rows)
+                        server.ingested_rows += n
+                        if ckpt_step is not None:
+                            server.ingest_ckpt_step = ckpt_step
+                        index_rows = server.index.count
+                        total_ingested = server.ingested_rows
+                except ValueError as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                self._json(200, {"ingested": n, "index_rows": index_rows,
+                                 "total_ingested": total_ingested})
+
             def _read_images(self) -> np.ndarray:
                 shape_hdr = self.headers.get("X-Image-Shape", "")
                 try:
@@ -367,6 +446,17 @@ class ServeServer:
             name="serve_metrics_flush", daemon=True,
         )
         self._flusher.start()
+
+    def _warm_pass(self) -> None:
+        """The batcher thread's warm-up (ContinuousBatcher's `warmup`): every
+        engine bucket's forward and, on its features, every index shape
+        prepared for that bucket, once, on this thread. Only prepared shapes
+        run, so `recompiles_after_warmup` stays 0."""
+        with self._index_lock:
+            for bucket in self.engine.buckets:
+                feats = self.engine.warm_bucket(bucket)
+                if self.index is not None:
+                    self.index.warm(feats)
 
     def _run_batch(self, images, want_neighbors, modes=(), *, stages=None):
         """Batcher thread body: one padded engine execution per flush,
@@ -453,22 +543,28 @@ class ServeServer:
         os.replace(tmp, path)
 
     def stats(self) -> dict:
-        """The `serve/*` gauges (`moco_tpu/serve/server.py:650`'s, for the
-        tiers the port has), read under the index lock so they agree with
-        each other. The qps window restarts at each call."""
+        """The `serve/*` gauges (`moco_tpu/serve/server.py:650`'s), read
+        under the index lock so they agree with each other. The qps window
+        restarts at each call."""
         with self._index_lock:
             out = self.metrics.payload()
             out["serve/recompiles_after_warmup"] = self.engine.recompiles_after_warmup
             out["serve/nprobe"] = None
-            # the port has neither the int8 tiers nor engine quantization yet
-            out["serve/int8"] = int(self.neighbors_mode.endswith("_i8"))
-            out["serve/quant_tier"] = 0
+            # quantized scoring anywhere: the index's int8 tier or the engine's
+            out["serve/int8"] = int(self.neighbors_mode.endswith("_i8")
+                                    or getattr(self.engine, "int8", False))
+            out["serve/quant_tier"] = QUANT_TIERS.get(getattr(self.engine, "quant", "off"), 0)
             out["serve/model_step"] = self.model_step
             out["serve/model_digest"] = self.model_digest
             out["serve/ingest_ckpt_step"] = self.ingest_ckpt_step
+            if self.fresh is not None:
+                out.update(self.fresh.payload())
             if self.index is not None:
+                ages = self.index.row_age_stats()
+                out["serve/row_age_max_s"] = ages["row_age_max_s"]
+                out["serve/row_age_mean_s"] = ages["row_age_mean_s"]
                 out["serve/index_rows"] = self.index.count
-                out["serve/ingested_rows"] = 0
+                out["serve/ingested_rows"] = self.ingested_rows
                 out["serve/recompiles_after_warmup"] += self.index.recompiles_after_warmup
                 ivf = self.index.ivf_stats()
                 if self.neighbors_mode.startswith("ivf"):
@@ -489,6 +585,15 @@ class ServeServer:
         then the line to the sink."""
         self._flush_step += 1
         try:
+            if self.fresh is not None:
+                # one freshness observation per flush: the oldest row's age
+                # (None: an empty index, not a stale one), sampled under the
+                # index lock and recorded outside it
+                age = None
+                if self.index is not None:
+                    with self._index_lock:
+                        age = self.index.row_age_stats()["row_age_max_s"]
+                self.fresh.record(age)
             payload = self.stats()
             self.flight.record_metrics(self._flush_step, payload)
             if self._alerts is not None:
@@ -544,5 +649,4 @@ def _query_k(query: str, default: int) -> int:
     return default
 
 
-__all__ = ["DEFAULT_NEIGHBORS_K", "DEFAULT_RECALL_SAMPLE_EVERY", "LATER_SLICE_ARGS",
-           "ServeServer"]
+__all__ = ["DEFAULT_NEIGHBORS_K", "DEFAULT_RECALL_SAMPLE_EVERY", "QUANT_TIERS", "ServeServer"]

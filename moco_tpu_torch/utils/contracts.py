@@ -1,5 +1,6 @@
-"""Process exit codes (the part of moco_tpu/utils/contracts.py the port
-uses): one source for the code a supervisor keys its restart on."""
+"""The parts of moco_tpu/utils/contracts.py the port uses: process exit
+codes (one source for the code a supervisor keys its restart on) and the
+fault sites its code reaches."""
 
 from __future__ import annotations
 
@@ -14,3 +15,23 @@ EXIT_CODES = {
 # processes per host, so the shifted serve family never lands on any
 # peer's metrics port.
 SERVE_PORT_STRIDE = 16
+
+# The request-trace stages a `slow@` fault may stall (utils/faults.py).
+SERVE_STAGE_SITES = (
+    "serve.ingress",
+    "serve.batch_assemble",
+    "serve.engine_execute",
+    "serve.index_query",
+    "serve.scatter",
+    "serve.respond",
+)
+
+# The sites the port's fault hooks are called at, by kind.
+FAULT_SITES = {
+    "slow": SERVE_STAGE_SITES,
+    # "ingest": stalls the replica's /ingest handler before the body
+    # read (serve/server.py) — the freshness-SLO chaos lever: rows age
+    # past the declared max while the tail pipeline is stuck.
+    "delay": ("data.read", "input.h2d", "ingest"),
+    "io": ("data.read",),
+}

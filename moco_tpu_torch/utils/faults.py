@@ -15,7 +15,9 @@ comma-separated faults, each `kind@key=val[:key=val...]`:
                                   deterministic stage slow-down
                                   ("input.h2d" slows the prefetch ring's
                                   transfer stage, "data.read" the host's
-                                  loads)
+                                  loads, "ingest" a serving replica's
+                                  /ingest before its body read: the
+                                  freshness SLO's stall)
     nan@step=N[:times=M]          the loss the driver's guard observes at
                                   global steps N..N+M-1 becomes NaN
     ckpt_truncate@step=N          halve the checkpoint file written at
@@ -39,12 +41,13 @@ comma-separated faults, each `kind@key=val[:key=val...]`:
                                   attribute the tail to that stage
 
 Faults are keyed on global steps and per-site call counters, never on
-randomness, so a run is exactly reproducible. The driver calls the step
-hooks on log steps only: `corrupt_loss` as it reads the loss,
-`maybe_stall` and `maybe_preempt` in the step's deferred processing. The
-other kinds of the JAX module (kill, diverge, deadlock) come with the
-slices that own their sites: elastic training, the serving fleet and the
-analysis. With no plan installed every hook
+randomness, so a run is exactly reproducible. The sites the port's code
+calls the hooks at are listed in utils/contracts.py (`FAULT_SITES`). The
+training loop calls the step hooks on log steps only: `corrupt_loss` as
+it reads the loss, `maybe_stall` and `maybe_preempt` in the step's
+deferred processing. The other kinds of the JAX module (kill, diverge,
+deadlock) come with the slices that own their sites: elastic training,
+the serving fleet and the analysis. With no plan installed every hook
 returns at once.
 """
 

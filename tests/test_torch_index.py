@@ -281,9 +281,12 @@ def test_freeze_rejects_unprepared_shapes():
 
 @pytest.mark.parametrize("mode", ["exact_i8", "ivf_i8", "ivf_fused_i8", "bogus"])
 def test_unported_modes_raise(mode):
+    """The int8 tiers answer only after enable_int8(), with JAX's message;
+    an unknown mode is refused."""
     idx = EmbeddingIndex(8, 4, device="cpu")
     idx.snapshot(clustered(nc=2, per=4, dim=4))
-    with pytest.raises(ValueError, match="later slice" if mode != "bogus" else "unknown"):
+    match = r"needs enable_int8\(\) first" if mode != "bogus" else "unknown"
+    with pytest.raises(ValueError, match=match):
         idx.query(np.zeros((1, 4), np.float32), 2, mode=mode)
 
 

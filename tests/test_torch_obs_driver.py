@@ -25,11 +25,13 @@ from moco_tpu.data.datasets import SyntheticDataset as JaxSynthetic
 from moco_tpu.obs.schema import validate_line as jax_validate_line
 from moco_tpu.train import train as jax_train
 from moco_tpu.utils import config as jc
+from moco_tpu.utils import retry as jax_retry
 from moco_tpu_torch import train as train_module
 from moco_tpu_torch.data.datasets import SyntheticDataset
 from moco_tpu_torch.obs.schema import validate_line
 from moco_tpu_torch.train import train
 from moco_tpu_torch.utils import config as pc
+from moco_tpu_torch.utils import retry as port_retry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NF = 4
@@ -59,6 +61,10 @@ def _lines(workdir, name="metrics.jsonl"):
 def runs(tmp_path_factory):
     """One JAX and one port run of 4 steps (one epoch) on the same config."""
     root = tmp_path_factory.mktemp("obs_driver")
+    # both drivers write `io_retries` once their process-wide retry ledger
+    # holds a count; tests that ran earlier in this process may have left one
+    jax_retry.snapshot(reset=True)
+    port_retry.snapshot(reset=True)
     jcfg = jc.TrainConfig(moco=jc.MocoConfig(**MOCO), optim=jc.OptimConfig(**OPTIM),
                           data=jc.DataConfig(**DATA), parallel=jc.ParallelConfig(num_data=1),
                           workdir=str(root / "jax"), fleet_metrics=False, **OBS)

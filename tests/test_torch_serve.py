@@ -334,7 +334,9 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
     assert len(names) >= 14
-    assert {"moco_tpu_torch.obs.quality", "moco_tpu_torch.serve.replica_main"} <= set(names)
+    assert {"moco_tpu_torch.obs.quality", "moco_tpu_torch.serve.replica_main",
+            "moco_tpu_torch.serve.quant", "moco_tpu_torch.serve.serve_ingest",
+            "moco_tpu_torch.ops.int8"} <= set(names)
 
 
 def test_port_names_no_jax_module_in_any_import():

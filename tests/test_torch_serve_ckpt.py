@@ -322,26 +322,31 @@ def test_server_lines_identity_and_drain(tmp_path, v2_ckpt):
 
 
 def test_server_refuses_later_slice_arguments(v2_ckpt):
-    """The freshness SLO comes with a later slice (with /ingest): asking for
-    it raises, the value that asks for none is accepted, and an unknown
-    argument is a TypeError. Request tracing, SLO burn, alerts, the flight
-    recorder, recall and the ports' offset rule are accepted with JAX's
-    values. The replica's CLI refuses a freshness objective."""
+    """No argument of the server or the replica is refused as a later slice
+    any more: the freshness SLO's arguments are accepted with JAX's values
+    (and arm its tracker), as are request tracing, SLO burn, alerts, the
+    flight recorder, recall and the ports' offset rule; an unknown argument
+    is still a TypeError. The replica's CLI parses `--fresh-max-age-s`."""
     workdir, _ = v2_ckpt
     encoder, *_ = load_serving_encoder(workdir, device="cpu")
     engine = InferenceEngine(encoder, IMG, buckets=(1,), device="cpu")
-    for kw in ({"fresh_max_age_s": 30.0}, {"fresh_objective": 0.99}):
-        with pytest.raises(ValueError, match="later slice"):
-            ServeServer(engine, **kw)
+    for kw in ({"fresh_max_age_s": 30.0}, {"fresh_objective": 0.99},
+               {"fresh_max_age_s": 30.0, "fresh_objective": 0.999}):
+        srv = ServeServer(engine, **kw)
+        assert (srv.fresh is not None) == ("fresh_max_age_s" in kw)
+        if srv.fresh is not None:
+            assert srv.fresh.objective == kw.get("fresh_objective", 0.99)
+            assert any(k.startswith("serve/fresh_burn_rate_") for k in srv.stats())
+        srv.close()
     with pytest.raises(TypeError, match="unexpected keyword"):
         ServeServer(engine, tracing=True)
     srv = ServeServer(engine, reqtrace=True, alert_spec="serve_default", slo_objective=0.99,
                       burn_windows=(60, 600), flight_requests=512, recall_sample_every=8,
                       fresh_max_age_s=None, metrics_port=0, process_index=0)
     srv.close()
-    with pytest.raises(SystemExit, match="freshness SLO comes with a later slice"):
-        replica_main.main(["--ckpt-dir", workdir, "--port", "0", "--device", "cpu",
-                           "--fresh-max-age-s", "5"])
+    args = replica_main.build_argparser().parse_args(
+        ["--ckpt-dir", workdir, "--port", "0", "--device", "cpu", "--fresh-max-age-s", "5"])
+    assert args.fresh_max_age_s == 5.0
 
 
 def _free_port() -> int:

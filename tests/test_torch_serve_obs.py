@@ -323,6 +323,9 @@ class _TinyEngine:
     def warmup(self):
         pass
 
+    def warm_bucket(self, bucket):
+        return np.zeros((bucket, 4), np.float32)
+
     def embed(self, images, stages=None):
         t0 = time.perf_counter()
         faults.maybe_slow("serve.engine_execute")
@@ -346,6 +349,12 @@ class _TinyEngine:
 class _Index:
     count = 128
     recompiles_after_warmup = 0
+
+    def warm(self, feats):
+        pass
+
+    def row_age_stats(self):
+        return {"row_age_max_s": None, "row_age_mean_s": None}
 
     def ivf_stats(self):
         return {"trained": True, "spilled": 0, "occupancy": 0.5, "nprobe": 4}
