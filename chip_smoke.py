@@ -375,6 +375,45 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    first of 17 sequential /neighbors requests' engine_execute within 3x the
    median of the next 16. The phase's cell-scan and InfoNCE launches are
    added to the kernels line (`launches_12g`).
+12h. Data parallelism (moco_tpu_torch/parallel/), each world in child
+   processes that import no JAX. (a) An NCCL group of one: the imagenet_v2
+   preset (ResNet-50 + MLP, K = 65536, batch 256, 224 px, bf16) for 6
+   steps from phase 8's seeded state on the same batches, on one device,
+   through the distributed path (`init_process_group("nccl")`; the
+   gradients', BN statistics' and metrics' all-reduces issued), and on one
+   device again, with cuDNN's deterministic algorithms: the second
+   single-device run repeats the first bit for bit, and the distributed
+   run equals it bit for bit (losses, both encoders' parameters and BN
+   statistics, the momentum buffers, the queue); InfoNCE once per step;
+   the ledger `comms/grad.psum` 0; step ms of each (the overhead: the
+   distributed run's steady step against the last single-device run's).
+   (b) Two ranks of 128 rows: NCCL on two cards where the machine has
+   them, else gloo with both ranks on cuda:0 (printed); each rank first
+   reports which collectives its group takes on the card. Per rank, from
+   phase 8's seeded state, each rank's batches made by its own ring from
+   its rows of the seeded global batch: imagenet_v2 with
+   shuffle="gather_perm" for 6 steps (bf16, the preset's dtype; timed), in
+   float32 without TF32 with "gather_perm" and "syncbn" for 3 steps each,
+   and vit_b16_v3 at 2 x 128 rows (flash attention) for 2 steps. Checks: finite losses; the two ranks'
+   states (parameters, BN statistics, optimizer buffers, queue) equal bit
+   for bit after every step; each rank's ring batches are its rows of the
+   one-process batch(0, s) bit for bit; InfoNCE once per step per rank,
+   and per v3 step 24 flash forward, 12 dq and 12 dk/dv launches per
+   rank; the `comms/<site>` bytes equal JAX's cost model on the shapes.
+   Then on rank 0, one device over the whole batches, in float32 without
+   TF32: the float32 gather_perm against bn_virtual_groups=2 with the
+   same permutations, syncbn against shuffle="none", and as a control
+   whole-batch BN against gather_perm. An oracle must keep every loss
+   within DP_LOSS_RTOL relative, the 3-step update
+   of all parameters and BN statistics within DP_UPDATE_REL of the
+   oracle's (||world - oracle|| / ||oracle - init|| over all of them) and
+   every queue row the steps wrote at cosine DP_QUEUE_COS or more; the
+   control must fail at least one of these. Elementwise closeness is
+   printed, not required: a ReLU input within rounding of zero flips under
+   another order of the same sums and BN spreads it (DP_UPDATE_REL's
+   note). Step ms, imgs/s and peak memory per rank are printed; the
+   launches of (a)'s distributed run and of each rank are added to the
+   kernels line (`launches_12h`).
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -1070,10 +1109,10 @@ def v2_run(fi, cfg, dataset, state, mode):
             "q_n": q_n, "k_n": k_n, "queue_n": queue_n, "steps_per_epoch": out["steps_per_epoch"]}
 
 
-def seeded_v2_state(cfg):
+def seeded_v2_state(cfg, world=None, device="cuda"):
     """A v1/v2 train state of `cfg` on the card from seeded Flax-layout
     weights (the key encoder from the next seed) and a seeded unit-row
-    queue, through convert.state_from_flax."""
+    queue, through convert.state_from_flax (SyncBNs over `world`)."""
     from moco_tpu_torch.convert import random_flax_encoder, state_from_flax
 
     params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
@@ -1082,7 +1121,7 @@ def seeded_v2_state(cfg):
     queue /= np.linalg.norm(queue, axis=1, keepdims=True)
     return state_from_flax(cfg, {
         "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
-        "batch_stats_k": stats_k, "queue": queue, "queue_ptr": 0}, device="cuda")
+        "batch_stats_k": stats_k, "queue": queue, "queue_ptr": 0}, device=device, world=world)
 
 
 def train_phase(fi):
@@ -1504,10 +1543,10 @@ def attention_check(fa, cfg, state, batch, steps_per_epoch, label):
     return {"step": state.step, "losses": losses, "relative_to_plain": rel}
 
 
-def seeded_v3_state(cfg):
+def seeded_v3_state(cfg, world=None, device="cuda"):
     """A v3 train state of `cfg` on the card from seeded Flax-layout weights
     (the key encoder and the predictor from the next seeds), through
-    convert.state_from_flax."""
+    convert.state_from_flax (its heads' SyncBNs over `world`)."""
     from moco_tpu_torch.convert import random_flax_encoder, random_flax_predictor, state_from_flax
 
     params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
@@ -1516,7 +1555,7 @@ def seeded_v3_state(cfg):
     return state_from_flax(cfg, {
         "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
         "batch_stats_k": stats_k, "params_pred": params_p, "batch_stats_pred": stats_p},
-        device="cuda")
+        device=device, world=world)
 
 
 def v3_phase(fa, flash_err):
@@ -3727,6 +3766,511 @@ def post(port, path, imgs):
         return json.loads(r.read())
 
 
+# phase 12h: data parallelism on the card. A world of one over NCCL beside
+# the single-device path, then two ranks of 128 rows (gloo on the one card;
+# NCCL when the machine has two)
+# the v2 steps held to their oracles, the v2 steps of the bf16 runs (the
+# median of those after the first two is their step ms), v3's, the ranks
+DP_STEPS, DP_TIMED_STEPS, DP_V3_STEPS, DP_RANKS = 3, 6, 2, 2
+DP_TIMEOUT_S = 300.0  # the process groups' timeout, and the children's join budget past it
+# 12h(b)'s oracles, in float32 without TF32 (in bf16 the oracle's losses
+# drifted as far as whole-batch BN's against per-rank BN): the
+# losses' relative deviation; the 3-step update of all parameters and BN
+# statistics against the oracle's, relative in L2 (||dp - oracle|| /
+# ||oracle - init||); the cosine of each queue row the steps wrote. On an
+# H100 the oracles gave at most 1.5e-5, 4.7e-3 and 0.999993, the control
+# (whole-batch BN against gather_perm) 3.8e-4, 4.3e-2 and 0.975: each
+# check alone rejects it. Elementwise closeness (rtol 1e-3 / atol 1e-5, as
+# tests/test_train_step.py holds SyncBN on a tiny net) is printed but cannot
+# hold for ResNet-50: a ReLU input within rounding of zero flips when the
+# same sums run in another order (per rank against per virtual group), and
+# BN spreads the flipped unit's gradient over its channel, so some
+# elements move by a large share of their tensor's largest in one step
+DP_LOSS_RTOL, DP_UPDATE_REL, DP_QUEUE_COS = 1e-4, 1.5e-2, 0.9999
+DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-3, 1e-5
+
+
+def dp_config(preset, **moco):
+    """`preset` on synthetic data (vit_b16_v3 at V3_BATCH), with `moco`'s
+    fields replaced."""
+    from moco_tpu_torch.utils.config import PRESETS
+
+    cfg = PRESETS[preset]
+    data = {"dataset": "synthetic"}
+    if cfg.moco.v3:
+        data["global_batch"] = V3_BATCH
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data),
+                               moco=dataclasses.replace(cfg.moco, **moco))
+
+
+def dp_tensors(state) -> dict:
+    """`state_tensors` and the predictor's."""
+    out = state_tensors(state)
+    if state.predictor is not None:
+        out.update({f"pred.{k}": v for k, v in state.predictor.state_dict().items()})
+    return out
+
+
+def dp_digest(state) -> str:
+    """sha256 over every tensor of the state, by name."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, t in sorted(dp_tensors(state).items()):
+        h.update(k.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def dp_probe_collectives(world) -> dict:
+    """Which collectives the data group takes on this rank's device, each
+    "ok" or its error (a report: nothing depends on it)."""
+    import torch.distributed as dist
+
+    n, dev = world.world_size, world.device
+    x = torch.arange(2 * n, dtype=torch.float32, device=dev) + world.rank
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(n * x.numel(), device=dev), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize(dev)
+            out[name] = "ok"
+        except Exception as e:  # the report is the point; every rank raises alike
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return out
+
+
+def dp_steps(state, step, batches, dev, rows) -> dict:
+    """`step` over `batches`, a wait around each: losses, step ms, the
+    state's digest after each, peak memory, imgs/s of `rows` (the median
+    step ms after the first step, cuDNN's autotuning, or after the first
+    two when there are more than three)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms, digests = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        digests.append(dp_digest(state))
+    steady = float(np.median(ms[2:] if len(ms) > DP_STEPS else ms[1:]))
+    return {"losses": losses, "ms": ms, "step_ms": steady, "imgs_per_s": rows / steady * 1e3,
+            "digests": digests, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def dp_one_child(store: str, out_path: str) -> None:
+    """12h(a), in its own process: the imagenet_v2 preset's 6 steps from
+    phase 8's seeded state on the same batches, on one device and through
+    the distributed path over an NCCL group of one (every collective of the
+    step issued: the gradients', the BN statistics', the metrics'). Both
+    use cuDNN's deterministic algorithms, so that any two runs of one path
+    agree bit for bit; the comparison is then bit for bit."""
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.data.pipeline import TwoCropPipeline
+    from moco_tpu_torch.ops import fused_infonce as fi
+    from moco_tpu_torch.parallel.mesh import init_world
+
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        world = init_world("nccl", 0, 1, device="cuda:0", store_path=store,
+                           timeout_s=DP_TIMEOUT_S)
+        try:
+            cfg = dp_config("imagenet_v2")
+            b = cfg.data.global_batch
+            with TwoCropPipeline(cfg.data, seed=cfg.seed, device="cuda",
+                                 dataset=SyntheticDataset(b * EPOCH_STEPS, IMG)) as pipe:
+                batches = [pipe.batch(0, s) for s in range(DP_TIMED_STEPS)]
+            finals = {}
+            # the single-device path once more, last: its timing (the first
+            # run pays cuDNN's autotuning)
+            for mode, w in (("single", None), ("nccl_1", world), ("single_again", None)):
+                state = seeded_v2_state(cfg, w)
+                step = make_train_step(cfg, EPOCH_STEPS, device="cuda", world=w)
+                fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+                run = dp_steps(state, step, batches, torch.device("cuda:0"), b)
+                run["launches"] = {"infonce_fwd": fi.infonce_stats.launches,
+                                   "infonce_bwd": fi.infonce_dq.launches}
+                run["queue_ptr"] = state.queue_ptr
+                finals[mode] = {k: v.detach().cpu().clone() for k, v in dp_tensors(state).items()}
+                out[mode] = run
+                del state, step
+                torch.cuda.empty_cache()
+            out["nccl_1"]["ledger"] = world.ledger.payload()
+            a, c = finals["single"], finals["nccl_1"]
+            out["same_names"] = set(a) == set(c)
+            out["unequal"] = sorted(k for k in a if k in c and not torch.equal(a[k], c[k]))
+            out["max_abs_diff"] = max(((a[k].double() - c[k].double()).abs().max().item()
+                                       for k in out["unequal"]), default=0.0)
+            again = finals["single_again"]
+            out["single_repeats"] = all(torch.equal(a[k], again[k]) for k in a)
+        finally:
+            world.close()
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def dp_expected_ledger(sites: dict, n: int) -> dict:
+    """`comms/<site>` bytes per step from operand bytes, by JAX's cost model
+    (moco_tpu/obs/comms.py): an all_gather moves b(n-1), an all_to_all
+    b(n-1)/n, a ring all-reduce 2b(n-1)/n, a host copy b."""
+    cost = {"all_gather": lambda b: b * (n - 1), "all_to_all": lambda b: b * (n - 1) // n,
+            "psum": lambda b: 2 * b * (n - 1) // n, "device_put": lambda b: b}
+    out = {f"comms/{k}": cost[c](b) for k, (c, b) in sites.items()}
+    out["comms/total"] = sum(out.values())
+    return out
+
+
+def dp_compare(state, init: dict, final: dict, losses, want_losses, rows: int) -> dict:
+    """An oracle's run (`state` after it, `losses`) against the world's
+    (`final`, `want_losses`), both from `init`: the worst loss deviation
+    (relative); over the parameters and BN statistics the worst update
+    error ||final - oracle|| / ||oracle - init|| and the worst elementwise
+    share of rtol 1e-3 / atol 1e-5; the least cosine between the two of a
+    queue row the steps wrote (the first `rows`) and the largest
+    difference anywhere in the queue."""
+    got = dp_tensors(state)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(want_losses, losses))
+    upd, upd_name, share, share_name = 0.0, "", 0.0, ""
+    err_sq = moved_sq = 0.0
+    for k, v in final.items():
+        if k == "queue" or k.startswith("opt.") or not v.is_floating_point():
+            continue
+        ref, mine = got[k].double(), v.to(got[k].device).double()
+        moved = (ref - init[k].to(ref.device).double()).norm().item()
+        err = (mine - ref).norm().item()
+        err_sq, moved_sq = err_sq + err ** 2, moved_sq + moved ** 2
+        if moved > 0 and err / moved > upd:
+            upd, upd_name = err / moved, k
+        elem = ((mine - ref).abs() / (DP_PARAM_ATOL + DP_PARAM_RTOL * ref.abs())).max().item()
+        if elem > share:
+            share, share_name = elem, k
+    q_ref, q_mine = got["queue"].double(), final["queue"].to(got["queue"].device).double()
+    cos = (q_ref[:rows] * q_mine[:rows]).sum(1) / (q_ref[:rows].norm(dim=1) * q_mine[:rows].norm(dim=1))
+    return {"loss_rel": loss_rel, "update_rel": (err_sq / moved_sq) ** 0.5,
+            "tensor_update_rel": upd, "tensor_update_worst": upd_name,
+            "elementwise_share_of_tol": share, "elementwise_worst": share_name,
+            "queue_min_cos": cos.min().item(), "queue_max_abs": (q_ref - q_mine).abs().max().item()}
+
+
+@contextlib.contextmanager
+def dp_full_f32():
+    """Float32 products without TF32 on the card (cuDNN and cuBLAS), for
+    the oracle runs: bf16's rounding would hide what they compare.
+    cuDNN's autotuning is off inside (a first f32 step spent most of a
+    minute in it), so the step's builder must run inside too."""
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = flags[0].allow_tf32, flags[1].allow_tf32, flags[0].benchmark
+    flags[0].allow_tf32 = flags[1].allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags[0].allow_tf32, flags[1].allow_tf32, flags[0].benchmark = saved
+
+
+def dp_make_step(c, dev, world=None):
+    """make_train_step, without cuDNN's autotuning under float32 (the step
+    builder turns it on for the card)."""
+    from moco_tpu_torch.core.moco import make_train_step
+
+    step = make_train_step(c, EPOCH_STEPS, device=dev, world=world)
+    if c.moco.compute_dtype == "float32":
+        torch.backends.cudnn.benchmark = False
+    return step
+
+
+def dp_rank_child(rank: int, n: int, backend: str, device: str, store: str, out_dir: str) -> None:
+    """12h(b), rank `rank` of `n`: the collectives it can issue; on its 128
+    rows of each batch, made by its own ring, from phase 8's seeded state:
+    imagenet_v2 with gather_perm (6 steps), then in float32 without TF32
+    gather_perm and syncbn (3 steps each), and vit_b16_v3 (2 steps, flash
+    attention); per run the losses, step ms, the state's digest after each
+    step, launches, the ledger and peak memory. Rank 0 then runs the
+    oracles on one device on the whole batches, in float32:
+    bn_virtual_groups=2 with the same permutations for gather_perm,
+    shuffle='none' for syncbn; the latter, whole-batch BN, is also the
+    control held against gather_perm."""
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.data.pipeline import TwoCropPipeline
+    from moco_tpu_torch.ops import flash_attention as fa
+    from moco_tpu_torch.ops import fused_infonce as fi
+    from moco_tpu_torch.parallel.dist import DataPartition
+    from moco_tpu_torch.parallel.mesh import init_world
+
+    out = {"rank": rank, "backend": backend, "device": device}
+    try:
+        world = init_world(backend, rank, n, device=device, store_path=store,
+                           timeout_s=DP_TIMEOUT_S)
+        dev = world.device
+        finals = {}
+        try:
+            out["collectives"] = dp_probe_collectives(world)
+            cfg = dp_config("imagenet_v2")
+            b = cfg.data.global_batch
+            dataset = SyntheticDataset(b * EPOCH_STEPS, IMG)
+            part = DataPartition.of(world, b)
+            lb = part.local_rows
+            world.ledger.reset()
+            with TwoCropPipeline(cfg.data, seed=cfg.seed, dataset=dataset, device=dev,
+                                 partition=part, ledger=world.ledger) as pipe:
+                it = pipe.epoch(0, device=True, stop=DP_TIMED_STEPS)
+                try:
+                    batches = [{k: v.clone() for k, v in bt.items()} for bt in it]
+                finally:
+                    it.close()
+            out["batch_sha"] = [{v: dp_sha(bt[v]) for v in ("im_q", "im_k")}
+                                for bt in batches[:DP_STEPS]]
+            wire = world.ledger.snapshot()["input.h2d"]
+            for name, c in (("gather_perm", cfg),
+                            ("gather_perm_f32", dp_config("imagenet_v2", compute_dtype="float32")),
+                            ("syncbn_f32", dp_config("imagenet_v2", shuffle="syncbn",
+                                                     compute_dtype="float32"))):
+                f32 = c.moco.compute_dtype == "float32"
+                world.ledger.reset()
+                world.ledger.record("input.h2d", wire.collective, wire.operand_bytes, 1)
+                with dp_full_f32() if f32 else contextlib.nullcontext():
+                    state = seeded_v2_state(c, world, device=dev)
+                    if rank == 0 and name == "gather_perm":
+                        init = {k: v.detach().cpu().clone() for k, v in dp_tensors(state).items()}
+                    step = dp_make_step(c, dev, world)
+                    fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+                    run = dp_steps(state, step, batches[:DP_STEPS] if f32 else batches, dev, lb)
+                run["launches"] = {"infonce_fwd": fi.infonce_stats.launches,
+                                   "infonce_bwd": fi.infonce_dq.launches}
+                grad = 4 * sum(p.numel() for p in state.encoder_q.parameters() if p.requires_grad)
+                sites = {"grad.psum": ("psum", grad),
+                         "input.h2d": ("device_put", lb * dataset.load(0)[0].nbytes)}
+                if c.moco.shuffle == "gather_perm":
+                    sites["shuffle.gather_images"] = ("all_gather", lb * IMG * IMG * 3 * 4)
+                    sites["shuffle.gather_keys"] = ("all_gather", lb * DIM * 4)
+                else:
+                    sites["queue.enqueue_gather"] = ("all_gather", lb * DIM * 4)
+                run["ledger"] = world.ledger.payload()
+                run["ledger_want"] = dp_expected_ledger(sites, n)
+                run["queue_ptr"] = state.queue_ptr
+                if rank == 0 and f32:
+                    finals[name] = {k: v.detach().cpu().clone()
+                                    for k, v in dp_tensors(state).items()}
+                out[name] = run
+                del state, step
+                torch.cuda.empty_cache()
+            del batches
+            # v3 at 2 x 128 through the flash kernels
+            cfg3 = dp_config("vit_b16_v3", vit_flash_attention=True)
+            part3 = DataPartition.of(world, cfg3.data.global_batch)
+            with TwoCropPipeline(cfg3.data, seed=cfg3.seed, device=dev, partition=part3,
+                                 dataset=SyntheticDataset(V3_BATCH * 4, IMG)) as pipe:
+                batches = [pipe.batch(0, s) for s in range(DP_V3_STEPS)]
+            world.ledger.reset()
+            state = seeded_v3_state(cfg3, world, device=dev)
+            step = make_train_step(cfg3, 4, device=dev, world=world)
+            zero_flash(fa)
+            run = dp_steps(state, step, batches, dev, part3.local_rows)
+            run["launches"] = flash_launches(fa)
+            run["kernel_launches"] = flash_kernel_launches(fa)
+            trained = [p for m in (state.encoder_q, state.predictor) for p in m.parameters()
+                       if p.requires_grad]
+            run["ledger"] = world.ledger.payload()
+            run["ledger_want"] = dp_expected_ledger({
+                "v3.key_gather": ("all_gather", 2 * part3.local_rows * cfg3.moco.dim * 4),
+                "grad.psum": ("psum", 4 * sum(p.numel() for p in trained))}, n)
+            out["v3"] = run
+            del state, step, batches
+            torch.cuda.empty_cache()
+            world.barrier()
+        finally:
+            world.close()
+        if rank == 0:  # the oracles, one device, the whole batches, float32
+            with TwoCropPipeline(cfg.data, seed=cfg.seed, dataset=dataset, device=dev) as pipe:
+                whole = [pipe.batch(0, s) for s in range(DP_STEPS)]
+            out["oracle"] = {}
+            with dp_full_f32():
+                for name, c, against in (
+                        ("gather_perm", dp_config("imagenet_v2", bn_virtual_groups=2,
+                                                  compute_dtype="float32"),
+                         ("gather_perm_f32",)),
+                        ("syncbn", dp_config("imagenet_v2", shuffle="none",
+                                             compute_dtype="float32"),
+                         ("syncbn_f32", "gather_perm_f32"))):
+                    state = seeded_v2_state(c, device=dev)
+                    step = dp_make_step(c, dev)
+                    run = dp_steps(state, step, whole, dev, b)
+                    for world_run, key in zip(against, (name, "control")):
+                        out["oracle"][key] = {
+                            "losses": run["losses"], "step_ms": run["step_ms"],
+                            **dp_compare(state, init, finals[world_run],
+                                         out[world_run]["losses"], run["losses"], DP_STEPS * b)}
+                    del state, step
+                    torch.cuda.empty_cache()
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_join(procs, budget: float) -> list:
+    """Exit codes of `procs`, joined within `budget` seconds in all (a child
+    still alive then is killed and reads None)."""
+    end = time.monotonic() + budget
+    codes = []
+    for p in procs:
+        p.join(max(end - time.monotonic(), 1.0))
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+def dp_phase(fi):
+    """Phase 12h (module docstring); returns its JSON and the launches of
+    its paths, per process."""
+    import torch.multiprocessing as mp
+
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.data.pipeline import TwoCropPipeline
+
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        # (a) the distributed path over an NCCL group of one
+        t0 = time.perf_counter()
+        path_a = os.path.join(tmp, "one.json")
+        proc = ctx.Process(target=dp_one_child, args=(os.path.join(tmp, "store_a"), path_a))
+        proc.start()
+        codes = dp_join([proc], 2 * DP_TIMEOUT_S)
+        with open(path_a) as f:
+            a = json.load(f)
+        check(codes == [0] and "error" not in a, f"12h(a): exit {codes}: {a.get('error')}")
+        one, nccl, again = a["single"], a["nccl_1"], a["single_again"]
+        print(f"12h(a): {time.perf_counter() - t0:.1f} s; single-device losses {one['losses']}, "
+              f"NCCL world of one {nccl['losses']}; step ms {one['ms']} vs {nccl['ms']} vs "
+              f"{again['ms']}; "
+              f"tensors unequal {a['unequal'][:4]} ({len(a['unequal'])}), max |diff| "
+              f"{a['max_abs_diff']}", flush=True)
+        check(one["losses"] == nccl["losses"] == again["losses"],
+              "12h(a): NCCL-of-one losses differ from one device")
+        check(a["single_repeats"], "12h(a): the single-device path does not repeat itself bit "
+                                   "for bit (cuDNN's deterministic algorithms)")
+        check(a["same_names"] and not a["unequal"],
+              f"12h(a): {len(a['unequal'])} tensors differ, e.g. {a['unequal'][:4]}")
+        check(nccl["launches"] == one["launches"] == {"infonce_fwd": DP_TIMED_STEPS,
+                                                      "infonce_bwd": DP_TIMED_STEPS},
+              f"12h(a): InfoNCE launches {nccl['launches']} / {one['launches']}")
+        check(nccl["ledger"] == {"comms/grad.psum": 0, "comms/total": 0},
+              f"12h(a): a world of one's ledger {nccl['ledger']}")
+        # (b) two ranks
+        count = torch.cuda.device_count()
+        backend, devices = (("nccl", ["cuda:0", "cuda:1"]) if count >= DP_RANKS
+                            else ("gloo", ["cuda:0", "cuda:0"]))
+        print(f"12h(b): {DP_RANKS} ranks, backend {backend}, devices {devices}", flush=True)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dp_rank_child, args=(r, DP_RANKS, backend, devices[r],
+                                                         os.path.join(tmp, "store_b"), tmp))
+                 for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        cfg = dp_config("imagenet_v2")
+        b = cfg.data.global_batch
+        with TwoCropPipeline(cfg.data, seed=cfg.seed, device="cuda",
+                             dataset=SyntheticDataset(b * EPOCH_STEPS, IMG)) as pipe:
+            lb = b // DP_RANKS
+            want_sha = [[{v: dp_sha(batch[v][r * lb:(r + 1) * lb]) for v in ("im_q", "im_k")}
+                         for r in range(DP_RANKS)]
+                        for batch in (pipe.batch(0, s) for s in range(DP_STEPS))]
+        codes = dp_join(procs, 3 * DP_TIMEOUT_S)
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        wall_b = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            print(f"12h(b) rank {r}: collectives on {res['device']}: {res.get('collectives')}",
+                  flush=True)
+        check(codes == [0] * DP_RANKS and not any("error" in r for r in ranks),
+              f"12h(b): exit {codes}: {[r.get('error') for r in ranks]}")
+        per_rank = []
+        for r, res in enumerate(ranks):
+            for name in ("gather_perm", "gather_perm_f32", "syncbn_f32", "v3"):
+                run = res[name]
+                steps = {"v3": DP_V3_STEPS, "gather_perm": DP_TIMED_STEPS}.get(name, DP_STEPS)
+                check(all(np.isfinite(run["losses"])) and len(run["losses"]) == steps,
+                      f"12h(b) rank {r} {name}: losses {run['losses']}")
+                check(run["ledger"] == run["ledger_want"],
+                      f"12h(b) rank {r} {name}: ledger {run['ledger']} != {run['ledger_want']}")
+                check(run["digests"] == ranks[0][name]["digests"],
+                      f"12h(b) {name}: rank {r} out of lockstep")
+            for name in ("gather_perm", "gather_perm_f32", "syncbn_f32"):
+                want = DP_TIMED_STEPS if name == "gather_perm" else DP_STEPS
+                check(res[name]["launches"] == {"infonce_fwd": want, "infonce_bwd": want},
+                      f"12h(b) rank {r} {name}: InfoNCE launches {res[name]['launches']}")
+            check(res["v3"]["launches"] == {"flash_fwd": 24 * DP_V3_STEPS,
+                                            "flash_dq": 12 * DP_V3_STEPS,
+                                            "flash_dkv": 12 * DP_V3_STEPS},
+                  f"12h(b) rank {r} v3: flash launches {res['v3']['launches']}")
+            check(res["batch_sha"] == [w[r] for w in want_sha],
+                  f"12h(b) rank {r}: its ring batches are not its rows of batch(0, s)")
+            per_rank.append({name: {k: res[name][k] for k in ("losses", "ms", "step_ms",
+                                                              "imgs_per_s", "peak_gb",
+                                                              "launches", "ledger")}
+                             for name in ("gather_perm", "gather_perm_f32", "syncbn_f32", "v3")})
+        oracle = ranks[0]["oracle"]
+
+        def meets(o):
+            return (o["loss_rel"] <= DP_LOSS_RTOL and o["update_rel"] <= DP_UPDATE_REL
+                    and o["queue_min_cos"] >= DP_QUEUE_COS)
+
+        for name, o in oracle.items():
+            print(f"12h(b) oracle {name}: {json.dumps(o)}", flush=True)
+        for name in ("gather_perm", "syncbn"):
+            check(meets(oracle[name]), f"12h(b) {name} against its oracle: {oracle[name]}")
+        control = oracle["control"]
+        for key, passes in (("loss_rel", control["loss_rel"] <= DP_LOSS_RTOL),
+                            ("update_rel", control["update_rel"] <= DP_UPDATE_REL),
+                            ("queue_min_cos", control["queue_min_cos"] >= DP_QUEUE_COS)):
+            check(not passes, f"12h(b): the whole-batch-BN control passes the {key} check: "
+                              f"{control[key]}")
+        return {"a": {"single": one, "nccl_1": nccl, "single_again": again,
+                      "max_abs_diff": a["max_abs_diff"],
+                      "overhead_ms": nccl["step_ms"] - again["step_ms"]},
+                "b": {"backend": backend, "devices": devices, "wall_s": wall_b,
+                      "collectives": ranks[0]["collectives"], "ranks": per_rank,
+                      "oracle": oracle}}, {
+            "nccl_1": nccl["launches"],
+            "ranks": [{**{k: sum(res[run]["launches"][k] for run in
+                                 ("gather_perm", "gather_perm_f32", "syncbn_f32"))
+                          for k in ("infonce_fwd", "infonce_bwd")},
+                       **res["v3"]["launches"]} for res in ranks]}
+    finally:
+        shutil.rmtree(tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3911,6 +4455,10 @@ def main() -> int:
         shutil.rmtree(serve_dir)
     print(json.dumps({"serving_rest": rest_out, "device": smi}))
     torch.cuda.empty_cache()
+
+    # -- data parallelism: an NCCL world of one, two ranks on the card --------
+    dp_out, dp_launches = dp_phase(fused_infonce)
+    print(json.dumps({"data_parallel": dp_out, "device": smi}))
     obs_infonce = {k: obs_launches["a"][k] + obs_launches["b"][k]
                    for k in ("infonce_fwd", "infonce_bwd")}
     for rec in train_kernels:
@@ -3930,6 +4478,11 @@ def main() -> int:
         if rec["name"] == "flash_fwd":
             rec["launches"] += serve_launches["flash_fwd"]
             rec["launches_12e"] = serve_launches["flash_fwd"]
+    for rec in [*train_kernels, *v3_kernels]:  # 12h: per process (the world of one, each rank)
+        per = [dp_launches["nccl_1"].get(rec["name"], 0)] + [
+            r[rec["name"]] for r in dp_launches["ranks"]]
+        rec["launches"] += sum(per)
+        rec["launches_12h"] = {"nccl_1": per[0], **{f"rank{i}": n for i, n in enumerate(per[1:])}}
     kernels = [ivf_kernel, *train_kernels, *v3_kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)

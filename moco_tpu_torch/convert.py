@@ -328,7 +328,7 @@ def random_flax_predictor(cfg: MocoConfig, seed: int = 0) -> tuple[dict, dict]:
 
 
 def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
-                    num_filters: int = 64) -> TrainState:
+                    num_filters: int = 64, world=None) -> TrainState:
     """A JAX `MocoState`'s contents, as numpy trees, -> the port's
     `TrainState` on `device`. `tree` holds `step`, `params_q`,
     `batch_stats_q`, `params_k` and `batch_stats_k`; for v1/v2 also
@@ -340,13 +340,15 @@ def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
     {"mu", "nu", "count"} of optax's ScaleByAdamState over {"enc", "pred"},
     which become AdamW's `exp_avg`, `exp_avg_sq` and `step` for every
     trained parameter. A v3 head takes its hidden width from the tree's
-    first Dense kernel (v1/v2 heads have no such width)."""
+    first Dense kernel (v1/v2 heads have no such width). `world`
+    (parallel/mesh.py) makes the encoders' and the predictor's SyncBNs as
+    `build_encoder` does."""
     def hidden(head):
         return np.shape(head["Dense_0"]["kernel"])[-1]
 
     def encoder(params, stats):
         enc = build_encoder(config.moco, num_filters=num_filters,
-                            mlp_hidden=hidden(params["head"]))
+                            mlp_hidden=hidden(params["head"]), world=world)
         enc.load_state_dict(encoder_from_flax(params, stats))
         return enc
 
@@ -362,7 +364,7 @@ def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
             key = "trace" if config.optim.optimizer == "lars" else "momentum_buffer"
             _load_moments(state, {key: encoder_from_flax(tree["trace"])}, {})
         return state
-    predictor = build_predictor(config.moco, mlp_hidden=hidden(tree["params_pred"]))
+    predictor = build_predictor(config.moco, mlp_hidden=hidden(tree["params_pred"]), world=world)
     predictor.load_state_dict(predictor_from_flax(tree["params_pred"], tree["batch_stats_pred"]))
     state = create_state(config, enc_q, device=device, encoder_k=enc_k, step=step,
                          predictor=predictor)

@@ -17,15 +17,16 @@ The v1/v2 step follows the reference's order (moco_tpu/core/moco.py:1061-1316):
    queue see them in the batch's order. Under `key_bn_running_stats`
    (EMAN) the key forward runs eval-mode BN instead;
 3. query forward and l2_normalize; under `remat` each block of it is
-   recomputed in the backward (models/remat.py). Under EMAN the key
-   encoder's running statistics then move toward the query encoder's
-   updated ones at `ema_momentum(step)`, with `key_bn_stats_warmup`
-   capped at (1 + step) / (10 + step) (:1204-1214);
+   recomputed in the backward (models/remat.py);
 4. the fused loss (:1146-1157) unless `fused_infonce` is False, then
    the dense one (:1158-1168); the fused loss takes any K (the JAX gate
    at :731-758 exists for its Pallas tile, which the CUDA kernels do not
    need);
-5. backward and the optimizer step (:1250-1258);
+5. backward and the optimizer step (:1250-1258). Under EMAN the key
+   encoder's running statistics then move toward the query encoder's
+   updated ones (as the query forward left them) at `ema_momentum(step)`,
+   with `key_bn_stats_warmup` capped at (1 + step) / (10 + step)
+   (:1204-1214);
 6. the health gauges (obs/health.py, :1279-1305) when
    `config.health_metrics`: the positive logits from the (q, k) diagonal,
    the negatives from q against the first min(1024, K) rows of the old
@@ -53,11 +54,40 @@ The v3 step (`v3_step`, :875-1059, the single-device branch without ZeRO):
    of q1 and the drift of the updated query encoder (not the predictor)
    from the key encoder; no queue gauges.
 
-One device means no Shuffle-BN collective. The step's permutations come
-from the state's generator, seeded anew each step from (config.seed,
-step) as JAX folds the step into its root key, so a resume or a rollback
-draws the same ones; a batch may carry its own (`perm` for gather_perm,
-`pre` and `post` for a2a), as the parity tests pass JAX's.
+The step's permutations come from the state's generator, seeded anew
+each step from (config.seed, step) as JAX folds the step into its root
+key, so a resume or a rollback draws the same ones; a batch may carry its
+own (`perm` for gather_perm, `pre` and `post` for a2a), as the parity
+tests pass JAX's.
+
+Data parallel (`world`, parallel/mesh.py, n ranks, one process per GPU):
+each rank's batch is its B/n rows of the global batch and the step is
+JAX's at `num_data = n` (:875-1316, no ZeRO, no model axis):
+
+- Shuffle-BN is active when n > 1 or G > 1 (:1101): gather_perm gathers
+  the images and the keys (the global keys feed the enqueue), a2a
+  exchanges them all-to-all with each rank's local permutations from
+  (seed, step, rank) and gathers the keys for the enqueue
+  (`queue.enqueue_gather`), as 'syncbn' and 'none' do when n > 1
+  (:1097-1131);
+- SyncBN: the backbone's BNs average their moments over the data group or
+  the rank's subgroup of `syncbn_group_size` (`build_encoder`); v3's heads
+  over the data group when n > 1 (:205-232);
+- after the backward, the gradients' mean over the data group, one flat
+  all-reduce (:1250-1255, :1025-1026); the loss, the accuracies, the BN
+  running statistics (:1200-1218, averaged over ranks, not rank 0's as
+  under DDP) and the batch-local health gauges (:1300, :1049) are averaged
+  too, so every rank takes the same non-finite decision and holds the
+  same state;
+- v3 gathers both views' keys (:905-908) and offsets its labels by
+  rank * local batch (:911).
+
+The InfoNCE and flash kernels run on each rank's local rows. Every
+collective site records its analytic bytes in the world's comms ledger
+(obs/comms.py) under JAX's site names, also where n = 1 or no process
+group exists (0 bytes then), as JAX's step registers its sites at n = 1.
+A World without a process group issues no collective and the step is the
+one-device step.
 """
 
 from __future__ import annotations
@@ -72,11 +102,12 @@ from torch import nn
 
 from moco_tpu_torch.core.ema import ema_running_stats, ema_update
 from moco_tpu_torch.core.queue import check_queue_divisibility, enqueue, init_queue
-from moco_tpu_torch.models.heads import ProjectionHead, V3MLPHead
-from moco_tpu_torch.models.resnet import create_resnet
+from moco_tpu_torch.models.heads import BatchNorm1d, ProjectionHead, V3MLPHead
+from moco_tpu_torch.models.resnet import BatchNorm, create_resnet
 from moco_tpu_torch.models.vit import create_vit
 from moco_tpu_torch.obs import health
 from moco_tpu_torch.parallel import shuffle as sh
+from moco_tpu_torch.parallel.mesh import World
 from moco_tpu_torch.ops.fused_infonce import fused_infonce_loss
 from moco_tpu_torch.ops.losses import cross_entropy, infonce_logits, l2_normalize, topk_accuracy
 from moco_tpu_torch.utils.config import MocoConfig, TrainConfig
@@ -100,8 +131,15 @@ class MoCoEncoder(nn.Module):
         return self.head(self.backbone(x, remat=remat))
 
 
+def _sync_norms(module: nn.Module, kind: type, stats) -> None:
+    """Make every `kind` BatchNorm under `module` a SyncBN over `stats`."""
+    for m in module.modules():
+        if isinstance(m, kind):
+            m.sync_stats = stats
+
+
 def build_encoder(cfg: MocoConfig, num_filters: int = 64,
-                  mlp_hidden: int = V3_HIDDEN) -> MoCoEncoder:
+                  mlp_hidden: int = V3_HIDDEN, world: Optional[World] = None) -> MoCoEncoder:
     """Backbone (ResNet or ViT from `cfg.arch`, moco_tpu/core/moco.py:88) +
     projection head (:200): v3 takes the V3MLPHead (3 layers behind a ViT,
     2 behind a ResNet, both ending in the affine-free BN), v1/v2 the Linear
@@ -114,8 +152,23 @@ def build_encoder(cfg: MocoConfig, num_filters: int = 64,
     syncbn, no barrier without stats rows, and no virtual groups without a
     key permutation (shuffle 'none' or v3) unless `allow_leaky_bn`, or the
     EMAN key forward on v1/v2, which reads no batch statistics. JAX's
-    `bn_stats_rows` gate fires only on a data axis of more than one device."""
+    `bn_stats_rows` gate fires on a data axis of more than one device.
+
+    `world` (parallel/mesh.py) is the data axis, JAX's `num_data`: with a
+    process group, shuffle 'syncbn' makes the backbone's BNs SyncBNs over
+    the data group or the rank's subgroup of `syncbn_group_size` ranks, and
+    v3's projector BNs SyncBNs over the data group when it has more than
+    one rank. `syncbn_group_size` needs a world that it divides."""
     vit = cfg.arch.startswith("vit")
+    n = 1 if world is None else world.world_size
+    if cfg.shuffle == "syncbn" and cfg.syncbn_group_size and not vit:
+        if world is None:
+            raise ValueError(
+                "syncbn_group_size is set but build_encoder was called without "
+                "num_data — subgrouped SyncBN needs the data-axis size to form groups"
+            )
+        if n % cfg.syncbn_group_size:
+            raise ValueError(f"data axis {n} not divisible by syncbn group {cfg.syncbn_group_size}")
     if vit and (cfg.bn_stats_rows or cfg.bn_virtual_groups > 1 or cfg.bn_momentum_stats):
         raise ValueError(
             "bn_stats_rows / bn_virtual_groups / bn_momentum_stats apply "
@@ -126,6 +179,14 @@ def build_encoder(cfg: MocoConfig, num_filters: int = 64,
             raise ValueError("bn_virtual_groups does not compose with syncbn")
         if cfg.bn_stats_barrier and not cfg.bn_stats_rows:
             raise ValueError("bn_stats_barrier requires bn_stats_rows > 0")
+        if (cfg.bn_stats_rows and (cfg.shuffle == "none" or cfg.v3) and n > 1
+                and not cfg.allow_leaky_bn and not (cfg.key_bn_running_stats and not cfg.v3)):
+            raise ValueError(
+                "bn_stats_rows needs a key permutation on a multi-device data "
+                "axis (fixed first-N-rows statistics concentrate the BN leak "
+                "Shuffle-BN prevents): use shuffle='gather_perm' or 'a2a', and "
+                "leave it unset for the v3 step, which never shuffles"
+            )
         if (cfg.bn_virtual_groups > 1 and (cfg.shuffle == "none" or cfg.v3)
                 and not cfg.allow_leaky_bn and not (cfg.key_bn_running_stats and not cfg.v3)):
             raise ValueError(
@@ -146,16 +207,25 @@ def build_encoder(cfg: MocoConfig, num_filters: int = 64,
         head = V3MLPHead(backbone.num_features, num_layers, mlp_hidden, cfg.dim)
     else:
         head = ProjectionHead(backbone.num_features, cfg.dim, cfg.mlp)
+    if world is not None and world.distributed:
+        if cfg.shuffle == "syncbn" and not vit:
+            _sync_norms(backbone, BatchNorm, world.syncbn_stats(cfg.syncbn_group_size))
+        if cfg.v3 and n > 1:
+            _sync_norms(head, BatchNorm1d, world.syncbn_stats())
     return MoCoEncoder(backbone, head)
 
 
-def build_predictor(cfg: MocoConfig, mlp_hidden: int = V3_HIDDEN) -> Optional[V3MLPHead]:
+def build_predictor(cfg: MocoConfig, mlp_hidden: int = V3_HIDDEN,
+                    world: Optional[World] = None) -> Optional[V3MLPHead]:
     """v3's 2-layer prediction MLP on the query side (:220), with the final
     affine-free BN behind a ViT and without it behind a ResNet; None for
-    v1/v2."""
+    v1/v2. Its BNs are SyncBNs over a `world` of more than one rank."""
     if not cfg.v3:
         return None
-    return V3MLPHead(cfg.dim, 2, mlp_hidden, cfg.dim, last_bn=cfg.arch.startswith("vit"))
+    head = V3MLPHead(cfg.dim, 2, mlp_hidden, cfg.dim, last_bn=cfg.arch.startswith("vit"))
+    if world is not None and world.distributed and world.world_size > 1:
+        _sync_norms(head, BatchNorm1d, world.syncbn_stats())
+    return head
 
 
 @dataclasses.dataclass
@@ -239,16 +309,23 @@ def make_ema_momentum(cfg: MocoConfig, total_steps: int) -> Callable[[int], floa
     return ema_momentum
 
 
-def make_train_step(config: TrainConfig, steps_per_epoch: int,
-                    device="cuda") -> Callable[[TrainState, dict], dict]:
+def _bn_buffers(*modules) -> list:
+    """The BN running statistics of `modules` (floating buffers: not the
+    integer batch counters), in a fixed order."""
+    return [b for m in modules if m is not None for b in m.buffers() if b.is_floating_point()]
+
+
+def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
+                    world: Optional[World] = None) -> Callable[[TrainState, dict], dict]:
     """`step(state, batch) -> metrics`: one MoCo step on `device` (v3 when
     `config.moco.v3`), updating `state` in place. `batch` is {"im_q",
-    "im_k"}, (B, S, S, 3) float32 views already augmented, B =
-    config.data.global_batch. Metrics: loss, acc1, acc5 (0-dim tensors, not
-    synchronized), lr, and with `config.health_metrics` the health gauges
-    (0-dim tensors, `queue_age_hist` an (8,) one, not synchronized). The
-    EMA ramp spans epochs * steps_per_epoch
-    steps, the total moco_tpu/train.py:360 passes.
+    "im_k"}, (b, S, S, 3) float32 views already augmented: b =
+    config.data.global_batch on one device, this rank's B / n rows under
+    a `world` of n ranks (module docstring). Metrics: loss, acc1, acc5 (0-dim
+    tensors, not synchronized; their mean over the ranks), lr, and with
+    `config.health_metrics` the health gauges (0-dim tensors,
+    `queue_age_hist` an (8,) one, not synchronized). The EMA ramp spans
+    epochs * steps_per_epoch steps, the total moco_tpu/train.py:360 passes.
 
     Under compute_dtype="bfloat16" the encoders run under autocast while
     the parameters, BN statistics, head output and loss inputs stay
@@ -256,7 +333,7 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
 
     The EMAN key forward is checked as JAX's `make_train_step` checks it
     (:457-470), with its messages: not on v3, not under gather_perm or
-    a2a."""
+    a2a; so is the batch's split over the ranks."""
     device = resolve_device(device)
     cfg = config.moco
     if cfg.key_bn_running_stats:
@@ -271,10 +348,17 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
                 "forward, so Shuffle-BN would be pure wasted communication: "
                 "set shuffle='none' (or 'syncbn' for query-side statistics)"
             )
+    world = World(device=device) if world is None else world
+    n, rank = world.world_size, world.rank
     global_batch = config.data.global_batch
-    shuffle_active = cfg.bn_virtual_groups > 1  # one device: :1101
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by data axis {n}")
+    local_b = global_batch // n
+    shuffle_active = n > 1 or cfg.bn_virtual_groups > 1  # :1101
     # the step's permutations: `gather_perm`'s one, `a2a`'s two local ones
     shuffle = cfg.shuffle if shuffle_active and cfg.shuffle in ("gather_perm", "a2a") else None
+    if shuffle == "a2a" and local_b % n:
+        raise ValueError(f"a2a shuffle needs local batch {local_b} divisible by axis size {n}")
     if not cfg.v3:
         check_queue_divisibility(cfg.num_negatives, global_batch)
     schedule = make_lr_schedule(config.optim, steps_per_epoch)
@@ -288,32 +372,38 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         return torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16)
 
     def key_forward(state: TrainState, batch: dict):
-        """Keys in the batch's order, l2-normalized: the key forward on the
-        permuted batch under Shuffle-BN, else on the batch itself
-        (eval-mode BN under EMAN)."""
+        """(k_local, k_global): this rank's keys and the global batch's, in
+        the batch's order, l2-normalized: the key forward on the permuted
+        batch under Shuffle-BN, else on the batch itself (eval-mode BN
+        under EMAN); the global keys come from the unshuffle's gather under
+        gather_perm and from the enqueue's own gather otherwise (n > 1)."""
         im_k = batch["im_k"]
         if shuffle is not None:
-            state.generator.manual_seed(sh.step_seed(config.seed, state.step))
+            state.generator.manual_seed(
+                sh.step_seed(config.seed, state.step, rank if shuffle == "a2a" else 0))
         if shuffle == "gather_perm":
             perm = batch.get("perm")
             if perm is None:
                 perm, inv_perm = sh.make_permutation(state.generator, global_batch)
             else:
                 inv_perm = torch.argsort(perm)
-            im_k = sh.shuffle_gather(im_k, perm)
+            im_k = sh.dp_shuffle_gather(world, im_k, perm)
         elif shuffle == "a2a":
             pre, post = (batch["pre"], batch["post"]) if "pre" in batch else sh.local_perms(
-                state.generator, global_batch)
-            im_k = sh.balanced_shuffle(im_k, pre, post)
+                state.generator, local_b)
+            im_k = sh.dp_balanced_shuffle(world, im_k, pre, post)
         state.encoder_k.train(not cfg.key_bn_running_stats)
         with torch.no_grad(), autocast():
             k = state.encoder_k(im_k)
         k = l2_normalize(k.float())
         if shuffle == "gather_perm":
-            k = sh.unshuffle_gather(k, inv_perm)
-        elif shuffle == "a2a":
-            k = sh.balanced_unshuffle(k, pre, post)
-        return k
+            return sh.dp_unshuffle_gather(world, k, inv_perm)
+        if shuffle == "a2a":
+            k = sh.dp_balanced_unshuffle(world, k, pre, post)
+            return k, world.all_gather_rows(k, "queue.enqueue_gather")
+        if n > 1:
+            return k, world.all_gather_rows(k, "queue.enqueue_gather")
+        return k, k
 
     def eman_momentum(step: int) -> float:
         """The key statistics' momentum: ema_momentum(step), with the warmup
@@ -325,18 +415,31 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         return float(m)
 
     def check_batch(im_q, im_k):
-        if im_q.shape[0] != global_batch or im_k.shape[0] != global_batch:
-            raise ValueError(f"batch of {im_q.shape[0]} rows, config says {global_batch}")
+        if im_q.shape[0] != local_b or im_k.shape[0] != local_b:
+            where = "config says" if n == 1 else f"this rank of {n} holds"
+            raise ValueError(f"batch of {im_q.shape[0]} rows, {where} {local_b}")
 
     def update(state: TrainState, loss) -> float:
-        """Backward and the optimizer step at the lr of this step's count."""
+        """Backward, the gradients' mean over the ranks (`grad.psum`), and
+        the optimizer step at the lr of this step's count."""
         lr = schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        world.all_reduce_mean_([p.grad for group in state.optimizer.param_groups
+                                for p in group["params"]], "grad.psum")
         state.optimizer.step()
         return lr
+
+    def mean_metrics(metrics: dict, keys) -> None:
+        """The ranks' mean of the 0-dim `keys` of `metrics`, in one
+        all-reduce (JAX's pmean of the metrics tree)."""
+        if not world.distributed:
+            return
+        keys = [k for k in keys if k in metrics]
+        reduced = world.all_reduce_mean(torch.stack([metrics[k].float() for k in keys]))
+        metrics.update(zip(keys, reduced.unbind()))
 
     def step(state: TrainState, batch: dict) -> dict:
         im_q, im_k = batch["im_q"], batch["im_k"]
@@ -344,23 +447,29 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         # (1) EMA before the key forward, on the pre-update query params
         ema_update(state.encoder_k, state.encoder_q, ema_momentum(state.step))
         # (2) key forward, train-mode BN (its running stats move) unless EMAN
-        k = key_forward(state, batch)
-        # (3) query forward; under EMAN the key statistics trail the query's
+        k, k_global = key_forward(state, batch)
+        # (3) query forward
         state.encoder_q.train()
         with autocast():
             q = state.encoder_q(im_q, remat=cfg.remat)
         q = l2_normalize(q.float())
-        if cfg.key_bn_running_stats:
-            ema_running_stats(state.encoder_k, state.encoder_q, eman_momentum(state.step))
         # (4) loss in float32 on the old queue
         if cfg.fused_infonce is not False:  # None or True, for any K
             loss, acc = fused_infonce_loss(q, k, state.queue, cfg.temperature)
         else:
             logits, labels = infonce_logits(q, k, state.queue, cfg.temperature)
             loss, acc = cross_entropy(logits, labels), topk_accuracy(logits, labels)
-        # (5) backward and the optimizer step
+        # (5) backward, the gradients' mean and the optimizer step; the
+        # running statistics' mean over the ranks; under EMAN the key
+        # statistics then trail the query's (the backward leaves the BN
+        # buffers as the query forward left them, remat's recompute too)
         lr = update(state, loss)
+        world.all_reduce_mean_(_bn_buffers(
+            state.encoder_q, None if cfg.key_bn_running_stats else state.encoder_k))
+        if cfg.key_bn_running_stats:
+            ema_running_stats(state.encoder_k, state.encoder_q, eman_momentum(state.step))
         metrics = {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
+        mean_metrics(metrics, ("loss", "acc1", "acc5"))
         # (6) the gauges, on the old queue and the updated query parameters
         if health_on:
             with torch.no_grad():
@@ -370,8 +479,10 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
                 metrics.update(health.health_summary(
                     health.module_groups(state.encoder_q), health.module_groups(state.encoder_k),
                     q_h, pos, neg, state.step, cfg.num_negatives, global_batch))
-        # (7) FIFO enqueue after the loss and the gauges have read the old queue
-        state.queue, state.queue_ptr = enqueue(state.queue, state.queue_ptr, k)
+            mean_metrics(metrics, health.BATCH_LOCAL_KEYS)
+        # (7) FIFO enqueue of the global keys, after the loss and the gauges
+        # have read the old queue
+        state.queue, state.queue_ptr = enqueue(state.queue, state.queue_ptr, k_global)
         state.step += 1
         return metrics
 
@@ -379,7 +490,6 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         im_q, im_k = batch["im_q"], batch["im_k"]
         check_batch(im_q, im_k)
         x_cat = torch.cat([im_q, im_k])
-        labels = torch.arange(global_batch, device=im_q.device)
         # (1) EMA of the key encoder (not the predictor), before the key forward
         ema_update(state.encoder_k, state.encoder_q, ema_momentum(state.step))
         # (2) key forward on both views, train-mode BN in the head
@@ -387,7 +497,11 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         with torch.no_grad(), autocast():
             k_cat = state.encoder_k(x_cat)
         k1, k2 = l2_normalize(k_cat.float()).chunk(2)
-        # (3) query forward and predictor on the same 2B rows
+        if n > 1:  # the global keys of both views, in one gather
+            k_g = world.all_gather_rows(torch.cat([k1, k2], 1), "v3.key_gather")
+            k1, k2 = k_g[:, :cfg.dim], k_g[:, cfg.dim:]
+        labels = rank * local_b + torch.arange(local_b, device=im_q.device)
+        # (3) query forward and predictor on the same 2b rows
         state.encoder_q.train()
         state.predictor.train()
         with autocast():
@@ -402,13 +516,17 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int,
         loss1, logits = ctr(q1, k2)
         loss = loss1 + ctr(q2, k1)[0]
         acc = topk_accuracy(logits.detach(), labels)
-        # (5) backward and the optimizer step
+        # (5) backward, the gradients' mean and the optimizer step; the
+        # running statistics' mean over the ranks
         lr = update(state, loss)
+        world.all_reduce_mean_(_bn_buffers(state.encoder_q, state.encoder_k, state.predictor))
         metrics = {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
+        mean_metrics(metrics, ("loss", "acc1", "acc5"))
         # (6) the gauges; the drift of the updated encoder, not the predictor
         if health_on:
             metrics.update(health.logit_stats_from_dense(logits.detach(), labels))
             metrics.update(health.feature_stats(q1.detach()))
+            mean_metrics(metrics, health.BATCH_LOCAL_KEYS)
             metrics.update(health.ema_drift(health.module_groups(state.encoder_q),
                                             health.module_groups(state.encoder_k)))
         state.step += 1

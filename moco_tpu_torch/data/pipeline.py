@@ -26,6 +26,14 @@ Two epoch modes, with the same batches bit for bit:
   (`data/device_prefetch.py`), and the caller takes finished batches, so
   load, copy, augment and step overlap.
 
+Data parallel (`partition`, parallel/dist.py): rank r of n loads only its
+rows [r*B/n, (r+1)*B/n) of each seeded global batch of B, and draws the
+augment's recipe (and the host crops' boxes) for the whole global batch
+from the (seed, epoch, step) generator before it takes its rows, so the
+union of the ranks' batches is the one-process batch bit for bit; each
+rank has its own ring on its own device. Each batch's uint8 payload is
+recorded as the `input.h2d` site of a comms ledger when one is given.
+
 Training pipelines drop the last partial batch, as the reference's
 DataLoader does: the queue needs full batches. Every epoch iterator has
 `close()`; a consumer that leaves an epoch early must call it, or the
@@ -187,6 +195,12 @@ def _leaves(tree) -> list:
     return [leaf for sub in tree for leaf in _leaves(sub)]
 
 
+def _rows(draws: dict, partition) -> dict:
+    """A rank's rows of every draw of a whole-batch recipe."""
+    return {k: _rows(v, partition) if isinstance(v, dict) else partition.rows(v)
+            for k, v in draws.items()}
+
+
 def _clone(draws: dict) -> dict:
     return {k: _clone(v) if isinstance(v, dict) else v.clone() for k, v in draws.items()}
 
@@ -278,10 +292,13 @@ class _HostPipeline:
     loader pool, the host slots and the seeded per-epoch order."""
 
     def __init__(self, config: DataConfig, seed: int = 0, dataset=None, train: bool = True,
-                 drop_last: bool = True, device="cuda"):
+                 drop_last: bool = True, device="cuda", partition=None, ledger=None):
         self.config = config
         self.seed = seed
         self.device = resolve_device(device)
+        # this rank's rows of each global batch (parallel/dist.py); None = all
+        self.partition = partition
+        self.ledger = ledger
         self.dataset = dataset if dataset is not None else build_dataset(
             config.dataset, config.data_dir, config.image_size, train=train,
             num_workers=config.num_workers, cache_dir=config.cache_dir)
@@ -363,6 +380,9 @@ class _HostPipeline:
         u = draw_rrc_uniforms(rng, self.batch_size * n_crops)
         boxes = rrc_boxes_from_uniforms(u, np.repeat(dims, n_crops, axis=0), scale=scale)
         boxes = boxes.reshape(len(global_indices), n_crops, 4)
+        if self.partition is not None:  # the boxes of the whole batch were drawn
+            global_indices = self.partition.local_indices(global_indices)
+            boxes = self.partition.rows(boxes)
         with obs_span("host_decode", n=len(global_indices), crops=n_crops):
             faults.maybe_delay("data.read")
             raw, labels = retry.retry_call(self.dataset.load_crop_batch, global_indices, boxes,
@@ -408,9 +428,9 @@ class _AugmentedPipeline(_HostPipeline):
     LABELED = False
 
     def __init__(self, config: DataConfig, recipe: AugRecipe, seed: int = 0, dataset=None,
-                 train: bool = True, device="cuda"):
+                 train: bool = True, device="cuda", partition=None, ledger=None):
         super().__init__(config, seed=seed, dataset=dataset, train=train, drop_last=True,
-                         device=device)
+                         device=device, partition=partition, ledger=ledger)
         self.recipe = recipe
         # the host-crop path's images arrive cropped to size: the device
         # applies the rest of the recipe
@@ -437,6 +457,8 @@ class _AugmentedPipeline(_HostPipeline):
             slot.tensor.numpy()[...] = raw
             precropped = True
         else:
+            if self.partition is not None:
+                idx = self.partition.local_indices(idx)
             slot, labels = self._host_batch(idx, slots)
             precropped = False
         return HostBatch(step, seed, slot, slots, labels if self.LABELED else None, precropped)
@@ -452,7 +474,9 @@ class _AugmentedPipeline(_HostPipeline):
         then the transform (on a card replayed from a CUDA graph)."""
         gen = torch.Generator(device=self.device).manual_seed(hb.seed)
         recipe = self._nocrop if hb.precropped else self.recipe
-        draws = [draw_recipe(recipe, gen, raw.shape[0]) for _ in range(self.N_CROPS)]
+        draws = [draw_recipe(recipe, gen, self.batch_size) for _ in range(self.N_CROPS)]
+        if self.partition is not None:  # this rank's rows of the batch's draws
+            draws = [_rows(d, self.partition) for d in draws]
         if self.device.type == "cuda":
             return self._graphed(hb.precropped, raw, *draws)
         return self._transform(hb.precropped, raw, *draws)
@@ -470,6 +494,8 @@ class _AugmentedPipeline(_HostPipeline):
         CPU the copy is the slot itself, so it goes back after the
         augment)."""
         raw = hb.views.to(self.device, non_blocking=True)
+        if self.ledger is not None:
+            self.ledger.record("input.h2d", "device_put", hb.wire_bytes, 1)
         copied = None
         if self.device.type == "cuda":
             copied = torch.cuda.Event()
@@ -498,15 +524,17 @@ class _AugmentedPipeline(_HostPipeline):
 
 class TwoCropPipeline(_AugmentedPipeline):
     """{"im_q", "im_k"} batches, (B, S, S, 3) float32 on the device, by
-    (epoch, step): TwoCropsTransform, the query view's draws first. Close
-    it (or use it as a context manager) to stop its loader threads."""
+    (epoch, step): TwoCropsTransform, the query view's draws first; with a
+    `partition`, this rank's rows of them. Close it (or use it as a
+    context manager) to stop its loader threads."""
 
     N_CROPS = 2
 
     def __init__(self, config: DataConfig, seed: int = 0, dataset=None, train: bool = True,
-                 device="cuda"):
+                 device="cuda", partition=None, ledger=None):
         recipe = get_recipe(config.aug_plus, config.image_size, crops_only=config.crops_only)
-        super().__init__(config, recipe, seed=seed, dataset=dataset, train=train, device=device)
+        super().__init__(config, recipe, seed=seed, dataset=dataset, train=train, device=device,
+                         partition=partition, ledger=ledger)
 
     def _transform(self, precropped: bool, raw: torch.Tensor, dq: dict, dk: dict) -> dict:
         """The deterministic part of the augment: both views from their

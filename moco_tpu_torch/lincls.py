@@ -41,6 +41,7 @@ from moco_tpu_torch.models.heads import LinearClassifier
 from moco_tpu_torch.models.resnet import create_resnet
 from moco_tpu_torch.models.vit import create_vit
 from moco_tpu_torch.ops.losses import cross_entropy, topk_accuracy
+from moco_tpu_torch.parallel.dist import wants_distributed
 from moco_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     best_exists,
@@ -270,7 +271,12 @@ def train_lincls(pretrain_workdir: str, probe: ProbeConfig,
     """A whole probe run; returns {"best_acc1", "acc1", "acc5", "loss",
     "count"} of the last epoch's validation. `workdir` defaults to
     `<pretrain_workdir>_lincls`; `data` to the pretraining config's. The
-    training batches come through the prefetch ring."""
+    training batches come through the prefetch ring. One process: a
+    data-parallel launch is refused."""
+    if wants_distributed():
+        raise SystemExit("the linear probe runs in one process; a data-parallel launch "
+                         "(WORLD_SIZE > 1 or MOCO_MULTIHOST=1) is not ported yet: run "
+                         "`python -m moco_tpu_torch.lincls` without torchrun")
     device = resolve_device(device)
     workdir = workdir or (pretrain_workdir.rstrip("/") + "_lincls")
     backbone, pretrained, pretrain_config = load_pretrained_backbone(

@@ -97,10 +97,20 @@ def flax_train_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x):
       per-GPU BN and the cross-device mean of its running statistics);
     - `momentum_stats`: normalizes with m * running + (1 - m) * batch
       (m = 1 - `bn.momentum`) and stores that; the gradient flows through
-      the batch term."""
+      the batch term;
+    - SyncBN (`bn.sync_stats`, a `parallel.mesh.StatsGroup` that the
+      encoder's builder sets under shuffle 'syncbn', and on v3's heads
+      across ranks): the (mean, mean of squares) of this rank's rows (its
+      first `stats_rows`) averaged over the group by one all-reduce whose
+      backward all-reduces the cotangent, JAX's `pmean` of the two over
+      the axis or its `axis_index_groups`; composes with `stats_rows` and
+      `momentum_stats` (the batch term is then the group's).
+      `torch.nn.SyncBatchNorm` is not used: it keeps the unbiased running
+      variance and weighs ranks by their counts."""
     rows = getattr(bn, "stats_rows", 0)
     groups = getattr(bn, "virtual_groups", 0)
     momentum_stats = getattr(bn, "momentum_stats", False)
+    sync = getattr(bn, "sync_stats", None)
     if groups > 1:
         b = x.shape[0]
         if b % groups:
@@ -109,9 +119,16 @@ def flax_train_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x):
         mean, var = _batch_moments(xg, (1,) + tuple(range(3, xg.dim())))
         out = _normalize(xg, mean, var, bn, channel_axis=2).reshape(x.shape)
         new = [s.reshape(groups, -1).mean(0) for s in (mean, var)]
-    elif rows or momentum_stats:
+    elif rows or momentum_stats or sync is not None:
         sub = x[:rows] if rows else x
-        mean, var = _batch_moments(sub, (0,) + tuple(range(2, x.dim())))
+        dims = (0,) + tuple(range(2, x.dim()))
+        if sync is None:
+            mean, var = _batch_moments(sub, dims)
+        else:
+            mean, mean2 = _Moments.apply(sub, dims)
+            both = sync.mean(torch.cat([mean.reshape(-1), mean2.reshape(-1)]))
+            mean, mean2 = (t.reshape(mean.shape) for t in both.chunk(2))
+            var = (mean2 - mean.square()).clamp_min(0.0)
         if momentum_stats:
             m = 1.0 - bn.momentum
             mean = m * bn.running_mean.reshape(mean.shape) + (1.0 - m) * mean

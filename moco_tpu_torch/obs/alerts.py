@@ -32,9 +32,9 @@ between re-fires; default 10 for spike, ratio and event).
 Derived field: `queue_stale_seconds` = `queue_age_max * t_step` (the
 dictionary's oldest key in wall seconds), added before evaluation.
 
-On one GPU the default set's `straggler_skew_high` reads a field only the
-cross-host aggregation writes, so it stays silent, and `heartbeat_loss`
-finds no other process's file.
+The default set's `straggler_skew_high` reads the fleet aggregate's
+`straggler_skew` (obs/fleet.py; rank 0's lines), which one process reports
+as 0; on one process `heartbeat_loss` finds no other process's file.
 """
 
 from __future__ import annotations

@@ -1,11 +1,23 @@
-"""Out-of-band heartbeats: the `heartbeat_path`, `Heartbeat` and
-`read_heartbeats` of moco_tpu/obs/fleet.py. The cross-host aggregation
-(`FleetAggregator`, `straggler_skew`) comes with data-parallel training.
+"""The fleet aggregate and out-of-band heartbeats (moco_tpu/obs/fleet.py).
 
-A `Heartbeat` is a per-process file, `heartbeat.p<i>.json` in the workdir,
-replaced atomically at each beat, carrying the process's last step and
-wall time. When a process dies its metrics stop but its heartbeat stays:
-the alert engine's heartbeat rule reads the files of the other processes.
+- `FleetAggregator`: on log steps every rank contributes a small
+  fixed-width stats vector (`FLEET_FIELDS`: data wait, step wall, wire
+  transfer time, dispatch lag, io retries, decode failures, live device
+  memory) through one all_gather of the (F,) vector over the data group;
+  `reduce_stats` gives per-field min / mean / max / argmax and
+  `straggler_skew` = (max(t_step) - mean(t_step)) / mean(t_step), the
+  share of every step the world spends waiting for its slowest rank, and
+  rank 0 merges them into its metrics line. A row is one rank, that is
+  one GPU, where JAX's row is one host. Unknown values travel as NaN and
+  reduce NaN-aware, so a field no rank reports stays null in the line.
+  Every rank must call `gather()` at the same log steps (the driver's log
+  schedule is the same on every rank). A world of one reduces its own row
+  with no collective.
+- `Heartbeat`: a per-process file, `heartbeat.p<i>.json` in the workdir
+  (i = the rank), replaced atomically at each beat, carrying the process's
+  last step and wall time. When a process dies its metrics stop but its
+  heartbeat stays: the alert engine's heartbeat rule reads the files of
+  the other processes.
 """
 
 from __future__ import annotations
@@ -15,7 +27,83 @@ import json
 import os
 import socket
 import time
-from typing import Optional
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+FLEET_FIELDS = ("t_data", "t_step", "t_transfer", "dispatch_lag", "io_retries",
+                "decode_failures", "hbm_live")
+
+
+def reduce_stats(stats: np.ndarray, t_step_index: int) -> dict:
+    """The per-field reduction of an (n_ranks, n_fields) stats matrix,
+    NaN-aware: {"min", "mean", "max" (F,), "argmax" (F,) int32,
+    "straggler_skew" ()}. A NaN never wins an argmax; an all-NaN column
+    reduces to NaN (argmax 0)."""
+    s = np.asarray(stats, np.float32)
+    empty = np.isnan(s).all(axis=0)
+    filled = np.where(np.isnan(s), np.float32(np.inf), s)
+    mins = np.where(empty, np.nan, filled.min(axis=0)).astype(np.float32)
+    filled = np.where(np.isnan(s), np.float32(-np.inf), s)
+    maxs = np.where(empty, np.nan, filled.max(axis=0)).astype(np.float32)
+    counts = (~np.isnan(s)).sum(axis=0)
+    sums = np.where(np.isnan(s), np.float32(0), s).sum(axis=0, dtype=np.float32)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        means = np.where(empty, np.nan, sums / np.maximum(counts, 1)).astype(np.float32)
+    argmax = filled.argmax(axis=0).astype(np.int32)
+    t_mean, t_max = means[t_step_index], maxs[t_step_index]
+    skew = np.float32((t_max - t_mean) / max(t_mean, np.float32(1e-12)))
+    return {"min": mins, "mean": means, "max": maxs, "argmax": argmax, "straggler_skew": skew}
+
+
+class FleetAggregator:
+    """The log-step gather of every rank's stats vector over a world's data
+    group (module docstring)."""
+
+    def __init__(self, world, fields: Sequence[str] = FLEET_FIELDS):
+        self.fields = tuple(fields)
+        if "t_step" not in self.fields:
+            raise ValueError("fleet fields must include 't_step' (skew is defined on it)")
+        self.world = world
+        self.num_hosts = world.world_size
+        self.process_index = world.rank
+        self._t_idx = self.fields.index("t_step")
+
+    def host_vector(self, **values) -> np.ndarray:
+        """(F,) float32 vector from per-field keyword values; missing or None
+        fields become NaN ("unknown")."""
+        unknown = set(values) - set(self.fields)
+        if unknown:
+            raise ValueError(f"unknown fleet fields {sorted(unknown)}; have {self.fields}")
+        out = np.full((len(self.fields),), np.nan, np.float32)
+        for i, name in enumerate(self.fields):
+            v = values.get(name)
+            if v is not None:
+                out[i] = float(v)
+        return out
+
+    def gather(self, host_vector: np.ndarray) -> dict:
+        """Contribute this rank's vector and get the world's reduction (the
+        same on every rank). Every rank must call it at the same step."""
+        row = torch.from_numpy(np.asarray(host_vector, np.float32).reshape(1, -1))
+        if self.world.distributed:
+            row = row.to(self.world.comm_device)
+        stats = self.world.all_gather_rows(row).cpu().numpy()
+        return reduce_stats(stats, self._t_idx)
+
+    def payload(self, stats: dict) -> dict:
+        """Metrics-line fields of a `gather()` result: `fleet/<name>_{min,
+        mean,max,argmax}`, `straggler_skew` and the rank count (JAX's
+        `fleet_hosts`). NaNs pass through: the sink writes them as null."""
+        out = {"fleet_hosts": self.num_hosts}
+        for i, name in enumerate(self.fields):
+            out[f"fleet/{name}_min"] = float(stats["min"][i])
+            out[f"fleet/{name}_mean"] = float(stats["mean"][i])
+            out[f"fleet/{name}_max"] = float(stats["max"][i])
+            out[f"fleet/{name}_argmax"] = int(stats["argmax"][i])
+        out["straggler_skew"] = float(stats["straggler_skew"])
+        return out
 
 
 def heartbeat_path(workdir: str, process_index: int) -> str:

@@ -30,10 +30,11 @@ the model digest are the strings in the family. An explicit field
 validator wins over its prefix family, else the longest prefix.
 
 Numbers are finite or null: NaN/Inf literals are rejected at parse time
-(`loads_strict`), matching the writer's scrubbing. The JAX schema's
-fleet, ZeRO, rescale and promotion families come with the slices that
-write them; a field this copy does not list passes unchecked, as in
-the original.
+(`loads_strict`), matching the writer's scrubbing. Data-parallel lines
+carry the fleet aggregate (`fleet_hosts`, `straggler_skew`, the `fleet/`
+family, rank 0's) and the `comms/` ledger. The JAX schema's ZeRO, rescale
+and promotion families come with the slices that write them; a field this
+copy does not list passes unchecked, as in the original.
 """
 
 from __future__ import annotations
@@ -119,6 +120,9 @@ FIELD_VALIDATORS = {
     "hbm_peak_bytes": _num_or_null,
     "hbm_headroom_bytes": _num_or_null,
     "hbm_state_bytes": _int_like,
+    # the fleet aggregate (obs/fleet.py; rank 0's lines only)
+    "fleet_hosts": _int_like,
+    "straggler_skew": _num_or_null,
     # input wire (the prefetch ring): the last batch's transfer seconds,
     # its uint8 bytes, and the staged batches resident when it was taken
     "t_transfer": _num,
@@ -182,6 +186,10 @@ FIELD_VALIDATORS = {
 # entry wins, else the longest matching prefix
 PREFIX_VALIDATORS = {
     "ema_drift/": _num_or_null,
+    # the fleet's min / mean / max / argmax (null where no rank reports the
+    # field) and the comms ledger's analytic bytes (always numeric)
+    "fleet/": _num_or_null,
+    "comms/": _num,
     "alert/": _num,
     "serve/": _num_or_null,
     # stage means (ms) and burn rates: null while a window is empty, never

@@ -1,0 +1,248 @@
+"""The process world of data-parallel training: the port's counterpart of
+moco_tpu/parallel/mesh.py.
+
+JAX lays its devices out as a `Mesh` with a `data` axis and runs the step
+once over it (`create_mesh`, `initialize_multihost` on a pod). The port
+runs one process per GPU, as upstream's `main_moco.py` does: a `World`
+says which rank this process is, how many there are, which device it
+drives and which process groups it belongs to, and carries the step's
+collectives over the data group, each of which records its site in the
+world's comms ledger (obs/comms.py).
+
+- `World()` with no group is one device: no process group exists and no
+  collective is ever issued; the step then runs as it always has.
+- `init_world(...)` makes a process group: NCCL on the card, gloo where
+  the caller asks for the CPU (the tests) or for gloo itself (two ranks
+  on one card, which NCCL refuses). It reads torchrun's `RANK`,
+  `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR` / `MASTER_PORT`, or takes
+  them as arguments with a `FileStore` path (no ports), sets the CUDA
+  device before `init_process_group(device_id=...)`, and gives the group
+  the timeout it is given (ParallelConfig.timeout_s).
+- SyncBN's groups (`syncbn_stats`): the whole data group, or its
+  subgroups of `syncbn_group_size` consecutive ranks, JAX's
+  `axis_index_groups`; every rank creates every subgroup, as
+  `dist.new_group` requires.
+
+Not ported here: `num_model > 1` (the model-sharded queue) and the
+multi-slice mesh wait for sharded training. moco_tpu/parallel/compat.py
+holds JAX version shims and has no counterpart.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from moco_tpu_torch.obs.comms import CommsLedger, tensor_bytes
+
+# all_gather into one tensor: the name changed (all_gather_into_tensor is
+# deprecated in newer torch), the semantics did not
+_all_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+class _AllReduceMean(torch.autograd.Function):
+    """The mean of `x` over a group; its backward is the mean of the
+    cotangent over the group, the transpose JAX's pmean has under
+    shard_map (each rank's loss reaches every rank's input through the
+    mean)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y.div_(size)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.div_(ctx.size), None, None
+
+
+class StatsGroup:
+    """The group a SyncBN layer averages its moments over. Shared, not
+    copied, when a module holding it is deep-copied (the key encoder is a
+    copy of the query encoder)."""
+
+    def __init__(self, group, size: int):
+        self.group, self.size = group, int(size)
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """Differentiable mean of `x` over the group: a sum all-reduce, then
+        a division (gloo has no ReduceOp.AVG)."""
+        return _AllReduceMean.apply(x, self.group, self.size)
+
+
+class World:
+    """This process's place among the data-parallel ranks (module
+    docstring). `group` is the data group; None means no process group,
+    one device."""
+
+    def __init__(self, rank: int = 0, world_size: int = 1, local_rank: int = 0,
+                 device="cuda", group=None, backend: Optional[str] = None):
+        self.rank, self.world_size, self.local_rank = int(rank), int(world_size), int(local_rank)
+        self.device = torch.device(device)
+        self.group, self.backend = group, backend
+        self.ledger = CommsLedger()
+        self._stats_groups: dict[int, StatsGroup] = {}
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    # -- groups -------------------------------------------------------------
+
+    def syncbn_stats(self, group_size: int = 0) -> StatsGroup:
+        """The rank's SyncBN group: the data group (`group_size` 0 or the
+        world's size) or its subgroup of `group_size` consecutive ranks,
+        with JAX's message when the world does not divide."""
+        n = self.world_size
+        g = int(group_size) or n
+        if n % g:
+            raise ValueError(f"data axis {n} not divisible by syncbn group {g}")
+        if g not in self._stats_groups:
+            if g == n:
+                self._stats_groups[g] = StatsGroup(self.group, n)
+            else:
+                mine = None
+                for start in range(0, n, g):  # collective: every rank makes every group
+                    pg = dist.new_group(list(range(start, start + g)))
+                    if start <= self.rank < start + g:
+                        mine = pg
+                self._stats_groups[g] = StatsGroup(mine, g)
+        return self._stats_groups[g]
+
+    # -- collectives over the data group ---------------------------------------
+
+    def barrier(self) -> None:
+        if not self.distributed:
+            return
+        if self.backend == "nccl":
+            dist.barrier(group=self.group, device_ids=[self.device.index or 0])
+        else:
+            dist.barrier(group=self.group)
+
+    def all_gather_rows(self, x: torch.Tensor, site: Optional[str] = None) -> torch.Tensor:
+        """(n * b, ...) from every rank's (b, ...), rank order; `site` names
+        it in the ledger."""
+        if site is not None:
+            self.ledger.record(site, "all_gather", tensor_bytes([x]), self.world_size)
+        if not self.distributed:
+            return x
+        x = x.contiguous()
+        out = torch.empty((self.world_size * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        if self.backend == "gloo":  # gloo takes a card's tensors in the list form
+            dist.all_gather(list(out.chunk(self.world_size)), x, group=self.group)
+        else:
+            _all_gather_into(out, x, group=self.group)
+        return out
+
+    def all_to_all_rows(self, x: torch.Tensor, site: Optional[str] = None) -> torch.Tensor:
+        """JAX's tiled all_to_all over the batch: chunk j of this rank's
+        rows goes to rank j, and the rows from rank i arrive as chunk i."""
+        n = self.world_size
+        if x.shape[0] % n:
+            raise ValueError(f"a2a shuffle needs local batch {x.shape[0]} divisible by "
+                             f"axis size {n}")
+        if site is not None:
+            self.ledger.record(site, "all_to_all", tensor_bytes([x]), n)
+        if not self.distributed:
+            return x
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return out
+
+    @torch.no_grad()
+    def all_reduce_mean_(self, tensors: list, site: Optional[str] = None) -> None:
+        """Replace each tensor (float32; None entries skipped) by its mean
+        over the data group, in place, through one flat all-reduce (the
+        order of `tensors` must be the same on every rank)."""
+        tensors = [t for t in tensors if t is not None]
+        if site is not None:
+            self.ledger.record(site, "psum", tensor_bytes(tensors), self.world_size)
+        if not self.distributed or not tensors:
+            return
+        flat = torch._utils._flatten_dense_tensors(tensors)
+        dist.all_reduce(flat, group=self.group)
+        flat.div_(self.world_size)
+        torch._foreach_copy_(tensors, torch._utils._unflatten_dense_tensors(flat, tensors))
+
+    def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of `x` over the data group, a new tensor (no gradient)."""
+        if not self.distributed:
+            return x
+        y = x.detach().clone()
+        dist.all_reduce(y, group=self.group)
+        return y.div_(self.world_size)
+
+    def any(self, flag: bool) -> bool:
+        """Whether `flag` is set on any rank (a host value: a sync)."""
+        if not self.distributed:
+            return bool(flag)
+        t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=self.comm_device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(t.item())
+
+    def broadcast_int(self, value: int) -> int:
+        """Rank 0's `value` on every rank."""
+        if not self.distributed:
+            return int(value)
+        t = torch.tensor([int(value)], dtype=torch.int64, device=self.comm_device)
+        dist.broadcast(t, src=0, group=self.group)
+        return int(t.item())
+
+    @property
+    def comm_device(self) -> torch.device:
+        """Where a host value travels: the rank's card under NCCL."""
+        return self.device if self.backend == "nccl" else torch.device("cpu")
+
+    def close(self) -> None:
+        if self.distributed and dist.is_initialized():
+            dist.destroy_process_group()
+        self.group = None
+
+
+def init_world(backend: Optional[str] = None, rank: Optional[int] = None,
+               world_size: Optional[int] = None, local_rank: Optional[int] = None,
+               device=None, store_path: Optional[str] = None,
+               timeout_s: float = 600.0) -> World:
+    """A process group and this rank's World (module docstring). Arguments
+    left None come from torchrun's environment; `device` defaults to
+    `cuda:<local_rank>`; `backend` to NCCL on a card and gloo on the CPU.
+    `store_path` rendezvouses through a FileStore instead of
+    MASTER_ADDR / MASTER_PORT. No fallback: a failing backend raises."""
+    env = os.environ
+    rank = int(env.get("RANK", 0)) if rank is None else int(rank)
+    world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None else int(world_size)
+    local_rank = int(env.get("LOCAL_RANK", rank)) if local_rank is None else int(local_rank)
+    device = torch.device(f"cuda:{local_rank}" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", local_rank)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"the NCCL backend needs a CUDA device, got {device}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    kwargs = {"timeout": datetime.timedelta(seconds=timeout_s)}
+    if store_path is not None:
+        kwargs["store"] = dist.FileStore(store_path, world_size)
+    else:
+        kwargs["init_method"] = "env://"
+    if backend == "nccl":
+        kwargs["device_id"] = device
+    dist.init_process_group(backend, rank=rank, world_size=world_size, **kwargs)
+    return World(rank, world_size, local_rank, device, group=dist.group.WORLD, backend=backend)

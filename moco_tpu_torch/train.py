@@ -1,5 +1,6 @@
-"""MoCo pretraining on one device, v1/v2 or v3 (moco_tpu/train.py `train` /
-`_train_impl` without the mesh, ZeRO, fleet aggregation and elastic parts).
+"""MoCo pretraining, v1/v2 or v3, on one device or data-parallel over the
+processes of a torchrun launch, one per GPU (moco_tpu/train.py `train` /
+`_train_impl` without ZeRO and the elastic parts).
 
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic --steps 20
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic_learnable \\
@@ -10,6 +11,8 @@
         --bn-virtual-groups 8                  # Shuffle-BN of 8 GPUs on one card
     python -m moco_tpu_torch.train --preset imagenet_v2_large_batch --data synthetic \\
         --steps 20 --batch-size 1024 --remat   # LARS, auto_scale to the batch
+    python -m torch.distributed.run --nproc_per_node 8 -m moco_tpu_torch.train \\
+        --preset imagenet_v2 --data imagefolder --data-dir /data/imagenet   # 8 GPUs
 
 derives the live lr and EMA momentum from the config's `auto_scale`
 (printing the line JAX's driver prints), builds the two-crop pipeline,
@@ -102,6 +105,23 @@ Fault tolerance and health, as in the JAX driver:
 
 Without a workdir nothing is written: no checkpoint, emergency or not, no
 metrics, heartbeat, alerts.jsonl or trace; preemption still stops the run.
+
+Data parallel (a torchrun launch with WORLD_SIZE > 1, or MOCO_MULTIHOST=1,
+or a `world` passed in; parallel/mesh.py): each rank drives `cuda:<local
+rank>` (NCCL; gloo with `--device cpu`), loads its B/n rows of each global
+batch through its own ring, and runs the step of core/moco.py over the
+data group. Rank 0 alone prints, writes metrics.jsonl, the sinks, the
+alerts and trace.json, and saves checkpoints (a barrier follows each
+save); every rank restores the same file, writes its own heartbeat
+(`heartbeat.p<rank>.json`) and runs its own watchdog. Every line carries
+the comms ledger's `comms/<site>` bytes (obs/comms.py) and rank 0's the
+fleet aggregate (obs/fleet.py, `fleet_metrics`). A preemption signal is
+agreed over the ranks at the log steps' deferred processing (each rank
+stops at the same step), then rank 0 saves the live state and the ranks
+meet at a barrier. kNN runs on every rank over the whole bank. `kill@host=i`
+ends rank i with exit code 113 at its step; the survivors leave with an
+error at their next collective (gloo), or when the group's timeout
+(`ParallelConfig.timeout_s`) or the watchdog fires (NCCL).
 """
 
 from __future__ import annotations
@@ -138,11 +158,13 @@ from moco_tpu_torch.data.datasets import build_dataset
 from moco_tpu_torch.data.pipeline import TwoCropPipeline
 from moco_tpu_torch.knn import knn_eval
 from moco_tpu_torch.obs.alerts import AlertEngine, FatalAlertError, parse_rules
-from moco_tpu_torch.obs.fleet import Heartbeat
+from moco_tpu_torch.obs.fleet import FleetAggregator, Heartbeat
 from moco_tpu_torch.obs.sinks import build_sinks, flatten_tensors, unflatten_host
 from moco_tpu_torch.obs.stepstats import StepTimeProbe, memory_payload, tree_shard_bytes
 from moco_tpu_torch.obs.trace import Tracer, set_tracer
 from moco_tpu_torch.obs.trace import span as obs_span
+from moco_tpu_torch.parallel.dist import DataPartition, maybe_init_distributed
+from moco_tpu_torch.parallel.mesh import World
 from moco_tpu_torch.utils import faults, retry
 from moco_tpu_torch.utils.checkpoint import CheckpointManager, load_state_payload, state_payload
 from moco_tpu_torch.utils.config import (
@@ -207,13 +229,14 @@ class _MetricsFetch:
                 for k, v in zip(self.keys, unflatten_host(self.host, self.layout))}
 
 
-def _seeded_state(config: TrainConfig, device, num_filters: int) -> TrainState:
+def _seeded_state(config: TrainConfig, device, num_filters: int,
+                  world: Optional[World] = None) -> TrainState:
     """A fresh state from seeded Flax-layout weights: the encoder, and for
-    v3 the predictor (drawn from the next seed)."""
+    v3 the predictor (drawn from the next seed); the same on every rank."""
     params, stats = random_flax_encoder(config.moco, seed=config.seed, num_filters=num_filters)
-    encoder = build_encoder(config.moco, num_filters=num_filters)
+    encoder = build_encoder(config.moco, num_filters=num_filters, world=world)
     encoder.load_state_dict(encoder_from_flax(params, stats))
-    predictor = build_predictor(config.moco)
+    predictor = build_predictor(config.moco, world=world)
     if predictor is not None:
         predictor.load_state_dict(predictor_from_flax(
             *random_flax_predictor(config.moco, seed=config.seed + 1)))
@@ -351,7 +374,8 @@ def _num_classes(dataset) -> int:
 def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int] = None,
           state: Optional[TrainState] = None, num_filters: int = 64,
           log: Optional[Callable[[dict], None]] = None, knn_datasets=None,
-          profile_dir: Optional[str] = None, profile_steps: Optional[tuple] = None) -> dict:
+          profile_dir: Optional[str] = None, profile_steps: Optional[tuple] = None,
+          world: Optional[World] = None) -> dict:
     """Run `steps` train steps (default: to the end of epoch
     config.optim.epochs - 1) from `state` (default: a fresh seeded one),
     or from the newest checkpoint under `config.workdir` when there is
@@ -375,16 +399,31 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
     narrows a fresh encoder for tests. `profile_dir` records a
     torch.profiler trace of the whole run, or of global steps
     `profile_steps = (a, b)` (into `profile_dir`, default
-    `<workdir>/profile`)."""
+    `<workdir>/profile`).
+
+    `world` (parallel/mesh.py) runs the steps data-parallel over its ranks
+    on its device (a given `state` must be built with it); without one, a
+    torchrun launch of several processes (`maybe_init_distributed`) makes
+    the world, and destroys its process group when the run ends; else the
+    run has one device, `device`. Rank 0 alone writes and profiles."""
     workdir = config.workdir
     if profile_steps is not None and not (profile_dir or workdir):
         raise ValueError("profile_steps needs a profile_dir or a workdir")
-    tracer = Tracer(os.path.join(workdir, "trace_events.jsonl")) if workdir else None
+    own_world = None
+    if world is None:
+        world = own_world = maybe_init_distributed(device, config.parallel.timeout_s)
+    if world is None:
+        world = World(device=resolve_device(device))
+    tracer = (Tracer(os.path.join(workdir, "trace_events.jsonl"))
+              if workdir and world.is_main else None)
     prev_tracer = set_tracer(tracer) if tracer is not None else None
     try:
-        return _train_impl(config, dataset, device, steps, state, num_filters, log,
-                           knn_datasets, profile_dir, profile_steps)
+        return _train_impl(config, dataset, world, steps, state, num_filters, log,
+                           knn_datasets, profile_dir if world.is_main else None,
+                           profile_steps if world.is_main else None)
     finally:
+        if own_world is not None:
+            own_world.close()
         if tracer is not None:
             try:
                 tracer.export_chrome(os.path.join(workdir, "trace.json"))
@@ -394,10 +433,15 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
             tracer.close()
 
 
-def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters, log,
+def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_filters, log,
                 knn_datasets, profile_dir, profile_steps) -> dict:
     faults.install_from_env()
-    device = resolve_device(device)
+    device = world.device
+    n = world.world_size
+    if config.parallel.num_data not in (None, n):
+        raise ValueError(f"parallel.num_data={config.parallel.num_data} but the launch has "
+                         f"{n} rank(s): one process per GPU, every rank in the data group")
+    world.ledger.reset()  # this run's sites only
     # `config` carries the reference lr and momentum; the live ones follow
     # from the global batch (utils/config.py `apply_auto_scale`)
     config, auto_info = apply_auto_scale(config)
@@ -406,28 +450,39 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
                f"{auto_info['ref_batch']} (kappa={auto_info['kappa']:g}) -> "
                f"lr {auto_info['lr']:g}, EMA momentum {auto_info['momentum']:g}")
     workdir = config.workdir
-    with TwoCropPipeline(config.data, seed=config.seed, dataset=dataset, device=device) as pipe:
+    partition = DataPartition.of(world, config.data.global_batch) if n > 1 else None
+    with TwoCropPipeline(config.data, seed=config.seed, dataset=dataset, device=device,
+                         partition=partition, ledger=world.ledger) as pipe:
         steps_per_epoch = config.steps_per_epoch or pipe.steps_per_epoch
         if steps_per_epoch <= 0:
             raise ValueError(f"steps_per_epoch must be > 0, got {steps_per_epoch}")
         if state is None:
-            state = _seeded_state(config, device, num_filters)
+            state = _seeded_state(config, device, num_filters, world)
         epoch, i = divmod(state.step, steps_per_epoch)
         ckpt = (CheckpointManager(workdir, keep=config.checkpoint_keep,
                                   async_save=config.checkpoint_async) if workdir else None)
-        if ckpt is not None and ckpt.latest_step() is not None:  # automatic resume
 
-            def check_compat(extra: dict) -> None:
-                diffs = resume_compat_diff(extra, config)
-                if diffs:
-                    raise ResumeCompatError(f"checkpoint under {workdir} is incompatible with "
-                                            "the live config:\n  " + "\n  ".join(diffs))
+        def check_compat(extra: dict) -> None:
+            diffs = resume_compat_diff(extra, config, n)
+            if diffs:
+                raise ResumeCompatError(f"checkpoint under {workdir} is incompatible with "
+                                        "the live config:\n  " + "\n  ".join(diffs))
 
-            payload, extra = ckpt.restore(validate_extra=check_compat)
+        # automatic resume: rank 0 finds the newest good file (quarantining
+        # torn ones), then every rank reads that one
+        restored = None
+        if ckpt is not None and world.is_main and ckpt.latest_step() is not None:
+            restored = ckpt.restore(validate_extra=check_compat)
+        if ckpt is not None and world.distributed:
+            resume_step = world.broadcast_int(-1 if restored is None else restored[0]["step"])
+            if not world.is_main and resume_step >= 0:
+                restored = ckpt.restore(step=resume_step, validate_extra=check_compat)
+        if restored is not None:
+            payload, extra = restored
             load_state_payload(state, payload)
             epoch, i = int(extra.get("epoch", 0)) + 1, 0
             print0(f"resumed from epoch {epoch - 1} (step {state.step})")
-        step_fn = make_train_step(config, steps_per_epoch, device=device)
+        step_fn = make_train_step(config, steps_per_epoch, device=device, world=world)
         if steps is not None:
             total = steps
         else:
@@ -442,7 +497,8 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
         # the sink fan-out (obs/sinks.py): metrics.jsonl always, plus
         # config.sinks; metrics_port > 0 serves Prometheus text on /metrics
         writer = (build_sinks(config.sinks, workdir, metrics_port=config.metrics_port,
-                              metrics_host=config.metrics_host) if workdir and total else None)
+                              metrics_host=config.metrics_host)
+                  if workdir and total and world.is_main else None)
         if writer is not None and writer.prometheus is not None:
             print(f"metrics endpoint: http://{writer.prometheus.host}:"
                   f"{writer.prometheus.port}/metrics", flush=True)
@@ -464,7 +520,10 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
             """Save first, die second: the preemption exit (`source` the
             live state), the watchdog's stall and a fatal alert (`source`
             the guard's snapshot). Skips a step that is already durable;
-            always blocks until the write lands."""
+            always blocks until the write lands. Rank 0's alone (the state
+            is the same on every rank)."""
+            if not world.is_main:
+                return
             if ckpt is None:
                 print0(f"{reason}: no workdir, no emergency checkpoint", flush=True)
                 return
@@ -472,7 +531,7 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
                 print(f"{reason}: step {source.step} already durable, skipping emergency save",
                       flush=True)
                 return
-            extra = {"epoch": completed_epoch, "config": config_to_dict(config),
+            extra = {"epoch": completed_epoch, "config": config_to_dict(config), "num_data": n,
                      "emergency": True, "reason": reason, **(extra_fields or {})}
             if source is snapshot:
                 payload = snapshot.payload(state, arch, completed_epoch + 1)
@@ -481,13 +540,15 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
             ckpt.save(source.step, payload, extra=extra, force=True)
             ckpt.wait()
 
-        heartbeat = Heartbeat(workdir) if workdir else None
+        heartbeat = Heartbeat(workdir, process_index=world.rank) if workdir else None
         if heartbeat is not None:
             heartbeat.beat(step=state.step, epoch=epoch)
         engine = (AlertEngine(parse_rules(config.alert_rules,
                                           heartbeat_timeout=config.heartbeat_timeout),
                               workdir=workdir)
-                  if config.alert_rules and config.alert_rules != "none" else None)
+                  if config.alert_rules and config.alert_rules != "none" and world.is_main
+                  else None)
+        fleet = FleetAggregator(world) if config.fleet_metrics else None
 
         def handle_alerts(gstep: int, epoch: int, fired: list) -> None:
             """One `alert` event line per fire; under alerts_fatal, an
@@ -547,6 +608,7 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
             m["loss"] = faults.corrupt_loss(m["loss"], gstep)
             faults.maybe_stall(gstep)
             faults.maybe_preempt(gstep)
+            faults.maybe_kill_host(gstep, workdir, world.rank, n)
             if not math.isfinite(m["loss"]):
                 guard["nan_steps"] += 1
                 if writer is not None:
@@ -582,29 +644,52 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
             progress.display(p["i"])
             if heartbeat is not None:
                 heartbeat.beat(step=gstep, epoch=p["epoch"])
+            probe_fields = probe.payload()
+            memory = memory_payload(device)
+            decode_failures = getattr(pipe.dataset, "decode_failures", 0)
+            io_retries = retry.snapshot()
+            fleet_fields = {}
+            if fleet is not None:  # a collective: every rank, every log step
+                stats = fleet.gather(fleet.host_vector(
+                    t_data=probe_fields.get("t_data"), t_step=probe_fields.get("t_step"),
+                    t_transfer=record.get("t_transfer"), dispatch_lag=probe.last_dispatch,
+                    io_retries=float(sum(io_retries.values())) if io_retries else 0.0,
+                    decode_failures=float(decode_failures),
+                    hbm_live=memory.get("hbm_live_bytes")))
+                fleet_fields = fleet.payload(stats)
             if writer is None and engine is None:
                 return
-            payload = {"epoch": p["epoch"], "lr": record["lr"], **m, **probe.payload(),
-                       **memory_payload(device),
+            payload = {"epoch": p["epoch"], "lr": record["lr"], **m, **probe_fields, **memory,
                        "hbm_state_bytes": tree_shard_bytes(StateSnapshot._tensors(state)
                                                            + StateSnapshot._opt_state(state)[1])}
             payload.update({k: record[k] for k in ("t_transfer", "transfer_bytes",
                                                    "prefetch_depth_live") if k in record})
             if guard["nan_steps"]:
                 payload["nan_steps"] = guard["nan_steps"]
-            decode_failures = getattr(pipe.dataset, "decode_failures", 0)
             if decode_failures:
                 payload["decode_failures"] = decode_failures
-            io_retries = retry.snapshot()
             if io_retries:
                 payload["io_retries"] = io_retries
+            payload.update(world.ledger.payload())
+            payload.update(fleet_fields)
             if writer is not None:
                 writer.write(gstep, payload)
             if engine is not None:
                 handle_alerts(gstep, p["epoch"], engine.observe(gstep, payload))
 
-        # graceful preemption: the flag is read after each step
-        preempted = {"count": 0}
+        # graceful preemption: the flag is read after each step, or across
+        # ranks at each log step's deferred processing (`agreed`)
+        preempted = {"count": 0, "agreed": False}
+
+        def stop_requested() -> bool:
+            return preempted["agreed"] if world.distributed else preempted["count"] > 0
+
+        def flush_and_agree(p: dict, meters: dict, progress: ProgressMeter) -> None:
+            """`flush`, then (data parallel) whether any rank was signalled:
+            every rank flushes the same log steps, so they agree there."""
+            flush(p, meters, progress)
+            if world.distributed:
+                preempted["agreed"] = world.any(preempted["count"] > 0)
 
         def on_signal(signum, frame):
             preempted["count"] += 1
@@ -643,8 +728,9 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
                 t.start()
                 t.join(timeout=max(30.0, config.watchdog_timeout))
 
+            stacks = "stall_stacks.txt" if world.is_main else f"stall_stacks.p{world.rank}.txt"
             wd = StepWatchdog(config.watchdog_timeout, on_stall=on_stall,
-                              dump_path=os.path.join(workdir, "stall_stacks.txt")
+                              dump_path=os.path.join(workdir, stacks)
                               if workdir else None).start()
 
         stop_now = False
@@ -725,7 +811,7 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
                                 if wd is not None:
                                     wd.beat()
                                 if pending is not None:
-                                    flush(pending, meters, progress)
+                                    flush_and_agree(pending, meters, progress)
                                     pending = None
                                 if log_step:
                                     # the state as of this step, on the
@@ -734,13 +820,13 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
                                 record["imgs_per_s"] = (config.data.global_batch
                                                         / (time.perf_counter() - t0))
                                 harvest()
-                                if preempted["count"]:  # this step's line is not written
+                                if stop_requested():  # this step's line is not written
                                     stop_now = True
                                     break
                                 if log_step:
                                     pending = entry
                             if pending is not None and not stop_now:
-                                flush(pending, meters, progress)
+                                flush_and_agree(pending, meters, progress)
                                 pending = None
                         finally:
                             it.close()
@@ -758,6 +844,7 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
                             if writer is not None:
                                 writer.write(state.step, {"epoch": epoch, "event": "preempt"})
                             emergency_save(state, epoch - 1, "preempt")
+                            world.barrier()  # the save is durable before any rank leaves
                             if writer is not None:
                                 writer.fsync()
                             print0(f"preempted mid-epoch {epoch}: state saved at step "
@@ -779,9 +866,11 @@ def _train_impl(config: TrainConfig, dataset, device, steps, state, num_filters,
                                     writer.write(state.step, {"epoch": epoch, "knn_top1": top1})
                             if ckpt is not None and (last_epoch
                                                      or epoch % config.checkpoint_every_epochs == 0):
-                                ckpt.save(state.step, state_payload(state, arch, epoch + 1),
-                                          extra={"epoch": epoch,
-                                                 "config": config_to_dict(config)})
+                                if world.is_main:
+                                    ckpt.save(state.step, state_payload(state, arch, epoch + 1),
+                                              extra={"epoch": epoch, "num_data": n,
+                                                     "config": config_to_dict(config)})
+                                world.barrier()
                     epoch, i = epoch + 1, 0
         finally:
             if profile_window is not None:
@@ -821,6 +910,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shuffle", choices=("gather_perm", "a2a", "syncbn", "none"), default=None,
                     help="BN decorrelation (the reference's Shuffle-BN is gather_perm); on one "
                          "device it permutes the keys with --bn-virtual-groups only")
+    ap.add_argument("--syncbn-group-size", type=int, default=None,
+                    help="with --shuffle syncbn: BN statistics over groups of this many "
+                         "consecutive ranks (default 0: the whole data group)")
     ap.add_argument("--bn-stats-rows", type=int, default=None,
                     help="BN training statistics from the first N rows (0 = the whole batch)")
     ap.add_argument("--bn-stats-barrier", action="store_true", default=None,
@@ -884,7 +976,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-steps", default=None, metavar="A:B",
                     help="profile exactly global steps [A, B) (into --profile-dir or "
                          "workdir/profile) instead of the whole run")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dist-timeout", type=float, default=None,
+                    help="seconds a collective waits for its peers before the process "
+                         "group fails the rank (default 600)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (each rank of a torchrun launch takes cuda:<local rank>, "
+                         "NCCL) or cpu (gloo)")
     args = ap.parse_args(argv)
     config = PRESETS[args.preset]
     data = {"dataset": args.data, "global_batch": args.batch_size, "data_dir": args.data_dir,
@@ -904,7 +1001,11 @@ def main(argv=None) -> int:
     config = dataclasses.replace(config, data=dataclasses.replace(config.data, **data), **top)
     optim = {"epochs": args.epochs, "optimizer": args.optimizer}
     optim = {k: v for k, v in optim.items() if v is not None}
+    if args.dist_timeout is not None:
+        config = dataclasses.replace(config, parallel=dataclasses.replace(
+            config.parallel, timeout_s=args.dist_timeout))
     moco = {"vit_flash_attention": args.vit_flash_attention or None, "shuffle": args.shuffle,
+            "syncbn_group_size": args.syncbn_group_size,
             "bn_stats_rows": args.bn_stats_rows, "bn_stats_barrier": args.bn_stats_barrier,
             "bn_momentum_stats": args.bn_momentum_stats,
             "bn_virtual_groups": args.bn_virtual_groups,
@@ -916,8 +1017,9 @@ def main(argv=None) -> int:
     profile = {"profile_dir": args.profile_dir,
                "profile_steps": (parse_profile_steps(args.profile_steps)
                                  if args.profile_steps else None)}
+    rank0 = int(os.environ.get("RANK", "0")) == 0  # torchrun's; the lines are rank 0's
     train(config, device=args.device, steps=args.steps,
-          log=lambda r: print(json.dumps(r), flush=True),
+          log=(lambda r: print(json.dumps(r), flush=True)) if rank0 else None,
           **{k: v for k, v in profile.items() if v is not None})
     return 0
 

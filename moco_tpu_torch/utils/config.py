@@ -1,27 +1,30 @@
 """The part of moco_tpu/utils/config.py that the port runs: serving,
-single-device MoCo v1/v2 training (with every BatchNorm mode, Shuffle-BN
-reduced to one device, the EMAN key forward, remat, SGD or LARS, and
-`auto_scale`) and single-device MoCo v3 training of a ViT, the driver's
-checkpoint (async writes included), log, kNN, non-finite-guard, watchdog,
-health-gauge, alert and heartbeat fields, the telemetry fields (`sinks`,
-`metrics_port`, `metrics_host`, `obs_probe_every`), and the linear probe's
-`ProbeConfig`. Same field names, defaults and presets, so a preset means
-the same model and recipe in both packages; `workdir` alone differs: None
-(write nothing, resume nothing) instead of a fixed path.
+MoCo v1/v2 training (with every BatchNorm mode, Shuffle-BN on one device
+and across ranks, SyncBN with its subgroups, the EMAN key forward, remat,
+SGD or LARS, and `auto_scale`) and MoCo v3 training of a ViT, on one GPU or
+data-parallel over `ParallelConfig.num_data` ranks (one process per GPU),
+the driver's checkpoint (async writes included), log, kNN,
+non-finite-guard, watchdog, health-gauge, alert, heartbeat and fleet
+fields, the telemetry fields (`sinks`, `metrics_port`, `metrics_host`,
+`obs_probe_every`), and the linear probe's `ProbeConfig`. Same field
+names, defaults and presets, so a preset means the same model and recipe
+in both packages; `workdir` alone differs: None (write nothing, resume
+nothing) instead of a fixed path. `ParallelConfig.timeout_s` (the process
+group's timeout) is the port's own: JAX's runtime has no such group.
 
 `bn_stats_barrier` is validated as in JAX (it needs `bn_stats_rows`) and
 has no effect here: it fences a slice against an XLA fusion on the TPU,
 and eager PyTorch fuses nothing to fence.
 
-Fields of the JAX config that the port does not run yet (`syncbn_group_size`
-and the rest of cross-device BN, `vit_sequence_parallel`; the parallel,
-ZeRO and elastic fields; the other telemetry fields (`strict_tracing`,
-`fleet_metrics`, the sanitizers)) are left out, so a config that asks for one fails at
-construction with a TypeError instead of being ignored. So is
-`prefetch_donate`: it recycles a consumed staging slot's device buffer
-through XLA's donation, and PyTorch's caching allocator already reuses
-that memory; and `on_device_augment`: the port always augments on the
-device. So are `fused_block_k`, the TPU kernel's tile (see
+Fields of the JAX config that the port does not run yet
+(`vit_sequence_parallel`; the parallel fields beyond `num_data`:
+`num_model`, ZeRO and elastic; the other telemetry fields
+(`strict_tracing`, the sanitizers)) are left out, so a config that asks
+for one fails at construction with a TypeError instead of being ignored.
+So is `prefetch_donate`: it recycles a consumed staging slot's device
+buffer through XLA's donation, and PyTorch's caching allocator already
+reuses that memory; and `on_device_augment`: the port always augments on
+the device. So are `fused_block_k`, the TPU kernel's tile (see
 `fused_infonce`), and the presets that need them
 (`vit_b16_v3_huge_batch_zero3`, `vit_b16_v3_highres_sp`).
 """
@@ -51,6 +54,10 @@ class MocoConfig:
     # `shuffle_active`): gather_perm as one in-batch permutation, a2a as
     # its two local ones (parallel/shuffle.py).
     shuffle: str = "gather_perm"
+    # With shuffle='syncbn': 0 = statistics over the whole data group, else
+    # over subgroups of this many consecutive ranks (JAX's
+    # axis_index_groups; the detection configs' per-8-GPU statistics).
+    syncbn_group_size: int = 0
     # Training BN statistics from the first N rows of the batch (0 = all).
     bn_stats_rows: int = 0
     # With bn_stats_rows: JAX's fusion barrier around the subset slice, a
@@ -142,10 +149,21 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    # Data-parallel ranks, one process per GPU (torchrun's WORLD_SIZE).
+    # None = every rank of the launch; a number must equal the world's size.
+    num_data: Optional[int] = None
+    # Seconds a collective may wait for its peers before the process group
+    # fails the rank (a dead peer ends a survivor within this).
+    timeout_s: float = 600.0
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     moco: MocoConfig = dataclasses.field(default_factory=MocoConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
     seed: int = 0
     steps_per_epoch: Optional[int] = None  # None = derive from the dataset size
     # The prefetch ring (data/device_prefetch.py): a decode thread and a
@@ -193,6 +211,10 @@ class TrainConfig:
     # (an in-process daemon thread) while the run goes; 0 = off.
     metrics_port: int = 0
     metrics_host: str = "127.0.0.1"
+    # The fleet aggregate (obs/fleet.py): every rank's stats vector gathered
+    # on log steps, min / mean / max / argmax and straggler_skew on rank 0's
+    # metrics line.
+    fleet_metrics: bool = True
     # Step-time probe (obs/stepstats.py): every N steps the loop waits on
     # the card after the step's dispatch, splitting host dispatch from
     # device time (t_dispatch / t_device on the next training line); the
@@ -345,11 +367,12 @@ def dataclass_from_dict(cls, sub: dict):
 
 
 def config_from_dict(d: dict) -> TrainConfig:
-    top = {f.name for f in dataclasses.fields(TrainConfig)} - {"moco", "optim", "data"}
+    top = {f.name for f in dataclasses.fields(TrainConfig)} - {"moco", "optim", "data", "parallel"}
     return TrainConfig(
         moco=dataclass_from_dict(MocoConfig, d.get("moco", {})),
         optim=dataclass_from_dict(OptimConfig, d.get("optim", {})),
         data=dataclass_from_dict(DataConfig, d.get("data", {})),
+        parallel=dataclass_from_dict(ParallelConfig, d.get("parallel") or {}),
         **{k: d[k] for k in top if k in d},
     )
 
@@ -361,8 +384,10 @@ class ResumeCompatError(ValueError):
 
 # Structural fields a resume must agree on: they fix parameter, optimizer
 # state and queue shapes. Tunables (lr, epochs, temperature, recipe) may
-# change across a resume on purpose. The JAX list's `parallel` section and
-# `vit_sequence_parallel` have no counterpart here.
+# change across a resume on purpose. The JAX list's `parallel.num_model`
+# and `vit_sequence_parallel` have no counterpart here; `num_data` is not a
+# field of it in either package (the port's state is replicated, so a
+# checkpoint resumes at any world size).
 RESUME_COMPAT_FIELDS = {
     "moco": ("arch", "dim", "num_negatives", "mlp", "v3", "cifar_stem",
              "vit_pool", "vit_patch_size"),
@@ -370,10 +395,14 @@ RESUME_COMPAT_FIELDS = {
 }
 
 
-def resume_compat_diff(saved_extra: dict, config: TrainConfig) -> list[str]:
-    """Incompatibilities between a checkpoint's saved `extra` (its
-    `config`) and the live config; empty = compatible. Fields the saved
-    config lacks are skipped, so older checkpoints stay resumable."""
+def resume_compat_diff(saved_extra: dict, config: TrainConfig,
+                       num_data: Optional[int] = None) -> list[str]:
+    """Incompatibilities between a checkpoint's saved `extra` (its `config`
+    and `num_data`) and the live run; empty = compatible. Fields the saved
+    config lacks are skipped, so older checkpoints stay resumable. A
+    different `num_data` is no incompatibility, as in JAX: the parameters,
+    statistics and queue are the same on every rank."""
+    del num_data
     diffs = []
     saved_cfg = saved_extra.get("config") or {}
     live = config_to_dict(config)

@@ -5,9 +5,11 @@ fault sites its code reaches."""
 from __future__ import annotations
 
 STALL_EXIT_CODE = 42  # utils/watchdog.py: the watchdog fired, no step for `timeout`
+KILL_EXIT_CODE = 113  # utils/faults.py: kill@host sudden death
 
 EXIT_CODES = {
     "stall": STALL_EXIT_CODE,
+    "kill": KILL_EXIT_CODE,
 }
 
 # How far a serving port shifts off a colliding Prometheus port

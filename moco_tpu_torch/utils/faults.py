@@ -1,5 +1,5 @@
 """Deterministic fault injection (the `io`, `delay`, `nan`,
-`ckpt_truncate`, `stall`, `preempt` and `slow` kinds of
+`ckpt_truncate`, `stall`, `preempt`, `slow` and `kill@host` kinds of
 moco_tpu/utils/faults.py).
 
 A plan is installed from a spec string (`install`, or the `MOCO_FAULTS`
@@ -39,20 +39,33 @@ comma-separated faults, each `kind@key=val[:key=val...]`:
                                   that stage's stamped interval, so the
                                   request trace and the flight recorder
                                   attribute the tail to that stage
+    kill@host=i[:at=K]            rank i dies at global step K (default:
+                                  the first log step it reaches): in a
+                                  world of more than one rank, that
+                                  process exits at once with
+                                  KILL_EXIT_CODE (113), no checkpoint, no
+                                  cleanup; the survivors' next collective
+                                  fails (gloo) or times out (NCCL), and
+                                  they exit non-zero. In a world of one,
+                                  rank i's heartbeat file is stamped stale
+                                  (time 0) instead, so the heartbeat rule
+                                  fires
 
 Faults are keyed on global steps and per-site call counters, never on
 randomness, so a run is exactly reproducible. The sites the port's code
 calls the hooks at are listed in utils/contracts.py (`FAULT_SITES`). The
 training loop calls the step hooks on log steps only: `corrupt_loss` as
-it reads the loss, `maybe_stall` and `maybe_preempt` in the step's
-deferred processing. The other kinds of the JAX module (kill, diverge,
-deadlock) come with the slices that own their sites: elastic training,
-the serving fleet and the analysis. With no plan installed every hook
-returns at once.
+it reads the loss, `maybe_stall`, `maybe_preempt` and `maybe_kill_host` in
+the step's deferred processing. The other kinds of the JAX module
+(`kill@replica`, diverge, deadlock) come with the slices that own their
+sites: the serving fleet and the analysis; the elastic rescale JAX's
+survivors run after a `kill@host` comes with elastic training. With no
+plan installed every hook returns at once.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import threading
@@ -60,8 +73,10 @@ import time
 from collections import Counter
 from typing import Optional
 
-KINDS = ("ckpt_truncate", "io", "nan", "stall", "preempt", "delay", "slow")
-_INT_KEYS = ("step", "at", "times")
+from moco_tpu_torch.utils.contracts import KILL_EXIT_CODE
+
+KINDS = ("ckpt_truncate", "io", "nan", "stall", "preempt", "delay", "slow", "kill")
+_INT_KEYS = ("step", "at", "times", "host")
 _FLOAT_KEYS = ("seconds", "ms")
 _STR_KEYS = ("site",)
 
@@ -99,6 +114,8 @@ class FaultPlan:
                 raise ValueError(f"{kind} fault {part!r} needs step=<N>")
             if kind == "stall" and "seconds" not in kv:
                 raise ValueError(f"stall fault {part!r} needs seconds=<S>")
+            if kind == "kill" and "host" not in kv:
+                raise ValueError(f"kill fault {part!r} needs host=<rank>")
             self.rules.append((kind, kv))
         self._lock = threading.Lock()
         self._counts: Counter = Counter()  # (kind, site) -> calls seen
@@ -168,6 +185,30 @@ class FaultPlan:
             if kind == "preempt" and p["step"] == step and self._fire_once(i):
                 print(f"injected fault: SIGTERM self at step {step}", flush=True)
                 os.kill(os.getpid(), signal.SIGTERM)
+
+    def maybe_kill_host(self, step: int, workdir: Optional[str], process_index: int,
+                        num_processes: int = 1) -> None:
+        """`kill@host=i[:at=K]` (module docstring): rank i exits with
+        KILL_EXIT_CODE in a world of several ranks; in a world of one, rank
+        i's heartbeat file is stamped stale."""
+        for i, (kind, p) in enumerate(self.rules):
+            if kind != "kill" or step < p.get("at", 1):
+                continue
+            host = p["host"]
+            if num_processes > 1:
+                if process_index == host and self._fire_once(i):
+                    print(f"injected fault: killing host {host} (this process) at step {step}",
+                          flush=True)
+                    os._exit(KILL_EXIT_CODE)  # no beats, no cleanup: sudden death
+            elif workdir and self._fire_once(i):
+                path = os.path.join(workdir, f"heartbeat.p{host}.json")
+                tmp = path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump({"process": host, "host": f"killed@step={step}", "pid": 0,
+                               "time": 0.0, "step": int(step), "epoch": 0}, f)
+                os.replace(tmp, path)
+                print(f"injected fault: simulated host {host} stopped beating at step {step}",
+                      flush=True)
 
     def on_checkpoint_saved(self, path: str, step: int, wait=None) -> None:
         """Halve the file of the checkpoint written at `step` (once per
@@ -241,6 +282,12 @@ def maybe_stall(step: int) -> None:
 def maybe_preempt(step: int) -> None:
     if _PLAN is not None:
         _PLAN.maybe_preempt(step)
+
+
+def maybe_kill_host(step: int, workdir: Optional[str], process_index: int,
+                    num_processes: int = 1) -> None:
+    if _PLAN is not None:
+        _PLAN.maybe_kill_host(step, workdir, process_index, num_processes)
 
 
 def on_checkpoint_saved(path: str, step: int, wait=None) -> None:

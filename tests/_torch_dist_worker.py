@@ -1,0 +1,207 @@
+"""Worlds of ranks for the port's data-parallel tests: each rank is a
+spawned process that joins a gloo group on the CPU through a FileStore
+under the test's tmp_path (no ports), runs a job and hands its numpy
+results back to the parent through a file. This module imports torch and
+the port only; the parent compares the results with JAX.
+
+`run_world(job, n, root, spec)` runs `job(world, spec)` on ranks 0..n-1
+and returns their results in rank order. The group has a timeout and the
+parent a join timeout, so a broken world fails its test instead of
+hanging the suite.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import pickle
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+GROUP_TIMEOUT_S = 60.0
+JOIN_TIMEOUT_S = 240.0
+
+
+def _entry(job, rank: int, n: int, root: str, spec) -> None:
+    torch.set_num_threads(1)
+    from moco_tpu_torch.parallel.mesh import init_world
+
+    out = os.path.join(root, f"rank{rank}.pkl")
+    try:
+        world = init_world(backend="gloo", rank=rank, world_size=n, device="cpu",
+                           store_path=os.path.join(root, "store"), timeout_s=GROUP_TIMEOUT_S)
+        try:
+            result = job(world, spec)
+        finally:
+            world.close()
+        with open(out, "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def start_world(job, n: int, root: str, spec=None) -> list:
+    """Spawn the n ranks of `job`; the caller joins them (`join_world`)."""
+    os.makedirs(root, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(job, r, n, root, spec), daemon=True)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_world(procs: list, timeout: float = JOIN_TIMEOUT_S) -> list:
+    """Exit codes of the ranks, each joined within `timeout` (a rank still
+    alive then is killed and reads None)."""
+    codes = []
+    for p in procs:
+        p.join(timeout)
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+def collect_world(procs: list, root: str) -> list:
+    """Join the ranks of `start_world` and return their results, rank
+    order; raises with the ranks' tracebacks when one fails or hangs."""
+    n = len(procs)
+    codes = join_world(procs)
+    if any(c != 0 for c in codes):
+        errs = []
+        for r in range(n):
+            path = os.path.join(root, f"rank{r}.pkl.err")
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs.append(f"rank {r}:\n{f.read()}")
+        raise RuntimeError(f"world of {n} failed, exit codes {codes}\n" + "\n".join(errs))
+    out = []
+    for r in range(n):
+        with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def run_world(job, n: int, root: str, spec=None) -> list:
+    """Every rank's result of `job(world, spec)`, rank order."""
+    return collect_world(start_world(job, n, root, spec), root)
+
+
+# -- jobs ---------------------------------------------------------------------
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def state_arrays(state) -> dict:
+    """Every tensor of a train state as numpy: both encoders' state dicts,
+    the predictor's, the queue."""
+    out = {}
+    for side, m in (("q", state.encoder_q), ("k", state.encoder_k), ("pred", state.predictor)):
+        if m is not None:
+            out.update({f"{side}.{k}": _np(v) for k, v in m.state_dict().items()})
+    if state.queue is not None:
+        out["queue"] = _np(state.queue)
+    return out
+
+
+def collectives_job(world, spec) -> dict:
+    """The shuffle collectives on this rank's rows of spec's global arrays:
+    gather_perm's shuffle and unshuffle, a2a's shuffle and unshuffle with
+    this rank's (pre, post), the fleet gather, and the ledger."""
+    from moco_tpu_torch.obs.fleet import FleetAggregator
+    from moco_tpu_torch.parallel import shuffle as sh
+    from moco_tpu_torch.parallel.dist import DataPartition
+
+    part = DataPartition.of(world, spec["x"].shape[0])
+    x = torch.from_numpy(part.rows(spec["x"]))
+    perm = torch.from_numpy(spec["perm"])
+    pre, post = (torch.from_numpy(spec[k][world.rank]) for k in ("pre", "post"))
+    fleet = FleetAggregator(world)
+    vec = spec["fleet"][world.rank]
+    k_local, k_global = sh.dp_unshuffle_gather(world, x, torch.argsort(perm))
+    return {
+        "shuffled": _np(sh.dp_shuffle_gather(world, x, perm)),
+        "k_local": _np(k_local), "k_global": _np(k_global),
+        "a2a": _np(sh.dp_balanced_shuffle(world, x, pre, post)),
+        "a2a_inverse": _np(sh.dp_balanced_unshuffle(
+            world, sh.dp_balanced_shuffle(world, x, pre, post), pre, post)),
+        "a2a_unshuffle": _np(sh.dp_balanced_unshuffle(world, x, pre, post)),
+        "fleet": fleet.gather(vec),
+        "ledger": {k: (v.collective, v.operand_bytes, v.bytes_per_step)
+                   for k, v in world.ledger.snapshot().items()},
+    }
+
+
+def train_steps_job(world, spec) -> list:
+    """For each case of spec["cases"]: the port state built from the case's
+    numpy tree (its SyncBNs over this world), then the case's steps on this
+    rank's rows of its global views, with its permutations (gather_perm's
+    global `perm`, or this rank's a2a `pre` / `post`). Per case: the
+    metrics of each step, a digest of the whole state after each step, the
+    final state, queue pointer and step, and the ledger."""
+    from moco_tpu_torch import convert
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.parallel.dist import DataPartition
+
+    out = []
+    for case in spec["cases"]:
+        cfg = case["config"]
+        world.ledger.reset()
+        state = convert.state_from_flax(cfg, case["tree"], device="cpu",
+                                        num_filters=case.get("num_filters", 64), world=world)
+        step = make_train_step(cfg, case["steps_per_epoch"], device="cpu", world=world)
+        part = DataPartition.of(world, cfg.data.global_batch)
+        hist, digests = [], []
+        for i, views in enumerate(case["views"]):
+            batch = {"im_q": torch.from_numpy(part.rows(views[0])),
+                     "im_k": torch.from_numpy(part.rows(views[1]))}
+            perms = case.get("perms")
+            if perms is not None and "perm" in perms[i]:
+                batch["perm"] = torch.from_numpy(perms[i]["perm"])
+            elif perms is not None:
+                batch["pre"] = torch.from_numpy(perms[i]["pre"][world.rank])
+                batch["post"] = torch.from_numpy(perms[i]["post"][world.rank])
+            m = step(state, batch)
+            hist.append({k: (np.asarray(v.detach().cpu().numpy(), np.float64)
+                             if torch.is_tensor(v) else float(v)) for k, v in m.items()})
+            arrays = state_arrays(state)
+            digests.append(hashlib.sha256(
+                b"".join(arrays[k].tobytes() for k in sorted(arrays))).hexdigest())
+        out.append({"hist": hist, "digests": digests, "state": state_arrays(state),
+                    "queue_ptr": state.queue_ptr, "step": state.step,
+                    "ledger": {k: (v.collective, v.operand_bytes, v.bytes_per_step)
+                               for k, v in world.ledger.snapshot().items()}})
+    return out
+
+
+def train_job(world, spec) -> list:
+    """`train()` in this world for each run of spec["runs"] (config, steps),
+    one after another: per run, the history's losses and steps, the final
+    state and step, and whether it was preempted. spec["faults"], a fault
+    spec or {rank: spec}, is installed first."""
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.utils import faults
+
+    plan = spec.get("faults")
+    faults.install(plan.get(world.rank) if isinstance(plan, dict) else plan)
+    out = []
+    for cfg, steps in spec["runs"]:
+        res = train(cfg, dataset=SyntheticDataset(spec["examples"], cfg.data.image_size),
+                    device="cpu", steps=steps, num_filters=spec["num_filters"], world=world)
+        out.append({"losses": [r["loss"] for r in res["history"]],
+                    "steps": [r["step"] for r in res["history"]],
+                    "state": state_arrays(res["state"]), "step": res["state"].step,
+                    "preempted": res["preempted"]})
+    return out

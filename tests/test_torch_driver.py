@@ -218,8 +218,8 @@ def test_cli_flags_reach_train(monkeypatch, tmp_path):
         str(tmp_path), 2, 3, 1)
     assert c.data.dataset == "synthetic_learnable" and seen["device"] == "cpu"
     assert pc.PRESETS["imagenet_v2"].workdir is None
-    with pytest.raises(TypeError):  # the cross-host aggregation is not ported
-        pc.TrainConfig(fleet_metrics=True)
+    with pytest.raises(TypeError):  # strict tracing is not ported
+        pc.TrainConfig(strict_tracing=True)
 
 
 def test_probe_cli_refuses_without_cuda(tmp_path):

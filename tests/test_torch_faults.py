@@ -103,6 +103,7 @@ def test_watchdog_defaults_match_jax():
     "stall@step=4:seconds=120", "preempt@step=3",
     "preempt@step=3,stall@step=5:seconds=0.5,nan@step=2",
     "ckpt_truncate@step=9,io@site=data.read:at=3,delay@site=input.h2d:seconds=0.01",
+    "kill@host=1:at=3,preempt@step=5",
 ])
 def test_grammar_parses_and_describes_as_jax(spec):
     assert faults.install(spec).describe() == jax_faults.install(spec).describe()
@@ -110,7 +111,7 @@ def test_grammar_parses_and_describes_as_jax(spec):
 
 
 def test_unknown_kinds_and_params_are_refused():
-    for spec in ("kill@host=1", "stall@step=4:minutes=2", "preempt@at=3"):
+    for spec in ("kill@replica=1", "diverge@step=1", "stall@step=4:minutes=2", "preempt@at=3"):
         with pytest.raises(ValueError):
             faults.install(spec)
 

@@ -40,16 +40,16 @@ MOCO = dict(arch="resnet18", dim=16, num_negatives=64, temperature=0.2, mlp=True
 OPTIM = dict(lr=0.03, epochs=1, cos=True)
 DATA = dict(dataset="synthetic", image_size=16, global_batch=16, num_workers=2)
 OBS = dict(log_every=1, sinks="jsonl,csv", obs_probe_every=2)
-# JAX's training-line families the port does not write yet: the fleet
-# aggregation and comms ledger (data parallelism), the ZeRO gauges, the
-# elastic rescale, the recompile counter (strict tracing)
-NOT_PORTED = ("fleet/", "comms/", "overlap/zero", "hbm_model_peak_bytes", "rescale/",
-              "compile_cache_misses", "straggler_skew", "fleet_hosts")
+# JAX's training-line families the port does not write yet: the ZeRO
+# gauges, the elastic rescale, the recompile counter (strict tracing). The
+# comms ledger is on both sides' lines; the fleet aggregate is off on both.
+NOT_PORTED = ("overlap/zero", "hbm_model_peak_bytes", "rescale/", "compile_cache_misses")
 
 
 def _port_config(workdir, **kw):
     return pc.TrainConfig(moco=pc.MocoConfig(**MOCO), optim=pc.OptimConfig(**OPTIM),
-                          data=pc.DataConfig(**DATA), workdir=workdir, **{**OBS, **kw})
+                          data=pc.DataConfig(**DATA), workdir=workdir, fleet_metrics=False,
+                          **{**OBS, **kw})
 
 
 def _lines(workdir, name="metrics.jsonl"):

@@ -674,19 +674,24 @@ def test_make_train_step_gates_the_eman_key_forward_as_jax(fields):
 
 
 def test_config_rejects_what_the_slice_does_not_run():
-    """Cross-device BN, sequence parallelism, the Pallas tile, and the
-    parallel, ZeRO and elastic fields stay out of the port's config."""
-    for field in ("syncbn_group_size", "fused_block_k", "vit_sequence_parallel"):
+    """Sequence parallelism, the Pallas tile, and the parallel fields beyond
+    `num_data` (the model axis, ZeRO, elastic) stay out of the port's
+    config; `syncbn_group_size` and `ParallelConfig(num_data)` are in it."""
+    for field in ("fused_block_k", "vit_sequence_parallel"):
         with pytest.raises(TypeError):
             pc.MocoConfig(**{field: 1})
-    for field, value in (("parallel", jc.ParallelConfig()), ("elastic", True),
-                         ("prefetch_donate", True), ("strict_tracing", True)):
+    for field, value in (("elastic", True), ("prefetch_donate", True),
+                         ("strict_tracing", True)):
         with pytest.raises(TypeError):
             pc.TrainConfig(**{field: value})
-    assert not hasattr(pc, "ParallelConfig")
+    for field in ("num_model", "shard_weight_update", "zero_stage", "zero_layer_granular"):
+        with pytest.raises(TypeError):
+            pc.ParallelConfig(**{field: 2})
+    assert pc.MocoConfig(syncbn_group_size=2).syncbn_group_size == 2
+    assert pc.TrainConfig(parallel=pc.ParallelConfig(num_data=4)).parallel.num_data == 4
     port_fields = {f.name for c in (pc.TrainConfig, pc.MocoConfig, pc.OptimConfig,
-                                    pc.DataConfig) for f in dataclasses.fields(c)}
-    assert not port_fields & {f.name for f in dataclasses.fields(jc.ParallelConfig)}
+                                    pc.DataConfig, pc.ParallelConfig) for f in dataclasses.fields(c)}
+    assert port_fields & {f.name for f in dataclasses.fields(jc.ParallelConfig)} == {"num_data"}
 
 
 @pytest.mark.parametrize("fused", [None, True, False])
