@@ -414,6 +414,36 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    note). Step ms, imgs/s and peak memory per rank are printed; the
    launches of (a)'s distributed run and of each rank are added to the
    kernels line (`launches_12h`).
+12i. ZeRO (moco_tpu_torch/parallel/zero.py) on 12h(b)'s two ranks (NCCL on
+   two cards, else gloo on cuda:0; printed), in child processes that
+   import no JAX. Each rank first reports whether its group takes
+   `reduce_scatter_tensor` on its device (the port issues it on every
+   backend; the phase fails if a rank's group does not). From phase 8's seeded
+   state on each rank's 128 rows of the same 3 ring batches: imagenet_v2
+   (ResNet-50 + MLP, K = 65536, 224 px) in float32 without TF32 with the
+   replicated data-parallel step (12h's) and at stage 1, stage 3 and
+   layer-granular; a stage-3 checkpoint (whole tensors gathered onto rank
+   0) loaded into a stage-1 state equals the stage-3 state bit for bit;
+   then the replicated step and the three layouts in bf16 (the preset's
+   dtype; 5 steps over the 3 batches, stages 2/3 with the training loop's hoisted
+   gather): step ms (the median of the last 3), imgs/s, peak memory,
+   `hbm_state_bytes`, `hbm_model_peak_bytes` and `overlap/zero` per rank,
+   beside 12h's peak memory; then the vit_b16_v3_huge_batch_zero3 preset's
+   model and parallel settings (its batch of 8192 cut to 2 x 64 rows,
+   auto_scale applied, flash attention), replicated and layer-granular, 2
+   steps each; then the linear probe on the two ranks from the stage-3
+   checkpoint. Checks: finite losses; the ranks' whole states (gathered)
+   equal bit for bit after every step; each ZeRO run against the
+   replicated one by 12h's oracles (loss DP_LOSS_RTOL, update DP_UPDATE_REL
+   in L2, queue cosine DP_QUEUE_COS), and 12h's control (whole-batch BN on
+   one device) rejected by each of them against stage 3; InfoNCE once per
+   step per rank; per v3 step 24 flash forward, 12 dq and 12 dk/dv
+   launches per rank, 36 forward under the layer schedule (its segments
+   recompute the query forward in the backward); the `comms/zero.*` and
+   other sites' bytes equal JAX's cost model on the layouts' bucket
+   tables; the checkpoint's resume; the probe's counts and the same result
+   on both ranks. The launches are added to the kernels line
+   (`launches_12i`).
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -3950,7 +3980,12 @@ def dp_compare(state, init: dict, final: dict, losses, want_losses, rows: int) -
     share of rtol 1e-3 / atol 1e-5; the least cosine between the two of a
     queue row the steps wrote (the first `rows`) and the largest
     difference anywhere in the queue."""
-    got = dp_tensors(state)
+    return compare_tensors(dp_tensors(state), init, final, losses, want_losses, rows)
+
+
+def compare_tensors(got: dict, init: dict, final: dict, losses, want_losses, rows: int) -> dict:
+    """`dp_compare` with the oracle's tensors `got` (by name) in place of
+    its state."""
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(want_losses, losses))
     upd, upd_name, share, share_name = 0.0, "", 0.0, ""
     err_sq = moved_sq = 0.0
@@ -4271,6 +4306,443 @@ def dp_phase(fi):
         shutil.rmtree(tmp)
 
 
+# phase 12i: ZeRO on the card (module docstring). Two ranks as in 12h(b);
+# the layouts are those of ParallelConfig (parallel/zero.py)
+ZERO_LAYOUTS = {
+    "stage1": {"shard_weight_update": True},
+    "stage3": {"shard_weight_update": True, "zero_stage": 3},
+    "layer": {"shard_weight_update": True, "zero_stage": 3, "zero_layer_granular": True},
+}
+ZERO_STEPS = 3  # steps of each float32 imagenet_v2 run (and its ring batches)
+ZERO_BF16_STEPS = 5  # steps of each bf16 run, over the same batches in turn
+ZERO_V3_ROWS, ZERO_V3_STEPS = 64, 2  # the zero3 preset's 8192 cut to 2 x 64
+ZERO_PROBE_TRAIN, ZERO_PROBE_VAL, ZERO_PROBE_BATCH = 64, 32, 32
+
+
+def zero_config(preset, par: dict, **moco):
+    """`dp_config` with the parallel fields `par` (the preset's kept)."""
+    cfg = dp_config(preset, **moco)
+    return dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, **par))
+
+
+def zero_tensors(state) -> dict:
+    """`dp_tensors` with whole tensors under every ZeRO layout: the shards
+    and the optimizer's rows gathered (a collective every rank joins)."""
+    z = state.zero
+    if z is None:
+        return dp_tensors(state)
+    sds = z.full_state_dicts()
+    out = {}
+    for side, key, mod in (("q", "q", state.encoder_q), ("k", "k", state.encoder_k),
+                           ("pred", "predictor", state.predictor)):
+        if mod is not None:
+            sd = sds[key] if sds[key] is not None else mod.state_dict()
+            out.update({f"{side}.{k}": v for k, v in sd.items()})
+    if state.queue is not None:
+        out["queue"] = state.queue
+    for i, st in z.full_optimizer_state(state.optimizer)["state"].items():
+        out.update({f"opt.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def zero_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, t in sorted(zero_tensors(state).items()):
+        h.update(k.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def zero_probe_reduce_scatter(world) -> str:
+    """Whether this rank's group takes `reduce_scatter_tensor` on its
+    device: "ok", a wrong result, or the error. A report: the port's
+    `World.reduce_scatter_flat` issues the reduce-scatter on every backend
+    (the installed gloo takes it on CUDA tensors), and the check below fails
+    the phase when a rank's group does not."""
+    import torch.distributed as dist
+
+    n, dev = world.world_size, world.device
+    x = torch.arange(2 * n, dtype=torch.float32, device=dev) + world.rank
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    try:
+        dist.reduce_scatter_tensor(out, x, group=world.group)
+        torch.cuda.synchronize(dev)
+        want = sum(torch.arange(2 * n, dtype=torch.float32) + r for r in range(n))
+        ok = torch.equal(out.cpu(), want[2 * world.rank:2 * world.rank + 2])
+        return "ok" if ok else f"wrong result {out.tolist()}"
+    except Exception as e:  # the report is the point; every rank raises alike
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def zero_steps(state, step, batches, dev, rows, gatherer=None) -> dict:
+    """`dp_steps` with `zero_digest`; with `gatherer` (AsyncParamGather of a
+    stage-2/3 step) the next step's gather is issued after each step, as
+    the training loop issues it."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms, digests = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if gatherer is not None:
+            m = step.step(state, batch, gatherer.take())
+            gatherer.submit(state, state.step)
+        else:
+            m = step(state, batch)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        digests.append(zero_digest(state))
+    steady = float(np.median(ms[2:] if len(ms) > ZERO_STEPS else ms[1:]))
+    return {"losses": losses, "ms": ms, "step_ms": steady, "imgs_per_s": rows / steady * 1e3,
+            "digests": digests, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def zero_expected_ledger(state, n: int, extra: dict) -> dict:
+    """`comms/<site>` bytes by JAX's cost model from the layout's bucket
+    tables (`describe`: each bucket's shard bytes) and `extra`'s sites."""
+    z = state.zero
+    sites = dict(extra)
+    if not z.stage23:
+        sites["zero.grad_reduce_scatter"] = ("psum_scatter",
+                                             sum(lf.size * 4 for lf in z.trainable))
+        sites["zero.params_all_gather"] = ("all_gather", z.plan_trainable.shard_bytes())
+    elif not z.layer:
+        for i, b in enumerate(z.plan_trainable.describe()):
+            sites[f"zero.gather_q.b{i}"] = ("all_gather", b["shard_bytes"])
+            sites[f"zero.scatter.b{i}"] = ("psum_scatter", n * b["shard_bytes"])
+        for i, b in enumerate(z.plan_enc.describe()):
+            sites[f"zero.gather_k.b{i}"] = ("all_gather", b["shard_bytes"])
+    else:
+        for g in z.group_plan.groups:
+            for i, b in enumerate(g.plan.describe()):
+                for side in "qk":
+                    sites[f"zero.gather.{side}.{g.name}.b{i}"] = ("all_gather", b["shard_bytes"])
+        if z.pred_plan is not None:
+            for i, b in enumerate(z.pred_plan.describe()):
+                sites[f"zero.gather.q.pred.b{i}"] = ("all_gather", b["shard_bytes"])
+    cost = {"all_gather": lambda b: b * (n - 1), "psum_scatter": lambda b: b * (n - 1) // n,
+            "device_put": lambda b: b}
+    out = {f"comms/{k}": cost[c](b) for k, (c, b) in sites.items()}
+    out["comms/total"] = sum(out.values())
+    return out
+
+
+def zero_state_bytes(state) -> int:
+    """The training loop's `hbm_state_bytes`: the state's resident bytes (at stage
+    2/3 the shards stand in for the parameters; at stage 1 the optimizer's
+    shards come on top)."""
+    from moco_tpu_torch.obs.stepstats import tree_shard_bytes
+    from moco_tpu_torch.train import StateSnapshot
+
+    resident = StateSnapshot._tensors(state) + StateSnapshot._opt_state(state)[1]
+    if state.zero is not None and not state.zero.stage23:
+        resident += state.zero.q_shards
+    return tree_shard_bytes(resident)
+
+
+def zero_rank_child(rank: int, n: int, backend: str, device: str, store: str,
+                    out_dir: str) -> None:
+    """12i, rank `rank` of `n` (module docstring): the reduce-scatter
+    report; imagenet_v2 in float32 without TF32, replicated and at each
+    ZeRO layout (3 steps each, the same batches); a stage-3 checkpoint
+    loaded at stage 1; the bf16 runs at each layout (timed, the launches,
+    the ledger, the memory gauges); the zero3 preset's ViT at 2 x 64 rows,
+    replicated and layer-granular; the probe on the two ranks from the
+    stage-3 checkpoint. Rank 0 then runs 12h's whole-batch-BN control on one
+    device."""
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.data.pipeline import TwoCropPipeline
+    from moco_tpu_torch.lincls import train_lincls
+    from moco_tpu_torch.ops import flash_attention as fa
+    from moco_tpu_torch.ops import fused_infonce as fi
+    from moco_tpu_torch.parallel.dist import DataPartition
+    from moco_tpu_torch.parallel.mesh import init_world
+    from moco_tpu_torch.parallel.zero import AsyncParamGather
+    from moco_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_state_payload,
+        state_payload,
+    )
+    from moco_tpu_torch.utils.config import ProbeConfig, apply_auto_scale, config_to_dict
+
+    out = {"rank": rank, "backend": backend, "device": device}
+    t_start = time.perf_counter()
+    ckpt_dir = os.path.join(out_dir, "zero3_ckpt")
+    try:
+        world = init_world(backend, rank, n, device=device, store_path=store,
+                           timeout_s=DP_TIMEOUT_S)
+        dev = world.device
+        try:
+            out["reduce_scatter"] = zero_probe_reduce_scatter(world)
+            sections = {}
+            cfg = dp_config("imagenet_v2")
+            b = cfg.data.global_batch
+            dataset = SyntheticDataset(b * EPOCH_STEPS, IMG)
+            part = DataPartition.of(world, b)
+            lb = part.local_rows
+            world.ledger.reset()
+            with TwoCropPipeline(cfg.data, seed=cfg.seed, dataset=dataset, device=dev,
+                                 partition=part, ledger=world.ledger) as pipe:
+                it = pipe.epoch(0, device=True, stop=ZERO_STEPS)
+                try:
+                    batches = [{k: v.clone() for k, v in bt.items()} for bt in it]
+                finally:
+                    it.close()
+            wire = world.ledger.snapshot()["input.h2d"]
+            extra_sites = {"input.h2d": ("device_put", wire.operand_bytes),
+                           "shuffle.gather_images": ("all_gather", lb * IMG * IMG * 3 * 4),
+                           "shuffle.gather_keys": ("all_gather", lb * DIM * 4)}
+            sections["batches"] = time.perf_counter() - t_start
+            # (b) float32 without TF32: the replicated step, then each layout
+            finals, init = {}, None
+            with dp_full_f32():
+                for name, par in (("dp", {}), *ZERO_LAYOUTS.items()):
+                    c = zero_config("imagenet_v2", par, compute_dtype="float32")
+                    state = seeded_v2_state(c, world, device=dev)
+                    if init is None:
+                        init = {k: v.detach().cpu().clone() for k, v in zero_tensors(state).items()}
+                    step = dp_make_step(c, dev, world)
+                    run = zero_steps(state, step, batches, dev, lb)
+                    finals[name] = {k: v.detach().cpu().clone()
+                                    for k, v in zero_tensors(state).items()}
+                    out[f"{name}_f32"] = {k: run[k] for k in ("losses", "digests")}
+                    if name == "stage3":  # every rank gathers, rank 0 writes
+                        payload = state_payload(state, c.moco.arch, 1)
+                        if rank == 0:
+                            mgr = CheckpointManager(ckpt_dir, keep=0)
+                            mgr.save(state.step, payload, extra={"epoch": 0,
+                                                                 "config": config_to_dict(c)})
+                            mgr.close()
+                        del payload
+                        world.barrier()
+                    del state, step
+                    torch.cuda.empty_cache()
+                # the stage-3 checkpoint loaded into a stage-1 state
+                c1 = zero_config("imagenet_v2", ZERO_LAYOUTS["stage1"], compute_dtype="float32")
+                state = seeded_v2_state(c1, world, device=dev)
+                load_state_payload(state, CheckpointManager(ckpt_dir).restore()[0])
+                got = zero_tensors(state)
+                out["resume_stage1_unequal"] = sorted(
+                    k for k, v in finals["stage3"].items()
+                    if k not in got or not torch.equal(got[k].detach().cpu(), v))
+                del state, got
+                torch.cuda.empty_cache()
+            sections["f32"] = time.perf_counter() - t_start
+            out["against_dp"] = {
+                name: compare_tensors(finals["dp"], init, finals[name],
+                                      out[f"{name}_f32"]["losses"], out["dp_f32"]["losses"],
+                                      ZERO_STEPS * b)
+                for name in ZERO_LAYOUTS}
+            # (c) bf16, the preset's dtype: timed, launches, ledger, memory
+            bf16_batches = [batches[i % len(batches)] for i in range(ZERO_BF16_STEPS)]
+            for name, par in (("dp", {}), *ZERO_LAYOUTS.items()):
+                c = zero_config("imagenet_v2", par)
+                world.ledger.reset()
+                world.ledger.record("input.h2d", wire.collective, wire.operand_bytes, 1)
+                state = seeded_v2_state(c, world, device=dev)
+                step = make_train_step(c, EPOCH_STEPS, device=dev, world=world)
+                gatherer = None
+                if state.zero is not None and state.zero.stage23:
+                    gatherer = AsyncParamGather(step.gather)
+                    gatherer.submit(state, state.step)
+                fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+                try:
+                    run = zero_steps(state, step, bf16_batches, dev, lb, gatherer)
+                finally:
+                    if gatherer is not None:
+                        gatherer.close()
+                run["launches"] = {"infonce_fwd": fi.infonce_stats.launches,
+                                   "infonce_bwd": fi.infonce_dq.launches}
+                run["ledger"] = world.ledger.payload()
+                if state.zero is not None:
+                    run["ledger_want"] = zero_expected_ledger(state, n, extra_sites)
+                run["hbm_state_bytes"] = zero_state_bytes(state)
+                run["hbm_model_peak_bytes"] = (state.zero.hbm_model_peak_bytes
+                                               if state.zero is not None else None)
+                run["overlap_zero"] = gatherer.last_overlap if gatherer is not None else None
+                run["gather_s"] = gatherer.last_duration if gatherer is not None else None
+                out[name] = run
+                del state, step, gatherer
+                torch.cuda.empty_cache()
+            del batches, bf16_batches
+            sections["bf16"] = time.perf_counter() - t_start
+            # (d) the zero3 preset's ViT-B/16 at 2 x 64 rows, flash attention
+            c3 = zero_config("vit_b16_v3_huge_batch_zero3", {}, vit_flash_attention=True)
+            c3 = dataclasses.replace(c3, data=dataclasses.replace(
+                c3.data, global_batch=n * ZERO_V3_ROWS))
+            c3, _ = apply_auto_scale(c3)
+            part3 = DataPartition.of(world, c3.data.global_batch)
+            with TwoCropPipeline(c3.data, seed=c3.seed, device=dev, partition=part3,
+                                 dataset=SyntheticDataset(c3.data.global_batch * 4, IMG)) as pipe:
+                batches = [pipe.batch(0, s) for s in range(ZERO_V3_STEPS)]
+            replicated = dataclasses.replace(c3, parallel=dataclasses.replace(
+                c3.parallel, shard_weight_update=False, zero_stage=1,
+                zero_layer_granular=False))
+            for name, c in (("v3_dp", replicated), ("v3_layer", c3)):
+                world.ledger.reset()
+                state = seeded_v3_state(c, world, device=dev)
+                step = make_train_step(c, 4, device=dev, world=world)
+                zero_flash(fa)
+                run = zero_steps(state, step, batches, dev, part3.local_rows)
+                run["launches"] = flash_launches(fa)
+                run["ledger"] = world.ledger.payload()
+                if state.zero is not None:
+                    run["ledger_want"] = zero_expected_ledger(state, n, {
+                        "v3.key_gather": ("all_gather", 2 * part3.local_rows * c.moco.dim * 4)})
+                    run["hbm_model_peak_bytes"] = state.zero.hbm_model_peak_bytes
+                run["hbm_state_bytes"] = zero_state_bytes(state)
+                out[name] = run
+                del state, step
+                torch.cuda.empty_cache()
+            del batches
+            sections["v3"] = time.perf_counter() - t_start
+            # (e) the probe on the two ranks, from the stage-3 checkpoint
+            pdata = dataclasses.replace(cfg.data, dataset="synthetic",
+                                        global_batch=ZERO_PROBE_BATCH)
+            t0 = time.perf_counter()
+            out["probe"] = train_lincls(
+                ckpt_dir, ProbeConfig(lr=1.0, epochs=1, num_classes=10), data=pdata,
+                workdir=os.path.join(out_dir, f"probe{rank}"),
+                train_dataset=SyntheticDataset(ZERO_PROBE_TRAIN, IMG),
+                val_dataset=SyntheticDataset(ZERO_PROBE_VAL, IMG), device=dev, world=world)
+            out["probe_s"] = time.perf_counter() - t0
+            sections["probe"] = time.perf_counter() - t_start
+            out["sections"] = sections
+            world.barrier()
+        finally:
+            world.close()
+        if rank == 0:  # 12h's control on one device over the whole batches
+            with TwoCropPipeline(cfg.data, seed=cfg.seed, dataset=dataset, device=dev) as pipe:
+                whole = [pipe.batch(0, s) for s in range(ZERO_STEPS)]
+            with dp_full_f32():
+                c = dp_config("imagenet_v2", shuffle="none", compute_dtype="float32")
+                state = seeded_v2_state(c, device=dev)
+                run = dp_steps(state, dp_make_step(c, dev), whole, dev, b)
+                out["control"] = compare_tensors(dp_tensors(state), init, finals["stage3"],
+                                                 out["stage3_f32"]["losses"], run["losses"],
+                                                 ZERO_STEPS * b)
+                del state
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    out["wall_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"zero_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def zero_phase(fi, dp_peak_gb=None):
+    """Phase 12i (module docstring); returns its JSON and the launches of
+    its paths, per rank. `dp_peak_gb` is 12h's per-rank peak memory (v2,
+    v3), printed beside 12i's."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    try:
+        count = torch.cuda.device_count()
+        backend, devices = (("nccl", ["cuda:0", "cuda:1"]) if count >= DP_RANKS
+                            else ("gloo", ["cuda:0", "cuda:0"]))
+        print(f"12i: {DP_RANKS} ranks, backend {backend}, devices {devices}", flush=True)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=zero_rank_child, args=(r, DP_RANKS, backend, devices[r],
+                                                           os.path.join(tmp, "store"), tmp))
+                 for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        codes = dp_join(procs, 3 * DP_TIMEOUT_S)
+        ranks = []
+        for r in range(DP_RANKS):
+            path = os.path.join(tmp, f"zero_rank{r}.json")
+            with open(path) as f:
+                ranks.append(json.load(f))
+        wall = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            print(f"12i rank {r}: reduce_scatter_tensor on {res['device']}: "
+                  f"{res.get('reduce_scatter')}; seconds by part {res.get('sections')}",
+                  flush=True)
+        check(codes == [0] * DP_RANKS and not any("error" in r for r in ranks),
+              f"12i: exit {codes}: {[r.get('error') for r in ranks]}")
+        check(all(r["reduce_scatter"] == "ok" for r in ranks),
+              f"12i: a rank's group does not take the reduce-scatter: "
+              f"{[r['reduce_scatter'] for r in ranks]}")
+        runs_v2 = [*(f"{k}_f32" for k in ("dp", *ZERO_LAYOUTS)), "dp", *ZERO_LAYOUTS]
+        for r, res in enumerate(ranks):
+            for name in runs_v2 + ["v3_dp", "v3_layer"]:
+                run = res[name]
+                steps = (ZERO_V3_STEPS if name.startswith("v3") else
+                         ZERO_STEPS if name.endswith("_f32") else ZERO_BF16_STEPS)
+                check(all(np.isfinite(run["losses"])) and len(run["losses"]) == steps,
+                      f"12i rank {r} {name}: losses {run['losses']}")
+                check(run["digests"] == ranks[0][name]["digests"],
+                      f"12i {name}: rank {r} out of lockstep")
+                if "ledger_want" in run:
+                    check(run["ledger"] == run["ledger_want"],
+                          f"12i rank {r} {name}: ledger {run['ledger']} != {run['ledger_want']}")
+            for name in ("dp", *ZERO_LAYOUTS):
+                check(res[name]["launches"] == {"infonce_fwd": ZERO_BF16_STEPS,
+                                                "infonce_bwd": ZERO_BF16_STEPS},
+                      f"12i rank {r} {name}: InfoNCE launches {res[name]['launches']}")
+            # the layer schedule's segments recompute the query forward in
+            # the backward (as JAX's jax.checkpoint segments do): 12 more
+            # forward launches per step
+            for name, fwd in (("v3_dp", 24), ("v3_layer", 36)):
+                check(res[name]["launches"] == {"flash_fwd": fwd * ZERO_V3_STEPS,
+                                                "flash_dq": 12 * ZERO_V3_STEPS,
+                                                "flash_dkv": 12 * ZERO_V3_STEPS},
+                      f"12i rank {r} {name}: flash launches {res[name]['launches']}")
+            check(not res["resume_stage1_unequal"],
+                  f"12i rank {r}: the stage-3 checkpoint at stage 1 differs in "
+                  f"{res['resume_stage1_unequal'][:4]}")
+            probe = res["probe"]
+            check(probe == ranks[0]["probe"] and probe["count"] == ZERO_PROBE_VAL
+                  and all(np.isfinite(v) for v in probe.values()),
+                  f"12i rank {r}: probe {probe}")
+
+        def meets(o):
+            return (o["loss_rel"] <= DP_LOSS_RTOL and o["update_rel"] <= DP_UPDATE_REL
+                    and o["queue_min_cos"] >= DP_QUEUE_COS)
+
+        against = ranks[0]["against_dp"]
+        for name, o in against.items():
+            print(f"12i {name} against the replicated run: {json.dumps(o)}", flush=True)
+            check(meets(o), f"12i {name} against the replicated data-parallel run: {o}")
+        control = ranks[0]["control"]
+        print(f"12i control (whole-batch BN) against stage 3: {json.dumps(control)}", flush=True)
+        for key, passes in (("loss_rel", control["loss_rel"] <= DP_LOSS_RTOL),
+                            ("update_rel", control["update_rel"] <= DP_UPDATE_REL),
+                            ("queue_min_cos", control["queue_min_cos"] >= DP_QUEUE_COS)):
+            check(not passes, f"12i: the whole-batch-BN control passes the {key} check: "
+                              f"{control[key]}")
+        per_rank = []
+        for res in ranks:
+            per_rank.append({name: {k: res[name].get(k) for k in (
+                "losses", "ms", "step_ms", "imgs_per_s", "peak_gb", "launches", "ledger",
+                "hbm_state_bytes", "hbm_model_peak_bytes", "overlap_zero", "gather_s")}
+                for name in ["dp", *ZERO_LAYOUTS, "v3_dp", "v3_layer"]})
+            per_rank[-1]["wall_s"] = res["wall_s"]
+            per_rank[-1]["sections"] = res["sections"]
+        for r, rec in enumerate(per_rank):
+            line = {name: {k: rec[name][k] for k in ("step_ms", "imgs_per_s", "peak_gb",
+                                                      "hbm_state_bytes", "hbm_model_peak_bytes",
+                                                      "overlap_zero")}
+                    for name in ["dp", *ZERO_LAYOUTS, "v3_dp", "v3_layer"]}
+            print(f"12i rank {r}: {json.dumps(line)}; 12h's peak GB {dp_peak_gb}", flush=True)
+        return {"backend": backend, "devices": devices, "wall_s": wall,
+                "reduce_scatter": ranks[0]["reduce_scatter"],
+                "against_dp": against, "control": control, "ranks": per_rank,
+                "probe": ranks[0]["probe"], "dp_peak_gb": dp_peak_gb}, [
+            {**{k: sum(res[name]["launches"][k] for name in ("dp", *ZERO_LAYOUTS))
+                for k in ("infonce_fwd", "infonce_bwd")},
+             **{k: sum(res[name]["launches"][k] for name in ("v3_dp", "v3_layer"))
+                for k in ("flash_fwd", "flash_dq", "flash_dkv")}} for res in ranks]
+    finally:
+        shutil.rmtree(tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4459,6 +4931,12 @@ def main() -> int:
     # -- data parallelism: an NCCL world of one, two ranks on the card --------
     dp_out, dp_launches = dp_phase(fused_infonce)
     print(json.dumps({"data_parallel": dp_out, "device": smi}))
+
+    # -- ZeRO: the sharded update at each layout, two ranks on the card -------
+    zero_out, zero_launches = zero_phase(fused_infonce, [
+        {"v2": rank["gather_perm"]["peak_gb"], "v3": rank["v3"]["peak_gb"]}
+        for rank in dp_out["b"]["ranks"]])
+    print(json.dumps({"zero": zero_out, "device": smi}))
     obs_infonce = {k: obs_launches["a"][k] + obs_launches["b"][k]
                    for k in ("infonce_fwd", "infonce_bwd")}
     for rec in train_kernels:
@@ -4483,6 +4961,9 @@ def main() -> int:
             r[rec["name"]] for r in dp_launches["ranks"]]
         rec["launches"] += sum(per)
         rec["launches_12h"] = {"nccl_1": per[0], **{f"rank{i}": n for i, n in enumerate(per[1:])}}
+        per = [r[rec["name"]] for r in zero_launches]  # 12i: per rank
+        rec["launches"] += sum(per)
+        rec["launches_12i"] = {f"rank{i}": n for i, n in enumerate(per)}
     kernels = [ivf_kernel, *train_kernels, *v3_kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)

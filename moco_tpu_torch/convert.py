@@ -28,6 +28,7 @@ relative to values of order one.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -39,10 +40,14 @@ from moco_tpu_torch.core.moco import (
     build_encoder,
     build_predictor,
     create_state,
+    shard_state,
 )
 from moco_tpu_torch.models.resnet import _CONFIGS
 from moco_tpu_torch.models.vit import _VIT_CONFIGS
+from moco_tpu_torch.parallel.mesh import World
+from moco_tpu_torch.parallel.zero import unshard_leaf_host
 from moco_tpu_torch.utils.config import MocoConfig, TrainConfig
+from moco_tpu_torch.utils.device import resolve_device
 
 
 def _np(x) -> np.ndarray:
@@ -327,8 +332,20 @@ def random_flax_predictor(cfg: MocoConfig, seed: int = 0) -> tuple[dict, dict]:
                            cfg.arch.startswith("vit"))
 
 
+def _full_like(tree, template):
+    """`tree` with each leaf in ZeRO's (n, m) layout (a shape other than
+    `template`'s) unsharded to the template's shape, as JAX's
+    `unshard_tree_host` does; other leaves as they are."""
+    if isinstance(template, dict):
+        return {k: _full_like(tree[k], v) for k, v in template.items()}
+    if np.shape(tree) != np.shape(template):
+        return unshard_leaf_host(tree, np.shape(template))
+    return tree
+
+
 def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
-                    num_filters: int = 64, world=None) -> TrainState:
+                    num_filters: int = 64, world=None,
+                    mlp_hidden: Optional[int] = None) -> TrainState:
     """A JAX `MocoState`'s contents, as numpy trees, -> the port's
     `TrainState` on `device`. `tree` holds `step`, `params_q`,
     `batch_stats_q`, `params_k` and `batch_stats_k`; for v1/v2 also
@@ -340,40 +357,61 @@ def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
     {"mu", "nu", "count"} of optax's ScaleByAdamState over {"enc", "pred"},
     which become AdamW's `exp_avg`, `exp_avg_sq` and `step` for every
     trained parameter. A v3 head takes its hidden width from the tree's
-    first Dense kernel (v1/v2 heads have no such width). `world`
-    (parallel/mesh.py) makes the encoders' and the predictor's SyncBNs as
-    `build_encoder` does."""
+    first Dense kernel (v1/v2 heads have no such width), or from
+    `mlp_hidden`. `world` (parallel/mesh.py) makes the encoders' and the
+    predictor's SyncBNs as `build_encoder` does.
+
+    The tree may be a ZeRO state's: parameters and optimizer moments in
+    the (n, m) layout are unsharded with the full shapes, as
+    `unshard_tree_host` does (a v3 tree so needs `mlp_hidden`); the port's
+    state is then sharded over `world` by `config`'s ZeRO fields
+    (`core/moco.py::shard_state`)."""
     def hidden(head):
-        return np.shape(head["Dense_0"]["kernel"])[-1]
+        return mlp_hidden if mlp_hidden is not None else np.shape(head["Dense_0"]["kernel"])[-1]
 
     def encoder(params, stats):
         enc = build_encoder(config.moco, num_filters=num_filters,
-                            mlp_hidden=hidden(params["head"]), world=world)
-        enc.load_state_dict(encoder_from_flax(params, stats))
-        return enc
+                            mlp_hidden=hidden(tree["params_q"]["head"]), world=world)
+        heads = next((m.num_heads for m in enc.modules() if hasattr(m, "num_heads")), None)
+        template = encoder_to_flax(enc.state_dict(), heads)[0]
+        enc.load_state_dict(encoder_from_flax(_full_like(params, template), stats))
+        return enc, template
 
+    zero = config.parallel.shard_weight_update
+    replicated = dataclasses.replace(config, parallel=dataclasses.replace(
+        config.parallel, shard_weight_update=False, zero_layer_granular=False))
     step = int(np.asarray(tree["step"]))
-    enc_q, enc_k = (encoder(tree[f"params_{s}"], tree[f"batch_stats_{s}"]) for s in "qk")
+    (enc_q, template), (enc_k, _) = (encoder(tree[f"params_{s}"], tree[f"batch_stats_{s}"])
+                                     for s in "qk")
     if not config.moco.v3:
         state = create_state(
-            config, enc_q, device=device, encoder_k=enc_k,
+            replicated, enc_q, device=device, encoder_k=enc_k,
             queue=torch.from_numpy(np.array(tree["queue"], np.float32)),
             step=step, queue_ptr=int(np.asarray(tree["queue_ptr"])),
         )
         if tree.get("trace") is not None:
             key = "trace" if config.optim.optimizer == "lars" else "momentum_buffer"
-            _load_moments(state, {key: encoder_from_flax(tree["trace"])}, {})
-        return state
-    predictor = build_predictor(config.moco, mlp_hidden=hidden(tree["params_pred"]), world=world)
-    predictor.load_state_dict(predictor_from_flax(tree["params_pred"], tree["batch_stats_pred"]))
-    state = create_state(config, enc_q, device=device, encoder_k=enc_k, step=step,
-                         predictor=predictor)
-    adam = tree.get("adam")
-    if adam is not None:
-        moments = {"exp_avg": adam["mu"], "exp_avg_sq": adam["nu"]}
-        _load_moments(state, {n: encoder_from_flax(m["enc"]) for n, m in moments.items()},
-                      {n: predictor_from_flax(m["pred"]) for n, m in moments.items()},
-                      step=float(np.asarray(adam["count"])))
+            _load_moments(state, {key: encoder_from_flax(_full_like(tree["trace"], template))},
+                          {})
+    else:
+        predictor = build_predictor(config.moco, mlp_hidden=hidden(tree["params_q"]["head"]),
+                                    world=world)
+        pred_template = head_to_flax(predictor.state_dict())[0]
+        predictor.load_state_dict(predictor_from_flax(
+            _full_like(tree["params_pred"], pred_template), tree["batch_stats_pred"]))
+        state = create_state(replicated, enc_q, device=device, encoder_k=enc_k, step=step,
+                             predictor=predictor)
+        adam = tree.get("adam")
+        if adam is not None:
+            moments = {"exp_avg": adam["mu"], "exp_avg_sq": adam["nu"]}
+            _load_moments(
+                state, {n: encoder_from_flax(_full_like(m["enc"], template))
+                        for n, m in moments.items()},
+                {n: predictor_from_flax(_full_like(m["pred"], pred_template))
+                 for n, m in moments.items()},
+                step=float(np.asarray(adam["count"])))
+    if zero:
+        state = shard_state(state, config, world or World(device=resolve_device(device)))
     return state
 
 
@@ -392,6 +430,42 @@ def _load_moments(state: TrainState, enc: dict, pred: dict, step=None) -> None:
                 state.optimizer.state[p][key] = torch.empty_like(p).copy_(tree[name])
                 if step is not None:
                     state.optimizer.state[p]["step"] = torch.tensor(step, dtype=torch.float32)
+
+
+def _flatten_tree(tree: dict, prefix: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten_tree(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def flax_param_paths(module: torch.nn.Module) -> Dict[str, tuple]:
+    """{parameter name: its Flax leaf path} of a `MoCoEncoder` (paths under
+    `backbone` / `head`) or a head such as v3's predictor, by this module's
+    layout rules: each parameter, filled with its ordinal, goes through
+    `encoder_to_flax` / `head_to_flax`, and each Flax leaf then names the
+    parameter it came from. Every parameter has exactly one leaf."""
+    params = list(module.named_parameters())
+    tagged = {n: np.full(tuple(p.shape), i, np.float32) for i, (n, p) in enumerate(params)}
+    if any(n.startswith("backbone.") for n in tagged):
+        heads = next((m.num_heads for m in module.modules() if hasattr(m, "num_heads")), None)
+        tree = encoder_to_flax(tagged, heads)[0]
+    else:
+        tree = head_to_flax(tagged)[0]
+    out: Dict[str, tuple] = {}
+    for path, leaf in _flatten_tree(tree).items():
+        name = params[int(np.asarray(leaf).flat[0])][0]
+        if name in out:
+            raise ValueError(f"parameter {name} maps to two Flax leaves: {out[name]}, {path}")
+        out[name] = path
+    missing = sorted({n for n, _ in params} - set(out))
+    if missing:
+        raise ValueError(f"parameters without a Flax leaf: {missing}")
+    return out
+
 
 
 # ----------------------------------------------------- the way back to Flax

@@ -88,6 +88,20 @@ collective site records its analytic bytes in the world's comms ledger
 group exists (0 bytes then), as JAX's step registers its sites at n = 1.
 A World without a process group issues no collective and the step is the
 one-device step.
+
+ZeRO (`config.parallel.shard_weight_update`, parallel/zero.py), JAX's
+branches of the same steps: `create_state` builds the replicated state and
+`shard_state` makes it ZeRO's (`TrainState.zero`; the optimizer over this
+rank's shards). Stage 1 replaces the gradients' all-reduce by the sharded
+update (:133-156 of moco_tpu/parallel/zero.py). At stage 2/3 the step takes
+a gather (`Zero23TrainStep`, :1349-1402): the key shards' EMA and the
+parameters gathered (`gather_core`, :827-853), or under the layer schedule
+the key encoder's first group (`gather_core_layer`) with the groups
+gathered inside the forwards (:551-700); after the backward the bucketed
+reduce-scatter and the shard update (`zero23_update` / `zero_layer_update`,
+:786-806), and the drift from the shards (`ema_drift_sharded`). The frozen
+patch embedding stays out of the optimizer, as JAX's restore of the old
+shards (:984-991) and re-imposed full parameters (:1001-1021) keep it.
 """
 
 from __future__ import annotations
@@ -108,9 +122,10 @@ from moco_tpu_torch.models.vit import create_vit
 from moco_tpu_torch.obs import health
 from moco_tpu_torch.parallel import shuffle as sh
 from moco_tpu_torch.parallel.mesh import World
+from moco_tpu_torch.parallel.zero import ZeroGathered, ZeroLayout
 from moco_tpu_torch.ops.fused_infonce import fused_infonce_loss
 from moco_tpu_torch.ops.losses import cross_entropy, infonce_logits, l2_normalize, topk_accuracy
-from moco_tpu_torch.utils.config import MocoConfig, TrainConfig
+from moco_tpu_torch.utils.config import MocoConfig, TrainConfig, validate_zero
 from moco_tpu_torch.utils.device import resolve_device
 from moco_tpu_torch.utils.schedules import build_optimizer, decay_groups, make_lr_schedule
 
@@ -244,21 +259,35 @@ class TrainState:
     predictor: Optional[nn.Module] = None
     # the Shuffle-BN permutations' generator, on the state's device
     generator: Optional[torch.Generator] = None
+    # ZeRO (parallel/zero.py): the shards and plans; `optimizer` is then
+    # over this rank's (m,) shards
+    zero: Optional[ZeroLayout] = None
 
 
 def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
                  encoder_k: Optional[MoCoEncoder] = None,
                  queue: Optional[torch.Tensor] = None, step: int = 0,
-                 queue_ptr: int = 0, predictor: Optional[nn.Module] = None) -> TrainState:
+                 queue_ptr: int = 0, predictor: Optional[nn.Module] = None,
+                 zero_num_data: Optional[int] = None,
+                 world: Optional[World] = None) -> TrainState:
     """The train state on `device` (moco_tpu/core/moco.py:329): the key
     encoder is a copy of the query encoder with requires_grad=False unless
     one is given. v1/v2: the queue is drawn from a generator on `device`
     seeded with config.seed unless one is given. v3: no queue; the
     predictor is required. The optimizer runs over the query encoder's
     trainable parameters and the predictor's (AdamW and LARS in the two
-    groups of the decay mask). Both encoders are kept channels-last."""
+    groups of the decay mask). Both encoders are kept channels-last.
+
+    With `config.parallel.shard_weight_update` the state is ZeRO's
+    (`shard_state`): `zero_num_data` is the data axis's size, JAX's
+    argument, and must be `world`'s (one process holds its rank's row)."""
     device = resolve_device(device)
     cfg = config.moco
+    if config.parallel.shard_weight_update and not zero_num_data:
+        raise ValueError(
+            "config.parallel.shard_weight_update=True requires zero_num_data "
+            "(the data-axis size) so the opt state gets the (n, m) layout"
+        )
     if cfg.v3 != (cfg.num_negatives == 0):
         raise ValueError("v3 is queue-free (num_negatives=0); v1/v2 need num_negatives > 0")
     if cfg.v3 and predictor is None:
@@ -285,8 +314,39 @@ def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
     else:
         params = [p for m in trained for p in m.parameters() if p.requires_grad]
     optimizer = build_optimizer(config.optim, params)
-    return TrainState(step, encoder_q, encoder_k, queue, int(queue_ptr), optimizer, predictor,
-                      torch.Generator(device=device))
+    state = TrainState(step, encoder_q, encoder_k, queue, int(queue_ptr), optimizer, predictor,
+                       torch.Generator(device=device))
+    if config.parallel.shard_weight_update:
+        state = shard_state(state, config, world or World(device=device), zero_num_data)
+    return state
+
+
+def shard_state(state: TrainState, config: TrainConfig, world: World,
+                zero_num_data: Optional[int] = None) -> TrainState:
+    """A replicated train state -> ZeRO's, in place (parallel/zero.py): the
+    layout's shards of this rank, the optimizer rebuilt over them in the
+    replicated one's parameter order and groups (its state, if any, sharded
+    into it), and at stage 2/3 the modules' whole parameters released."""
+    validate_zero(config)
+    n = zero_num_data or world.world_size
+    if n != world.world_size:
+        raise ValueError(f"zero_num_data={n} but the world has {world.world_size} rank(s): "
+                         "each process holds its own rank's rows")
+    par = config.parallel
+    layout = ZeroLayout(state.encoder_q, state.encoder_k, state.predictor, world,
+                        par.zero_stage, par.zero_layer_granular, par.zero_bucket_mb)
+    full = state.optimizer.state_dict()
+    shard_of = {id(lf.q): s for lf, s in zip(layout.trainable, layout.q_shards)}
+    groups = [{**{k: v for k, v in g.items() if k != "params"},
+               "params": [shard_of[id(p)] for p in g["params"]]}
+              for g in state.optimizer.param_groups]
+    state.optimizer = build_optimizer(config.optim, groups)
+    layout.load_optimizer_state(state.optimizer, full)
+    if layout.stage23:
+        layout.release("q")
+        layout.release("k")
+    state.zero = layout
+    return state
 
 
 def make_ema_momentum(cfg: MocoConfig, total_steps: int) -> Callable[[int], float]:
@@ -348,6 +408,10 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
                 "forward, so Shuffle-BN would be pure wasted communication: "
                 "set shuffle='none' (or 'syncbn' for query-side statistics)"
             )
+    validate_zero(config)
+    par = config.parallel
+    zero23 = par.shard_weight_update and par.zero_stage >= 2
+    layer = zero23 and par.zero_layer_granular
     world = World(device=device) if world is None else world
     n, rank = world.world_size, world.rank
     global_batch = config.data.global_batch
@@ -371,7 +435,7 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
     def autocast():
         return torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16)
 
-    def key_forward(state: TrainState, batch: dict):
+    def key_forward(state: TrainState, batch: dict, apply_k):
         """(k_local, k_global): this rank's keys and the global batch's, in
         the batch's order, l2-normalized: the key forward on the permuted
         batch under Shuffle-BN, else on the batch itself (eval-mode BN
@@ -394,7 +458,7 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
             im_k = sh.dp_balanced_shuffle(world, im_k, pre, post)
         state.encoder_k.train(not cfg.key_bn_running_stats)
         with torch.no_grad(), autocast():
-            k = state.encoder_k(im_k)
+            k = apply_k(im_k)
         k = l2_normalize(k.float())
         if shuffle == "gather_perm":
             return sh.dp_unshuffle_gather(world, k, inv_perm)
@@ -421,16 +485,71 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
 
     def update(state: TrainState, loss) -> float:
         """Backward, the gradients' mean over the ranks (`grad.psum`), and
-        the optimizer step at the lr of this step's count."""
+        the optimizer step at the lr of this step's count; under ZeRO the
+        stage's sharded update (parallel/zero.py) instead."""
         lr = schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        world.all_reduce_mean_([p.grad for group in state.optimizer.param_groups
-                                for p in group["params"]], "grad.psum")
-        state.optimizer.step()
+        z = state.zero
+        if z is None:
+            world.all_reduce_mean_([p.grad for group in state.optimizer.param_groups
+                                    for p in group["params"]], "grad.psum")
+            state.optimizer.step()
+        elif layer:
+            z.layer_update(state.optimizer)
+        elif zero23:
+            z.zero23_update(state.optimizer)
+        else:
+            z.stage1_update(state.optimizer)
         return lr
+
+    def check_state(state: TrainState) -> None:
+        """The state's ZeRO layout is the one the config asks for."""
+        z = state.zero
+        want = None if not par.shard_weight_update else (par.zero_stage >= 2, layer, n)
+        have = None if z is None else (z.stage23, z.layer, z.n)
+        if want != have:
+            raise ValueError(f"the state's ZeRO layout {have} (stage >= 2, layer-granular, "
+                             f"ranks) is not the config's {want}: build it with create_state "
+                             "from this config and world")
+
+    def begin(state: TrainState, gathered: Optional[ZeroGathered]):
+        """The key encoder's EMA and its forward (a callable on images): at
+        stage 2/3 the gather (`gathered`, or made here) holds the new key
+        shards and the parameters the step computes with."""
+        check_state(state)
+        z = state.zero
+        if not zero23:
+            ema_update(state.encoder_k, state.encoder_q, ema_momentum(state.step))
+            return state.encoder_k
+        if gathered is None:
+            gathered = z.gather_params(ema_momentum(state.step), state.step)
+        if gathered.step != state.step:
+            raise ValueError(f"the gather was made for step {gathered.step}, "
+                             f"the state is at {state.step}")
+        z.k_shards = gathered.k_shards
+        if layer:
+            return lambda x: z.layer_key_forward(gathered, x)
+        return state.encoder_k
+
+    def query_forward(state: TrainState, x):
+        if layer:
+            return state.zero.layer_query_forward(x)
+        return state.encoder_q(x, remat=cfg.remat)
+
+    def drift(state: TrainState) -> Optional[dict]:
+        """Stage 2/3's EMA drift, from the shards (None: the modules')."""
+        if not zero23:
+            return None
+        z = state.zero
+        q_g, k_g = {}, {}
+        q_enc = [s for s, lf in zip(z.q_shards, z.trainable) if lf.side == "enc"]
+        for qs, ks, lf in zip(q_enc, z.k_shards, z.enc):
+            q_g.setdefault(lf.path[0], []).append(qs)
+            k_g.setdefault(lf.path[0], []).append(ks)
+        return health.ema_drift_sharded(q_g, k_g, world)
 
     def mean_metrics(metrics: dict, keys) -> None:
         """The ranks' mean of the 0-dim `keys` of `metrics`, in one
@@ -441,17 +560,19 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         reduced = world.all_reduce_mean(torch.stack([metrics[k].float() for k in keys]))
         metrics.update(zip(keys, reduced.unbind()))
 
-    def step(state: TrainState, batch: dict) -> dict:
+    def step(state: TrainState, batch: dict, gathered: Optional[ZeroGathered] = None) -> dict:
         im_q, im_k = batch["im_q"], batch["im_k"]
         check_batch(im_q, im_k)
         # (1) EMA before the key forward, on the pre-update query params
-        ema_update(state.encoder_k, state.encoder_q, ema_momentum(state.step))
+        apply_k = begin(state, gathered)
         # (2) key forward, train-mode BN (its running stats move) unless EMAN
-        k, k_global = key_forward(state, batch)
+        k, k_global = key_forward(state, batch, apply_k)
+        if zero23 and not layer:
+            state.zero.release("k")
         # (3) query forward
         state.encoder_q.train()
         with autocast():
-            q = state.encoder_q(im_q, remat=cfg.remat)
+            q = query_forward(state, im_q)
         q = l2_normalize(q.float())
         # (4) loss in float32 on the old queue
         if cfg.fused_infonce is not False:  # None or True, for any K
@@ -478,7 +599,8 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
                 neg = (q_h @ state.queue[:min(1024, state.queue.shape[0])].T) / cfg.temperature
                 metrics.update(health.health_summary(
                     health.module_groups(state.encoder_q), health.module_groups(state.encoder_k),
-                    q_h, pos, neg, state.step, cfg.num_negatives, global_batch))
+                    q_h, pos, neg, state.step, cfg.num_negatives, global_batch,
+                    drift=drift(state)))
             mean_metrics(metrics, health.BATCH_LOCAL_KEYS)
         # (7) FIFO enqueue of the global keys, after the loss and the gauges
         # have read the old queue
@@ -486,16 +608,18 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         state.step += 1
         return metrics
 
-    def v3_step(state: TrainState, batch: dict) -> dict:
+    def v3_step(state: TrainState, batch: dict, gathered: Optional[ZeroGathered] = None) -> dict:
         im_q, im_k = batch["im_q"], batch["im_k"]
         check_batch(im_q, im_k)
         x_cat = torch.cat([im_q, im_k])
         # (1) EMA of the key encoder (not the predictor), before the key forward
-        ema_update(state.encoder_k, state.encoder_q, ema_momentum(state.step))
+        apply_k = begin(state, gathered)
         # (2) key forward on both views, train-mode BN in the head
         state.encoder_k.train()
         with torch.no_grad(), autocast():
-            k_cat = state.encoder_k(x_cat)
+            k_cat = apply_k(x_cat)
+        if zero23 and not layer:
+            state.zero.release("k")
         k1, k2 = l2_normalize(k_cat.float()).chunk(2)
         if n > 1:  # the global keys of both views, in one gather
             k_g = world.all_gather_rows(torch.cat([k1, k2], 1), "v3.key_gather")
@@ -505,7 +629,9 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         state.encoder_q.train()
         state.predictor.train()
         with autocast():
-            preds = state.predictor(state.encoder_q(x_cat, remat=cfg.remat))
+            feats = query_forward(state, x_cat)
+            preds = (state.zero.layer_pred_forward(feats) if layer
+                     else state.predictor(feats))
         q1, q2 = l2_normalize(preds.float()).chunk(2)
 
         # (4) the symmetric loss, each term scaled by 2T
@@ -527,9 +653,32 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
             metrics.update(health.logit_stats_from_dense(logits.detach(), labels))
             metrics.update(health.feature_stats(q1.detach()))
             mean_metrics(metrics, health.BATCH_LOCAL_KEYS)
-            metrics.update(health.ema_drift(health.module_groups(state.encoder_q),
-                                            health.module_groups(state.encoder_k)))
+            shard_drift = drift(state)
+            metrics.update(shard_drift if shard_drift is not None else health.ema_drift(
+                health.module_groups(state.encoder_q), health.module_groups(state.encoder_k)))
         state.step += 1
         return metrics
 
-    return v3_step if cfg.v3 else step
+    fn = v3_step if cfg.v3 else step
+    if not zero23:
+        return fn
+    return Zero23TrainStep(
+        lambda state: state.zero.gather_params(ema_momentum(state.step), state.step), fn)
+
+
+class Zero23TrainStep:
+    """The stage-2/3 step as a (gather, step) pair (JAX's `Zero23TrainStep`):
+
+    - `gather(state) -> ZeroGathered`: the key shards' EMA and the
+      parameters' gather (parallel/zero.py `ZeroLayout.gather_params`),
+      which the training loop issues for step k + 1 right after step k
+      (`AsyncParamGather`);
+    - `step(state, batch, gathered) -> metrics`: the step on them.
+
+    Calling the object runs both inline, the schedule without the hoist."""
+
+    def __init__(self, gather: Callable, step: Callable):
+        self.gather, self.step = gather, step
+
+    def __call__(self, state: TrainState, batch: dict) -> dict:
+        return self.step(state, batch, self.gather(state))

@@ -552,10 +552,12 @@ class LabeledPipeline(_AugmentedPipeline):
 
     LABELED = True
 
-    def __init__(self, config: DataConfig, seed: int = 0, dataset=None, device="cuda"):
+    def __init__(self, config: DataConfig, seed: int = 0, dataset=None, device="cuda",
+                 partition=None):
         base = get_recipe(config.aug_plus, config.image_size)
         recipe = PROBE_RECIPE._replace(mean=base.mean, std=base.std)
-        super().__init__(config, recipe, seed=seed, dataset=dataset, train=True, device=device)
+        super().__init__(config, recipe, seed=seed, dataset=dataset, train=True, device=device,
+                         partition=partition)
 
     def _transform(self, precropped: bool, raw: torch.Tensor, draws: dict) -> torch.Tensor:
         return self._view(precropped, raw, 0, draws)
@@ -572,10 +574,13 @@ class EvalPipeline(_HostPipeline):
     the recipe's statistics. The tail batch is padded to full size with
     repeats of its last example and masked (mask 1.0 on real rows, 0.0 on
     pads), so every example is scored once and a pad never is. Host loads
-    run one batch ahead on a thread."""
+    run one batch ahead on a thread. With `partition`, this rank's rows of
+    each padded batch and of its mask."""
 
-    def __init__(self, config: DataConfig, train: bool = False, dataset=None, device="cuda"):
-        super().__init__(config, dataset=dataset, train=train, drop_last=False, device=device)
+    def __init__(self, config: DataConfig, train: bool = False, dataset=None, device="cuda",
+                 partition=None):
+        super().__init__(config, dataset=dataset, train=train, drop_last=False, device=device,
+                         partition=partition)
         self.steps = self.steps_per_epoch
         self.recipe = get_recipe(config.aug_plus, config.image_size)
 
@@ -588,6 +593,8 @@ class EvalPipeline(_HostPipeline):
             if valid < self.batch_size:  # pad the tail, mask the pads
                 idx = np.concatenate([idx, np.full(self.batch_size - valid, idx[-1])])
             mask = (np.arange(self.batch_size) < valid).astype(np.float32)
+            if self.partition is not None:
+                idx, mask = self.partition.local_indices(idx), self.partition.rows(mask)
             slot, labels = self._host_batch(idx, slots)
             yield slot, labels, mask
 

@@ -41,7 +41,8 @@ from moco_tpu_torch.models.heads import LinearClassifier
 from moco_tpu_torch.models.resnet import create_resnet
 from moco_tpu_torch.models.vit import create_vit
 from moco_tpu_torch.ops.losses import cross_entropy, topk_accuracy
-from moco_tpu_torch.parallel.dist import wants_distributed
+from moco_tpu_torch.parallel.dist import DataPartition, maybe_init_distributed
+from moco_tpu_torch.parallel.mesh import World
 from moco_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     best_exists,
@@ -103,8 +104,9 @@ def restore_pretrain_state(workdir: str, config: Optional[TrainConfig] = None,
     its pointer. The config comes from the checkpoint's extras unless one
     is given.
 
-    The counterpart of `moco_tpu/lincls.py:68`. The port has no ZeRO, so a
-    checkpoint always holds whole tensors and nothing is unsharded."""
+    The counterpart of `moco_tpu/lincls.py:68`. A checkpoint of the port
+    holds whole tensors under every ZeRO layout (utils/checkpoint.py), so
+    nothing is unsharded here: JAX's restore unshards its (n, m) rows."""
     sides = tuple(sides)
     if not sides or any(s not in SIDES for s in sides):
         raise ValueError(f"sides must be drawn from {SIDES}, got {sides!r}")
@@ -174,13 +176,16 @@ def _autocast(device: torch.device, compute_dtype: str):
 
 
 def make_probe_step(backbone: nn.Module, classifier: nn.Module, optimizer: torch.optim.Optimizer,
-                    schedule: Callable[[int], float],
-                    compute_dtype: str = "float32") -> Callable[[int, torch.Tensor, torch.Tensor], dict]:
+                    schedule: Callable[[int], float], compute_dtype: str = "float32",
+                    world: Optional[World] = None) -> Callable[[int, torch.Tensor, torch.Tensor], dict]:
     """`step(n, images, labels) -> metrics`: the frozen backbone's features
     in eval mode under no_grad (autocast under bfloat16, as the JAX
     backbone runs in its dtype), the classifier in float32, cross-entropy,
     and an SGD step of the classifier alone at lr `schedule(n)`. Metrics:
-    loss, acc1, acc5 (0-dim tensors) and lr."""
+    loss, acc1, acc5 (0-dim tensors) and lr. Under a `world` of ranks each
+    holds its rows of the batch, and the classifier's gradients and the
+    metrics are the ranks' means (JAX's pmean over its data axis)."""
+    world = world or World(device="cpu")
 
     def step(n: int, images: torch.Tensor, labels: torch.Tensor) -> dict:
         backbone.eval()  # the reference's model.eval(): BN on running statistics
@@ -194,17 +199,22 @@ def make_probe_step(backbone: nn.Module, classifier: nn.Module, optimizer: torch
             group["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        world.all_reduce_mean_([p.grad for p in classifier.parameters()])
         optimizer.step()
-        return {"loss": loss.detach(), "acc1": acc["acc1"], "acc5": acc["acc5"], "lr": lr}
+        metrics = torch.stack([loss.detach(), acc["acc1"], acc["acc5"]])
+        loss, acc1, acc5 = world.all_reduce_mean(metrics).unbind()
+        return {"loss": loss, "acc1": acc1, "acc5": acc5, "lr": lr}
 
     return step
 
 
-def make_eval_step(backbone: nn.Module, classifier: nn.Module,
-                   compute_dtype: str = "float32") -> Callable[..., dict]:
+def make_eval_step(backbone: nn.Module, classifier: nn.Module, compute_dtype: str = "float32",
+                   world: Optional[World] = None) -> Callable[..., dict]:
     """`eval(images, labels, mask) -> sums`: masked *sums* (not means) of
     the loss and the top-1 / top-5 hits, and the count, so a padded tail
-    batch scores exactly its real rows."""
+    batch scores exactly its real rows; under a `world`, summed over the
+    ranks' rows (JAX's psum)."""
+    world = world or World(device="cpu")
 
     @torch.no_grad()
     def evaluate(images, labels, mask) -> dict:
@@ -215,8 +225,10 @@ def make_eval_step(backbone: nn.Module, classifier: nn.Module,
         per_ex = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[:, None])[:, 0]
         top5 = torch.topk(logits, min(5, logits.shape[-1]), dim=-1).indices
         correct = top5 == labels[:, None]
-        return {"loss": (per_ex * mask).sum(), "correct1": (correct[:, 0] * mask).sum(),
-                "correct5": (correct.any(dim=1) * mask).sum(), "count": mask.sum()}
+        sums = torch.stack([(per_ex * mask).sum(), (correct[:, 0] * mask).sum(),
+                            (correct.any(dim=1) * mask).sum(), mask.sum()])
+        return dict(zip(("loss", "correct1", "correct5", "count"),
+                        world.all_reduce_sum(sums).unbind()))
 
     return evaluate
 
@@ -267,17 +279,33 @@ def train_lincls(pretrain_workdir: str, probe: ProbeConfig,
                  pretrain_config: Optional[TrainConfig] = None,
                  data: Optional[DataConfig] = None, workdir: Optional[str] = None,
                  train_dataset=None, val_dataset=None, log_every: int = 10,
-                 device="cuda") -> dict:
+                 device="cuda", world: Optional[World] = None) -> dict:
     """A whole probe run; returns {"best_acc1", "acc1", "acc5", "loss",
     "count"} of the last epoch's validation. `workdir` defaults to
     `<pretrain_workdir>_lincls`; `data` to the pretraining config's. The
-    training batches come through the prefetch ring. One process: a
-    data-parallel launch is refused."""
-    if wants_distributed():
-        raise SystemExit("the linear probe runs in one process; a data-parallel launch "
-                         "(WORLD_SIZE > 1 or MOCO_MULTIHOST=1) is not ported yet: run "
-                         "`python -m moco_tpu_torch.lincls` without torchrun")
-    device = resolve_device(device)
+    training batches come through the prefetch ring.
+
+    Data parallel, as JAX's probe on its mesh (moco_tpu/lincls.py:297-378):
+    under a `world` (or a torchrun launch, `maybe_init_distributed`) each
+    rank loads its rows of each batch (`DataPartition`), the classifier's
+    gradients are averaged over the ranks, the evaluation's sums summed,
+    and rank 0 alone writes. A checkpoint of any ZeRO layout reads as any
+    other: it holds whole tensors."""
+    own_world = None
+    if world is None:
+        world = own_world = maybe_init_distributed(device)
+    try:
+        return _train_lincls(pretrain_workdir, probe, pretrain_config, data, workdir,
+                             train_dataset, val_dataset, log_every,
+                             world or World(device=resolve_device(device)))
+    finally:
+        if own_world is not None:
+            own_world.close()
+
+
+def _train_lincls(pretrain_workdir, probe, pretrain_config, data, workdir, train_dataset,
+                  val_dataset, log_every, world: World) -> dict:
+    device = world.device
     workdir = workdir or (pretrain_workdir.rstrip("/") + "_lincls")
     backbone, pretrained, pretrain_config = load_pretrained_backbone(
         pretrain_workdir, pretrain_config, device=device)
@@ -285,14 +313,18 @@ def train_lincls(pretrain_workdir: str, probe: ProbeConfig,
     compute_dtype = pretrain_config.moco.compute_dtype
     classifier = LinearClassifier(backbone.num_features, probe.num_classes,
                                   generator=torch.Generator().manual_seed(2)).to(device)
-    with LabeledPipeline(data, seed=1, dataset=train_dataset, device=device) as train_pipe, \
-            EvalPipeline(data, train=False, dataset=val_dataset, device=device) as val_pipe:
+    part = DataPartition.of(world, data.global_batch) if world.distributed else None
+    with LabeledPipeline(data, seed=1, dataset=train_dataset, device=device,
+                         partition=part) as train_pipe, \
+            EvalPipeline(data, train=False, dataset=val_dataset, device=device,
+                         partition=part) as val_pipe:
         steps_per_epoch = train_pipe.steps_per_epoch
         optimizer, schedule = _probe_tx(probe, steps_per_epoch, classifier.parameters())
-        step_fn = make_probe_step(backbone, classifier, optimizer, schedule, compute_dtype)
-        eval_fn = make_eval_step(backbone, classifier, compute_dtype)
-        writer = MetricWriter(workdir)
-        ckpt = CheckpointManager(workdir, keep=1)
+        step_fn = make_probe_step(backbone, classifier, optimizer, schedule, compute_dtype, world)
+        eval_fn = make_eval_step(backbone, classifier, compute_dtype, world)
+        main = world.is_main
+        writer = MetricWriter(workdir) if main else None
+        ckpt = CheckpointManager(workdir, keep=1) if main else None
         best_acc1, last_val, n = 0.0, {}, 0
         try:
             for epoch in range(probe.epochs):
@@ -308,16 +340,19 @@ def train_lincls(pretrain_workdir: str, probe: ProbeConfig,
                             m = {k: float(v) for k, v in m.items()}
                             for meter, k in zip(meters, ("loss", "acc1", "acc5")):
                                 meter.update(m[k], data.global_batch)
-                            progress.display(i)
-                            writer.write(n, {"epoch": epoch, "split": "train", **m})
+                            if main:
+                                progress.display(i)
+                                writer.write(n, {"epoch": epoch, "split": "train", **m})
                 finally:
                     it.close()
                 last_val = validate(eval_fn, val_pipe)
+                improved = last_val["acc1"] > best_acc1
+                best_acc1 = last_val["acc1"] if improved else best_acc1
+                if not main:
+                    continue
                 writer.write(n, {"epoch": epoch, "split": "val", "lr": schedule(max(n - 1, 0)),
                                  **last_val})
                 print(f" * Acc@1 {last_val['acc1']:.3f} Acc@5 {last_val['acc5']:.3f}", flush=True)
-                improved = last_val["acc1"] > best_acc1
-                best_acc1 = last_val["acc1"] if improved else best_acc1
                 payload = _probe_payload(backbone, classifier, optimizer,
                                          pretrain_config.moco.arch, epoch + 1, best_acc1)
                 # config-carrying, like the pretraining checkpoints: evaluation
@@ -329,7 +364,9 @@ def train_lincls(pretrain_workdir: str, probe: ProbeConfig,
                 if improved:
                     save_best(workdir, payload, metric=best_acc1)
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
+        world.barrier()  # rank 0's files are written before any rank returns
     sanity_check(backbone, pretrained)
     return {"best_acc1": best_acc1, **last_val}
 

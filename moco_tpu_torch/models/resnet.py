@@ -281,18 +281,63 @@ class ResNet(nn.Module):
         self.num_stages = len(stage_sizes)
         self.num_features = cin
 
-    def forward(self, x, remat: bool = False):
-        """`remat` recomputes each residual block in the backward
-        (models/remat.py)."""
+    def _stem(self, x):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels_last in memory
         x = self.relu(self.bn1(self.conv1(x)))
         if self.maxpool is not None:
             x = self.maxpool(x)
-        for i in range(self.num_stages):
-            for block in getattr(self, f"layer{i + 1}"):
-                x = remat_block(block, x) if remat else block(x)
+        return x
+
+    def residual_blocks(self) -> list:
+        """The residual blocks in schedule order, across the stages."""
+        return [b for i in range(self.num_stages) for b in getattr(self, f"layer{i + 1}")]
+
+    def forward(self, x, remat: bool = False):
+        """`remat` recomputes each residual block in the backward
+        (models/remat.py)."""
+        x = self._stem(x)
+        for block in self.residual_blocks():
+            x = remat_block(block, x) if remat else block(x)
         # global average pool in the compute dtype, then f32
         return x.mean(dim=(2, 3)).float()
+
+    # -- the layer groups of the ZeRO-3 schedule (parallel/zero.py) ----------
+
+    @property
+    def group_names(self) -> tuple:
+        """Schedule-ordered layer groups: the stem, then one per residual
+        block (JAX's `group_names`)."""
+        return ("stem",) + tuple(f"block{k}" for k in range(len(self.residual_blocks())))
+
+    def group_param_names(self) -> dict:
+        """group -> the Flax param-tree children it holds (JAX's
+        `group_param_names`, whose names convert.py's layout gives)."""
+        names = {"stem": ("ConvBN_0",) if self.cifar_stem else ("Conv_0", "BatchNorm_0")}
+        blocks = self.residual_blocks()
+        for k, block in enumerate(blocks):
+            names[f"block{k}"] = (f"{type(block).__name__}_{k}",)
+        return names
+
+    def group_modules(self, group: str) -> list:
+        if group == "stem":
+            return [self.conv1, self.bn1]
+        return [self.residual_blocks()[self._block_index(group)]]
+
+    def _block_index(self, group: str) -> int:
+        n = len(self.residual_blocks())
+        if not (group.startswith("block") and group[5:].isdigit()) or int(group[5:]) >= n:
+            raise ValueError(f"unknown layer group {group!r} ({n} blocks)")
+        return int(group[5:])
+
+    def forward_group(self, group: str, x):
+        """One layer group on the previous group's output (the images for
+        the stem); the last block also pools, as `forward` does."""
+        if group == "stem":
+            return self._stem(x)
+        k = self._block_index(group)
+        blocks = self.residual_blocks()
+        x = blocks[k](x)
+        return x.mean(dim=(2, 3)).float() if k == len(blocks) - 1 else x
 
 
 _CONFIGS = {

@@ -15,9 +15,10 @@ become Linear layers `query`, `key`, `value` (D -> H*Dh) and `out`
 `use_flash_attention=True` runs attention through
 `ops/flash_attention.py` (the CUDA kernels on the card, their plain
 versions on the CPU); False is Flax's dense `dot_product_attention` in
-plain torch. The parameters are the same either way. Sequence
-parallelism (`sequence_axis`, ring attention) and the layer-group apply
-of the ZeRO-3 schedule come with later slices.
+plain torch. The parameters are the same either way. The layer groups of
+the ZeRO-3 schedule (`group_names`, `group_param_names`, `forward_group`)
+are JAX's. Sequence parallelism (`sequence_axis`, ring attention) comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -139,9 +140,7 @@ class VisionTransformer(nn.Module):
     def num_features(self) -> int:
         return self.hidden_dim
 
-    def forward(self, x, remat: bool = False):
-        """`remat` recomputes each encoder block in the backward
-        (models/remat.py)."""
+    def _embed(self, x):
         b, h, w, _ = x.shape
         if h % self.patch_size or w % self.patch_size:
             raise ValueError(f"image {h}x{w} not divisible by patch {self.patch_size}")
@@ -152,13 +151,58 @@ class VisionTransformer(nn.Module):
             x = torch.cat([self.cls_token.to(x.dtype).expand(b, -1, -1), x], dim=1)
         if self.pos_embed.shape[1] != x.shape[1]:  # another image size than built for
             self.pos_embed = self._sincos(grid).to(x.device)
-        x = x + self.pos_embed.to(x.dtype)
-        for block in self.blocks:
-            x = remat_block(block, x) if remat else block(x)
+        return x + self.pos_embed.to(x.dtype)
+
+    def _final(self, x):
         x = self.final_norm(x)
         if self.pool == "cls":
             return x[:, 0].float()
         return x.float().mean(dim=1)
+
+    def forward(self, x, remat: bool = False):
+        """`remat` recomputes each encoder block in the backward
+        (models/remat.py)."""
+        x = self._embed(x)
+        for block in self.blocks:
+            x = remat_block(block, x) if remat else block(x)
+        return self._final(x)
+
+    # -- the layer groups of the ZeRO-3 schedule (parallel/zero.py) ----------
+
+    @property
+    def group_names(self) -> tuple:
+        """Schedule-ordered layer groups: the patch embedding (and cls
+        token), one group per encoder block, the final norm and pool."""
+        return ("embed",) + tuple(f"block_{i}" for i in range(len(self.blocks))) + ("final",)
+
+    def group_param_names(self) -> dict:
+        """group -> the Flax param-tree children it holds (JAX's)."""
+        names = {"embed": ("patch_embed", "cls_token") if self.pool == "cls" else ("patch_embed",),
+                 "final": ("final_norm",)}
+        for i in range(len(self.blocks)):
+            names[f"block_{i}"] = (f"block_{i}",)
+        return names
+
+    def _block_index(self, group: str) -> int:
+        if group.startswith("block_") and group[6:].isdigit() and int(group[6:]) < len(self.blocks):
+            return int(group[6:])
+        raise ValueError(f"unknown layer group {group!r}")
+
+    def group_modules(self, group: str) -> list:
+        if group == "embed":
+            return [self.patch_embed]
+        if group == "final":
+            return [self.final_norm]
+        return [self.blocks[self._block_index(group)]]
+
+    def forward_group(self, group: str, x):
+        """One layer group on the previous group's output (the images for
+        the embedding)."""
+        if group == "embed":
+            return self._embed(x)
+        if group == "final":
+            return self._final(x)
+        return self.blocks[self._block_index(group)](x)
 
 
 _VIT_CONFIGS = {

@@ -19,8 +19,10 @@ rank, per call; n = group size, b = this rank's operand bytes):
 A site over a group of one records 0 bytes but still registers. The site
 names are JAX's: `shuffle.gather_images`, `shuffle.gather_keys`,
 `shuffle.a2a`, `shuffle.a2a_unshuffle`, `queue.enqueue_gather`,
-`grad.psum`, `v3.key_gather` and `input.h2d`, registered where JAX's step
-registers them at the same n (under `gather_perm` the enqueue reuses the
+`grad.psum`, `v3.key_gather` and `input.h2d`, and ZeRO's `zero.*` sites
+(parallel/zero.py: `zero.grad_reduce_scatter` and `zero.params_all_gather`
+at stage 1, a site per fusion bucket at stages 2/3), registered where JAX's
+step registers them at the same n (under `gather_perm` the enqueue reuses the
 key gather, so `queue.enqueue_gather` is absent). The all-reduces JAX does
 not tag (metrics, BN statistics, SyncBN's moments) are not in it either.
 

@@ -21,7 +21,7 @@ ZeRO's sharded drift is left out with ZeRO.
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping
+from typing import Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -57,6 +57,34 @@ def ema_drift(params_q: Mapping[str, Iterable[torch.Tensor]],
     if diff_sq is None:
         diff_sq = ref_sq = torch.zeros((), dtype=torch.float32, device=device)
     out["ema_drift"] = diff_sq.sqrt() / (ref_sq.sqrt() + eps)
+    return out
+
+
+@torch.no_grad()
+def ema_drift_sharded(params_q: Mapping[str, Iterable[torch.Tensor]],
+                      params_k: Mapping[str, Iterable[torch.Tensor]], world) -> dict:
+    """`ema_drift` over ZeRO stage 2/3's shards (each tensor this rank's
+    (m,) rows; moco_tpu/obs/health.py:57-80): the local squared norms are
+    summed over the ranks (`world`) before the sqrt. The zero padding
+    adds nothing, so the gauge is the whole parameters' up to the order of
+    the sums."""
+    eps = 1e-12
+    groups = list(params_q)
+    local = []
+    device = None
+    for group in groups:
+        q, k = list(params_q[group]), list(params_k[group])
+        if len(q) != len(k):
+            raise ValueError(f"group {group!r}: {len(q)} query and {len(k)} key tensors")
+        device = q[0].device if q else device
+        local += [_sq_norm(torch._foreach_sub(q, k) if q else [], device), _sq_norm(q, device)]
+    if not local:
+        local = [torch.zeros((), dtype=torch.float32, device=device)] * 2
+    total = world.all_reduce_sum(torch.stack(local))
+    out = {}
+    for i, group in enumerate(groups):
+        out[f"ema_drift/{group}"] = total[2 * i].sqrt() / (total[2 * i + 1].sqrt() + eps)
+    out["ema_drift"] = total[0::2].sum().sqrt() / (total[1::2].sum().sqrt() + eps)
     return out
 
 
@@ -128,11 +156,11 @@ def queue_age(step: int, num_negatives: int, global_batch: int, num_buckets: int
 
 def health_summary(params_q, params_k, feats_q: torch.Tensor, pos_logits: torch.Tensor,
                    neg_logits: torch.Tensor, step: int, num_negatives: int = 0,
-                   global_batch: int = 0) -> dict:
-    """EMA drift, logit stats and collapse gauges, plus the queue's ages
-    when there is a queue."""
+                   global_batch: int = 0, drift: Optional[dict] = None) -> dict:
+    """EMA drift (`drift` when given, as ZeRO's sharded one), logit stats
+    and collapse gauges, plus the queue's ages when there is a queue."""
     out = {}
-    out.update(ema_drift(params_q, params_k))
+    out.update(drift if drift is not None else ema_drift(params_q, params_k))
     out.update(logit_stats(pos_logits, neg_logits))
     out.update(feature_stats(feats_q))
     if num_negatives and global_batch:

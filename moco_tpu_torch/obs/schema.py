@@ -7,7 +7,8 @@ Line kinds (all carry `step` int + `time` float):
   optionally the step times (`t_data`/`t_step`, and `t_dispatch`/
   `t_device` from the probe's latest sampled step), the device-memory
   gauges (`hbm_live_bytes`/`hbm_peak_bytes`/`hbm_headroom_bytes`, number
-  or null) and the state's bytes (`hbm_state_bytes`), the input-wire
+  or null) and the state's bytes (`hbm_state_bytes`), ZeRO's gauges
+  (`overlap/zero`, `overlap/zero_layer`, `hbm_model_peak_bytes`), the input-wire
   gauges of the prefetch ring
   (`t_transfer`/`transfer_bytes`/`prefetch_depth_live`), the health
   gauges (`ema_drift`, `ema_drift/<group>`, `logit_*`, `feature_*`,
@@ -120,6 +121,14 @@ FIELD_VALIDATORS = {
     "hbm_peak_bytes": _num_or_null,
     "hbm_headroom_bytes": _num_or_null,
     "hbm_state_bytes": _int_like,
+    # ZeRO (parallel/zero.py): the hoisted gather's overlap, 1 - wait /
+    # duration of the stall its worker absorbed (null when none), under its
+    # own key too on the layer-granular schedule; the analytic per-rank
+    # peak model bytes at stage 2/3 (the shards plus the gathered whole
+    # parameters, or the largest adjacent group pair)
+    "overlap/zero": _num_or_null,
+    "overlap/zero_layer": _num_or_null,
+    "hbm_model_peak_bytes": _num_or_null,
     # the fleet aggregate (obs/fleet.py; rank 0's lines only)
     "fleet_hosts": _int_like,
     "straggler_skew": _num_or_null,

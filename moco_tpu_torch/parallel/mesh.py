@@ -22,6 +22,9 @@ world's comms ledger (obs/comms.py).
   subgroups of `syncbn_group_size` consecutive ranks, JAX's
   `axis_index_groups`; every rank creates every subgroup, as
   `dist.new_group` requires.
+- ZeRO's flat collectives (parallel/zero.py): `all_gather_flat` (async on
+  request) and `reduce_scatter_flat` (a sum), and JAX's per-leaf trio `scatter_mean`,
+  `local_shard` and `unshard`; each records its site when named.
 
 Not ported here: `num_model > 1` (the model-sharded queue) and the
 multi-slice mesh wait for sharded training. moco_tpu/parallel/compat.py
@@ -42,6 +45,7 @@ from moco_tpu_torch.obs.comms import CommsLedger, tensor_bytes
 # all_gather into one tensor: the name changed (all_gather_into_tensor is
 # deprecated in newer torch), the semantics did not
 _all_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter_into = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 class _AllReduceMean(torch.autograd.Function):
@@ -181,6 +185,74 @@ class World:
         flat.div_(self.world_size)
         torch._foreach_copy_(tensors, torch._utils._unflatten_dense_tensors(flat, tensors))
 
+    # -- ZeRO's flat collectives (parallel/zero.py) -----------------------------
+
+    def all_gather_flat(self, shard: torch.Tensor, site: Optional[str] = None,
+                        async_op: bool = False):
+        """(n * m,) from every rank's (m,) `shard`, rank order; with
+        `async_op`, (out, work or None): `out` holds the result once
+        `work.wait()` has returned."""
+        if site is not None:
+            self.ledger.record(site, "all_gather", tensor_bytes([shard]), self.world_size)
+        shard = shard.contiguous()
+        if not self.distributed:
+            out, work = shard.clone(), None
+        else:
+            out = torch.empty(self.world_size * shard.numel(), dtype=shard.dtype,
+                              device=shard.device)
+            if self.backend == "gloo":
+                work = dist.all_gather(list(out.chunk(self.world_size)), shard,
+                                       group=self.group, async_op=True)
+            else:
+                work = _all_gather_into(out, shard, group=self.group, async_op=True)
+        if async_op:
+            return out, work
+        if work is not None:
+            work.wait()
+        return out
+
+    @torch.no_grad()
+    def reduce_scatter_flat(self, block: torch.Tensor, site: Optional[str] = None) -> torch.Tensor:
+        """This rank's (m,) rows of the sum over the ranks of the (n * m,)
+        `block`: one reduce-scatter (NCCL's, and gloo's on the CPU and on
+        CUDA tensors, which the installed gloo takes: chip_smoke 12i reports
+        it)."""
+        n = self.world_size
+        if site is not None:
+            self.ledger.record(site, "psum_scatter", tensor_bytes([block]), n)
+        m = block.numel() // n
+        if not self.distributed:
+            return block.reshape(-1).clone()
+        block = block.contiguous()
+        out = torch.empty(m, dtype=block.dtype, device=block.device)
+        _reduce_scatter_into(out, block, group=self.group)
+        return out
+
+    def scatter_mean(self, x: torch.Tensor, site: Optional[str] = None) -> torch.Tensor:
+        """The ranks' mean of a full local leaf, this rank's (m,) rows of it
+        (zero-padded to n * m)."""
+        from moco_tpu_torch.parallel.zero import padded_cols
+
+        n = self.world_size
+        m = padded_cols(x.numel(), n)
+        flat = torch.nn.functional.pad(x.reshape(-1), (0, n * m - x.numel()))
+        return self.reduce_scatter_flat(flat, site).div_(n)
+
+    def local_shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's (m,) rows of a full leaf (a copy)."""
+        from moco_tpu_torch.parallel.zero import padded_cols
+
+        n = self.world_size
+        m = padded_cols(x.numel(), n)
+        flat = torch.nn.functional.pad(x.reshape(-1), (0, n * m - x.numel()))
+        return flat[self.rank * m:(self.rank + 1) * m].clone()
+
+    def unshard(self, shard: torch.Tensor, like: torch.Tensor,
+                site: Optional[str] = None) -> torch.Tensor:
+        """Every rank's (m,) shard gathered back into a leaf shaped `like`."""
+        full = self.all_gather_flat(shard, site)
+        return full[:like.numel()].reshape(like.shape).to(like.dtype)
+
     def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of `x` over the data group, a new tensor (no gradient)."""
         if not self.distributed:
@@ -188,6 +260,14 @@ class World:
         y = x.detach().clone()
         dist.all_reduce(y, group=self.group)
         return y.div_(self.world_size)
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of `x` over the data group, a new tensor (no gradient)."""
+        if not self.distributed:
+            return x
+        y = x.detach().clone()
+        dist.all_reduce(y, group=self.group)
+        return y
 
     def any(self, flag: bool) -> bool:
         """Whether `flag` is set on any rank (a host value: a sync)."""

@@ -1,6 +1,6 @@
 """MoCo pretraining, v1/v2 or v3, on one device or data-parallel over the
-processes of a torchrun launch, one per GPU (moco_tpu/train.py `train` /
-`_train_impl` without ZeRO and the elastic parts).
+processes of a torchrun launch, one per GPU, with or without ZeRO
+(moco_tpu/train.py `train` / `_train_impl` without the elastic parts).
 
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic --steps 20
     python -m moco_tpu_torch.train --preset imagenet_v2 --data synthetic_learnable \\
@@ -122,6 +122,16 @@ meet at a barrier. kNN runs on every rank over the whole bank. `kill@host=i`
 ends rank i with exit code 113 at its step; the survivors leave with an
 error at their next collective (gloo), or when the group's timeout
 (`ParallelConfig.timeout_s`) or the watchdog fires (NCCL).
+
+ZeRO (`ParallelConfig.shard_weight_update`, parallel/zero.py) shards the
+state over the ranks. At stage 2/3 with `zero_overlap_gather` the gather
+of step k+1 is issued right after step k (`AsyncParamGather`, JAX's hoist);
+the lines carry `overlap/zero` (and `overlap/zero_layer`) and
+`hbm_model_peak_bytes`, and `hbm_state_bytes` counts the shards. The kNN
+monitor runs on the gathered parameters. Every save gathers the shards on
+every rank into whole tensors that rank 0 writes, so a checkpoint resumes
+under any layout; the stall's and a fatal alert's emergency saves, which
+one rank makes from the snapshot alone, are skipped under ZeRO (printed).
 """
 
 from __future__ import annotations
@@ -165,6 +175,7 @@ from moco_tpu_torch.obs.trace import Tracer, set_tracer
 from moco_tpu_torch.obs.trace import span as obs_span
 from moco_tpu_torch.parallel.dist import DataPartition, maybe_init_distributed
 from moco_tpu_torch.parallel.mesh import World
+from moco_tpu_torch.parallel.zero import AsyncParamGather
 from moco_tpu_torch.utils import faults, retry
 from moco_tpu_torch.utils.checkpoint import CheckpointManager, load_state_payload, state_payload
 from moco_tpu_torch.utils.config import (
@@ -229,8 +240,7 @@ class _MetricsFetch:
                 for k, v in zip(self.keys, unflatten_host(self.host, self.layout))}
 
 
-def _seeded_state(config: TrainConfig, device, num_filters: int,
-                  world: Optional[World] = None) -> TrainState:
+def _seeded_state(config: TrainConfig, device, num_filters: int, world: World) -> TrainState:
     """A fresh state from seeded Flax-layout weights: the encoder, and for
     v3 the predictor (drawn from the next seed); the same on every rank."""
     params, stats = random_flax_encoder(config.moco, seed=config.seed, num_filters=num_filters)
@@ -240,7 +250,9 @@ def _seeded_state(config: TrainConfig, device, num_filters: int,
     if predictor is not None:
         predictor.load_state_dict(predictor_from_flax(
             *random_flax_predictor(config.moco, seed=config.seed + 1)))
-    return create_state(config, encoder, device=device, predictor=predictor)
+    zero_n = world.world_size if config.parallel.shard_weight_update else None
+    return create_state(config, encoder, device=device, predictor=predictor,
+                        zero_num_data=zero_n, world=world)
 
 
 class _Copy:
@@ -286,9 +298,13 @@ class StateSnapshot:
     def _tensors(state: TrainState) -> list:
         """What a checkpoint holds of the modules (parameters and persistent
         buffers: not the ViT's position embedding, a function of the image
-        size), and the queue."""
+        size), and the queue. At ZeRO stage 2/3 the shards stand in for the
+        modules' parameters (parallel/zero.py)."""
         modules = [m for m in (state.encoder_q, state.encoder_k, state.predictor) if m is not None]
         out = [t for m in modules for t in m.state_dict(keep_vars=True).values()]
+        if state.zero is not None and state.zero.stage23:
+            out = [t for t in out if not isinstance(t, torch.nn.Parameter)]
+            out += state.zero.shard_tensors()
         return out + ([state.queue] if state.queue is not None else [])
 
     @staticmethod
@@ -483,6 +499,9 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
             epoch, i = int(extra.get("epoch", 0)) + 1, 0
             print0(f"resumed from epoch {epoch - 1} (step {state.step})")
         step_fn = make_train_step(config, steps_per_epoch, device=device, world=world)
+        zero = state.zero
+        zero23 = zero is not None and zero.stage23
+        gatherer: Optional[AsyncParamGather] = None
         if steps is not None:
             total = steps
         else:
@@ -515,13 +534,43 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
         last_avg: dict = {}
         arch = config.moco.arch
 
+        def save_extra(completed_epoch: int) -> dict:
+            """A checkpoint's extras: the epoch, the config, and the layout
+            it was saved from (the payload itself holds whole tensors)."""
+            return {"epoch": completed_epoch, "num_data": n, "config": config_to_dict(config),
+                    "shard_weight_update": config.parallel.shard_weight_update,
+                    "zero_stage": config.parallel.zero_stage}
+
         def emergency_save(source, completed_epoch: int, reason: str,
                            extra_fields: Optional[dict] = None) -> None:
             """Save first, die second: the preemption exit (`source` the
             live state), the watchdog's stall and a fatal alert (`source`
             the guard's snapshot). Skips a step that is already durable;
             always blocks until the write lands. Rank 0's alone (the state
-            is the same on every rank)."""
+            is the same on every rank), but under ZeRO every rank joins the
+            gather of the shards (`state_payload`), and a save from the
+            snapshot (the stall's, a fatal alert's), which one rank makes
+            alone, is skipped."""
+            if zero is not None:
+                if source is snapshot:
+                    print0(f"{reason}: the ZeRO state is sharded over the ranks and this save "
+                           "cannot gather it from one rank; no emergency checkpoint", flush=True)
+                    return
+                if ckpt is None:
+                    return
+                durable = world.broadcast_int(int(world.is_main
+                                                  and source.step in ckpt.all_steps()))
+                if durable:
+                    print0(f"{reason}: step {source.step} already durable, skipping emergency "
+                           "save", flush=True)
+                    return
+                payload = state_payload(state, arch, completed_epoch + 1)
+                if world.is_main:
+                    ckpt.save(source.step, payload, extra={**save_extra(completed_epoch),
+                                                           "emergency": True, "reason": reason,
+                                                           **(extra_fields or {})}, force=True)
+                    ckpt.wait()
+                return
             if not world.is_main:
                 return
             if ckpt is None:
@@ -531,8 +580,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                 print(f"{reason}: step {source.step} already durable, skipping emergency save",
                       flush=True)
                 return
-            extra = {"epoch": completed_epoch, "config": config_to_dict(config), "num_data": n,
-                     "emergency": True, "reason": reason, **(extra_fields or {})}
+            extra = {**save_extra(completed_epoch), "emergency": True, "reason": reason,
+                     **(extra_fields or {})}
             if source is snapshot:
                 payload = snapshot.payload(state, arch, completed_epoch + 1)
             else:
@@ -627,6 +676,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                         f"{config.nan_guard_threshold}); last at step {gstep}, epoch "
                         f"{p['epoch']}, lr {record['lr']:.3e}")
                 snapshot.restore(state)  # the step counter keeps advancing
+                if gatherer is not None:  # the parked gather is of the dropped lineage
+                    gatherer.resubmit(state, state.step)
                 return
             snapshot.promote()  # this log step's state is good
             bs = config.data.global_batch
@@ -659,9 +710,17 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                 fleet_fields = fleet.payload(stats)
             if writer is None and engine is None:
                 return
+            resident = StateSnapshot._tensors(state) + StateSnapshot._opt_state(state)[1]
+            if zero is not None and not zero23:  # stage 1's shards, the optimizer's
+                resident += zero.q_shards
             payload = {"epoch": p["epoch"], "lr": record["lr"], **m, **probe_fields, **memory,
-                       "hbm_state_bytes": tree_shard_bytes(StateSnapshot._tensors(state)
-                                                           + StateSnapshot._opt_state(state)[1])}
+                       "hbm_state_bytes": tree_shard_bytes(resident)}
+            if gatherer is not None:
+                payload.update(gatherer.payload())
+                if zero.layer:
+                    payload["overlap/zero_layer"] = gatherer.last_overlap
+            if zero23:
+                payload["hbm_model_peak_bytes"] = zero.hbm_model_peak_bytes
             payload.update({k: record[k] for k in ("t_transfer", "transfer_bytes",
                                                    "prefetch_depth_live") if k in record})
             if guard["nan_steps"]:
@@ -735,6 +794,11 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
 
         stop_now = False
         try:
+            # ZeRO stage 2/3: step k+1's gather is issued right after step k
+            # (parallel/zero.py AsyncParamGather); the overlap/zero gauge reads it
+            if zero23 and config.parallel.zero_overlap_gather:
+                gatherer = AsyncParamGather(step_fn.gather)
+                gatherer.submit(state, state.step)
             with profiler_trace(profile_dir):
                 while len(history) < total:
                     stop = min(steps_per_epoch, i + total - len(history))
@@ -779,7 +843,13 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                                             or len(history) + 1 == total)
                                 t_disp0 = time.perf_counter()
                                 with obs_span("step", step=gstep):
-                                    metrics = step_fn(state, batch)
+                                    if gatherer is not None:
+                                        # issued one iteration ago, under the
+                                        # previous step
+                                        metrics = step_fn.step(state, batch, gatherer.take())
+                                        gatherer.submit(state, state.step)
+                                    else:
+                                        metrics = step_fn(state, batch)
                                     keys = ([k for k, v in metrics.items() if torch.is_tensor(v)]
                                             if log_step else ["loss", "acc1", "acc5"])
                                     fetch = _MetricsFetch(metrics, keys)
@@ -854,25 +924,35 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                             last_epoch = epoch == config.optim.epochs - 1
                             if knn_pair is not None and (epoch % config.knn_every_epochs == 0
                                                          or last_epoch):
+                                if zero23:  # the gathered parameters (every rank)
+                                    zero.gather_into("q")
                                 top1 = knn_eval(state.encoder_q.backbone, *knn_pair,
                                                 num_classes=knn_classes,
                                                 k=min(config.knn_k, len(knn_pair[0])),
                                                 temperature=config.knn_temperature,
                                                 image_size=config.data.image_size, device=device,
                                                 compute_dtype=config.moco.compute_dtype)
+                                if zero23 and (gatherer is None or zero.layer):
+                                    zero.release("q")
                                 print0(f"Epoch [{epoch}] kNN top-1: {top1:.2f}%")
                                 last_avg["knn_top1"] = top1
                                 if writer is not None:
                                     writer.write(state.step, {"epoch": epoch, "knn_top1": top1})
                             if ckpt is not None and (last_epoch
                                                      or epoch % config.checkpoint_every_epochs == 0):
+                                # under ZeRO every rank joins the payload's gather
+                                payload = (state_payload(state, arch, epoch + 1)
+                                           if world.is_main or zero is not None else None)
                                 if world.is_main:
-                                    ckpt.save(state.step, state_payload(state, arch, epoch + 1),
-                                              extra={"epoch": epoch, "num_data": n,
-                                                     "config": config_to_dict(config)})
+                                    ckpt.save(state.step, payload, extra=save_extra(epoch))
                                 world.barrier()
                     epoch, i = epoch + 1, 0
         finally:
+            if gatherer is not None:
+                gatherer.close()  # the parked gather is dropped
+            if zero23:  # at rest: the shards alone
+                zero.release("q")
+                zero.release("k")
             if profile_window is not None:
                 profile_window.close()  # stop a still-open capture window
             if wd is not None:
@@ -979,6 +1059,12 @@ def main(argv=None) -> int:
     ap.add_argument("--dist-timeout", type=float, default=None,
                     help="seconds a collective waits for its peers before the process "
                          "group fails the rank (default 600)")
+    ap.add_argument("--zero-stage", type=int, default=None, choices=(1, 2, 3),
+                    help="ZeRO over the data ranks: 1 shards the optimizer state and update, "
+                         "2 and 3 the parameters between steps too (sgd and adamw only)")
+    ap.add_argument("--zero-layer-granular", action="store_true", default=None,
+                    help="with --zero-stage 2 or 3 (or the zero3 preset): gather one layer "
+                         "group at a time")
     ap.add_argument("--device", default="cuda",
                     help="cuda (each rank of a torchrun launch takes cuda:<local rank>, "
                          "NCCL) or cpu (gloo)")
@@ -1001,9 +1087,11 @@ def main(argv=None) -> int:
     config = dataclasses.replace(config, data=dataclasses.replace(config.data, **data), **top)
     optim = {"epochs": args.epochs, "optimizer": args.optimizer}
     optim = {k: v for k, v in optim.items() if v is not None}
-    if args.dist_timeout is not None:
-        config = dataclasses.replace(config, parallel=dataclasses.replace(
-            config.parallel, timeout_s=args.dist_timeout))
+    par = {"timeout_s": args.dist_timeout, "zero_layer_granular": args.zero_layer_granular}
+    if args.zero_stage is not None:
+        par.update(shard_weight_update=True, zero_stage=args.zero_stage)
+    config = dataclasses.replace(config, parallel=dataclasses.replace(
+        config.parallel, **{k: v for k, v in par.items() if v is not None}))
     moco = {"vit_flash_attention": args.vit_flash_attention or None, "shuffle": args.shuffle,
             "syncbn_group_size": args.syncbn_group_size,
             "bn_stats_rows": args.bn_stats_rows, "bn_stats_barrier": args.bn_stats_barrier,

@@ -349,7 +349,15 @@ def state_payload(state: TrainState, arch: str, epoch: int,
     finished epochs. `tensors` stands in for the live values (a
     StateSnapshot's copies): {"q", "k", "predictor": state dicts or None,
     "queue": (K, dim) rows or None, "queue_ptr": int, "optimizer": an
-    optimizer state dict}."""
+    optimizer state dict}.
+
+    Under ZeRO (`state.zero`, parallel/zero.py) the payload is the same,
+    whole tensors: the shards and the optimizer's rows are gathered, a
+    collective that every rank must join; rank 0 then writes it."""
+    if tensors is None and state.zero is not None:
+        tensors = {**state.zero.full_state_dicts(), "queue": state.queue,
+                   "queue_ptr": state.queue_ptr,
+                   "optimizer": state.zero.full_optimizer_state(state.optimizer)}
     if tensors is None:
         tensors = {"q": None, "k": None, "queue": state.queue, "queue_ptr": state.queue_ptr,
                    "optimizer": state.optimizer.state_dict(),
@@ -373,8 +381,13 @@ def load_state_payload(state: TrainState, payload: dict) -> None:
     encoders, the queue and its pointer, the predictor, the optimizer's
     state and the step. `state` must have been built by `create_state`
     from the same config, so its optimizer lists the parameters in the
-    saved order."""
+    saved order. A ZeRO state takes any payload (whole tensors, whatever
+    the layout and world it was saved under): its rank's rows of them."""
     sd = payload["state_dict"]
+    z = state.zero
+    if z is not None and z.stage23:
+        z.materialize("q")
+        z.materialize("k")
     for side, enc in (("q", state.encoder_q), ("k", state.encoder_k)):
         load_encoder_reference(enc, _split(sd, f"module.encoder_{side}."))
     if state.queue is not None:
@@ -382,5 +395,12 @@ def load_state_payload(state: TrainState, payload: dict) -> None:
         state.queue_ptr = int(sd["module.queue_ptr"].reshape(-1)[0])
     if state.predictor is not None:
         state.predictor.load_state_dict(payload["predictor"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if z is None:
+        state.optimizer.load_state_dict(payload["optimizer"])
+    else:
+        z.load_optimizer_state(state.optimizer, payload["optimizer"])
+        z.shard_from_modules()
+        if z.stage23:
+            z.release("q")
+            z.release("k")
     state.step = int(payload["step"])

@@ -16,17 +16,21 @@ group's timeout) is the port's own: JAX's runtime has no such group.
 has no effect here: it fences a slice against an XLA fusion on the TPU,
 and eager PyTorch fuses nothing to fence.
 
+ZeRO (`ParallelConfig.shard_weight_update`, `zero_stage`, `zero_bucket_mb`,
+`zero_overlap_gather`, `zero_layer_granular`; parallel/zero.py) has JAX's
+fields, defaults and refusals (`validate_zero`, with JAX's messages), and
+the preset `vit_b16_v3_huge_batch_zero3` is here.
+
 Fields of the JAX config that the port does not run yet
-(`vit_sequence_parallel`; the parallel fields beyond `num_data`:
-`num_model`, ZeRO and elastic; the other telemetry fields
-(`strict_tracing`, the sanitizers)) are left out, so a config that asks
-for one fails at construction with a TypeError instead of being ignored.
-So is `prefetch_donate`: it recycles a consumed staging slot's device
-buffer through XLA's donation, and PyTorch's caching allocator already
-reuses that memory; and `on_device_augment`: the port always augments on
-the device. So are `fused_block_k`, the TPU kernel's tile (see
-`fused_infonce`), and the presets that need them
-(`vit_b16_v3_huge_batch_zero3`, `vit_b16_v3_highres_sp`).
+(`vit_sequence_parallel`; the parallel fields `num_model` and elastic; the
+other telemetry fields (`strict_tracing`, the sanitizers)) are left out,
+so a config that asks for one fails at construction with a TypeError
+instead of being ignored. So is `prefetch_donate`: it recycles a consumed
+staging slot's device buffer through XLA's donation, and PyTorch's caching
+allocator already reuses that memory; and `on_device_augment`: the port
+always augments on the device. So are `fused_block_k`, the TPU kernel's
+tile (see `fused_infonce`), and the preset that needs one of them
+(`vit_b16_v3_highres_sp`).
 """
 
 from __future__ import annotations
@@ -156,6 +160,27 @@ class ParallelConfig:
     # Seconds a collective may wait for its peers before the process group
     # fails the rank (a dead peer ends a survivor within this).
     timeout_s: float = 600.0
+    # Sharded weight update (ZeRO over the data ranks, parallel/zero.py):
+    # the optimizer state and update are sharded 1/n per rank, through a
+    # reduce-scatter of the gradients and an all-gather of the parameters.
+    # Elementwise optimizers only (sgd, adamw).
+    shard_weight_update: bool = False
+    # 1 = sharded optimizer state only, the parameters gathered in every
+    # step; 2 and 3 (one implementation) = the query, key and predictor
+    # parameters persist between steps as shards too, the key EMA runs on
+    # the shards, and the training loop issues step k+1's gather right after step k.
+    zero_stage: int = 1
+    # Fusion-bucket size of the stage-2/3 collectives: leaves pack into
+    # about this many MB of shard payload per all-gather / reduce-scatter.
+    zero_bucket_mb: float = 4.0
+    # Hoist the stage-2/3 gather of step k+1 under step k (default); False
+    # runs gather and step inline (no overlap/zero gauge then).
+    zero_overlap_gather: bool = True
+    # Layer-granular stage 2/3: each layer group's parameters are gathered
+    # just in time and freed after its forward / backward, so the transient
+    # model memory drops from the whole tree to about two adjacent groups.
+    # Needs zero_stage >= 2; the checkpoint layout is the same.
+    zero_layer_granular: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,7 +327,47 @@ PRESETS = {
         ),
         data=DataConfig(dataset="imagefolder", aug_plus=True, global_batch=4096),
     ),
+    # Huge-batch v3 on the layer-granular ZeRO-3 memory budget: the
+    # vit_b16_v3 recipe declared at its 4096 reference batch, run at 8192
+    # through auto_scale (kappa = 2), the parameters and optimizer state
+    # sharded and gathered one layer group at a time. AdamW is elementwise,
+    # so the sharded update is eligible (LARS is not).
+    "vit_b16_v3_huge_batch_zero3": TrainConfig(
+        moco=MocoConfig(
+            arch="vit_b16", dim=256, num_negatives=0, momentum=0.99,
+            momentum_cos=True, temperature=0.2, v3=True, shuffle="none",
+        ),
+        optim=OptimConfig(
+            optimizer="adamw", lr=2.4e-3, weight_decay=0.1, epochs=300,
+            cos=True, warmup_epochs=40,
+        ),
+        data=DataConfig(dataset="imagefolder", aug_plus=True, global_batch=8192),
+        parallel=ParallelConfig(shard_weight_update=True, zero_stage=3,
+                                zero_layer_granular=True),
+        auto_scale="ref_batch=4096",
+    ),
 }
+
+
+def validate_zero(config: TrainConfig) -> None:
+    """JAX's refusals of a ZeRO config (moco_tpu/core/moco.py:497-521,
+    :551-562), with its messages: a stage outside {1, 2, 3}, LARS, and the
+    layer-granular schedule without stage >= 2. (`vit_sequence_parallel`,
+    which it does not compose with either, is no field of the port's.)"""
+    par = config.parallel
+    zero23 = par.shard_weight_update and par.zero_stage >= 2
+    if par.shard_weight_update:
+        if par.zero_stage not in (1, 2, 3):
+            raise ValueError(f"zero_stage must be 1, 2 or 3, got {par.zero_stage}")
+        if config.optim.optimizer == "lars":
+            raise ValueError("shard_weight_update supports element-wise optimizers only "
+                             "(sgd/adamw), not lars")
+    if par.zero_layer_granular and not zero23:
+        raise ValueError(
+            "zero_layer_granular requires shard_weight_update=True with "
+            "zero_stage >= 2 (the per-group schedule runs on the persistent "
+            "shard layout)"
+        )
 
 
 def parse_auto_scale(spec: str) -> Optional[int]:
@@ -385,9 +450,10 @@ class ResumeCompatError(ValueError):
 # Structural fields a resume must agree on: they fix parameter, optimizer
 # state and queue shapes. Tunables (lr, epochs, temperature, recipe) may
 # change across a resume on purpose. The JAX list's `parallel.num_model`
-# and `vit_sequence_parallel` have no counterpart here; `num_data` is not a
-# field of it in either package (the port's state is replicated, so a
-# checkpoint resumes at any world size).
+# and `vit_sequence_parallel` have no counterpart here; `num_data` and the
+# ZeRO fields are not in it in either package: the port's checkpoint holds
+# whole tensors under every layout, so it resumes at any world size and
+# under any ZeRO stage (JAX's "compatible but resharded").
 RESUME_COMPAT_FIELDS = {
     "moco": ("arch", "dim", "num_negatives", "mlp", "v3", "cifar_stem",
              "vit_pool", "vit_patch_size"),
@@ -400,8 +466,9 @@ def resume_compat_diff(saved_extra: dict, config: TrainConfig,
     """Incompatibilities between a checkpoint's saved `extra` (its `config`
     and `num_data`) and the live run; empty = compatible. Fields the saved
     config lacks are skipped, so older checkpoints stay resumable. A
-    different `num_data` is no incompatibility, as in JAX: the parameters,
-    statistics and queue are the same on every rank."""
+    different `num_data` or ZeRO layout is no incompatibility, as in JAX:
+    the checkpoint holds whole tensors, which a load shards into the live
+    layout."""
     del num_data
     diffs = []
     saved_cfg = saved_extra.get("config") or {}

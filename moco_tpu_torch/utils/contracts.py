@@ -34,6 +34,8 @@ FAULT_SITES = {
     # "ingest": stalls the replica's /ingest handler before the body
     # read (serve/server.py) — the freshness-SLO chaos lever: rows age
     # past the declared max while the tail pipeline is stuck.
-    "delay": ("data.read", "input.h2d", "ingest"),
+    # "zero.gather": the stall the hoisted ZeRO gather's worker absorbs
+    # (parallel/zero.py AsyncParamGather), the overlap/zero gauge's lever.
+    "delay": ("data.read", "input.h2d", "zero.gather", "ingest"),
     "io": ("data.read",),
 }

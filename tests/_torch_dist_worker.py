@@ -205,3 +205,140 @@ def train_job(world, spec) -> list:
                     "state": state_arrays(res["state"]), "step": res["state"].step,
                     "preempted": res["preempted"]})
     return out
+
+
+def full_state_arrays(state) -> dict:
+    """`state_arrays` with whole parameters under every ZeRO layout (at
+    stage 2/3 the shards are gathered: a collective)."""
+    if state.zero is None or not state.zero.stage23:
+        return state_arrays(state)
+    sds = state.zero.full_state_dicts()
+    out = {}
+    for side, key in (("q", "q"), ("k", "k"), ("pred", "predictor")):
+        if sds[key] is not None:
+            out.update({f"{side}.{k}": _np(v) for k, v in sds[key].items()})
+    if state.queue is not None:
+        out["queue"] = _np(state.queue)
+    return out
+
+
+def zero_job(world, spec) -> dict:
+    """ZeRO in this world: spec["archs"] ({name: stage sizes} of BasicBlock
+    ResNets) added to the arch table, then spec["cases"] as
+    `train_steps_job` runs them (each case's config says its layout), with
+    whole-tensor states
+    (`full_state_arrays`), each step's metrics, the ledger, the rank's
+    shard bytes and the analytic peak; then spec["resume"] (a stage-3
+    checkpoint of the first steps of a case, resumed under other layouts)
+    and spec["probe"] (the linear probe in this world)."""
+    from moco_tpu_torch import convert
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.models import resnet
+    from moco_tpu_torch.parallel.dist import DataPartition
+
+    for arch, stages in spec.get("archs", {}).items():  # this process's test archs
+        resnet._CONFIGS[arch] = dict(stage_sizes=stages, block=resnet.BasicBlock)
+    out = {"cases": {}}
+    for name, case in spec["cases"]:
+        cfg = case["config"]
+        world.ledger.reset()
+        state = convert.state_from_flax(cfg, case["tree"], device="cpu",
+                                        num_filters=case.get("num_filters", 64), world=world,
+                                        mlp_hidden=case.get("mlp_hidden"))
+        step = make_train_step(cfg, case["steps_per_epoch"], device="cpu", world=world)
+        part = DataPartition.of(world, cfg.data.global_batch)
+        hist, digests = [], []
+        for i, views in enumerate(case["views"]):
+            batch = {"im_q": torch.from_numpy(part.rows(views[0])),
+                     "im_k": torch.from_numpy(part.rows(views[1]))}
+            perms = case.get("perms")
+            if perms is not None:
+                batch["perm"] = torch.from_numpy(perms[i]["perm"])
+            m = step(state, batch)
+            hist.append({k: (np.asarray(v.detach().cpu().numpy(), np.float64)
+                             if torch.is_tensor(v) else float(v)) for k, v in m.items()})
+            arrays = full_state_arrays(state)
+            digests.append(hashlib.sha256(
+                b"".join(arrays[k].tobytes() for k in sorted(arrays))).hexdigest())
+        z = state.zero
+        out["cases"][name] = {
+            "hist": hist, "digests": digests, "state": full_state_arrays(state),
+            "step": state.step,
+            "ledger": {k: (v.collective, v.operand_bytes, v.bytes_per_step)
+                       for k, v in world.ledger.snapshot().items()},
+            "hbm_model_peak_bytes": None if z is None else z.hbm_model_peak_bytes,
+            "shard_bytes": None if z is None else sum(s.numel() * 4 for s in z.shard_tensors()),
+            "released": None if z is None else [z.released("q"), z.released("k")]}
+    if spec.get("trio") is not None:
+        x = torch.from_numpy(spec["trio"][world.rank])
+        world.ledger.reset()
+        sh = world.local_shard(x)
+        out["trio"] = {"scatter_mean": _np(world.scatter_mean(x, "trio.scatter")),
+                       "local_shard": _np(sh), "unshard": _np(world.unshard(sh, x, "trio.gather")),
+                       "ledger": {k: (v.collective, v.operand_bytes, v.bytes_per_step)
+                                  for k, v in world.ledger.snapshot().items()}}
+    if spec.get("resume"):
+        out["resume"] = _resume_job(world, spec["resume"])
+    if spec.get("probe"):
+        out["probe"] = _probe_job(world, spec["probe"])
+    return out
+
+
+def _resume_job(world, spec) -> dict:
+    """Steps of a case under the first layout of spec["layouts"], a
+    checkpoint of it (rank 0 writes), the same checkpoint loaded into a
+    fresh state under every layout, and one more step from each: per
+    layout the loaded state's whole tensors and the next step's loss."""
+    from moco_tpu_torch import convert
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.parallel.dist import DataPartition
+    from moco_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_state_payload,
+        state_payload,
+    )
+    from moco_tpu_torch.utils.config import config_to_dict
+
+    part = DataPartition.of(world, spec["layouts"][0][1].data.global_batch)
+
+    def batch(views):
+        return {"im_q": torch.from_numpy(part.rows(views[0])),
+                "im_k": torch.from_numpy(part.rows(views[1]))}
+
+    out = {}
+    ckpt = CheckpointManager(spec["workdir"], keep=0)
+    for i, (name, cfg) in enumerate(spec["layouts"]):
+        state = convert.state_from_flax(cfg, spec["tree"], device="cpu",
+                                        num_filters=spec["num_filters"], world=world)
+        step = make_train_step(cfg, spec["steps_per_epoch"], device="cpu", world=world)
+        if i == 0:
+            for views in spec["views"][:-1]:
+                step(state, batch(views))
+            payload = state_payload(state, cfg.moco.arch, 1)
+            if world.is_main:
+                ckpt.save(state.step, payload, extra={"epoch": 0,
+                                                      "config": config_to_dict(cfg)})
+                ckpt.wait()
+            world.barrier()
+        else:
+            load_state_payload(state, ckpt.restore()[0])
+        arrays = full_state_arrays(state)
+        loss = float(step(state, batch(spec["views"][-1]))["loss"])
+        out[name] = {"state": arrays, "step": state.step, "next_loss": loss,
+                     "next_state": full_state_arrays(state)}
+    ckpt.close()
+    return out
+
+
+def _probe_job(world, spec) -> dict:
+    """`train_lincls` in this world: the classifier and the last
+    validation."""
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.lincls import train_lincls
+
+    out = train_lincls(spec["pretrain"], spec["probe"], data=spec["data"],
+                       workdir=spec["workdir"],
+                       train_dataset=SyntheticDataset(spec["n_train"], spec["data"].image_size),
+                       val_dataset=SyntheticDataset(spec["n_val"], spec["data"].image_size),
+                       device="cpu", world=world)
+    return {k: float(v) for k, v in out.items()}

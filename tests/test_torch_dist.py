@@ -248,7 +248,8 @@ def _message(fn) -> str:
 def test_gates_raise_jax_messages():
     """syncbn_group_size not dividing the data axis, or set without one; a
     global batch the ranks cannot split; the parallel fields beyond
-    num_data still a TypeError; a world that is not num_data ranks."""
+    num_data and ZeRO's (tests/test_torch_zero.py) still a TypeError; a
+    world that is not num_data ranks."""
     for g, n in ((3, 4), (4, 2)):
         kw = dict(arch="resnet18", shuffle="syncbn", syncbn_group_size=g)
         want = _message(lambda: jax_create_backbone(jc.MocoConfig(**kw), num_data=n))
@@ -266,7 +267,7 @@ def test_gates_raise_jax_messages():
     a2a = dataclasses.replace(cfg, moco=dataclasses.replace(cfg.moco, shuffle="a2a"))
     assert "a2a shuffle needs local batch 3 divisible by axis size 4" in _message(
         lambda: make_train_step(a2a, 2, device="cpu", world=World(world_size=4, device="cpu")))
-    for field in ("num_model", "shard_weight_update", "elastic"):
+    for field in ("num_model", "elastic"):
         with pytest.raises(TypeError):
             pc.ParallelConfig(**{field: 2})
     tiny = pc.TrainConfig(moco=pc.MocoConfig(arch="resnet18", dim=16, num_negatives=64),
@@ -278,16 +279,41 @@ def test_gates_raise_jax_messages():
 
 
 def test_linear_probe_refuses_a_data_parallel_launch(monkeypatch, tmp_path):
-    """The probe runs in one process: under torchrun's WORLD_SIZE > 1 (or
-    MOCO_MULTIHOST=1) train_lincls exits with a message naming it."""
-    from moco_tpu_torch.lincls import train_lincls
+    """The probe now runs under a data-parallel launch (it used to refuse
+    one): with MOCO_MULTIHOST=1 (a world of one through the distributed
+    path, rendezvous at 127.0.0.1 on a free port) train_lincls makes its
+    world, gloo on the CPU, probes a pretraining checkpoint, closes the
+    group, and scores exactly as the one-process probe. A world of two:
+    tests/test_torch_zero_dist.py."""
+    import socket
 
-    for env in ({"WORLD_SIZE": "2"}, {"MOCO_MULTIHOST": "1"}):
-        with monkeypatch.context() as m:
-            for k, v in env.items():
-                m.setenv(k, v)
-            with pytest.raises(SystemExit, match="linear probe runs in one process"):
-                train_lincls(str(tmp_path), pc.ProbeConfig(), device="cpu")
+    import torch.distributed as dist
+
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.lincls import train_lincls
+    from moco_tpu_torch.train import train
+
+    pre = tmp_path / "pre"
+    train(_config(pre), dataset=SyntheticDataset(16, 16), device="cpu", num_filters=4)
+    probe = pc.ProbeConfig(lr=1.0, epochs=1, num_classes=10)
+    data = dataclasses.replace(_config(pre).data, global_batch=8)
+
+    def run(workdir):
+        return train_lincls(str(pre), probe, data=data, workdir=str(workdir),
+                            train_dataset=SyntheticDataset(16, 16),
+                            val_dataset=SyntheticDataset(12, 16), device="cpu")
+
+    one = run(tmp_path / "one")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with monkeypatch.context() as m:
+        for k, v in {"MOCO_MULTIHOST": "1", "WORLD_SIZE": "1", "RANK": "0",
+                     "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}.items():
+            m.setenv(k, v)
+        launched = run(tmp_path / "launched")
+    assert not dist.is_initialized()
+    assert launched == one
 
 
 # -- the driver in a world of 2 --------------------------------------------------
