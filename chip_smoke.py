@@ -444,6 +444,43 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    tables; the checkpoint's resume; the probe's counts and the same result
    on both ranks. The launches are added to the kernels line
    (`launches_12i`).
+12j. The model axis (moco_tpu_torch/parallel/mesh.py, ring_attention.py),
+   in child processes that import no JAX: a world of 1 x 2 ranks (its
+   model group both; NCCL on two cards, else gloo on cuda:0) and, at the
+   same time, one of 8 for the ring alone (NCCL on eight cards, else gloo
+   on cuda:0); printed. (a) imagenet_v2 (ResNet-50 + MLP, K = 65536, batch
+   256, 224 px) at num_model = 2, in float32 without TF32, 3 steps from
+   phase 8's seeded state: each rank holds 32768 rows of the queue and
+   runs the InfoNCE kernels on them, the shards' (lse, count) merged over
+   the model group; checks: finite losses, the ranks' encoders equal bit
+   for bit after every step, InfoNCE once per step per rank, the shard's
+   shape and queue_ptr, the `comms/<site>` bytes (`grad.psum` over data x
+   model, `queue.stats_gather`) by JAX's cost model, and against the
+   replicated one-device step on the same batches 12h's oracles (loss
+   DP_LOSS_RTOL, update DP_UPDATE_REL in L2, the written queue rows' cosine
+   DP_QUEUE_COS). (b) ring attention alone at the preset's shape (ViT-B/16
+   at 448 px: S = 784, H = 12, D = 64, bf16, 2 images) at n = 2 and n = 8
+   (98 tokens a rank), with seeded cotangents of out and lse: out, lse, dq,
+   dk and dv of every rank against one flash call over the whole sequence
+   and against the plain float64 attention (MA_RING_REL, MA_FLASH_REL,
+   MA_LSE_TOL). (c) vit_b16_v3_highres_sp through train() at num_model = 2
+   (its global batch 1024 and num_model 8 cut to 16 and 2, `reduced`),
+   3 steps from phase 11's seeded weights, in float32 without TF32 and in
+   bf16 (the preset's dtype): finite losses; the ranks' states equal after
+   every step (a fingerprint of every tensor); per rank per step 2 x 12 x 2
+   flash forwards and 12 x 2 dq and dk/dv launches; the ring's
+   `ring_attention.kv_ppermute` bytes (n calls a step) and
+   `grad.seq_psum`; then on rank 0 the dense-flash step on one device on
+   the same batches: in float32 each loss within DP_LOSS_RTOL, the first
+   step's gradients within MA_GRAD_REL in L2 (the reference's, twice the
+   backbone's, must fail that; the later steps' printed), the 3-step
+   update within MA_UPDATE_REL;
+   step ms, imgs/s and peak GB per rank beside the dense step's. Then the
+   InfoNCE kernels at a shard's (256, 32768, 128) against their plain
+   versions, and the InfoNCE and flash kernels (384 heads of 392 and of 98
+   tokens) timed at the model axis's shapes with their plain versions,
+   bounds and library calls (`at_12j_shapes`). The launches of (a) and (c)
+   are added to the kernels line (`launches_12j`).
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -4743,6 +4780,551 @@ def zero_phase(fi, dp_peak_gb=None):
         shutil.rmtree(tmp)
 
 
+# phase 12j: the model axis on the card (module docstring). A world of 1 x 2
+# ranks (its model group both: NCCL where the machine has two cards, else
+# gloo with both on cuda:0) runs (a), (b) at n = 2 and (c); a world of 8
+# ranks (NCCL on eight cards, else gloo on cuda:0) runs (b) at n = 8
+MA_RANKS, MA_RING_WIDE = 2, 8
+MA_STEPS = 3  # steps of (a) and of each run of (c)
+MA_EPOCH_STEPS = 4  # (c)'s epochs: the lr and momentum schedules' steps_per_epoch
+MA_SP_BATCH = 16  # vit_b16_v3_highres_sp's global batch 1024 cut to one card's phase
+MA_RING_B = 2  # (b): ViT-B/16 at 448 px, S = 784 tokens, H = 12, D = 64, bf16
+MA_TIMEOUT_S = 300.0
+# (b): the ring's outputs against the plain float64 attention, of each
+# output's largest sum of absolute terms (phase 10's bf16 bound, BF16_REL,
+# doubled: each ring step's out and its cotangent are rounded to bf16 once
+# more than one flash call rounds them), and against one flash call over
+# the whole sequence the two bounds added; lse against float64 within
+# MA_LSE_TOL (each step's lse within phase 10's 1e-5, merged in float32)
+MA_RING_REL, MA_FLASH_REL, MA_LSE_TOL = 2 * BF16_REL, 3 * BF16_REL, 3e-5
+# (c): the sequence-parallel preset against its dense-flash oracle in
+# float32 without TF32 over 3 steps: each loss relative (12h's
+# DP_LOSS_RTOL), the first step's gradient of all trained parameters in L2
+# relative (the later steps' are printed: they start from states that
+# have already parted), and the 3-step update in L2 relative, the latter
+# loose: at step 1 AdamW moves each parameter by lr * sign(gradient), so a
+# parameter whose gradient is float32 noise (the key projections' biases,
+# the final LayerNorm's bias: the softmax and the heads' BN remove what
+# they add) moves either way, and later gradients differ with the states
+# (on an H100: 3.5e-6, 6.9e-4 and 1.0e-2 at steps 1-3, the update 4.8e-3).
+# A control, the reference's gradient (the backbone's twice the dense
+# one, ROADMAP.md queue 3), must fail the gradient check
+MA_GRAD_REL, MA_UPDATE_REL = 1e-3, 5e-2
+
+
+def ma_fingerprint(modules) -> str:
+    """sha256 over per-tensor position-weighted sums of the bytes of every
+    tensor of `modules` (on the card, exact in int64): equal states give
+    equal prints, and two states that differ anywhere differ with
+    overwhelming probability."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in modules:
+        for name, t in m.state_dict().items():
+            b = t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64)
+            w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 65521 + 1
+            h.update(name.encode())
+            h.update(int((b * w).sum()).to_bytes(8, "little", signed=True))
+    return h.hexdigest()
+
+
+def ma_ring_check(fa, ring, dev, label) -> dict:
+    """(b) on this rank: ring attention of its S/n rows of seeded bf16
+    (B, H, S, D) q, k, v and cotangents over `ring`, against one flash call
+    over the whole sequence and the plain float64 attention (both
+    backwards with the same cotangents); returns the errors and their
+    tolerances."""
+    from moco_tpu_torch.parallel.ring_attention import ring_attention_with_lse
+
+    b, h, s, d = MA_RING_B, 12, (IMG * 2 // 16) ** 2, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    g_lse = torch.randn((b, h, s), generator=gen, device=dev)
+    n, r = ring.size, ring.rank
+    rows = slice(r * s // n, (r + 1) * s // n)
+    scale = d ** -0.5
+    mine = [x[:, :, rows].contiguous().requires_grad_(True) for x in (q, k, v)]
+    out, lse = ring_attention_with_lse(*mine, ring)
+    torch.autograd.backward([out, lse], [g[:, :, rows].contiguous(),
+                                         g_lse[:, :, rows].contiguous()])
+    whole = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out_f, lse_f = fa.FlashAttention.apply(*whole, scale)
+    torch.autograd.backward([out_f, lse_f], [g, g_lse])
+    q64, k64, v64, g64 = (x.double() for x in (q, k, v, g))
+    out64, lse64 = fa.attention_reference(q64, k64, v64, scale)
+    lse64 = lse64.double()
+    grads64 = fa.flash_backward_reference(q64, k64, v64, out64, lse64, g64, g_lse.double(),
+                                          scale)
+    coeff = fa.backward_coeff(out64, g64, g_lse.double())
+    terms = fa.abs_term_sums(q64, k64, v64, g64, lse64, coeff, scale)
+    got = {"out": out, "dq": mine[0].grad, "dk": mine[1].grad, "dv": mine[2].grad}
+    flash = {"out": out_f, "dq": whole[0].grad, "dk": whole[1].grad, "dv": whole[2].grad}
+    plain = {"out": out64, "dq": grads64[0], "dk": grads64[1], "dv": grads64[2]}
+    errs = {}
+    for name, x in got.items():
+        x = x.double()
+        errs[name] = {
+            "plain": (x - plain[name][:, :, rows]).abs().max().item(),
+            "plain_tol": MA_RING_REL * terms[name] + 1e-6,
+            "flash": (x - flash[name][:, :, rows].double()).abs().max().item(),
+            "flash_tol": MA_FLASH_REL * terms[name] + 1e-6,
+            "largest": plain[name].abs().max().item()}
+    errs["lse"] = {"plain": (lse.double() - lse64[:, :, rows]).abs().max().item(),
+                   "plain_tol": MA_LSE_TOL,
+                   "flash": (lse - lse_f[:, :, rows]).abs().max().item(),
+                   "flash_tol": MA_LSE_TOL + 1e-5}
+    ok = all(e["plain"] <= e["plain_tol"] and e["flash"] <= e["flash_tol"]
+             for e in errs.values())
+    return {"label": label, "n": n, "rank": r, "shape": [b, h, s, d], "errs": errs, "ok": ok}
+
+
+def ma_ring_child(rank: int, n: int, backend: str, device: str, store: str,
+                  out_dir: str) -> None:
+    """12j(b) at n = MA_RING_WIDE, rank `rank`: the ring over every rank."""
+    from moco_tpu_torch.ops import flash_attention as fa
+    from moco_tpu_torch.parallel.mesh import init_world
+
+    out = {"rank": rank}
+    try:
+        world = init_world(backend, rank, n, device=device, store_path=store,
+                           timeout_s=MA_TIMEOUT_S, num_model=n)
+        try:
+            out["ring"] = ma_ring_check(fa, world.ring(), world.device, f"n={n}")
+            torch.cuda.synchronize(world.device)
+            world.barrier()
+        finally:
+            world.close()
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"ring{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def ma_sp_config(dtype: str, sp: bool = True):
+    """vit_b16_v3_highres_sp on synthetic data at MA_SP_BATCH images, 2
+    model ranks (sp) or dense flash attention on one device."""
+    from moco_tpu_torch.utils.config import PRESETS
+
+    cfg = PRESETS["vit_b16_v3_highres_sp"]
+    par = dataclasses.replace(cfg.parallel, num_model=MA_RANKS if sp else 1)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, dataset="synthetic", global_batch=MA_SP_BATCH),
+        moco=dataclasses.replace(cfg.moco, compute_dtype=dtype, vit_sequence_parallel=sp,
+                                 vit_flash_attention=True),
+        parallel=par, steps_per_epoch=MA_EPOCH_STEPS, obs_probe_every=1, device_prefetch=False,
+        knn_every_epochs=0)
+
+
+def ma_trained(state) -> list:
+    return [(f"{side}.{k}", p) for side, m in (("q", state.encoder_q), ("pred", state.predictor))
+            for k, p in m.named_parameters() if p.requires_grad]
+
+
+def ma_grad_rel(got: dict, want: dict, backbone_scale: float = 1.0) -> float:
+    """||got - want|| / ||want|| over every trained parameter's gradient,
+    `got`'s backbone entries scaled by `backbone_scale`."""
+    err = ref = 0.0
+    for k, w in want.items():
+        g = got[k].double() * (backbone_scale if k.startswith("q.backbone.") else 1.0)
+        err += (g - w.double()).square().sum().item()
+        ref += w.double().square().sum().item()
+    return (err / ref) ** 0.5
+
+
+def ma_sp_run(fa, world, dtype: str, dataset, keep_grads: bool) -> dict:
+    """(c) on this rank: train() of the sequence-parallel preset for
+    MA_STEPS steps from the seeded state; per step the loss, step ms, the
+    state's fingerprint, the flash launches and (`keep_grads`) a copy of
+    the trained parameters' gradients; the final state's parameters."""
+    from moco_tpu_torch.train import train
+
+    cfg = ma_sp_config(dtype)
+    dev = world.device
+    with dp_full_f32() if dtype == "float32" else contextlib.nullcontext():
+        state = seeded_v3_state(cfg, world, device=dev)
+        init = {k: p.detach().clone() for k, p in ma_trained(state)}
+        steps, last = [], {}
+
+        def log(rec):
+            launches = flash_launches(fa)
+            steps.append({"loss": rec["loss"], "step_ms": rec.get("step_ms"),
+                          "imgs_per_s": rec.get("imgs_per_s"),
+                          "print": ma_fingerprint([state.encoder_q, state.encoder_k,
+                                                   state.predictor]),
+                          "launches": {k: launches[k] - last.get(k, 0) for k in launches}})
+            last.update(launches)
+            if keep_grads:
+                steps[-1]["grads"] = {k: p.grad.detach().clone() for k, p in ma_trained(state)}
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_flash(fa)
+        world.ledger.reset()
+        t0 = time.perf_counter()
+        train(cfg, dataset=dataset, device=dev, steps=MA_STEPS, state=state, log=log,
+              world=world)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    return {"steps": steps, "init": init, "wall_s": wall,
+            "final": {k: p.detach().clone() for k, p in ma_trained(state)},
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "ledger": world.ledger.payload(), "launches": flash_launches(fa)}
+
+
+def ma_dense_steps(cfg, dev, batches, keep_grads: bool):
+    """The dense-flash oracle of (c) on one device: MA_STEPS steps of
+    make_train_step on `batches` from the seeded state."""
+    from moco_tpu_torch.core.moco import make_train_step
+
+    with dp_full_f32() if cfg.moco.compute_dtype == "float32" else contextlib.nullcontext():
+        state = seeded_v3_state(cfg, device=dev)
+        step = make_train_step(cfg, MA_EPOCH_STEPS, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = {"losses": [], "ms": [], "grads": []}
+        for batch in batches:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out["losses"].append(step(state, batch)["loss"].item())
+            torch.cuda.synchronize(dev)
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if keep_grads:
+                out["grads"].append({k: p.grad.detach().clone() for k, p in ma_trained(state)})
+    out["final"] = {k: p.detach().clone() for k, p in ma_trained(state)}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["step_ms"] = float(np.median(out["ms"][1:]))
+    return out
+
+
+def ma_rank_child(rank: int, n: int, backend: str, device: str, store: str,
+                  out_dir: str) -> None:
+    """12j, rank `rank` of the world of 1 x 2: (a) the sharded queue, (b) the
+    ring at n = 2, (c) the sequence-parallel preset through train() in
+    float32 (the oracle's) and bf16 (the preset's dtype); rank 0 then runs
+    the oracles on one device."""
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.data.pipeline import TwoCropPipeline
+    from moco_tpu_torch.ops import flash_attention as fa
+    from moco_tpu_torch.ops import fused_infonce as fi
+    from moco_tpu_torch.parallel.mesh import init_world
+
+    out = {"rank": rank, "backend": backend, "device": device, "sections": {}}
+    t_start = time.perf_counter()
+
+    def section(name, t0):
+        out["sections"][name] = round(time.perf_counter() - t0, 2)
+
+    try:
+        world = init_world(backend, rank, n, device=device, store_path=store,
+                           timeout_s=MA_TIMEOUT_S, num_model=n)
+        dev = world.device
+        try:
+            # (a) imagenet_v2, its queue sharded over the 2 model ranks, float32
+            t0 = time.perf_counter()
+            cfg = dp_config("imagenet_v2", compute_dtype="float32")
+            cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel,
+                                                                         num_model=n))
+            b = cfg.data.global_batch
+            dataset = SyntheticDataset(b * EPOCH_STEPS, IMG)
+            with TwoCropPipeline(cfg.data, seed=cfg.seed, device=dev, dataset=dataset) as pipe:
+                batches = [pipe.batch(0, s) for s in range(MA_STEPS)]
+            world.ledger.reset()
+            run = {"losses": [], "ms": [], "digests": []}
+            with dp_full_f32():
+                state = seeded_v2_state(cfg, world, device=dev)
+                step = dp_make_step(cfg, dev, world)
+                fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+                for batch in batches:
+                    torch.cuda.synchronize(dev)
+                    t1 = time.perf_counter()
+                    run["losses"].append(step(state, batch)["loss"].item())
+                    torch.cuda.synchronize(dev)
+                    run["ms"].append((time.perf_counter() - t1) * 1e3)
+                    run["digests"].append(ma_fingerprint([state.encoder_q, state.encoder_k]))
+            run["launches"] = {"infonce_fwd": fi.infonce_stats.launches,
+                               "infonce_bwd": fi.infonce_dq.launches}
+            run["queue_shape"] = list(state.queue.shape)
+            run["queue_ptr"], run["batch"] = state.queue_ptr, b
+            run["ledger"] = world.ledger.payload()
+            grad = 4 * sum(p.numel() for p in state.encoder_q.parameters() if p.requires_grad)
+            run["ledger_want"] = dp_expected_ledger({
+                "grad.psum": ("psum", grad), "queue.stats_gather": ("all_gather", 2 * b * 4)}, n)
+            whole_queue = state.full_queue()
+            if rank == 0:
+                final_a = {k: v.detach().cpu().clone() for k, v in dp_tensors(state).items()}
+                final_a["queue"] = whole_queue.cpu().clone()
+            out["a"] = run
+            del state, step, whole_queue
+            torch.cuda.empty_cache()
+            section("a", t0)
+            # (b) the ring at n = 2 (its launches are not the path's)
+            t0 = time.perf_counter()
+            out["ring"] = ma_ring_check(fa, world.ring(), dev, f"n={n}")
+            torch.cuda.empty_cache()
+            section("b", t0)
+            # (c) the preset through train(), float32 then bf16
+            t0 = time.perf_counter()
+            sp_data = SyntheticDataset(MA_SP_BATCH * MA_EPOCH_STEPS, 2 * IMG)
+            runs = {dtype: ma_sp_run(fa, world, dtype, sp_data, dtype == "float32")
+                    for dtype in ("float32", "bfloat16")}
+            section("c", t0)
+            world.barrier()
+        finally:
+            world.close()
+        out["c"] = {dtype: {k: v for k, v in r.items()
+                            if k not in ("init", "final", "steps")}
+                    | {"steps": [{k: v for k, v in s.items() if k != "grads"}
+                                 for s in r["steps"]]}
+                    for dtype, r in runs.items()}
+        if rank == 0:  # the oracles, one device
+            t0 = time.perf_counter()
+            one = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel,
+                                                                         num_model=1))
+            with dp_full_f32():
+                state = seeded_v2_state(one, device=dev)
+                init = {k: v.detach().cpu().clone() for k, v in dp_tensors(state).items()}
+                step = dp_make_step(one, dev)
+                oracle = dp_steps(state, step, batches, dev, b)
+                oracle_tensors = {k: v.detach().cpu() for k, v in dp_tensors(state).items()}
+            out["a_oracle"] = {"losses": oracle["losses"], "step_ms": oracle["step_ms"],
+                               **compare_tensors(oracle_tensors, init, final_a,
+                                                 out["a"]["losses"], oracle["losses"],
+                                                 MA_STEPS * b)}
+            del state, step, batches
+            torch.cuda.empty_cache()
+            section("a_oracle", t0)
+            t0 = time.perf_counter()
+            dense_cfg = {dtype: ma_sp_config(dtype, sp=False) for dtype in runs}
+            with TwoCropPipeline(dense_cfg["float32"].data, seed=dense_cfg["float32"].seed,
+                                 device=dev, dataset=sp_data) as pipe:
+                sp_batches = [pipe.batch(0, s) for s in range(MA_STEPS)]
+            dense = {dtype: ma_dense_steps(c, dev, sp_batches, dtype == "float32")
+                     for dtype, c in dense_cfg.items()}
+            f32, oracle = runs["float32"], dense["float32"]
+            grad_rel = [ma_grad_rel(s["grads"], want)
+                        for s, want in zip(f32["steps"], oracle["grads"])]
+            control = [ma_grad_rel(s["grads"], want, 2.0)
+                       for s, want in zip(f32["steps"], oracle["grads"])]
+            err = moved = 0.0
+            for k, w in oracle["final"].items():
+                i = f32["init"][k].double()
+                err += (f32["final"][k].double() - w.double()).square().sum().item()
+                moved += (w.double() - i).square().sum().item()
+            out["c_oracle"] = {
+                "losses": oracle["losses"],
+                "loss_rel": max(abs(s["loss"] - w) / abs(w)
+                                for s, w in zip(f32["steps"], oracle["losses"])),
+                "grad_rel": grad_rel, "control_grad_rel": control,
+                "update_rel": (err / moved) ** 0.5,
+                "dense": {dtype: {k: d[k] for k in ("losses", "ms", "step_ms", "peak_gb")}
+                          for dtype, d in dense.items()}}
+            section("c_oracle", t0)
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    out["wall_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"ma_rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+
+
+def ma_kernel_shapes(fi, fa) -> dict:
+    """The kernels at the model axis's shapes on the card, by kernel: the
+    InfoNCE pair at a queue shard of the sharded path, (B, K, C) = (256,
+    32768, 128), held to its plain versions (phase 7's compare_infonce) and
+    timed; the flash kernels at a rank's (c) blocks, B*H = 2 x 16 x 12 =
+    384 heads of 392 tokens (n = 2) and of 98 (n = 8, the preset's axis),
+    bf16, timed. Each with its plain version's time, its bound and one
+    PyTorch call's."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    b, kk, c, t = 256, K // MA_RANKS, DIM, 0.2
+    q, k, queue = (torch.nn.functional.normalize(
+        torch.randn(shape, generator=gen, device="cuda"), dim=-1)
+        for shape in ((b, c), (b, c), (kk, c)))
+    g = torch.full((b,), 1.0 / b, device="cuda")
+    err = compare_infonce(fi, q, k, queue, t, g, f"B={b} K={kk} C={c} (a queue shard)")
+    lse = fi.infonce_stats(q, k, queue, t)[1]
+    pos = (q * k).sum(-1)
+
+    def library_fwd():
+        neg = q @ queue.T / t
+        return torch.logsumexp(torch.cat([pos[:, None] / t, neg], 1), 1), (neg > pos[:, None] / t).sum(1)
+
+    def library_bwd():
+        logits = torch.cat([pos[:, None], q @ queue.T], 1) / t
+        return (torch.softmax(logits, 1)[:, 1:] * g[:, None]) @ queue / t
+
+    out = {}
+    for name, fn, plain, lib, backward, e in (
+            ("infonce_fwd", lambda: fi.infonce_stats(q, k, queue, t),
+             lambda: fi.infonce_stats_reference(q, k, queue, t), library_fwd, False,
+             max(err["pos"], err["lse"])),
+            ("infonce_bwd", lambda: fi.infonce_dq(q, queue, lse, g, t),
+             lambda: fi.infonce_dq_reference(q, queue, lse, g, t), library_bwd, True, err["dq"])):
+        bound, bound_by = infonce_bound_ms(b, kk, c, backward)
+        out[name] = [{"shape": {"B": b, "K": kk, "C": c}, "max_abs_err": e, "ms": cuda_ms(fn),
+                      "plain_ms": cuda_ms(plain), "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": cuda_ms(lib)}]
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        out[name] = []
+    heads = 2 * MA_SP_BATCH * 12
+    for s in ((2 * IMG // 16) ** 2 // MA_RANKS, (2 * IMG // 16) ** 2 // MA_RING_WIDE):
+        x = [torch.randn((2 * MA_SP_BATCH, 12, s, 64), generator=gen, device="cuda")
+             .to(torch.bfloat16) for _ in range(4)]
+        qq, kk2, vv, gg = x
+        scale = 64 ** -0.5
+        o, lse2 = fa.flash_forward(qq, kk2, vv, scale)
+        coeff = fa.backward_coeff(o, gg, torch.zeros_like(lse2))
+        qs, ks, vs = (y.clone().requires_grad_(True) for y in (qq, kk2, vv))
+        sdpa = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs)
+        library_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), gg,
+                                                          retain_graph=True), iters=20)
+        for (name, _, _), run, plain, library in zip(FLASH, (
+                lambda: fa.flash_forward(qq, kk2, vv, scale),
+                lambda: fa.flash_dq(qq, kk2, vv, gg, lse2, coeff, scale),
+                lambda: fa.flash_dkv(qq, kk2, vv, gg, lse2, coeff, scale)), (
+                lambda: fa.attention_reference(qq, kk2, vv, scale),
+                lambda: fa.flash_dq_reference(qq, kk2, vv, gg, lse2, coeff, scale),
+                lambda: fa.flash_dkv_reference(qq, kk2, vv, gg, lse2, coeff, scale)), (
+                lambda: torch.nn.functional.scaled_dot_product_attention(qq, kk2, vv),
+                None, None)):
+            bound, bound_by = flash_bound_ms(name, heads, s, 64, 2)
+            out[name].append({"shape": {"BH": heads, "S": s, "D": 64, "dtype": "torch.bfloat16"},
+                              "ms": cuda_ms(run, iters=20),
+                              "plain_ms": cuda_ms(plain, iters=5, warm=2),
+                              "bound_ms": bound, "bound_by": bound_by,
+                              "library_ms": cuda_ms(library, iters=20) if library
+                              else library_bwd})
+        del x, qq, kk2, vv, gg, qs, ks, vs, sdpa
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_axis_phase(fi, fa):
+    """Phase 12j (module docstring); returns its JSON, the launches of its
+    paths per rank, and the kernels' records at its shapes."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ma_")
+    try:
+        count = torch.cuda.device_count()
+        worlds = {}
+        for key, n in (("main", MA_RANKS), ("ring", MA_RING_WIDE)):
+            worlds[key] = (("nccl", [f"cuda:{r}" for r in range(n)]) if count >= n
+                           else ("gloo", ["cuda:0"] * n))
+            print(f"12j {key}: {n} ranks, backend {worlds[key][0]}, devices "
+                  f"{sorted(set(worlds[key][1]))}", flush=True)
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=ma_rank_child, args=(
+            r, MA_RANKS, worlds["main"][0], worlds["main"][1][r], os.path.join(tmp, "store"),
+            tmp)) for r in range(MA_RANKS)]
+        procs += [ctx.Process(target=ma_ring_child, args=(
+            r, MA_RING_WIDE, worlds["ring"][0], worlds["ring"][1][r],
+            os.path.join(tmp, "store_ring"), tmp)) for r in range(MA_RING_WIDE)]
+        for p in procs:
+            p.start()
+        codes = dp_join(procs, 2 * MA_TIMEOUT_S)
+        ranks, rings = [], []
+        for r in range(MA_RANKS):
+            with open(os.path.join(tmp, f"ma_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for r in range(MA_RING_WIDE):
+            with open(os.path.join(tmp, f"ring{r}.json")) as f:
+                rings.append(json.load(f))
+        wall = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            print(f"12j rank {r}: seconds by part {res.get('sections')}, wall "
+                  f"{res.get('wall_s')}", flush=True)
+        check(codes == [0] * len(procs) and not any("error" in r for r in ranks + rings),
+              f"12j: exit {codes}: {[r.get('error') for r in ranks + rings]}")
+        # (a) the sharded queue
+        for r, res in enumerate(ranks):
+            a = res["a"]
+            check(all(np.isfinite(a["losses"])) and len(a["losses"]) == MA_STEPS,
+                  f"12j(a) rank {r}: losses {a['losses']}")
+            check(a["digests"] == ranks[0]["a"]["digests"], f"12j(a): rank {r} out of lockstep")
+            check(a["launches"] == {"infonce_fwd": MA_STEPS, "infonce_bwd": MA_STEPS},
+                  f"12j(a) rank {r}: InfoNCE launches {a['launches']}")
+            check(a["queue_shape"] == [K // MA_RANKS, DIM] and
+                  a["queue_ptr"] == MA_STEPS * a["batch"] % K,
+                  f"12j(a) rank {r}: queue shard {a['queue_shape']}, ptr {a['queue_ptr']}")
+            check(a["ledger"] == a["ledger_want"],
+                  f"12j(a) rank {r}: ledger {a['ledger']} != {a['ledger_want']}")
+        oracle = ranks[0]["a_oracle"]
+        print(f"12j(a) against the replicated one-device step: {json.dumps(oracle)}", flush=True)
+        check(oracle["loss_rel"] <= DP_LOSS_RTOL and oracle["update_rel"] <= DP_UPDATE_REL
+              and oracle["queue_min_cos"] >= DP_QUEUE_COS,
+              f"12j(a) against its oracle: {oracle}")
+        # (b) the ring alone
+        for res in [*ranks, *rings]:
+            ring = res["ring"]
+            print(f"12j(b) {ring['label']} rank {ring['rank']}: {json.dumps(ring['errs'])}",
+                  flush=True)
+            check(ring["ok"], f"12j(b) {ring['label']} rank {ring['rank']}: {ring['errs']}")
+        # (c) the preset through train()
+        for r, res in enumerate(ranks):
+            for dtype, run in res["c"].items():
+                steps = run["steps"]
+                check(len(steps) == MA_STEPS and all(np.isfinite(s["loss"]) for s in steps),
+                      f"12j(c) rank {r} {dtype}: losses {[s['loss'] for s in steps]}")
+                check([s["print"] for s in steps]
+                      == [s["print"] for s in ranks[0]["c"][dtype]["steps"]],
+                      f"12j(c) {dtype}: rank {r} out of lockstep")
+                for i, s in enumerate(steps):
+                    check(s["launches"] == {"flash_fwd": 2 * 12 * MA_RANKS,
+                                            "flash_dq": 12 * MA_RANKS,
+                                            "flash_dkv": 12 * MA_RANKS},
+                          f"12j(c) rank {r} {dtype} step {i}: flash launches {s['launches']}")
+                item = 2 if dtype == "bfloat16" else 4
+                kv = 2 * (2 * MA_SP_BATCH) * 12 * ((2 * IMG // 16) ** 2 // MA_RANKS) * 64 * item
+                ring_bytes = run["ledger"].get("comms/ring_attention.kv_ppermute")
+                check(ring_bytes == kv * MA_RANKS and "comms/grad.seq_psum" in run["ledger"],
+                      f"12j(c) rank {r} {dtype}: ledger {run['ledger']}")
+        c_oracle = ranks[0]["c_oracle"]
+        print(f"12j(c) against the dense-flash one-device step (float32): "
+              f"{json.dumps({k: v for k, v in c_oracle.items() if k != 'dense'})}", flush=True)
+        check(c_oracle["loss_rel"] <= DP_LOSS_RTOL, f"12j(c) loss: {c_oracle['loss_rel']}")
+        check(c_oracle["grad_rel"][0] <= MA_GRAD_REL,
+              f"12j(c) the first step's gradients: {c_oracle['grad_rel']}")
+        check(c_oracle["control_grad_rel"][0] > MA_GRAD_REL,
+              f"12j(c): the reference's backbone gradient passes the gradient check: "
+              f"{c_oracle['control_grad_rel']}")
+        check(c_oracle["update_rel"] <= MA_UPDATE_REL, f"12j(c) update: {c_oracle['update_rel']}")
+        timing = {}
+        for r, res in enumerate(ranks):
+            timing[f"rank{r}"] = {dtype: {
+                "step_ms": float(np.median([s["step_ms"] for s in run["steps"][1:]])),
+                "imgs_per_s": float(np.median([s["imgs_per_s"] for s in run["steps"][1:]])),
+                "peak_gb": run["peak_gb"]} for dtype, run in res["c"].items()}
+        timing["dense"] = {dtype: {"step_ms": d["step_ms"],
+                                   "imgs_per_s": MA_SP_BATCH / d["step_ms"] * 1e3,
+                                   "peak_gb": d["peak_gb"]}
+                           for dtype, d in c_oracle["dense"].items()}
+        print(f"12j(c) sequence parallel per rank beside dense: {json.dumps(timing)}", flush=True)
+        t1 = time.perf_counter()
+        shapes = ma_kernel_shapes(fi, fa)
+        print(f"12j kernels at the model axis's shapes: {json.dumps(shapes)}; "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        launches = [{**res["a"]["launches"],
+                     **{k: sum(run["launches"][k] for run in res["c"].values())
+                        for k in ("flash_fwd", "flash_dq", "flash_dkv")}} for res in ranks]
+        return {"worlds": worlds, "wall_s": wall, "a": {
+                    "ranks": [{k: res["a"][k] for k in ("losses", "ms", "ledger")}
+                              for res in ranks], "oracle": oracle},
+                "b": [res["ring"] for res in [*ranks, *rings]],
+                "c": {"oracle": c_oracle, "timing": timing,
+                      "ledger": ranks[0]["c"]["bfloat16"]["ledger"],
+                      "reduced": {"global_batch": [1024, MA_SP_BATCH],
+                                  "num_model": [8, MA_RANKS]}},
+                "sections": [res["sections"] for res in ranks]}, launches, shapes
+    finally:
+        shutil.rmtree(tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4937,6 +5519,12 @@ def main() -> int:
         {"v2": rank["gather_perm"]["peak_gb"], "v3": rank["v3"]["peak_gb"]}
         for rank in dp_out["b"]["ranks"]])
     print(json.dumps({"zero": zero_out, "device": smi}))
+
+    # -- the model axis: the sharded queue, ring attention, the SP preset -----
+    t0 = time.perf_counter()
+    ma_out, ma_launches, ma_shapes = model_axis_phase(fused_infonce, fa)
+    ma_out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"model_axis": ma_out, "device": smi}))
     obs_infonce = {k: obs_launches["a"][k] + obs_launches["b"][k]
                    for k in ("infonce_fwd", "infonce_bwd")}
     for rec in train_kernels:
@@ -4964,6 +5552,12 @@ def main() -> int:
         per = [r[rec["name"]] for r in zero_launches]  # 12i: per rank
         rec["launches"] += sum(per)
         rec["launches_12i"] = {f"rank{i}": n for i, n in enumerate(per)}
+        per = [r[rec["name"]] for r in ma_launches]  # 12j: per rank
+        rec["launches"] += sum(per)
+        rec["launches_12j"] = {f"rank{i}": n for i, n in enumerate(per)}
+        rec["at_12j_shapes"] = ma_shapes[rec["name"]]
+        if "max_abs_err" in ma_shapes[rec["name"]][0]:
+            rec["max_abs_err"] = max(rec["max_abs_err"], ma_shapes[rec["name"]][0]["max_abs_err"])
     kernels = [ivf_kernel, *train_kernels, *v3_kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)

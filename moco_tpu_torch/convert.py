@@ -359,7 +359,8 @@ def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
     trained parameter. A v3 head takes its hidden width from the tree's
     first Dense kernel (v1/v2 heads have no such width), or from
     `mlp_hidden`. `world` (parallel/mesh.py) makes the encoders' and the
-    predictor's SyncBNs as `build_encoder` does.
+    predictor's SyncBNs as `build_encoder` does, and on a model axis the
+    state holds its model rank's rows of the (whole) queue.
 
     The tree may be a ZeRO state's: parameters and optimizer moments in
     the (n, m) layout are unsharded with the full shapes, as
@@ -387,7 +388,7 @@ def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
         state = create_state(
             replicated, enc_q, device=device, encoder_k=enc_k,
             queue=torch.from_numpy(np.array(tree["queue"], np.float32)),
-            step=step, queue_ptr=int(np.asarray(tree["queue_ptr"])),
+            step=step, queue_ptr=int(np.asarray(tree["queue_ptr"])), world=world,
         )
         if tree.get("trace") is not None:
             key = "trace" if config.optim.optimizer == "lars" else "momentum_buffer"

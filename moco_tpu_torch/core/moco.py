@@ -60,9 +60,9 @@ key, so a resume or a rollback draws the same ones; a batch may carry its
 own (`perm` for gather_perm, `pre` and `post` for a2a), as the parity
 tests pass JAX's.
 
-Data parallel (`world`, parallel/mesh.py, n ranks, one process per GPU):
-each rank's batch is its B/n rows of the global batch and the step is
-JAX's at `num_data = n` (:875-1316, no ZeRO, no model axis):
+Data parallel (`world`, parallel/mesh.py, n data ranks, one process per
+GPU): each rank's batch is its B/n rows of the global batch and the step
+is JAX's at `num_data = n` (:875-1316, no ZeRO):
 
 - Shuffle-BN is active when n > 1 or G > 1 (:1101): gather_perm gathers
   the images and the keys (the global keys feed the enqueue), a2a
@@ -102,10 +102,29 @@ reduce-scatter and the shard update (`zero23_update` / `zero_layer_update`,
 :786-806), and the drift from the shards (`ema_drift_sharded`). The frozen
 patch embedding stays out of the optimizer, as JAX's restore of the old
 shards (:984-991) and re-imposed full parameters (:1001-1021) keep it.
+
+The model axis (a world of num_data x num_model ranks, parallel/mesh.py;
+the model ranks of a data rank take the same rows):
+
+- v1/v2 shard the queue's rows over the model ranks (:410, :487-496):
+  each rank runs the InfoNCE kernels on its K / num_model rows, gathers
+  every shard's (lse, count) over its model group and merges them
+  (ops/fused_infonce.py `sharded_infonce_loss`; with `fused_infonce`
+  False, JAX's gather of the dense logits, :1156-1168); the gradients'
+  mean runs over data x model, which cancels the gather's n (:1223-1255);
+  each rank writes the enqueued rows that fall in its shard (:1260-1272);
+  the gauges read the local shard's first rows (:1286-1289);
+- v3 with `vit_sequence_parallel` shards the ViT's tokens over them: both
+  forwards run inside `sequence_parallel_ring` (ring attention, the gap
+  pool summed over the ring, models/vit.py), and after the backward the
+  backbone's partial gradients are summed over the model ranks
+  (`grad.seq_psum`, :957-968). The result is the dense gradient; JAX's is
+  num_model times it in the backbone (ROADMAP.md, queue 3).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -118,12 +137,12 @@ from moco_tpu_torch.core.ema import ema_running_stats, ema_update
 from moco_tpu_torch.core.queue import check_queue_divisibility, enqueue, init_queue
 from moco_tpu_torch.models.heads import BatchNorm1d, ProjectionHead, V3MLPHead
 from moco_tpu_torch.models.resnet import BatchNorm, create_resnet
-from moco_tpu_torch.models.vit import create_vit
+from moco_tpu_torch.models.vit import create_vit, sequence_parallel_ring
 from moco_tpu_torch.obs import health
 from moco_tpu_torch.parallel import shuffle as sh
 from moco_tpu_torch.parallel.mesh import World
 from moco_tpu_torch.parallel.zero import ZeroGathered, ZeroLayout
-from moco_tpu_torch.ops.fused_infonce import fused_infonce_loss
+from moco_tpu_torch.ops.fused_infonce import fused_infonce_loss, sharded_infonce_loss
 from moco_tpu_torch.ops.losses import cross_entropy, infonce_logits, l2_normalize, topk_accuracy
 from moco_tpu_torch.utils.config import MocoConfig, TrainConfig, validate_zero
 from moco_tpu_torch.utils.device import resolve_device
@@ -173,9 +192,15 @@ def build_encoder(cfg: MocoConfig, num_filters: int = 64,
     process group, shuffle 'syncbn' makes the backbone's BNs SyncBNs over
     the data group or the rank's subgroup of `syncbn_group_size` ranks, and
     v3's projector BNs SyncBNs over the data group when it has more than
-    one rank. `syncbn_group_size` needs a world that it divides."""
+    one rank. `syncbn_group_size` needs a world that it divides.
+
+    `vit_sequence_parallel` (JAX's `sequence_axis`) is refused as
+    `create_backbone` refuses it, with its messages: not without a ViT
+    arch, v3 and gap pooling."""
+    if cfg.vit_sequence_parallel and not cfg.arch.startswith("vit"):
+        raise ValueError(f"vit_sequence_parallel requires a ViT arch, got {cfg.arch!r}")
     vit = cfg.arch.startswith("vit")
-    n = 1 if world is None else world.world_size
+    n = 1 if world is None else world.num_data
     if cfg.shuffle == "syncbn" and cfg.syncbn_group_size and not vit:
         if world is None:
             raise ValueError(
@@ -210,8 +235,14 @@ def build_encoder(cfg: MocoConfig, num_filters: int = 64,
             )
     if vit:
         kw = {"patch_size": cfg.vit_patch_size} if cfg.vit_patch_size else {}
+        if cfg.vit_sequence_parallel:
+            if not cfg.v3:
+                raise ValueError("vit_sequence_parallel requires the v3 (queue-free) step")
+            if cfg.vit_pool != "gap":
+                raise ValueError("vit_sequence_parallel requires vit_pool='gap'")
         backbone = create_vit(cfg.arch, use_flash_attention=cfg.vit_flash_attention,
-                              pool=cfg.vit_pool, **kw)
+                              pool=cfg.vit_pool, sequence_parallel=cfg.vit_sequence_parallel,
+                              **kw)
     else:
         backbone = create_resnet(
             cfg.arch, num_filters=num_filters, cifar_stem=cfg.cifar_stem,
@@ -238,7 +269,7 @@ def build_predictor(cfg: MocoConfig, mlp_hidden: int = V3_HIDDEN,
     if not cfg.v3:
         return None
     head = V3MLPHead(cfg.dim, 2, mlp_hidden, cfg.dim, last_bn=cfg.arch.startswith("vit"))
-    if world is not None and world.distributed and world.world_size > 1:
+    if world is not None and world.distributed and world.num_data > 1:
         _sync_norms(head, BatchNorm1d, world.syncbn_stats())
     return head
 
@@ -262,6 +293,23 @@ class TrainState:
     # ZeRO (parallel/zero.py): the shards and plans; `optimizer` is then
     # over this rank's (m,) shards
     zero: Optional[ZeroLayout] = None
+    # v1/v2 on a model axis: the world whose model ranks shard the queue;
+    # `queue` is then this rank's (K / num_model, dim) rows
+    queue_world: Optional[World] = None
+
+    def full_queue(self) -> Optional[torch.Tensor]:
+        """The whole (K, dim) queue: under a sharded queue every model
+        rank's rows gathered (a collective each model rank must join)."""
+        if self.queue_world is None:
+            return self.queue
+        return self.queue_world.model_gather(self.queue).flatten(0, 1)
+
+    def queue_rows(self) -> tuple[int, int]:
+        """[start, stop) of the whole queue's rows this state holds."""
+        if self.queue_world is None:
+            return 0, 0 if self.queue is None else self.queue.shape[0]
+        rows = self.queue.shape[0]
+        return self.queue_world.model_rank * rows, (self.queue_world.model_rank + 1) * rows
 
 
 def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
@@ -280,7 +328,11 @@ def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
 
     With `config.parallel.shard_weight_update` the state is ZeRO's
     (`shard_state`): `zero_num_data` is the data axis's size, JAX's
-    argument, and must be `world`'s (one process holds its rank's row)."""
+    argument, and must be `world`'s (one process holds its rank's row).
+
+    v1/v2 with `config.parallel.num_model` > 1: the state holds this
+    model rank of `world`'s K / num_model rows of the whole queue (given or
+    drawn), JAX's P("model", None) (moco_tpu/core/moco.py:410)."""
     device = resolve_device(device)
     cfg = config.moco
     if config.parallel.shard_weight_update and not zero_num_data:
@@ -308,6 +360,13 @@ def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
         queue = queue.to(device=device, dtype=torch.float32).contiguous()
         if tuple(queue.shape) != (cfg.num_negatives, cfg.dim):
             raise ValueError(f"queue {tuple(queue.shape)} != (K, dim) = {(cfg.num_negatives, cfg.dim)}")
+        if config.parallel.num_model > 1:  # this model rank's rows of the world's
+            if world is None or world.num_model != config.parallel.num_model:
+                raise ValueError(f"parallel.num_model={config.parallel.num_model} shards the "
+                                 "queue over the model ranks: create_state needs their world")
+            rows = cfg.num_negatives // world.num_model
+            m = world.model_rank
+            queue = queue[m * rows:(m + 1) * rows].clone()
     trained = [m for m in (encoder_q, predictor) if m is not None]
     if config.optim.optimizer in ("adamw", "lars"):
         params = decay_groups(trained, config.optim.weight_decay)
@@ -316,6 +375,8 @@ def create_state(config: TrainConfig, encoder_q: MoCoEncoder, device="cuda",
     optimizer = build_optimizer(config.optim, params)
     state = TrainState(step, encoder_q, encoder_k, queue, int(queue_ptr), optimizer, predictor,
                        torch.Generator(device=device))
+    if queue is not None and config.parallel.num_model > 1:
+        state.queue_world = world
     if config.parallel.shard_weight_update:
         state = shard_state(state, config, world or World(device=device), zero_num_data)
     return state
@@ -327,7 +388,7 @@ def shard_state(state: TrainState, config: TrainConfig, world: World,
     layout's shards of this rank, the optimizer rebuilt over them in the
     replicated one's parameter order and groups (its state, if any, sharded
     into it), and at stage 2/3 the modules' whole parameters released."""
-    validate_zero(config)
+    validate_zero(config)  # no model axis: the world's ranks are its data ranks
     n = zero_num_data or world.world_size
     if n != world.world_size:
         raise ValueError(f"zero_num_data={n} but the world has {world.world_size} rank(s): "
@@ -413,11 +474,20 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
     zero23 = par.shard_weight_update and par.zero_stage >= 2
     layer = zero23 and par.zero_layer_granular
     world = World(device=device) if world is None else world
-    n, rank = world.world_size, world.rank
+    n, rank, n_model = world.num_data, world.data_rank, world.num_model
+    if config.parallel.num_model != n_model:
+        raise ValueError(f"parallel.num_model={config.parallel.num_model} but the world's model "
+                         f"axis has {n_model} rank(s)")
     global_batch = config.data.global_batch
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by data axis {n}")
     local_b = global_batch // n
+    # the model axis: v1/v2's queue rows sharded over it (:487-496), or the
+    # sequence-parallel ViT's tokens (:957-968)
+    shard_queue = n_model > 1 and not cfg.v3
+    if shard_queue and cfg.num_negatives % (n_model * max(global_batch, 1)):
+        raise ValueError("sharded queue requires K % (num_model*global_batch) == 0")
+    ring = world.ring() if cfg.vit_sequence_parallel else None
     shuffle_active = n > 1 or cfg.bn_virtual_groups > 1  # :1101
     # the step's permutations: `gather_perm`'s one, `a2a`'s two local ones
     shuffle = cfg.shuffle if shuffle_active and cfg.shuffle in ("gather_perm", "a2a") else None
@@ -486,16 +556,24 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
     def update(state: TrainState, loss) -> float:
         """Backward, the gradients' mean over the ranks (`grad.psum`), and
         the optimizer step at the lr of this step's count; under ZeRO the
-        stage's sharded update (parallel/zero.py) instead."""
+        stage's sharded update (parallel/zero.py) instead. A sharded queue
+        takes the mean over data and model (:1250-1255); under sequence
+        parallelism the backbone's partial gradients are first summed over
+        the model ranks (`grad.seq_psum`, :957-968), the heads' and the
+        predictor's being whole on every model rank."""
         lr = schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if ring is not None:
+            world.model_all_reduce_sum_([p.grad for p in state.encoder_q.backbone.parameters()
+                                         if p.grad is not None], "grad.seq_psum")
         z = state.zero
         if z is None:
             world.all_reduce_mean_([p.grad for group in state.optimizer.param_groups
-                                    for p in group["params"]], "grad.psum")
+                                    for p in group["params"]], "grad.psum",
+                                   over="world" if shard_queue else "data")
             state.optimizer.step()
         elif layer:
             z.layer_update(state.optimizer)
@@ -506,7 +584,12 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         return lr
 
     def check_state(state: TrainState) -> None:
-        """The state's ZeRO layout is the one the config asks for."""
+        """The state's ZeRO layout and queue shard are the ones the config
+        and world ask for."""
+        if shard_queue and (state.queue_world is not world
+                            or state.queue.shape[0] != cfg.num_negatives // n_model):
+            raise ValueError("a sharded queue's step needs the state's K / num_model rows of "
+                             "this world's model rank: build it with create_state(world=...)")
         z = state.zero
         want = None if not par.shard_weight_update else (par.zero_stage >= 2, layer, n)
         have = None if z is None else (z.stage23, z.layer, z.n)
@@ -538,6 +621,42 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         if layer:
             return state.zero.layer_query_forward(x)
         return state.encoder_q(x, remat=cfg.remat)
+
+    def model_axis():
+        """The sequence-parallel ViT's ring for the forwards (a no-op
+        context without sequence parallelism)."""
+        return sequence_parallel_ring(ring) if ring is not None else contextlib.nullcontext()
+
+    def infonce(q, k, queue):
+        """(loss, acc) of q against k and the queue: the fused loss unless
+        `fused_infonce` is False, for any K; over a sharded queue the kernels
+        on this rank's rows and the merge of the shards' statistics
+        (`queue.stats_gather`), or JAX's gather of the dense logits
+        (`queue.logits_gather`, :1156-1168)."""
+        if not shard_queue:
+            if cfg.fused_infonce is not False:
+                return fused_infonce_loss(q, k, queue, cfg.temperature)
+            logits, labels = infonce_logits(q, k, queue, cfg.temperature)
+            return cross_entropy(logits, labels), topk_accuracy(logits, labels)
+        if cfg.fused_infonce is not False:
+            return sharded_infonce_loss(
+                q, k, queue, cfg.temperature,
+                lambda x: world.model_gather(x, "queue.stats_gather"))
+        logits, labels = infonce_logits(q, k, queue, cfg.temperature)
+        l_neg = world.model_gather(logits[:, 1:], "queue.logits_gather")  # (n, B, K/n)
+        logits = torch.cat([logits[:, :1], l_neg.permute(1, 0, 2).flatten(1)], 1)
+        return cross_entropy(logits, labels), topk_accuracy(logits, labels)
+
+    def fifo(state: TrainState, k_global) -> None:
+        """The enqueue of the global keys (:1260-1272): over a sharded queue
+        each model rank writes the rows that fall in its shard."""
+        if not shard_queue:
+            state.queue, state.queue_ptr = enqueue(state.queue, state.queue_ptr, k_global)
+            return
+        start, stop = state.queue_rows()
+        if start <= state.queue_ptr and state.queue_ptr + global_batch <= stop:
+            enqueue(state.queue, state.queue_ptr - start, k_global)
+        state.queue_ptr = (state.queue_ptr + global_batch) % cfg.num_negatives
 
     def drift(state: TrainState) -> Optional[dict]:
         """Stage 2/3's EMA drift, from the shards (None: the modules')."""
@@ -574,12 +693,8 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         with autocast():
             q = query_forward(state, im_q)
         q = l2_normalize(q.float())
-        # (4) loss in float32 on the old queue
-        if cfg.fused_infonce is not False:  # None or True, for any K
-            loss, acc = fused_infonce_loss(q, k, state.queue, cfg.temperature)
-        else:
-            logits, labels = infonce_logits(q, k, state.queue, cfg.temperature)
-            loss, acc = cross_entropy(logits, labels), topk_accuracy(logits, labels)
+        # (4) loss in float32 on the old queue (this rank's rows of it)
+        loss, acc = infonce(q, k, state.queue)
         # (5) backward, the gradients' mean and the optimizer step; the
         # running statistics' mean over the ranks; under EMAN the key
         # statistics then trail the query's (the backward leaves the BN
@@ -604,7 +719,7 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
             mean_metrics(metrics, health.BATCH_LOCAL_KEYS)
         # (7) FIFO enqueue of the global keys, after the loss and the gauges
         # have read the old queue
-        state.queue, state.queue_ptr = enqueue(state.queue, state.queue_ptr, k_global)
+        fifo(state, k_global)
         state.step += 1
         return metrics
 
@@ -616,7 +731,7 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         apply_k = begin(state, gathered)
         # (2) key forward on both views, train-mode BN in the head
         state.encoder_k.train()
-        with torch.no_grad(), autocast():
+        with torch.no_grad(), autocast(), model_axis():
             k_cat = apply_k(x_cat)
         if zero23 and not layer:
             state.zero.release("k")
@@ -628,7 +743,7 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         # (3) query forward and predictor on the same 2b rows
         state.encoder_q.train()
         state.predictor.train()
-        with autocast():
+        with autocast(), model_axis():
             feats = query_forward(state, x_cat)
             preds = (state.zero.layer_pred_forward(feats) if layer
                      else state.predictor(feats))

@@ -17,10 +17,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 
-def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """`block(x)` with its activations recomputed in the backward
+def remat_block(block: nn.Module, x: torch.Tensor, *args) -> torch.Tensor:
+    """`block(x, *args)` with its activations recomputed in the backward
     (`remat_call` over the block's buffers)."""
-    return remat_call(block, list(block.buffers()), x)
+    return remat_call(block, list(block.buffers()), x, *args)
 
 
 def remat_call(fn, buffers, *args) -> torch.Tensor:

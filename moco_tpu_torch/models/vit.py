@@ -17,11 +17,25 @@ become Linear layers `query`, `key`, `value` (D -> H*Dh) and `out`
 versions on the CPU); False is Flax's dense `dot_product_attention` in
 plain torch. The parameters are the same either way. The layer groups of
 the ZeRO-3 schedule (`group_names`, `group_param_names`, `forward_group`)
-are JAX's. Sequence parallelism (`sequence_axis`, ring attention) comes
-with a later slice.
+are JAX's.
+
+Sequence parallelism (`sequence_parallel=True`, JAX's `sequence_axis`;
+moco_tpu/models/vit.py:231-279): inside `sequence_parallel_ring(ring)` the
+forward embeds the whole image, keeps this rank's S/n tokens (with their
+position embedding), runs every block's attention as ring attention over
+the ring's ranks (parallel/ring_attention.py, through the flash kernels
+whatever `use_flash_attention` says, as JAX's), and pools with gap: the
+local token sum, summed over the ring (`Ring.sum`), over S. Outside that
+context (init, kNN, the probe, serving, export) the same module runs
+dense, as JAX's does outside its shard_map. JAX's refusals hold, with its
+messages: gap pooling only, tokens divisible by the ring, and no layer-
+group apply.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import numpy as np
 import torch
@@ -30,8 +44,21 @@ from torch.nn import functional as F
 
 from moco_tpu_torch.models.remat import remat_block
 from moco_tpu_torch.ops.flash_attention import flash_attention
+from moco_tpu_torch.parallel.ring_attention import ring_attention
 
 LN_EPS = 1e-6  # Flax LayerNorm's default
+_RING = contextvars.ContextVar("sequence_parallel_ring", default=None)
+
+
+@contextlib.contextmanager
+def sequence_parallel_ring(ring):
+    """Run a sequence-parallel ViT's forwards over `ring`
+    (parallel/ring_attention.py `Ring`) inside this context."""
+    token = _RING.set(ring)
+    try:
+        yield
+    finally:
+        _RING.reset(token)
 
 
 def sincos_2d_posembed(dim: int, grid: int, cls_token: bool = True) -> np.ndarray:
@@ -78,11 +105,16 @@ class MultiHeadAttention(nn.Module):
         self.query, self.key, self.value = (nn.Linear(dim, dim) for _ in range(3))
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, ring=None):
+        """`ring`: this rank's tokens, the sequence sharded over the ring
+        (ring attention)."""
         b, s, _ = x.shape
         q, k, v = (proj(x).view(b, s, self.num_heads, self.head_dim)
                    for proj in (self.query, self.key, self.value))
-        if self.use_flash_attention:
+        if ring is not None:
+            heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+            y = ring_attention(*heads, ring).transpose(1, 2)
+        elif self.use_flash_attention:
             # the kernels' layout, (B, H, S, Dh), as flash_attention_fn (vit.py:40)
             heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
             y = flash_attention(*heads).transpose(1, 2)
@@ -105,8 +137,8 @@ class EncoderBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = MlpBlock(dim, mlp_dim)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x, ring=None):
+        x = x + self.attn(self.norm1(x), ring)
         return x + self.mlp(self.norm2(x))
 
 
@@ -117,11 +149,13 @@ class VisionTransformer(nn.Module):
 
     def __init__(self, patch_size: int = 16, hidden_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, mlp_dim: int = 3072, image_size: int = 224,
-                 use_flash_attention: bool = False, pool: str = "cls"):
+                 use_flash_attention: bool = False, pool: str = "cls",
+                 sequence_parallel: bool = False):
         super().__init__()
         if pool not in ("cls", "gap"):
             raise ValueError(f"pool={pool!r}: choose 'cls' or 'gap'")
         self.patch_size, self.hidden_dim, self.pool = patch_size, hidden_dim, pool
+        self.sequence_parallel = sequence_parallel
         self.patch_embed = nn.Conv2d(3, hidden_dim, patch_size, stride=patch_size)
         if pool == "cls":
             self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_dim))
@@ -153,19 +187,32 @@ class VisionTransformer(nn.Module):
             self.pos_embed = self._sincos(grid).to(x.device)
         return x + self.pos_embed.to(x.dtype)
 
-    def _final(self, x):
+    def _final(self, x, ring=None, seq_total: int = 0):
         x = self.final_norm(x)
         if self.pool == "cls":
             return x[:, 0].float()
-        return x.float().mean(dim=1)
+        if ring is None:
+            return x.float().mean(dim=1)
+        return ring.sum(x.float().sum(dim=1)) / seq_total
 
     def forward(self, x, remat: bool = False):
         """`remat` recomputes each encoder block in the backward
-        (models/remat.py)."""
+        (models/remat.py). Sequence parallel inside
+        `sequence_parallel_ring` (module docstring)."""
         x = self._embed(x)
+        ring = _RING.get() if self.sequence_parallel else None
+        seq_total = x.shape[1]
+        if ring is not None:
+            if self.pool != "gap":
+                raise ValueError("sequence_axis requires pool='gap' (cls token cannot be sharded)")
+            if seq_total % ring.size:
+                raise ValueError(
+                    f"{seq_total} tokens not divisible by sequence axis size {ring.size}")
+            local = seq_total // ring.size
+            x = x[:, ring.rank * local:(ring.rank + 1) * local]
         for block in self.blocks:
-            x = remat_block(block, x) if remat else block(x)
-        return self._final(x)
+            x = remat_block(block, x, ring) if remat else block(x, ring)
+        return self._final(x, ring, seq_total)
 
     # -- the layer groups of the ZeRO-3 schedule (parallel/zero.py) ----------
 
@@ -197,7 +244,12 @@ class VisionTransformer(nn.Module):
 
     def forward_group(self, group: str, x):
         """One layer group on the previous group's output (the images for
-        the embedding)."""
+        the embedding); refused for a sequence-parallel ViT, as JAX's."""
+        if self.sequence_parallel:
+            raise ValueError(
+                "layer-group apply does not compose with sequence_axis "
+                "(the token shard would cross group boundaries)"
+            )
         if group == "embed":
             return self._embed(x)
         if group == "final":

@@ -16,10 +16,16 @@ rank, per call; n = group size, b = this rank's operand bytes):
     broadcast      b
     device_put     b                host -> device, whatever n
 
-A site over a group of one records 0 bytes but still registers. The site
-names are JAX's: `shuffle.gather_images`, `shuffle.gather_keys`,
-`shuffle.a2a`, `shuffle.a2a_unshuffle`, `queue.enqueue_gather`,
-`grad.psum`, `v3.key_gather` and `input.h2d`, and ZeRO's `zero.*` sites
+A site over a group of one records 0 bytes but still registers. A site that
+fires several times a step records `calls_per_step` (the ring's shifts:
+n per call). The site names are JAX's: `shuffle.gather_images`,
+`shuffle.gather_keys`, `shuffle.a2a`, `shuffle.a2a_unshuffle`,
+`queue.enqueue_gather`, `grad.psum`, `v3.key_gather` and `input.h2d`; on
+the model axis `queue.logits_gather` (the dense loss over a sharded
+queue), `grad.seq_psum` and `ring_attention.kv_ppermute`, and the port's
+`queue.stats_gather` (the fused loss over a sharded queue moves (2, B)
+statistics where JAX's `queue.logits_gather` moves (B, K/n) logits);
+and ZeRO's `zero.*` sites
 (parallel/zero.py: `zero.grad_reduce_scatter` and `zero.params_all_gather`
 at stage 1, a site per fusion bucket at stages 2/3), registered where JAX's
 step registers them at the same n (under `gather_perm` the enqueue reuses the
@@ -76,8 +82,9 @@ class CommSite:
     site: str
     collective: str
     operand_bytes: int  # this rank's operand
-    bytes_per_step: int  # analytic wire cost
+    bytes_per_step: int  # analytic wire cost, every call of the step
     axis_size: int
+    calls_per_step: int = 1
 
 
 class CommsLedger:
@@ -89,9 +96,11 @@ class CommsLedger:
         self._lock = threading.Lock()
         self._sites: dict[str, CommSite] = {}
 
-    def record(self, site: str, collective: str, nbytes: int, axis_size: int) -> None:
+    def record(self, site: str, collective: str, nbytes: int, axis_size: int,
+               calls_per_step: int = 1) -> None:
         rec = CommSite(site, collective, int(nbytes),
-                       collective_bytes(collective, int(nbytes), axis_size), int(axis_size))
+                       collective_bytes(collective, int(nbytes), axis_size) * int(calls_per_step),
+                       int(axis_size), int(calls_per_step))
         with self._lock:
             self._sites[site] = rec
 

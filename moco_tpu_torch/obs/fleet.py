@@ -3,7 +3,7 @@
 - `FleetAggregator`: on log steps every rank contributes a small
   fixed-width stats vector (`FLEET_FIELDS`: data wait, step wall, wire
   transfer time, dispatch lag, io retries, decode failures, live device
-  memory) through one all_gather of the (F,) vector over the data group;
+  memory) through one all_gather of the (F,) vector over the whole world;
   `reduce_stats` gives per-field min / mean / max / argmax and
   `straggler_skew` = (max(t_step) - mean(t_step)) / mean(t_step), the
   share of every step the world spends waiting for its slowest rank, and
@@ -58,8 +58,8 @@ def reduce_stats(stats: np.ndarray, t_step_index: int) -> dict:
 
 
 class FleetAggregator:
-    """The log-step gather of every rank's stats vector over a world's data
-    group (module docstring)."""
+    """The log-step gather of every rank's stats vector over the whole world
+    (module docstring): one row per process, data and model ranks alike."""
 
     def __init__(self, world, fields: Sequence[str] = FLEET_FIELDS):
         self.fields = tuple(fields)
@@ -89,7 +89,7 @@ class FleetAggregator:
         row = torch.from_numpy(np.asarray(host_vector, np.float32).reshape(1, -1))
         if self.world.distributed:
             row = row.to(self.world.comm_device)
-        stats = self.world.all_gather_rows(row).cpu().numpy()
+        stats = self.world.all_gather_rows(row, over="world").cpu().numpy()
         return reduce_stats(stats, self._t_idx)
 
     def payload(self, stats: dict) -> dict:

@@ -12,6 +12,10 @@ tensors; there is no fallback from one to the other. `InfoNCEStats` is
 the `custom_vjp` (:137-196) as an autograd function: a gradient for q
 only, the positive term added outside the kernel as `_vjp_bwd` does
 (:189-192).
+
+A queue sharded over the model ranks (core/moco.py) runs the kernels on
+each rank's shard: `merge_shard_stats` makes the whole queue's lse and
+count from every shard's (`sharded_infonce_loss`).
 """
 
 from __future__ import annotations
@@ -182,6 +186,35 @@ class InfoNCEStats(torch.autograd.Function):
         pos = (q * k).sum(-1) * inv_t
         coeff = (g_pos + g_lse * torch.exp(pos - lse)) * inv_t
         return dq_neg + coeff[:, None] * k, None, None, None
+
+
+def merge_shard_stats(pos, lse_parts, above_parts):
+    """(lse, n_above) over the whole queue from each of n shards' (n, B)
+    lse over [pos | its rows] and count above pos: the sum of the shards'
+    exp(lse_m) counts exp(pos) n times, so
+    lse = c + log(sum_m exp(lse_m - c) - (n - 1) exp(pos - c)) with c the
+    largest lse_m (every exponent <= 0), and the counts add."""
+    n = lse_parts.shape[0]
+    c = lse_parts.max(0).values.detach()
+    inner = torch.exp(lse_parts - c).sum(0) - (n - 1) * torch.exp(pos - c)
+    return c + torch.log(inner), above_parts.sum(0)
+
+
+def sharded_infonce_loss(q, k, queue_shard, temperature: float, gather):
+    """`fused_infonce_loss` over a queue whose rows are sharded over the
+    model ranks: the kernels on this rank's shard, then `gather` ((2, B) ->
+    (n, 2, B), every rank's lse and count, differentiable: its backward sums
+    the cotangent over the ranks) and `merge_shard_stats`. Each rank's
+    query gradient then carries n times its shard's share, which the mean
+    of the gradients over the model ranks cancels, as JAX's does."""
+    pos, lse, above = InfoNCEStats.apply(q, k.detach(), queue_shard.detach(), temperature)
+    parts = gather(torch.stack([lse, above.float()]))
+    lse, above = merge_shard_stats(pos, parts[:, 0], parts[:, 1].detach())
+    loss = (lse - pos).mean()
+    return loss, {
+        "acc1": 100.0 * (above == 0).float().mean(),
+        "acc5": 100.0 * (above < 5).float().mean(),
+    }
 
 
 def fused_infonce_loss(q, k, queue, temperature: float):

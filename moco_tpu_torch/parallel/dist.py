@@ -4,9 +4,11 @@ counterpart of moco_tpu/parallel/dist.py.
 The reference gives each of its GPU processes 1/n of every batch
 (`DistributedSampler`, `main_moco.py:~L258`); JAX gives each host the rows
 its devices hold under the batch sharding. In the port a process is one
-GPU, so rank r holds the contiguous rows [r*B/n, (r+1)*B/n) of the global
-batch B: the rows device r holds on JAX's 1-D data mesh of n devices
-(`device_row_ranges`). Every rank knows the whole global batch (the epoch
+GPU, so data rank d holds the contiguous rows [d*B/n, (d+1)*B/n) of the
+global batch B: the rows device d holds on JAX's 1-D data mesh of n
+devices (`device_row_ranges`). The model ranks of one data rank (the
+model axis, parallel/mesh.py) load the same rows, as JAX's batch is
+replicated over `model`. Every rank knows the whole global batch (the epoch
 order is seeded), loads only its rows, and draws the augment for the
 whole batch before it takes its rows, so the union of the ranks' batches
 is the one-process batch.
@@ -42,7 +44,7 @@ class DataPartition:
 
     @classmethod
     def of(cls, world: World, global_batch: int) -> "DataPartition":
-        return cls(world.rank, world.world_size, global_batch)
+        return cls(world.data_rank, world.num_data, global_batch)
 
     def local_indices(self, global_indices: np.ndarray) -> np.ndarray:
         """The dataset indices this rank loads for one step, from the step's
@@ -61,12 +63,14 @@ def wants_distributed() -> bool:
     return int(env.get("WORLD_SIZE", "1")) > 1 or env.get("MOCO_MULTIHOST") == "1"
 
 
-def maybe_init_distributed(device=None, timeout_s: float = 600.0) -> Optional[World]:
+def maybe_init_distributed(device=None, timeout_s: float = 600.0, num_model: int = 1,
+                           num_data: Optional[int] = None) -> Optional[World]:
     """The launch's World when `wants_distributed()`, else None (one device,
     no process group). `device` "cpu" asks for gloo on the CPU; a card
-    takes `cuda:<LOCAL_RANK>` and NCCL."""
+    takes `cuda:<LOCAL_RANK>` and NCCL. The launch's WORLD_SIZE ranks are
+    num_data x num_model (parallel/mesh.py `init_world`)."""
     if not wants_distributed():
         return None
     if device is not None and str(device).startswith("cuda"):
         device = None  # each rank drives its own card
-    return init_world(device=device, timeout_s=timeout_s)
+    return init_world(device=device, timeout_s=timeout_s, num_model=num_model, num_data=num_data)

@@ -30,8 +30,9 @@ collectives over the data group, each under its comms-ledger site:
 
 The permutations are drawn from a `torch.Generator` the caller passes,
 seeded per step with `step_seed`: gather_perm's global one from (seed,
-step) on every rank alike, a2a's local ones from (seed, step, rank), as
-JAX folds the rank in. A caller may instead pass JAX's own draws.
+step) on every rank alike, a2a's local ones from (seed, step, data rank),
+as JAX folds the data index in (the model ranks of one data rank draw
+alike). A caller may instead pass JAX's own draws.
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ def dp_shuffle_gather(world, x: torch.Tensor, perm: torch.Tensor) -> torch.Tenso
     rows, `perm` the global permutation)."""
     b = x.shape[0]
     x_all = world.all_gather_rows(x, "shuffle.gather_images")
-    return x_all.index_select(0, perm[world.rank * b:(world.rank + 1) * b])
+    return x_all.index_select(0, perm[world.data_rank * b:(world.data_rank + 1) * b])
 
 
 def dp_unshuffle_gather(world, k: torch.Tensor,
@@ -101,7 +102,7 @@ def dp_unshuffle_gather(world, k: torch.Tensor,
     b = k.shape[0]
     k_all = world.all_gather_rows(k, "shuffle.gather_keys")  # rows in perm order
     k_global = k_all.index_select(0, inv_perm)
-    return k_global[world.rank * b:(world.rank + 1) * b], k_global
+    return k_global[world.data_rank * b:(world.data_rank + 1) * b], k_global
 
 
 def dp_balanced_shuffle(world, x: torch.Tensor, pre: torch.Tensor,

@@ -123,6 +123,14 @@ ends rank i with exit code 113 at its step; the survivors leave with an
 error at their next collective (gloo), or when the group's timeout
 (`ParallelConfig.timeout_s`) or the watchdog fires (NCCL).
 
+The model axis (`ParallelConfig.num_model`, parallel/mesh.py): a launch of
+num_data x num_model ranks. The model ranks of a data rank load the same
+rows; v1/v2 shards the queue over them, v3 with `vit_sequence_parallel`
+the ViT's tokens (core/moco.py). Every save gathers a sharded queue on
+every rank into the whole (K, dim) queue that rank 0 writes (the extras
+carry `num_model`, which a resume must match, as JAX's); the snapshot's
+emergency saves are skipped as under ZeRO. kNN runs dense on every rank.
+
 ZeRO (`ParallelConfig.shard_weight_update`, parallel/zero.py) shards the
 state over the ranks. At stage 2/3 with `zero_overlap_gather` the gather
 of step k+1 is issued right after step k (`AsyncParamGather`, JAX's hoist);
@@ -250,7 +258,7 @@ def _seeded_state(config: TrainConfig, device, num_filters: int, world: World) -
     if predictor is not None:
         predictor.load_state_dict(predictor_from_flax(
             *random_flax_predictor(config.moco, seed=config.seed + 1)))
-    zero_n = world.world_size if config.parallel.shard_weight_update else None
+    zero_n = world.num_data if config.parallel.shard_weight_update else None
     return create_state(config, encoder, device=device, predictor=predictor,
                         zero_num_data=zero_n, world=world)
 
@@ -427,7 +435,8 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
         raise ValueError("profile_steps needs a profile_dir or a workdir")
     own_world = None
     if world is None:
-        world = own_world = maybe_init_distributed(device, config.parallel.timeout_s)
+        world = own_world = maybe_init_distributed(device, config.parallel.timeout_s,
+                                                   num_model=config.parallel.num_model)
     if world is None:
         world = World(device=resolve_device(device))
     tracer = (Tracer(os.path.join(workdir, "trace_events.jsonl"))
@@ -453,10 +462,14 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                 knn_datasets, profile_dir, profile_steps) -> dict:
     faults.install_from_env()
     device = world.device
-    n = world.world_size
+    n = world.num_data
     if config.parallel.num_data not in (None, n):
         raise ValueError(f"parallel.num_data={config.parallel.num_data} but the launch has "
                          f"{n} rank(s): one process per GPU, every rank in the data group")
+    if config.parallel.num_model != world.num_model:
+        raise ValueError(f"parallel.num_model={config.parallel.num_model} but the launch's model "
+                         f"axis has {world.num_model} rank(s): the launch needs num_data x "
+                         "num_model ranks")
     world.ledger.reset()  # this run's sites only
     # `config` carries the reference lr and momentum; the live ones follow
     # from the global batch (utils/config.py `apply_auto_scale`)
@@ -500,6 +513,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
             print0(f"resumed from epoch {epoch - 1} (step {state.step})")
         step_fn = make_train_step(config, steps_per_epoch, device=device, world=world)
         zero = state.zero
+        # a save gathers on every rank: ZeRO's shards, a sharded queue's rows
+        gathered_save = zero is not None or state.queue_world is not None
         zero23 = zero is not None and zero.stage23
         gatherer: Optional[AsyncParamGather] = None
         if steps is not None:
@@ -537,7 +552,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
         def save_extra(completed_epoch: int) -> dict:
             """A checkpoint's extras: the epoch, the config, and the layout
             it was saved from (the payload itself holds whole tensors)."""
-            return {"epoch": completed_epoch, "num_data": n, "config": config_to_dict(config),
+            return {"epoch": completed_epoch, "num_data": n, "num_model": world.num_model,
+                    "config": config_to_dict(config),
                     "shard_weight_update": config.parallel.shard_weight_update,
                     "zero_stage": config.parallel.zero_stage}
 
@@ -550,11 +566,12 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
             is the same on every rank), but under ZeRO every rank joins the
             gather of the shards (`state_payload`), and a save from the
             snapshot (the stall's, a fatal alert's), which one rank makes
-            alone, is skipped."""
-            if zero is not None:
+            alone, is skipped; so is a sharded queue's."""
+            if gathered_save:
                 if source is snapshot:
-                    print0(f"{reason}: the ZeRO state is sharded over the ranks and this save "
-                           "cannot gather it from one rank; no emergency checkpoint", flush=True)
+                    print0(f"{reason}: the state is sharded over the ranks (ZeRO or the queue) "
+                           "and this save cannot gather it from one rank; no emergency "
+                           "checkpoint", flush=True)
                     return
                 if ckpt is None:
                     return
@@ -657,7 +674,7 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
             m["loss"] = faults.corrupt_loss(m["loss"], gstep)
             faults.maybe_stall(gstep)
             faults.maybe_preempt(gstep)
-            faults.maybe_kill_host(gstep, workdir, world.rank, n)
+            faults.maybe_kill_host(gstep, workdir, world.rank, world.world_size)
             if not math.isfinite(m["loss"]):
                 guard["nan_steps"] += 1
                 if writer is not None:
@@ -940,9 +957,10 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                                     writer.write(state.step, {"epoch": epoch, "knn_top1": top1})
                             if ckpt is not None and (last_epoch
                                                      or epoch % config.checkpoint_every_epochs == 0):
-                                # under ZeRO every rank joins the payload's gather
+                                # under ZeRO or a sharded queue every rank
+                                # joins the payload's gather
                                 payload = (state_payload(state, arch, epoch + 1)
-                                           if world.is_main or zero is not None else None)
+                                           if world.is_main or gathered_save else None)
                                 if world.is_main:
                                     ckpt.save(state.step, payload, extra=save_extra(epoch))
                                 world.barrier()
@@ -1065,6 +1083,13 @@ def main(argv=None) -> int:
     ap.add_argument("--zero-layer-granular", action="store_true", default=None,
                     help="with --zero-stage 2 or 3 (or the zero3 preset): gather one layer "
                          "group at a time")
+    ap.add_argument("--num-model", type=int, default=None,
+                    help="model ranks per data rank (the launch has num_data x num_model): "
+                         "v1/v2 shard the queue over them, v3 with --vit-sequence-parallel "
+                         "the ViT's tokens")
+    ap.add_argument("--vit-sequence-parallel", action="store_true", default=None,
+                    help="shard the ViT's tokens over the model ranks, ring attention "
+                         "across them (v3, gap pooling)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (each rank of a torchrun launch takes cuda:<local rank>, "
                          "NCCL) or cpu (gloo)")
@@ -1087,7 +1112,8 @@ def main(argv=None) -> int:
     config = dataclasses.replace(config, data=dataclasses.replace(config.data, **data), **top)
     optim = {"epochs": args.epochs, "optimizer": args.optimizer}
     optim = {k: v for k, v in optim.items() if v is not None}
-    par = {"timeout_s": args.dist_timeout, "zero_layer_granular": args.zero_layer_granular}
+    par = {"timeout_s": args.dist_timeout, "zero_layer_granular": args.zero_layer_granular,
+           "num_model": args.num_model}
     if args.zero_stage is not None:
         par.update(shard_weight_update=True, zero_stage=args.zero_stage)
     config = dataclasses.replace(config, parallel=dataclasses.replace(
@@ -1098,7 +1124,8 @@ def main(argv=None) -> int:
             "bn_momentum_stats": args.bn_momentum_stats,
             "bn_virtual_groups": args.bn_virtual_groups,
             "key_bn_running_stats": args.key_bn_running_stats,
-            "key_bn_stats_warmup": args.key_bn_stats_warmup, "remat": args.remat}
+            "key_bn_stats_warmup": args.key_bn_stats_warmup, "remat": args.remat,
+            "vit_sequence_parallel": args.vit_sequence_parallel}
     moco = {k: v for k, v in moco.items() if v is not None}
     config = dataclasses.replace(config, optim=dataclasses.replace(config.optim, **optim),
                                  moco=dataclasses.replace(config.moco, **moco))

@@ -353,13 +353,16 @@ def state_payload(state: TrainState, arch: str, epoch: int,
 
     Under ZeRO (`state.zero`, parallel/zero.py) the payload is the same,
     whole tensors: the shards and the optimizer's rows are gathered, a
-    collective that every rank must join; rank 0 then writes it."""
+    collective that every rank must join; rank 0 then writes it. So is a
+    queue sharded over the model ranks (`state.queue_world`): every model
+    rank joins the gather of the whole (K, dim) queue."""
     if tensors is None and state.zero is not None:
-        tensors = {**state.zero.full_state_dicts(), "queue": state.queue,
+        tensors = {**state.zero.full_state_dicts(), "queue": state.full_queue(),
                    "queue_ptr": state.queue_ptr,
                    "optimizer": state.zero.full_optimizer_state(state.optimizer)}
     if tensors is None:
-        tensors = {"q": None, "k": None, "queue": state.queue, "queue_ptr": state.queue_ptr,
+        tensors = {"q": None, "k": None, "queue": state.full_queue(),
+                   "queue_ptr": state.queue_ptr,
                    "optimizer": state.optimizer.state_dict(),
                    "predictor": None if state.predictor is None else state.predictor.state_dict()}
     sd = {}
@@ -382,7 +385,8 @@ def load_state_payload(state: TrainState, payload: dict) -> None:
     state and the step. `state` must have been built by `create_state`
     from the same config, so its optimizer lists the parameters in the
     saved order. A ZeRO state takes any payload (whole tensors, whatever
-    the layout and world it was saved under): its rank's rows of them."""
+    the layout and world it was saved under): its rank's rows of them; a
+    sharded queue its model rank's rows of the whole queue."""
     sd = payload["state_dict"]
     z = state.zero
     if z is not None and z.stage23:
@@ -391,7 +395,8 @@ def load_state_payload(state: TrainState, payload: dict) -> None:
     for side, enc in (("q", state.encoder_q), ("k", state.encoder_k)):
         load_encoder_reference(enc, _split(sd, f"module.encoder_{side}."))
     if state.queue is not None:
-        state.queue.copy_(sd["module.queue"].t())
+        start, stop = state.queue_rows()
+        state.queue.copy_(sd["module.queue"].t()[start:stop])
         state.queue_ptr = int(sd["module.queue_ptr"].reshape(-1)[0])
     if state.predictor is not None:
         state.predictor.load_state_dict(payload["predictor"])

@@ -21,16 +21,21 @@ ZeRO (`ParallelConfig.shard_weight_update`, `zero_stage`, `zero_bucket_mb`,
 fields, defaults and refusals (`validate_zero`, with JAX's messages), and
 the preset `vit_b16_v3_huge_batch_zero3` is here.
 
-Fields of the JAX config that the port does not run yet
-(`vit_sequence_parallel`; the parallel fields `num_model` and elastic; the
-other telemetry fields (`strict_tracing`, the sanitizers)) are left out,
-so a config that asks for one fails at construction with a TypeError
+The model axis (`ParallelConfig.num_model`; parallel/mesh.py) is here with
+the two features that run on it: the v1/v2 queue sharded over the model
+ranks (core/moco.py) and, with `MocoConfig.vit_sequence_parallel`, the
+ViT's tokens sharded over them with ring attention
+(parallel/ring_attention.py); so is the preset `vit_b16_v3_highres_sp`.
+ZeRO does not compose with `num_model > 1` in the port (`validate_zero`).
+
+Fields of the JAX config that the port does not run yet (`elastic`, and
+the other telemetry fields: `strict_tracing`, the sanitizers) are left
+out, so a config that asks for one fails at construction with a TypeError
 instead of being ignored. So is `prefetch_donate`: it recycles a consumed
 staging slot's device buffer through XLA's donation, and PyTorch's caching
 allocator already reuses that memory; and `on_device_augment`: the port
-always augments on the device. So are `fused_block_k`, the TPU kernel's
-tile (see `fused_infonce`), and the preset that needs one of them
-(`vit_b16_v3_highres_sp`).
+always augments on the device; and `fused_block_k`, the TPU kernel's tile
+(see `fused_infonce`).
 """
 
 from __future__ import annotations
@@ -104,8 +109,14 @@ class MocoConfig:
     # CUDA kernels on the card, their plain versions on the CPU); False is
     # dense attention. The parameters are the same either way.
     vit_flash_attention: bool = False
-    # ViT feature pooling: "cls" (v3's) or "gap" (global average pool).
+    # ViT feature pooling: "cls" (v3's) or "gap" (global average pool,
+    # which sequence parallelism needs).
     vit_pool: str = "cls"
+    # Sequence parallelism for the ViT: the tokens are sharded over the
+    # model ranks (ParallelConfig.num_model) and attention runs as ring
+    # attention across them. Needs v3, gap pooling and tokens divisible by
+    # num_model.
+    vit_sequence_parallel: bool = False
     # Recompute the query encoder's forward in the backward
     # (torch.utils.checkpoint), leaving the BN buffers as the first forward
     # left them: less activation memory for more FLOPs.
@@ -157,6 +168,10 @@ class ParallelConfig:
     # Data-parallel ranks, one process per GPU (torchrun's WORLD_SIZE).
     # None = every rank of the launch; a number must equal the world's size.
     num_data: Optional[int] = None
+    # Model ranks per data rank: the v1/v2 queue's rows (and its logits),
+    # or under vit_sequence_parallel the ViT's tokens, are sharded over
+    # them. The launch has num_data * num_model ranks.
+    num_model: int = 1
     # Seconds a collective may wait for its peers before the process group
     # fails the rank (a dead peer ends a survivor within this).
     timeout_s: float = 600.0
@@ -346,14 +361,33 @@ PRESETS = {
                                 zero_layer_granular=True),
         auto_scale="ref_batch=4096",
     ),
+    # Long sequences: 448 px inputs give ViT-B/16 784 tokens, sharded over
+    # a model axis of 8 with ring attention (gap pooling, --num-model 8);
+    # lr is the v3 rule 1.5e-4 * batch / 256 at this preset's batch of 1024.
+    "vit_b16_v3_highres_sp": TrainConfig(
+        moco=MocoConfig(
+            arch="vit_b16", dim=256, num_negatives=0, momentum=0.99,
+            momentum_cos=True, temperature=0.2, v3=True, shuffle="none",
+            vit_pool="gap", vit_sequence_parallel=True,
+        ),
+        optim=OptimConfig(
+            optimizer="adamw", lr=6e-4, weight_decay=0.1, epochs=300,
+            cos=True, warmup_epochs=40,
+        ),
+        data=DataConfig(
+            dataset="imagefolder", aug_plus=True, global_batch=1024, image_size=448
+        ),
+        parallel=ParallelConfig(num_model=8),
+    ),
 }
 
 
 def validate_zero(config: TrainConfig) -> None:
     """JAX's refusals of a ZeRO config (moco_tpu/core/moco.py:497-521,
-    :551-562), with its messages: a stage outside {1, 2, 3}, LARS, and the
-    layer-granular schedule without stage >= 2. (`vit_sequence_parallel`,
-    which it does not compose with either, is no field of the port's.)"""
+    :551-562), with its messages: a stage outside {1, 2, 3}, LARS, the
+    layer-granular schedule without stage >= 2, with a model axis or with
+    sequence parallelism. The port also refuses stages 1-3 with a model
+    axis, which JAX composes (ROADMAP.md, queue 1)."""
     par = config.parallel
     zero23 = par.shard_weight_update and par.zero_stage >= 2
     if par.shard_weight_update:
@@ -367,6 +401,23 @@ def validate_zero(config: TrainConfig) -> None:
             "zero_layer_granular requires shard_weight_update=True with "
             "zero_stage >= 2 (the per-group schedule runs on the persistent "
             "shard layout)"
+        )
+    if par.zero_layer_granular and par.num_model > 1:
+        raise ValueError(
+            "zero_layer_granular requires num_model == 1 (the per-group "
+            "schedule is a data-axis pipeline; model-axis sharding of the "
+            "same params would double-gather)"
+        )
+    if par.zero_layer_granular and config.moco.vit_sequence_parallel:
+        raise ValueError(
+            "zero_layer_granular does not compose with vit_sequence_parallel "
+            "(the token shard would cross layer-group boundaries)"
+        )
+    if par.shard_weight_update and par.num_model > 1:
+        raise ValueError(
+            "shard_weight_update with num_model > 1 is not ported: ZeRO runs over "
+            "the data axis of a world without a model axis (ROADMAP.md, queue 1, "
+            "'ZeRO with a model axis')"
         )
 
 
@@ -449,15 +500,16 @@ class ResumeCompatError(ValueError):
 
 # Structural fields a resume must agree on: they fix parameter, optimizer
 # state and queue shapes. Tunables (lr, epochs, temperature, recipe) may
-# change across a resume on purpose. The JAX list's `parallel.num_model`
-# and `vit_sequence_parallel` have no counterpart here; `num_data` and the
-# ZeRO fields are not in it in either package: the port's checkpoint holds
-# whole tensors under every layout, so it resumes at any world size and
-# under any ZeRO stage (JAX's "compatible but resharded").
+# change across a resume on purpose. JAX's list: `num_data` and the ZeRO
+# fields are not in it in either package (the port's checkpoint holds whole
+# tensors under every layout, so it resumes at any world size and under
+# any ZeRO stage: JAX's "compatible but resharded"). `parallel.num_model`
+# is, as in JAX, though the port's whole queue could be sliced anew.
 RESUME_COMPAT_FIELDS = {
     "moco": ("arch", "dim", "num_negatives", "mlp", "v3", "cifar_stem",
-             "vit_pool", "vit_patch_size"),
+             "vit_pool", "vit_patch_size", "vit_sequence_parallel"),
     "data": ("image_size",),
+    "parallel": ("num_model",),
 }
 
 

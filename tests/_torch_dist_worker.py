@@ -5,7 +5,8 @@ results back to the parent through a file. This module imports torch and
 the port only; the parent compares the results with JAX.
 
 `run_world(job, n, root, spec)` runs `job(world, spec)` on ranks 0..n-1
-and returns their results in rank order. The group has a timeout and the
+and returns their results in rank order; `num_model` lays the n ranks out
+as (n / num_model) x num_model (parallel/mesh.py). The group has a timeout and the
 parent a join timeout, so a broken world fails its test instead of
 hanging the suite.
 """
@@ -25,14 +26,15 @@ GROUP_TIMEOUT_S = 60.0
 JOIN_TIMEOUT_S = 240.0
 
 
-def _entry(job, rank: int, n: int, root: str, spec) -> None:
+def _entry(job, rank: int, n: int, root: str, spec, num_model: int = 1) -> None:
     torch.set_num_threads(1)
     from moco_tpu_torch.parallel.mesh import init_world
 
     out = os.path.join(root, f"rank{rank}.pkl")
     try:
         world = init_world(backend="gloo", rank=rank, world_size=n, device="cpu",
-                           store_path=os.path.join(root, "store"), timeout_s=GROUP_TIMEOUT_S)
+                           store_path=os.path.join(root, "store"), timeout_s=GROUP_TIMEOUT_S,
+                           num_model=num_model)
         try:
             result = job(world, spec)
         finally:
@@ -45,11 +47,11 @@ def _entry(job, rank: int, n: int, root: str, spec) -> None:
         raise
 
 
-def start_world(job, n: int, root: str, spec=None) -> list:
+def start_world(job, n: int, root: str, spec=None, num_model: int = 1) -> list:
     """Spawn the n ranks of `job`; the caller joins them (`join_world`)."""
     os.makedirs(root, exist_ok=True)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(job, r, n, root, spec), daemon=True)
+    procs = [ctx.Process(target=_entry, args=(job, r, n, root, spec, num_model), daemon=True)
              for r in range(n)]
     for p in procs:
         p.start()
@@ -91,9 +93,9 @@ def collect_world(procs: list, root: str) -> list:
     return out
 
 
-def run_world(job, n: int, root: str, spec=None) -> list:
+def run_world(job, n: int, root: str, spec=None, num_model: int = 1) -> list:
     """Every rank's result of `job(world, spec)`, rank order."""
-    return collect_world(start_world(job, n, root, spec), root)
+    return collect_world(start_world(job, n, root, spec, num_model), root)
 
 
 # -- jobs ---------------------------------------------------------------------
@@ -342,3 +344,92 @@ def _probe_job(world, spec) -> dict:
                        val_dataset=SyntheticDataset(spec["n_val"], spec["data"].image_size),
                        device="cpu", world=world)
     return {k: float(v) for k, v in out.items()}
+
+
+def model_axis_job(world, spec) -> dict:
+    """The model axis in this world (num_data x num_model ranks): spec's
+    "archs" added to the arch table, then each part spec holds:
+
+    - "ring": ring attention of this rank's sequence shard of the global
+      (B, H, S, D) q, k, v over the model group ("model") or every rank
+      ("world"): out, lse and the gradients of sum(out ** 2);
+    - "vit": the sequence-parallel ViT's features of the images;
+    - "steps": {name: case}, the step from a case's JAX tree on this rank's
+      rows of each step's views (with the global `perm`s): the sharded
+      queue's v1/v2 step or the sequence-parallel v3 step; per step the
+      metrics, the trained parameters' gradients and a digest of the state
+      but the queue, then the final state, queue_ptr and the ledger;
+    - "ckpt": `train()` runs with workdirs (run "a" straight, "b" and then
+      "c" resuming it): each run's final state."""
+    import torch.distributed as dist
+
+    from moco_tpu_torch import convert
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.models import resnet
+    from moco_tpu_torch.models.vit import create_vit, sequence_parallel_ring
+    from moco_tpu_torch.parallel.dist import DataPartition
+    from moco_tpu_torch.parallel.ring_attention import Ring, ring_attention_with_lse
+
+    for arch, stages in spec.get("archs", {}).items():  # this process's test archs
+        resnet._CONFIGS[arch] = dict(stage_sizes=stages, block=resnet.BasicBlock)
+    out = {}
+    for name, case in spec.get("ring", {}).items():
+        world.ledger.reset()
+        ring = (world.ring() if case["over"] == "model"
+                else Ring(dist.group.WORLD, world.world_size, world.rank, world.ledger))
+        local = case["q"].shape[2] // ring.size
+        q, k, v = (torch.from_numpy(case[x][:, :, ring.rank * local:(ring.rank + 1) * local])
+                   .requires_grad_(True) for x in ("q", "k", "v"))
+        o, lse = ring_attention_with_lse(q, k, v, ring)
+        (o ** 2).sum().backward()
+        out[f"ring_{name}"] = {"out": _np(o), "lse": _np(lse), "dq": _np(q.grad),
+                               "dk": _np(k.grad), "dv": _np(v.grad),
+                               "ledger": {k: (v.collective, v.bytes_per_step, v.calls_per_step)
+                                          for k, v in world.ledger.snapshot().items()}}
+    if spec.get("vit") is not None:
+        case = spec["vit"]
+        vit = create_vit("vit_tiny", image_size=case["images"].shape[1], patch_size=4,
+                         pool="gap", sequence_parallel=True)
+        vit.load_state_dict({k: torch.from_numpy(v) for k, v in case["weights"].items()})
+        with torch.no_grad(), sequence_parallel_ring(world.ring()):
+            out["vit"] = _np(vit(torch.from_numpy(case["images"])))
+    for name, case in spec.get("steps", {}).items():
+        cfg = case["config"]
+        world.ledger.reset()
+        state = convert.state_from_flax(cfg, case["tree"], device="cpu",
+                                        num_filters=case.get("num_filters", 64), world=world,
+                                        mlp_hidden=case.get("mlp_hidden"))
+        step = make_train_step(cfg, case["steps_per_epoch"], device="cpu", world=world)
+        part = DataPartition.of(world, cfg.data.global_batch)
+        trained = [(f"{side}.{k}", p) for side, m in (("q", state.encoder_q),
+                                                       ("pred", state.predictor))
+                   if m is not None for k, p in m.named_parameters() if p.requires_grad]
+        hist, grads, digests = [], [], []
+        for i, views in enumerate(case["views"]):
+            batch = {"im_q": torch.from_numpy(part.rows(views[0])),
+                     "im_k": torch.from_numpy(part.rows(views[1]))}
+            if case.get("perms") is not None:
+                batch["perm"] = torch.from_numpy(case["perms"][i]["perm"])
+            m = step(state, batch)
+            hist.append({k: float(v) for k, v in m.items() if k in ("loss", "acc1", "acc5")})
+            grads.append({k: _np(p.grad) for k, p in trained if p.grad is not None})
+            arrays = state_arrays(state)
+            digests.append(hashlib.sha256(
+                b"".join(arrays[k].tobytes() for k in sorted(arrays) if k != "queue")).hexdigest())
+        out[name] = {"hist": hist, "grads": grads, "digests": digests,
+                     "state": state_arrays(state), "queue_ptr": state.queue_ptr,
+                     "ledger": {k: (v.collective, v.operand_bytes, v.bytes_per_step)
+                                for k, v in world.ledger.snapshot().items()}}
+    if spec.get("ckpt") is not None:
+        from moco_tpu_torch.data.datasets import SyntheticDataset
+        from moco_tpu_torch.train import train
+
+        case = spec["ckpt"]
+        out["ckpt"] = {}
+        for run, (cfg, steps) in case["runs"].items():
+            res = train(cfg, dataset=SyntheticDataset(case["examples"], cfg.data.image_size),
+                        device="cpu", steps=steps, num_filters=case["num_filters"], world=world)
+            out["ckpt"][run] = {"state": state_arrays(res["state"]), "step": res["state"].step,
+                                "queue_ptr": res["state"].queue_ptr,
+                                "losses": [r["loss"] for r in res["history"]]}
+    return out

@@ -248,8 +248,9 @@ def _message(fn) -> str:
 def test_gates_raise_jax_messages():
     """syncbn_group_size not dividing the data axis, or set without one; a
     global batch the ranks cannot split; the parallel fields beyond
-    num_data and ZeRO's (tests/test_torch_zero.py) still a TypeError; a
-    world that is not num_data ranks."""
+    num_data, num_model (tests/test_torch_model_axis.py) and ZeRO's
+    (tests/test_torch_zero.py) still a TypeError; a world that is not
+    num_data ranks."""
     for g, n in ((3, 4), (4, 2)):
         kw = dict(arch="resnet18", shuffle="syncbn", syncbn_group_size=g)
         want = _message(lambda: jax_create_backbone(jc.MocoConfig(**kw), num_data=n))
@@ -267,9 +268,8 @@ def test_gates_raise_jax_messages():
     a2a = dataclasses.replace(cfg, moco=dataclasses.replace(cfg.moco, shuffle="a2a"))
     assert "a2a shuffle needs local batch 3 divisible by axis size 4" in _message(
         lambda: make_train_step(a2a, 2, device="cpu", world=World(world_size=4, device="cpu")))
-    for field in ("num_model", "elastic"):
-        with pytest.raises(TypeError):
-            pc.ParallelConfig(**{field: 2})
+    with pytest.raises(TypeError):
+        pc.ParallelConfig(elastic=2)
     tiny = pc.TrainConfig(moco=pc.MocoConfig(arch="resnet18", dim=16, num_negatives=64),
                           data=pc.DataConfig(global_batch=8, image_size=16),
                           parallel=pc.ParallelConfig(num_data=2))

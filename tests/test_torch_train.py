@@ -674,26 +674,26 @@ def test_make_train_step_gates_the_eman_key_forward_as_jax(fields):
 
 
 def test_config_rejects_what_the_slice_does_not_run():
-    """Sequence parallelism, the Pallas tile, and the parallel fields beyond
-    `num_data` and ZeRO's (the model axis, elastic) stay out of the port's
-    config; `syncbn_group_size`, `ParallelConfig(num_data)` and the ZeRO
-    fields are in it."""
-    for field in ("fused_block_k", "vit_sequence_parallel"):
-        with pytest.raises(TypeError):
-            pc.MocoConfig(**{field: 1})
+    """The Pallas tile and the parallel fields beyond `num_data`, the model
+    axis and ZeRO's (elastic) stay out of the port's config;
+    `syncbn_group_size`, `ParallelConfig(num_data, num_model)`,
+    `vit_sequence_parallel` and the ZeRO fields are in it."""
+    with pytest.raises(TypeError):
+        pc.MocoConfig(fused_block_k=1)
     for field, value in (("elastic", True), ("prefetch_donate", True),
                          ("strict_tracing", True)):
         with pytest.raises(TypeError):
             pc.TrainConfig(**{field: value})
-    for field in ("num_model",):
-        with pytest.raises(TypeError):
-            pc.ParallelConfig(**{field: 2})
+    with pytest.raises(TypeError):
+        pc.ParallelConfig(elastic=True)
     assert pc.MocoConfig(syncbn_group_size=2).syncbn_group_size == 2
+    assert pc.MocoConfig(vit_sequence_parallel=True).vit_sequence_parallel
     assert pc.TrainConfig(parallel=pc.ParallelConfig(num_data=4)).parallel.num_data == 4
+    assert pc.ParallelConfig(num_model=2).num_model == 2
     port_fields = {f.name for c in (pc.TrainConfig, pc.MocoConfig, pc.OptimConfig,
                                     pc.DataConfig, pc.ParallelConfig) for f in dataclasses.fields(c)}
     assert port_fields & {f.name for f in dataclasses.fields(jc.ParallelConfig)} == {
-        "num_data", "shard_weight_update", "zero_stage", "zero_bucket_mb",
+        "num_data", "num_model", "shard_weight_update", "zero_stage", "zero_bucket_mb",
         "zero_overlap_gather", "zero_layer_granular"}
 
 
