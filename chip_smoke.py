@@ -377,7 +377,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    added to the kernels line (`launches_12g`).
 12h. Data parallelism (moco_tpu_torch/parallel/), each world in child
    processes that import no JAX. (a) An NCCL group of one: the imagenet_v2
-   preset (ResNet-50 + MLP, K = 65536, batch 256, 224 px, bf16) for 6
+   preset (ResNet-50 + MLP, K = 65536, batch 256, 224 px, bf16) for 4
    steps from phase 8's seeded state on the same batches, on one device,
    through the distributed path (`init_process_group("nccl")`; the
    gradients', BN statistics' and metrics' all-reduces issued), and on one
@@ -392,7 +392,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    reports which collectives its group takes on the card. Per rank, from
    phase 8's seeded state, each rank's batches made by its own ring from
    its rows of the seeded global batch: imagenet_v2 with
-   shuffle="gather_perm" for 6 steps (bf16, the preset's dtype; timed), in
+   shuffle="gather_perm" for 4 steps (bf16, the preset's dtype; timed), in
    float32 without TF32 with "gather_perm" and "syncbn" for 3 steps each,
    and vit_b16_v3 at 2 x 128 rows (flash attention) for 2 steps. Checks: finite losses; the two ranks'
    states (parameters, BN statistics, optimizer buffers, queue) equal bit
@@ -425,8 +425,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    layer-granular; a stage-3 checkpoint (whole tensors gathered onto rank
    0) loaded into a stage-1 state equals the stage-3 state bit for bit;
    then the replicated step and the three layouts in bf16 (the preset's
-   dtype; 5 steps over the 3 batches, stages 2/3 with the training loop's hoisted
-   gather): step ms (the median of the last 3), imgs/s, peak memory,
+   dtype; 3 steps, one per batch, stages 2/3 with the training loop's hoisted
+   gather): step ms (the median of the last 2), imgs/s, peak memory,
    `hbm_state_bytes`, `hbm_model_peak_bytes` and `overlap/zero` per rank,
    beside 12h's peak memory; then the vit_b16_v3_huge_batch_zero3 preset's
    model and parallel settings (its batch of 8192 cut to 2 x 64 rows,
@@ -449,7 +449,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    model group both; NCCL on two cards, else gloo on cuda:0) and, at the
    same time, one of 8 for the ring alone (NCCL on eight cards, else gloo
    on cuda:0); printed. (a) imagenet_v2 (ResNet-50 + MLP, K = 65536, batch
-   256, 224 px) at num_model = 2, in float32 without TF32, 3 steps from
+   256, 224 px) at num_model = 2, in float32 without TF32, 2 steps from
    phase 8's seeded state: each rank holds 32768 rows of the queue and
    runs the InfoNCE kernels on them, the shards' (lse, count) merged over
    the model group; checks: finite losses, the ranks' encoders equal bit
@@ -465,7 +465,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    and against the plain float64 attention (MA_RING_REL, MA_FLASH_REL,
    MA_LSE_TOL). (c) vit_b16_v3_highres_sp through train() at num_model = 2
    (its global batch 1024 and num_model 8 cut to 16 and 2, `reduced`),
-   3 steps from phase 11's seeded weights, in float32 without TF32 and in
+   2 steps from phase 11's seeded weights, in float32 without TF32 and in
    bf16 (the preset's dtype): finite losses; the ranks' states equal after
    every step (a fingerprint of every tensor); per rank per step 2 x 12 x 2
    flash forwards and 12 x 2 dq and dk/dv launches; the ring's
@@ -473,7 +473,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    `grad.seq_psum`; then on rank 0 the dense-flash step on one device on
    the same batches: in float32 each loss within DP_LOSS_RTOL, the first
    step's gradients within MA_GRAD_REL in L2 (the reference's, twice the
-   backbone's, must fail that; the later steps' printed), the 3-step
+   backbone's, must fail that; the later step's printed), the 2-step
    update within MA_UPDATE_REL;
    step ms, imgs/s and peak GB per rank beside the dense step's. Then the
    InfoNCE kernels at a shard's (256, 32768, 128) against their plain
@@ -481,6 +481,38 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    tokens) timed at the model axis's shapes with their plain versions,
    bounds and library calls (`at_12j_shapes`). The launches of (a) and (c)
    are added to the kernels line (`launches_12j`).
+12k. The rest of distributed training (moco_tpu_torch/parallel/zero.py on
+   a model axis, parallel/elastic.py), in child processes that import no
+   JAX: first the InfoNCE kernels against their plain versions at a 2 x 2
+   rank's shapes, (B, K, C) = (128, 32768, 128) (phase 7's checks). (a) a
+   world of 2 x 2 ranks (NCCL on four cards, else gloo on cuda:0):
+   imagenet_v2 (ResNet-50 + MLP, K = 65536, batch 256, 224 px) in float32
+   without TF32, 3 steps each replicated and at ZeRO stages 1 and 3 (the
+   state sharded over the 2 data ranks, the queue's 32768 rows a rank over
+   the model ranks, a data rank's 128 rows on both its model ranks), from
+   phase 8's seeded state on the same batches: finite losses, the ranks'
+   whole states equal after every step (a fingerprint), InfoNCE once per
+   step per rank, the shard's shape and queue_ptr, shards over 2 ranks;
+   against the replicated 2 x 2 step and the one-device step on the whole
+   batches, 12h's oracles (DP_LOSS_RTOL, DP_UPDATE_REL, DP_QUEUE_COS) for
+   each; `hbm_state_bytes` per rank, stage 3 below the replicated step.
+   (b) elastic: the same processes as a world of 4 data ranks (64 rows
+   each, global 256) run imagenet_v2 (bf16, PyTorch's seeded init) through
+   train() with
+   `elastic`, heartbeat_timeout ZK_HEARTBEAT_S, a group timeout of
+   ZK_GROUP_TIMEOUT_S and kill@host=0:at=3 (the writer dies): rank 0 exits
+   113 and the 3 survivors 75; one durable checkpoint, step 3's (extras
+   `reason: "rescale"`, the plan 4 -> 2 ranks, 256 -> 128 rows), and one
+   schema-valid `rescale` line (dead [0], kappa 1/2), both rank 1's; then
+   2 new processes relaunch at the plan (global 128, no --auto-scale):
+   each loads the checkpoint into a fresh state whose payload equals the
+   file's tensor for tensor, bit for bit, then 3 steps through train()
+   (4-6, finite, the ranks equal) with InfoNCE once a step, and lr and EMA
+   momentum `apply_auto_scale`'s at kappa = 1/2. Printed: the signal to
+   the last survivor's exit (host clock, from rank 0's exit) and the
+   relaunch's spawn to its first finished step. The launches of (a), (b)'s
+   survivors and the relaunch are added to the kernels line
+   (`launches_12k`).
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -1176,14 +1208,29 @@ def v2_run(fi, cfg, dataset, state, mode):
             "q_n": q_n, "k_n": k_n, "queue_n": queue_n, "steps_per_epoch": out["steps_per_epoch"]}
 
 
+def seeded_encoder(moco, seed: int) -> tuple:
+    """convert.random_flax_encoder(moco, seed), drawn once per process for
+    the fields it reads (state_from_flax copies, never writes, the arrays)."""
+    from moco_tpu_torch.convert import random_flax_encoder
+
+    key = (moco.arch, moco.dim, moco.mlp, moco.v3, moco.cifar_stem, moco.vit_patch_size,
+           moco.vit_pool, seed)
+    if key not in _SEEDED:
+        _SEEDED[key] = random_flax_encoder(moco, seed=seed)
+    return _SEEDED[key]
+
+
+_SEEDED: dict = {}  # seeded_encoder's draws in this process
+
+
 def seeded_v2_state(cfg, world=None, device="cuda"):
     """A v1/v2 train state of `cfg` on the card from seeded Flax-layout
     weights (the key encoder from the next seed) and a seeded unit-row
     queue, through convert.state_from_flax (SyncBNs over `world`)."""
-    from moco_tpu_torch.convert import random_flax_encoder, state_from_flax
+    from moco_tpu_torch.convert import state_from_flax
 
-    params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
-    params_k, stats_k = random_flax_encoder(cfg.moco, seed=SEED + 1)
+    params_q, stats_q = seeded_encoder(cfg.moco, SEED)
+    params_k, stats_k = seeded_encoder(cfg.moco, SEED + 1)
     queue = np.random.default_rng(SEED + 2).standard_normal((K, DIM)).astype(np.float32)
     queue /= np.linalg.norm(queue, axis=1, keepdims=True)
     return state_from_flax(cfg, {
@@ -1614,10 +1661,10 @@ def seeded_v3_state(cfg, world=None, device="cuda"):
     """A v3 train state of `cfg` on the card from seeded Flax-layout weights
     (the key encoder and the predictor from the next seeds), through
     convert.state_from_flax (its heads' SyncBNs over `world`)."""
-    from moco_tpu_torch.convert import random_flax_encoder, random_flax_predictor, state_from_flax
+    from moco_tpu_torch.convert import random_flax_predictor, state_from_flax
 
-    params_q, stats_q = random_flax_encoder(cfg.moco, seed=SEED)
-    params_k, stats_k = random_flax_encoder(cfg.moco, seed=SEED + 1)
+    params_q, stats_q = seeded_encoder(cfg.moco, SEED)
+    params_k, stats_k = seeded_encoder(cfg.moco, SEED + 1)
     params_p, stats_p = random_flax_predictor(cfg.moco, seed=SEED + 2)
     return state_from_flax(cfg, {
         "step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
@@ -3838,7 +3885,7 @@ def post(port, path, imgs):
 # NCCL when the machine has two)
 # the v2 steps held to their oracles, the v2 steps of the bf16 runs (the
 # median of those after the first two is their step ms), v3's, the ranks
-DP_STEPS, DP_TIMED_STEPS, DP_V3_STEPS, DP_RANKS = 3, 6, 2, 2
+DP_STEPS, DP_TIMED_STEPS, DP_V3_STEPS, DP_RANKS = 3, 4, 2, 2
 DP_TIMEOUT_S = 300.0  # the process groups' timeout, and the children's join budget past it
 # 12h(b)'s oracles, in float32 without TF32 (in bf16 the oracle's losses
 # drifted as far as whole-batch BN's against per-rank BN): the
@@ -3878,15 +3925,28 @@ def dp_tensors(state) -> dict:
     return out
 
 
-def dp_digest(state) -> str:
-    """sha256 over every tensor of the state, by name."""
+def tensor_fingerprint(tensors: dict, skip=()) -> str:
+    """sha256 over per-tensor position-weighted sums of the bytes of every
+    tensor of `tensors` but `skip`'s, by name (on the card, exact in int64):
+    equal states give equal prints, and two states that differ anywhere
+    differ with overwhelming probability; no copy of the state to the
+    host."""
     import hashlib
 
     h = hashlib.sha256()
-    for k, t in sorted(dp_tensors(state).items()):
-        h.update(k.encode())
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    for name, t in sorted(tensors.items()):
+        if name in skip:
+            continue
+        b = t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64)
+        w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 65521 + 1
+        h.update(name.encode())
+        h.update(int((b * w).sum()).to_bytes(8, "little", signed=True))
     return h.hexdigest()
+
+
+def dp_digest(state) -> str:
+    """`tensor_fingerprint` of every tensor of the state."""
+    return tensor_fingerprint(dp_tensors(state))
 
 
 def dp_sha(t) -> str:
@@ -4351,7 +4411,7 @@ ZERO_LAYOUTS = {
     "layer": {"shard_weight_update": True, "zero_stage": 3, "zero_layer_granular": True},
 }
 ZERO_STEPS = 3  # steps of each float32 imagenet_v2 run (and its ring batches)
-ZERO_BF16_STEPS = 5  # steps of each bf16 run, over the same batches in turn
+ZERO_BF16_STEPS = 3  # steps of each bf16 run, one per batch
 ZERO_V3_ROWS, ZERO_V3_STEPS = 64, 2  # the zero3 preset's 8192 cut to 2 x 64
 ZERO_PROBE_TRAIN, ZERO_PROBE_VAL, ZERO_PROBE_BATCH = 64, 32, 32
 
@@ -4383,13 +4443,7 @@ def zero_tensors(state) -> dict:
 
 
 def zero_digest(state) -> str:
-    import hashlib
-
-    h = hashlib.sha256()
-    for k, t in sorted(zero_tensors(state).items()):
-        h.update(k.encode())
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    return h.hexdigest()
+    return tensor_fingerprint(zero_tensors(state))
 
 
 def zero_probe_reduce_scatter(world) -> str:
@@ -4785,7 +4839,7 @@ def zero_phase(fi, dp_peak_gb=None):
 # gloo with both on cuda:0) runs (a), (b) at n = 2 and (c); a world of 8
 # ranks (NCCL on eight cards, else gloo on cuda:0) runs (b) at n = 8
 MA_RANKS, MA_RING_WIDE = 2, 8
-MA_STEPS = 3  # steps of (a) and of each run of (c)
+MA_STEPS = 2  # steps of (a) and of each run of (c)
 MA_EPOCH_STEPS = 4  # (c)'s epochs: the lr and momentum schedules' steps_per_epoch
 MA_SP_BATCH = 16  # vit_b16_v3_highres_sp's global batch 1024 cut to one card's phase
 MA_RING_B = 2  # (b): ViT-B/16 at 448 px, S = 784 tokens, H = 12, D = 64, bf16
@@ -5325,12 +5379,474 @@ def model_axis_phase(fi, fa):
         shutil.rmtree(tmp)
 
 
+# phase 12k: the rest of distributed training on the card (module
+# docstring). (a) a world of 2 x 2 (num_data x num_model: NCCL on four cards,
+# else gloo with every rank on cuda:0) runs imagenet_v2 replicated and at
+# ZeRO stages 1 and 3; (b) the same processes then form a world of 4 data
+# ranks that runs imagenet_v2 through train() under elastic with
+# kill@host=0, and 2 new processes relaunch the survivors' plan
+ZK_NUM_DATA, ZK_NUM_MODEL = 2, 2
+ZK_RANKS = ZK_NUM_DATA * ZK_NUM_MODEL
+ZK_STEPS = 3  # (a)'s float32 steps per layout, and the relaunch's steps
+ZK_LAYOUTS = (("dp", {}), ("stage1", ZERO_LAYOUTS["stage1"]), ("stage3", ZERO_LAYOUTS["stage3"]))
+ZK_KILL_AT = 3  # (b): kill@host=0:at=3, rank 0 (the writer) dies at its step-3 log processing
+ZK_EPOCH_STEPS = 8  # (b)'s steps_per_epoch: the kill lands mid-epoch
+# (b)'s heartbeat_timeout, and its process group's timeout: a survivor
+# blocked in a collective on a peer that has left it waits that long (gloo
+# keeps a group's sockets open after the abort), so the rescale's
+# signal-to-exit is bounded by about the larger of the two
+ZK_HEARTBEAT_S, ZK_GROUP_TIMEOUT_S = 4.0, 20.0
+ZK_TIMEOUT_S = 300.0
+
+
+def zk_fingerprint(tensors: dict) -> str:
+    """`tensor_fingerprint` but the queue (a model rank holds its own rows)."""
+    return tensor_fingerprint(tensors, skip=("queue",))
+
+
+@functools.lru_cache(maxsize=None)
+def zk_tree(moco) -> dict:
+    """`seeded_v2_state`'s numpy tree, made once per process."""
+    params_q, stats_q = seeded_encoder(moco, SEED)
+    params_k, stats_k = seeded_encoder(moco, SEED + 1)
+    queue = np.random.default_rng(SEED + 2).standard_normal((K, DIM)).astype(np.float32)
+    queue /= np.linalg.norm(queue, axis=1, keepdims=True)
+    return {"step": 0, "params_q": params_q, "batch_stats_q": stats_q, "params_k": params_k,
+            "batch_stats_k": stats_k, "queue": queue, "queue_ptr": 0}
+
+
+def zk_whole(state) -> dict:
+    """`zero_tensors` (whole parameters and optimizer buffers: a collective
+    under ZeRO) with the whole queue (a gather over the model group)."""
+    out = dict(zero_tensors(state))
+    out["queue"] = state.full_queue()
+    return out
+
+
+def zk_fresh_state(cfg, world):
+    """A train state of `cfg` from PyTorch's own seeded init (no numpy
+    init: (b)'s run and the relaunch, which loads the checkpoint into it)."""
+    from moco_tpu_torch.core.moco import build_encoder, create_state
+
+    torch.manual_seed(SEED)
+    return create_state(cfg, build_encoder(cfg.moco, world=world), device=world.device,
+                        world=world)
+
+
+def zk_elastic_config(workdir: str, batch: int):
+    """imagenet_v2 (bf16) on synthetic data under elastic, a log line and a
+    heartbeat every step, ZK_EPOCH_STEPS steps an epoch."""
+    cfg = dp_config("imagenet_v2")
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, global_batch=batch),
+        optim=dataclasses.replace(cfg.optim, epochs=1),
+        parallel=dataclasses.replace(cfg.parallel, timeout_s=ZK_GROUP_TIMEOUT_S),
+        workdir=workdir, elastic=True, heartbeat_timeout=ZK_HEARTBEAT_S, log_every=1,
+        steps_per_epoch=ZK_EPOCH_STEPS, obs_probe_every=0)
+
+
+def zk_rank_child(rank: int, backend: str, device: str, tmp: str, workdir: str) -> None:
+    """12k, rank `rank`: (a) in the 2 x 2 world (ZK_NUM_DATA x
+    ZK_NUM_MODEL), imagenet_v2 in float32 without TF32, replicated and at
+    ZeRO stages 1 and 3, ZK_STEPS steps each on the same batches (this data
+    rank's rows, K / 2 queue rows a rank), rank 0 then the one-device step
+    on the whole batches; written to zk_rank<r>_a.json. (b) a world of 4
+    data ranks: train() under elastic with kill@host=0 (this process exits
+    113 on rank 0, 75 on a survivor); written to zk_rank<r>_b.json."""
+    from moco_tpu_torch.convert import state_from_flax
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.data.pipeline import TwoCropPipeline
+    from moco_tpu_torch.ops import fused_infonce as fi
+    from moco_tpu_torch.parallel.dist import DataPartition
+    from moco_tpu_torch.parallel.mesh import init_world
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.utils import faults
+
+    out = {"rank": rank, "backend": backend, "device": device, "sections": {}}
+    t_start = time.perf_counter()
+    try:
+        world = init_world(backend, rank, ZK_RANKS, device=device,
+                           store_path=os.path.join(tmp, "store_a"), timeout_s=ZK_TIMEOUT_S,
+                           num_model=ZK_NUM_MODEL)
+        dev = world.device
+        finals, init = {}, None
+        try:
+            cfg = dp_config("imagenet_v2", compute_dtype="float32")
+            b = cfg.data.global_batch
+            dataset = SyntheticDataset(b * EPOCH_STEPS, IMG)
+            part = DataPartition.of(world, b)
+            with TwoCropPipeline(cfg.data, seed=cfg.seed, dataset=dataset, device=dev,
+                                 partition=part) as pipe:
+                it = pipe.epoch(0, device=True, stop=ZK_STEPS)
+                try:
+                    batches = [{k: v.clone() for k, v in bt.items()} for bt in it]
+                finally:
+                    it.close()
+            with dp_full_f32():
+                for name, par in ZK_LAYOUTS:
+                    t0 = time.perf_counter()
+                    c = dataclasses.replace(cfg, parallel=dataclasses.replace(
+                        cfg.parallel, num_model=ZK_NUM_MODEL, **par))
+                    state = state_from_flax(c, zk_tree(c.moco), device=dev, world=world)
+                    if init is None:
+                        init = {k: v.detach().cpu().clone() for k, v in zk_whole(state).items()}
+                    step = dp_make_step(c, dev, world)
+                    world.ledger.reset()
+                    fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+                    run = {"losses": [], "ms": [], "prints": []}
+                    for batch in batches:
+                        torch.cuda.synchronize(dev)
+                        t1 = time.perf_counter()
+                        run["losses"].append(step(state, batch)["loss"].item())
+                        torch.cuda.synchronize(dev)
+                        run["ms"].append((time.perf_counter() - t1) * 1e3)
+                        run["prints"].append(zk_fingerprint(zk_whole(state)))
+                    run["launches"] = {"infonce_fwd": fi.infonce_stats.launches,
+                                       "infonce_bwd": fi.infonce_dq.launches}
+                    run["queue_shape"] = list(state.queue.shape)
+                    run["queue_ptr"] = state.queue_ptr
+                    run["hbm_state_bytes"] = zero_state_bytes(state)
+                    run["shard_n"] = None if state.zero is None else state.zero.n
+                    run["ledger"] = world.ledger.payload()
+                    whole = zk_whole(state)
+                    if rank == 0:
+                        finals[name] = {k: v.detach().cpu().clone() for k, v in whole.items()}
+                    out[name] = run
+                    del state, step, whole
+                    torch.cuda.empty_cache()
+                    out["sections"][name] = round(time.perf_counter() - t0, 2)
+            world.barrier()
+        finally:
+            world.close()
+        if rank == 0:  # the one-device oracle on the whole batches, then the comparisons
+            # (12h's: per-rank BN as ZK_NUM_DATA virtual groups, the same permutations)
+            t0 = time.perf_counter()
+            one = dataclasses.replace(cfg, moco=dataclasses.replace(
+                cfg.moco, bn_virtual_groups=ZK_NUM_DATA))
+            with TwoCropPipeline(one.data, seed=one.seed, dataset=dataset, device=dev) as pipe:
+                whole_batches = [pipe.batch(0, s) for s in range(ZK_STEPS)]
+            with dp_full_f32():
+                state = state_from_flax(one, zk_tree(one.moco), device=dev)
+                step = dp_make_step(one, dev)
+                oracle = {"losses": [step(state, batch)["loss"].item()
+                                     for batch in whole_batches]}
+                oracle_tensors = {k: v.detach().cpu() for k, v in dp_tensors(state).items()}
+            rows = ZK_STEPS * b
+            out["against"] = {
+                f"{name}_vs_{ref}": compare_tensors(
+                    want, init, finals[name], out[name]["losses"], want_losses, rows)
+                for name in ("dp", "stage1", "stage3")
+                for ref, want, want_losses in (("one_device", oracle_tensors, oracle["losses"]),
+                                               ("dp", finals["dp"], out["dp"]["losses"]))
+                if name != ref}
+            out["oracle"] = oracle
+            del state, step, finals, oracle_tensors, whole_batches
+            torch.cuda.empty_cache()
+            out["sections"]["oracle"] = round(time.perf_counter() - t0, 2)
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    out["wall_s"] = time.perf_counter() - t_start
+    with open(os.path.join(tmp, f"zk_rank{rank}_a.json"), "w") as f:
+        json.dump(out, f, default=str)
+    if "error" in out:
+        return
+    # (b) elastic: a world of 4 data ranks, rank 0 killed at step ZK_KILL_AT
+    res = {"rank": rank}
+    code = 0
+    try:
+        world = init_world(backend, rank, ZK_RANKS, device=device,
+                           store_path=os.path.join(tmp, "store_b"),
+                           timeout_s=ZK_GROUP_TIMEOUT_S)
+        cfg = zk_elastic_config(workdir, 256)
+        state = zk_fresh_state(cfg, world)
+        faults.install(f"kill@host=0:at={ZK_KILL_AT}")
+        fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+        records: list = []
+        res["t_train"] = time.time()
+
+        def log(rec):
+            rec["t"] = time.time()
+            records.append(rec)
+
+        try:
+            train(cfg, dataset=SyntheticDataset(256 * ZK_EPOCH_STEPS, IMG), device=world.device,
+                  world=world, state=state, log=log)
+            res["error"] = "train() returned: no rescale"
+        except SystemExit as e:
+            code = e.code
+        finally:
+            world.close()  # aborted by the rescale: no teardown with the lost peer
+        res.update(exit=code, t_exit=time.time(), losses=[r["loss"] for r in records],
+                   steps=[r["step"] for r in records], t_steps=[r["t"] for r in records],
+                   launches={"infonce_fwd": fi.infonce_stats.launches,
+                             "infonce_bwd": fi.infonce_dq.launches})
+    except BaseException:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"zk_rank{rank}_b.json"), "w") as f:
+        json.dump(res, f, default=str)
+    sys.stdout.flush()
+    os._exit(code if isinstance(code, int) and "error" not in res else 1)
+
+
+def zk_relaunch_child(rank: int, n: int, backend: str, device: str, tmp: str, workdir: str,
+                      t_spawn: float) -> None:
+    """12k(b)'s relaunch, rank `rank` of `n` at the plan's batch: the
+    emergency checkpoint loaded into a fresh state and held to the file bit
+    for bit (its `state_payload` against the file's, every tensor), then
+    ZK_STEPS steps through train() (which resumes the same file) with the
+    live lr and momentum; zk_relaunch<r>.json."""
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.ops import fused_infonce as fi
+    from moco_tpu_torch.parallel.mesh import init_world
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_state_payload,
+        state_payload,
+    )
+
+    out = {"rank": rank, "t_spawn": t_spawn, "t_start": time.time()}
+    try:
+        world = init_world(backend, rank, n, device=device,
+                           store_path=os.path.join(tmp, "store_c"), timeout_s=ZK_TIMEOUT_S)
+        try:
+            batch = 256 * n // ZK_RANKS
+            cfg = zk_elastic_config(workdir, batch)
+            state = zk_fresh_state(cfg, world)
+            mgr = CheckpointManager(workdir)
+            payload, extra = mgr.restore()
+            mgr.close()
+            load_state_payload(state, payload)
+            mine = state_payload(state, cfg.moco.arch, payload["epoch"])
+
+            def flat(tree, prefix=""):
+                if isinstance(tree, dict):
+                    for k, v in tree.items():
+                        yield from flat(v, f"{prefix}{k}.")
+                elif torch.is_tensor(tree):
+                    yield prefix[:-1], tree
+
+            want = dict(flat({"sd": payload["state_dict"], "opt": payload["optimizer"]}))
+            got = dict(flat({"sd": mine["state_dict"], "opt": mine["optimizer"]}))
+            out["resume_unequal"] = sorted(
+                k for k in set(want) | set(got)
+                if k not in want or k not in got
+                or not torch.equal(want[k].cpu(), got[k].detach().cpu()))
+            out["resume_tensors"] = len(want)
+            out["ckpt_step"], out["ckpt_extra"] = payload["step"], extra
+            fi.infonce_stats.launches = fi.infonce_dq.launches = 0
+            records: list = []
+
+            def log(rec):
+                if not records:
+                    out["t_first_step"] = time.time()
+                records.append(rec)
+
+            res = train(cfg, dataset=SyntheticDataset(batch * ZK_EPOCH_STEPS, IMG),
+                        device=world.device, world=world, steps=ZK_STEPS, state=state, log=log)
+            out.update(losses=[r["loss"] for r in records], steps=[r["step"] for r in records],
+                       lr=res["config"].optim.lr, momentum=res["config"].moco.momentum,
+                       batch=batch, launches={"infonce_fwd": fi.infonce_stats.launches,
+                                              "infonce_bwd": fi.infonce_dq.launches},
+                       print=zk_fingerprint(dp_tensors(res["state"])))
+            world.barrier()
+        finally:
+            world.close()
+    except BaseException:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"zk_relaunch{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+
+
+def zk_infonce_check(fi) -> dict:
+    """The InfoNCE kernels against their plain versions at a 2 x 2 rank's
+    shapes: (B, K, C) = (128, 32768, 128), its data rank's rows against its
+    queue shard (phase 7's checks)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    b, kk = 256 // ZK_NUM_DATA, K // ZK_NUM_MODEL
+    q, k, queue = (torch.nn.functional.normalize(
+        torch.randn(shape, generator=gen, device="cuda"), dim=-1)
+        for shape in ((b, DIM), (b, DIM), (kk, DIM)))
+    g = torch.full((b,), 1.0 / b, device="cuda")
+    return compare_infonce(fi, q, k, queue, 0.2, g, f"B={b} K={kk} C={DIM} (a 2 x 2 rank)")
+
+
+def zk_phase(fi):
+    """Phase 12k (module docstring); returns its JSON and the launches of
+    its paths per process."""
+    import torch.multiprocessing as mp
+
+    from moco_tpu_torch.obs.schema import validate_line
+    from moco_tpu_torch.utils.checkpoint import CheckpointManager
+    from moco_tpu_torch.utils.config import apply_auto_scale
+    from moco_tpu_torch.utils.contracts import KILL_EXIT_CODE, RESCALE_EXIT_CODE
+
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zk_")
+    workdir = os.path.join(tmp, "elastic")
+    try:
+        t0 = time.perf_counter()
+        infonce = zk_infonce_check(fi)
+        count = torch.cuda.device_count()
+        backend, devices = (("nccl", [f"cuda:{r}" for r in range(ZK_RANKS)])
+                            if count >= ZK_RANKS else ("gloo", ["cuda:0"] * ZK_RANKS))
+        print(f"12k: {ZK_RANKS} ranks, backend {backend}, devices {sorted(set(devices))}",
+              flush=True)
+        procs = [ctx.Process(target=zk_rank_child, args=(r, backend, devices[r], tmp, workdir))
+                 for r in range(ZK_RANKS)]
+        for p in procs:
+            p.start()
+        # each process's exit, on the host clock: (b)'s kill and rescale exits
+        exits: dict = {}
+        deadline = time.monotonic() + 3 * ZK_TIMEOUT_S
+        while len(exits) < ZK_RANKS and time.monotonic() < deadline:
+            for r, p in enumerate(procs):
+                if r not in exits and p.exitcode is not None:
+                    exits[r] = (p.exitcode, time.time())
+            time.sleep(0.02)
+        codes = dp_join(procs, 10.0)
+        ranks = []
+        for r in range(ZK_RANKS):
+            with open(os.path.join(tmp, f"zk_rank{r}_a.json")) as f:
+                ranks.append(json.load(f))
+        for r, res in enumerate(ranks):
+            print(f"12k(a) rank {r}: seconds by part {res.get('sections')}, wall "
+                  f"{res.get('wall_s')}", flush=True)
+        check(not any("error" in r for r in ranks),
+              f"12k(a): {[r.get('error') for r in ranks]}")
+        # (a) ZeRO over the data group of the 2 x 2 world
+        b = 256
+        for r, res in enumerate(ranks):
+            for name, _ in ZK_LAYOUTS:
+                run = res[name]
+                check(len(run["losses"]) == ZK_STEPS and all(np.isfinite(run["losses"])),
+                      f"12k(a) rank {r} {name}: losses {run['losses']}")
+                check(run["prints"] == ranks[0][name]["prints"],
+                      f"12k(a) {name}: rank {r} out of lockstep")
+                check(run["launches"] == {"infonce_fwd": ZK_STEPS, "infonce_bwd": ZK_STEPS},
+                      f"12k(a) rank {r} {name}: InfoNCE launches {run['launches']}")
+                check(run["queue_shape"] == [K // ZK_NUM_MODEL, DIM]
+                      and run["queue_ptr"] == ZK_STEPS * b % K,
+                      f"12k(a) rank {r} {name}: queue shard {run['queue_shape']}, "
+                      f"ptr {run['queue_ptr']}")
+                check(run["shard_n"] in (None, ZK_NUM_DATA),
+                      f"12k(a) rank {r} {name}: shards over {run['shard_n']} ranks")
+
+        def meets(o):
+            return (o["loss_rel"] <= DP_LOSS_RTOL and o["update_rel"] <= DP_UPDATE_REL
+                    and o["queue_min_cos"] >= DP_QUEUE_COS)
+
+        against = ranks[0]["against"]
+        for key, o in against.items():
+            print(f"12k(a) {key}: {json.dumps(o)}", flush=True)
+            check(meets(o), f"12k(a) {key}: {o}")
+        state_bytes = {f"rank{r}": {name: res[name]["hbm_state_bytes"] for name, _ in ZK_LAYOUTS}
+                       for r, res in enumerate(ranks)}
+        print(f"12k(a) hbm_state_bytes per rank: {json.dumps(state_bytes)}", flush=True)
+        check(all(s["stage3"] < s["dp"] for s in state_bytes.values()),
+              f"12k(a): stage 3 holds no less than the replicated step: {state_bytes}")
+        # (b) elastic
+        el = {}
+        for r in range(ZK_RANKS):
+            path = os.path.join(tmp, f"zk_rank{r}_b.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    el[r] = json.load(f)
+        print(f"12k(b) exit codes {codes}", flush=True)
+        check(codes == [KILL_EXIT_CODE] + [RESCALE_EXIT_CODE] * (ZK_RANKS - 1),
+              f"12k(b): exit codes {codes}: {[el.get(r, {}).get('error') for r in range(4)]}")
+        check(sorted(el) == [1, 2, 3] and not any("error" in v for v in el.values()),
+              f"12k(b): survivors' records {el}")
+        signal_to_exit = max(exits[r][1] for r in (1, 2, 3)) - exits[0][1]
+        mgr = CheckpointManager(workdir)
+        steps_on_disk = mgr.all_steps()
+        extra = mgr.read_extra(steps_on_disk[-1]) if steps_on_disk else {}
+        mgr.close()
+        check(steps_on_disk == [ZK_KILL_AT] and extra.get("reason") == "rescale"
+              and extra.get("emergency") and extra["rescale"]["new_num_data"] == 2
+              and extra["rescale"]["new_global_batch"] == 128,
+              f"12k(b): checkpoints {steps_on_disk}, extras {extra}")
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        rescale = [ln for ln in lines if ln.get("event") == "rescale"]
+        check(len(rescale) == 1 and validate_line(rescale[0]) == []
+              and rescale[0]["rescale/dead_hosts"] == [0]
+              and rescale[0]["rescale/new_num_data"] == 2
+              and rescale[0]["rescale/new_global_batch"] == 128
+              and rescale[0]["rescale/kappa"] == 0.5,
+              f"12k(b): rescale lines {rescale}")
+        # the relaunch at the plan's width
+        t_spawn = time.time()
+        relaunch = [ctx.Process(target=zk_relaunch_child, args=(
+            r, 2, backend, devices[r], tmp, workdir, t_spawn)) for r in range(2)]
+        for p in relaunch:
+            p.start()
+        rcodes = dp_join(relaunch, 2 * ZK_TIMEOUT_S)
+        rel = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"zk_relaunch{r}.json")) as f:
+                rel.append(json.load(f))
+        check(rcodes == [0, 0] and not any("error" in r for r in rel),
+              f"12k(b) relaunch: exit {rcodes}: {[r.get('error') for r in rel]}")
+        want, _ = apply_auto_scale(dataclasses.replace(zk_elastic_config(workdir, 128),
+                                                       auto_scale="ref_batch=256"))
+        for r, res in enumerate(rel):
+            check(res["resume_unequal"] == [] and res["ckpt_step"] == ZK_KILL_AT,
+                  f"12k(b) relaunch rank {r}: resume differs in {res['resume_unequal'][:5]}")
+            check(res["steps"] == [ZK_KILL_AT + i + 1 for i in range(ZK_STEPS)]
+                  and all(np.isfinite(res["losses"])) and res["print"] == rel[0]["print"],
+                  f"12k(b) relaunch rank {r}: steps {res['steps']}, losses {res['losses']}")
+            check(res["launches"] == {"infonce_fwd": ZK_STEPS, "infonce_bwd": ZK_STEPS},
+                  f"12k(b) relaunch rank {r}: InfoNCE launches {res['launches']}")
+            check(res["lr"] == want.optim.lr and res["momentum"] == want.moco.momentum,
+                  f"12k(b) relaunch rank {r}: lr {res['lr']}, momentum {res['momentum']} "
+                  f"!= {want.optim.lr}, {want.moco.momentum}")
+        relaunch_to_first_step = max(res["t_first_step"] for res in rel) - t_spawn
+        b_out = {"exit_codes": codes, "signal_to_exit_s": signal_to_exit,
+                 "survivor_exit_s": {r: exits[r][1] - exits[0][1] for r in (1, 2, 3)},
+                 "relaunch_to_first_step_s": relaunch_to_first_step,
+                 "rescale_line": {k: v for k, v in rescale[0].items()
+                                  if k.startswith("rescale/")},
+                 "relaunch": [{k: res[k] for k in ("losses", "steps", "lr", "momentum", "batch",
+                                                   "resume_tensors")} for res in rel],
+                 "survivor_losses": {r: v["losses"] for r, v in el.items()},
+                 "survivor_step_s": {r: [t - v["t_train"] for t in v["t_steps"]]
+                                     for r, v in el.items()}}
+        print(f"12k(b) elastic: {json.dumps(b_out)}", flush=True)
+        launches = [{k: sum(res[name]["launches"][k] for name, _ in ZK_LAYOUTS)
+                     + el.get(r, {}).get("launches", {}).get(k, 0)
+                     for k in ("infonce_fwd", "infonce_bwd")} for r, res in enumerate(ranks)]
+        launches += [res["launches"] for res in rel]
+        return {"backend": backend, "devices": devices, "wall_s": time.perf_counter() - t0,
+                "infonce_at_rank_shapes": infonce,
+                "a": {"against": against, "hbm_state_bytes": state_bytes,
+                      "ranks": [{name: {k: res[name][k] for k in ("losses", "ms", "ledger")}
+                                 for name, _ in ZK_LAYOUTS} for res in ranks],
+                      "oracle": ranks[0]["oracle"], "sections": [r["sections"] for r in ranks]},
+                "b": b_out}, launches
+    finally:
+        shutil.rmtree(tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     smi = nvidia_smi_line()
     print(smi, flush=True)
+    t_main, t_lap = time.perf_counter(), [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """The phase's seconds and the script's so far, on the host clock."""
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_lap[0]:.1f} s (script {now - t_main:.1f} s)", flush=True)
+        t_lap[0] = now
 
     from moco_tpu_torch.convert import encoder_from_flax, random_flax_encoder
     from moco_tpu_torch.core.moco import build_encoder
@@ -5347,11 +5863,13 @@ def main() -> int:
     print(f"build: {len(logs)} kernel(s) in {time.perf_counter() - t0:.2f} s", flush=True)
     print_ptxas(logs)
     tensor_core_check(build)
+    lap("build")
 
     # -- kernel vs plain ----------------------------------------------------
     max_err = kernel_phase(ivf_scan)
     infonce_err = infonce_kernel_phase(fused_infonce)
     flash_err = flash_kernel_phase(fa)
+    lap("kernels")
 
     # -- path at full width -------------------------------------------------
     cfg = PRESETS["imagenet_v2"]
@@ -5435,6 +5953,7 @@ def main() -> int:
         for mode in F32_MODES
     }
     print(json.dumps({"engine_ms": engine_ms, "query_ms": query_ms, "device": smi}))
+    lap("serving path")
     # kept for the kernel's own timing at the end: the cell-major copy of the
     # index and the path's queries and probes
     cell_rows = index._ivf_device_cell_rows()
@@ -5448,11 +5967,13 @@ def main() -> int:
     for rec, worst in zip(train_kernels, (infonce_err["fwd"], infonce_err["bwd"])):
         rec["max_abs_err"] = max(rec["max_abs_err"], worst)
     print(json.dumps({"train": train_timing, "device": smi}))
+    lap("8 train")
     torch.cuda.empty_cache()
 
     # -- v3 path at full width -----------------------------------------------
     v3_kernels, v3_timing = v3_phase(fa, flash_err)
     print(json.dumps({"v3": v3_timing, "device": smi}))
+    lap("11 v3")
 
     # -- the closed loop: checkpoints, resume, guard, kNN, probe ----------------
     workdir = tempfile.mkdtemp(prefix="chip_smoke_loop_")
@@ -5461,6 +5982,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir)
     print(json.dumps({"loop": loop, "device": smi}))
+    lap("12b loop")
     torch.cuda.empty_cache()
 
     # -- fault tolerance and health: preemption, watchdog, async saves, alerts --
@@ -5470,10 +5992,12 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir)
     print(json.dumps({"faults": faults_out, "device": smi}))
+    lap("12c faults")
     torch.cuda.empty_cache()
 
     # -- the options of the v2 step: virtual Shuffle-BN, LARS, remat, EMAN ------
     print(json.dumps({"step_options": step_options_phase(fused_infonce), "device": smi}))
+    lap("12d step options")
     torch.cuda.empty_cache()
 
     # -- train to serve: a v2 and a v3 checkpoint served, the ViT probed, exported --
@@ -5485,6 +6009,7 @@ def main() -> int:
         shutil.rmtree(serve_dir)
         raise
     print(json.dumps({"train_to_serve": serve_out, "device": smi}))
+    lap("12e train to serve")
     torch.cuda.empty_cache()
 
     # -- observability: the run's telemetry, the window, the request waterfall --
@@ -5497,6 +6022,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir)
     print(json.dumps({"observability": obs_out, "device": smi}))
+    lap("12f observability")
     torch.cuda.empty_cache()
 
     # -- serving, the rest: int8 tiers, quantized engines, ingest, freshness ----
@@ -5508,23 +6034,34 @@ def main() -> int:
         shutil.rmtree(workdir)
         shutil.rmtree(serve_dir)
     print(json.dumps({"serving_rest": rest_out, "device": smi}))
+    lap("12g serving, the rest")
     torch.cuda.empty_cache()
 
     # -- data parallelism: an NCCL world of one, two ranks on the card --------
     dp_out, dp_launches = dp_phase(fused_infonce)
     print(json.dumps({"data_parallel": dp_out, "device": smi}))
+    lap("12h data parallel")
 
     # -- ZeRO: the sharded update at each layout, two ranks on the card -------
     zero_out, zero_launches = zero_phase(fused_infonce, [
         {"v2": rank["gather_perm"]["peak_gb"], "v3": rank["v3"]["peak_gb"]}
         for rank in dp_out["b"]["ranks"]])
     print(json.dumps({"zero": zero_out, "device": smi}))
+    lap("12i zero")
 
     # -- the model axis: the sharded queue, ring attention, the SP preset -----
     t0 = time.perf_counter()
     ma_out, ma_launches, ma_shapes = model_axis_phase(fused_infonce, fa)
     ma_out["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"model_axis": ma_out, "device": smi}))
+    lap("12j model axis")
+
+    # -- the rest of distributed training: ZeRO on a 2 x 2 world, elastic --------
+    t0 = time.perf_counter()
+    zk_out, zk_launches = zk_phase(fused_infonce)
+    zk_out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"zero_model_elastic": zk_out, "device": smi}))
+    lap("12k zero on the model axis, elastic")
     obs_infonce = {k: obs_launches["a"][k] + obs_launches["b"][k]
                    for k in ("infonce_fwd", "infonce_bwd")}
     for rec in train_kernels:
@@ -5558,7 +6095,14 @@ def main() -> int:
         rec["at_12j_shapes"] = ma_shapes[rec["name"]]
         if "max_abs_err" in ma_shapes[rec["name"]][0]:
             rec["max_abs_err"] = max(rec["max_abs_err"], ma_shapes[rec["name"]][0]["max_abs_err"])
+        per = [r.get(rec["name"], 0) for r in zk_launches]  # 12k: per process
+        rec["launches"] += sum(per)
+        rec["launches_12k"] = {**{f"rank{i}": n for i, n in enumerate(per[:ZK_RANKS])},
+                               **{f"relaunch{i}": n for i, n in enumerate(per[ZK_RANKS:])}}
+    for rec, key in zip(train_kernels, ("pos", "dq")):  # 12k's rank shapes
+        rec["max_abs_err"] = max(rec["max_abs_err"], zk_out["infonce_at_rank_shapes"][key])
     kernels = [ivf_kernel, *train_kernels, *v3_kernels]
+    lap("13 ivf timing")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

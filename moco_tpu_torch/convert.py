@@ -365,8 +365,9 @@ def state_from_flax(config: TrainConfig, tree: dict, device="cuda",
     The tree may be a ZeRO state's: parameters and optimizer moments in
     the (n, m) layout are unsharded with the full shapes, as
     `unshard_tree_host` does (a v3 tree so needs `mlp_hidden`); the port's
-    state is then sharded over `world` by `config`'s ZeRO fields
-    (`core/moco.py::shard_state`)."""
+    state is then sharded over `world`'s data ranks by `config`'s ZeRO
+    fields (`core/moco.py::shard_state`), on a (data, model) mesh too (n
+    is its num_data), with the queue's rows sharded over its model ranks."""
     def hidden(head):
         return mlp_hidden if mlp_hidden is not None else np.shape(head["Dense_0"]["kernel"])[-1]
 

@@ -120,6 +120,14 @@ the model ranks of a data rank take the same rows):
   backbone's partial gradients are summed over the model ranks
   (`grad.seq_psum`, :957-968). The result is the dense gradient; JAX's is
   num_model times it in the backbone (ROADMAP.md, queue 3).
+
+ZeRO on a model axis (:1225-1243): the state is sharded over the data
+ranks only (parallel/zero.py), so the model ranks of a data index hold the
+same shards. v1/v2 with a sharded queue first means the gradients over the
+model group (JAX's `pmean(grads, MODEL_AXIS)`, which records no ledger
+site there either), then the stage's data-group update; v3 under sequence
+parallelism sums the backbone's partial gradients over the model ranks
+(`grad.seq_psum`), then the stage's update.
 """
 
 from __future__ import annotations
@@ -388,11 +396,11 @@ def shard_state(state: TrainState, config: TrainConfig, world: World,
     layout's shards of this rank, the optimizer rebuilt over them in the
     replicated one's parameter order and groups (its state, if any, sharded
     into it), and at stage 2/3 the modules' whole parameters released."""
-    validate_zero(config)  # no model axis: the world's ranks are its data ranks
-    n = zero_num_data or world.world_size
-    if n != world.world_size:
-        raise ValueError(f"zero_num_data={n} but the world has {world.world_size} rank(s): "
-                         "each process holds its own rank's rows")
+    validate_zero(config)
+    n = zero_num_data or world.num_data
+    if n != world.num_data:
+        raise ValueError(f"zero_num_data={n} but the world's data axis has {world.num_data} "
+                         "rank(s): each process holds its own data rank's rows")
     par = config.parallel
     layout = ZeroLayout(state.encoder_q, state.encoder_k, state.predictor, world,
                         par.zero_stage, par.zero_layer_granular, par.zero_bucket_mb)
@@ -557,7 +565,9 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
         """Backward, the gradients' mean over the ranks (`grad.psum`), and
         the optimizer step at the lr of this step's count; under ZeRO the
         stage's sharded update (parallel/zero.py) instead. A sharded queue
-        takes the mean over data and model (:1250-1255); under sequence
+        takes the mean over data and model (:1250-1255), under ZeRO the
+        model group's mean and then the stage's data-group update
+        (:1225-1243); under sequence
         parallelism the backbone's partial gradients are first summed over
         the model ranks (`grad.seq_psum`, :957-968), the heads' and the
         predictor's being whole on every model rank."""
@@ -575,7 +585,10 @@ def make_train_step(config: TrainConfig, steps_per_epoch: int, device="cuda",
                                     for p in group["params"]], "grad.psum",
                                    over="world" if shard_queue else "data")
             state.optimizer.step()
-        elif layer:
+            return lr
+        if shard_queue:  # the whole parameters' gradients, before the data-group update
+            world.model_all_reduce_mean_([lf.q.grad for lf in z.trainable])
+        if layer:
             z.layer_update(state.optimizer)
         elif zero23:
             z.zero23_update(state.optimizer)

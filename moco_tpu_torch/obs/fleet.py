@@ -26,8 +26,9 @@ import glob
 import json
 import os
 import socket
+import threading
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -112,7 +113,11 @@ def heartbeat_path(workdir: str, process_index: int) -> str:
 
 class Heartbeat:
     """A per-process liveness file; `beat()` is one small JSON write and a
-    rename, which the driver makes at its start and on log steps."""
+    rename, which the driver makes at its start and on log steps.
+    `keep_fresh(interval, fields)` beats from a daemon thread as well, until
+    `stop()`: the file then goes stale only when the process is gone (the
+    elastic trigger, parallel/elastic.py), not while a rank waits in a
+    collective on a lost peer."""
 
     def __init__(self, workdir: str, process_index: int = 0,
                  trace_wall_t0: Optional[float] = None):
@@ -122,6 +127,25 @@ class Heartbeat:
         self.trace_wall_t0 = trace_wall_t0
         self._host = socket.gethostname()
         self._pid = os.getpid()
+        self._lock = threading.Lock()  # the loop's beats and the thread's share one tmp file
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def keep_fresh(self, interval: float, fields: Callable[[], dict]) -> "Heartbeat":
+        """Beat every `interval` seconds from a daemon thread, with
+        `fields()` (step, epoch) as the record's."""
+        def run() -> None:
+            while not self._stop.wait(interval):
+                self.beat(**fields())
+
+        self._thread = threading.Thread(target=run, name="moco-heartbeat", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
 
     def beat(self, step: int = 0, epoch: int = 0, **extra) -> None:
         rec = {"process": self.process_index, "host": self._host, "pid": self._pid,
@@ -130,9 +154,10 @@ class Heartbeat:
             rec["trace_wall_t0"] = self.trace_wall_t0
         rec.update(extra)
         tmp = self.path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(rec, f)
-        os.replace(tmp, self.path)  # readers never see a torn write
+        with self._lock:
+            with open(tmp, "w") as f:
+                json.dump(rec, f)
+            os.replace(tmp, self.path)  # readers never see a torn write
 
 
 def read_heartbeats(workdir: str) -> dict[int, dict]:

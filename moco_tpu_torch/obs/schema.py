@@ -16,8 +16,10 @@ Line kinds (all carry `step` int + `time` float):
   (`nan_steps`/`decode_failures`/`io_retries` when nonzero);
 - *event lines*: `event` in EVENT_KINDS instead of the metric fields: the
   guard's `nonfinite_loss`, the watchdog's `stall` (with its
-  `watchdog_timeout`), `preempt`, and `alert` (with `alert`, `severity`
-  and an `alert/<rule>` gauge);
+  `watchdog_timeout`), `preempt`, `alert` (with `alert`, `severity`
+  and an `alert/<rule>` gauge), and the elastic `rescale` (the `rescale/`
+  family: the dead ranks' list, the old and new width and global batch as
+  ints, kappa and the derived lr and momentum as numbers);
 - *aux lines*: neither (the kNN monitor's `knn_top1` line).
 
 Serving lines (serve/server.py's metrics flusher) carry the `serve/*`
@@ -33,9 +35,9 @@ validator wins over its prefix family, else the longest prefix.
 Numbers are finite or null: NaN/Inf literals are rejected at parse time
 (`loads_strict`), matching the writer's scrubbing. Data-parallel lines
 carry the fleet aggregate (`fleet_hosts`, `straggler_skew`, the `fleet/`
-family, rank 0's) and the `comms/` ledger. The JAX schema's ZeRO, rescale
-and promotion families come with the slices that write them; a field this
-copy does not list passes unchecked, as in the original.
+family, rank 0's) and the `comms/` ledger. The JAX schema's promotion
+family comes with the serving fleet's slice; a field this copy does not
+list passes unchecked, as in the original.
 """
 
 from __future__ import annotations
@@ -157,6 +159,13 @@ FIELD_VALIDATORS = {
     # alert event lines (obs/alerts.py)
     "alert": lambda v: isinstance(v, str),
     "severity": lambda v: v in ("warn", "fatal"),
+    # elastic rescale event lines (parallel/elastic.py): the lost ranks (a
+    # list of ints) ride the otherwise numeric rescale/ family
+    "rescale/dead_hosts": _num_list,
+    "rescale/old_num_data": _int_like,
+    "rescale/new_num_data": _int_like,
+    "rescale/old_global_batch": _int_like,
+    "rescale/new_global_batch": _int_like,
     # serving (serve/server.py): the IVF probe width (null on the exact
     # tier), whether any scoring runs int8 (0/1), the streaming-ingest row
     # counter, the engine's quantization tier (0 off, 1 w8, 2 w8a8), the
@@ -195,6 +204,9 @@ FIELD_VALIDATORS = {
 # entry wins, else the longest matching prefix
 PREFIX_VALIDATORS = {
     "ema_drift/": _num_or_null,
+    # the rescale line's kappa, lr and momentum; the explicit entries above
+    # (the dead ranks' list, the int widths and batches) win
+    "rescale/": _num_or_null,
     # the fleet's min / mean / max / argmax (null where no rank reports the
     # field) and the comms ledger's analytic bytes (always numeric)
     "fleet/": _num_or_null,

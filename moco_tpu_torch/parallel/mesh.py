@@ -39,7 +39,15 @@ rank. With num_model = 1 the data group is the world's and nothing changes.
   `dist.new_group` requires.
 - ZeRO's flat collectives (parallel/zero.py): `all_gather_flat` (async on
   request) and `reduce_scatter_flat` (a sum), and JAX's per-leaf trio `scatter_mean`,
-  `local_shard` and `unshard`; each records its site when named.
+  `local_shard` and `unshard`; each records its site when named. They
+  run over the data group: on a model axis ZeRO shards the state over the
+  data ranks, and the model ranks of a data index hold the same shards
+  (the gradients' mean over the model group, `model_all_reduce_mean_`,
+  comes first).
+- `abort()` tears the process group down without its peers (a dead rank
+  of an elastic run, parallel/elastic.py): the communicators are aborted,
+  not destroyed, so no exit waits on a peer or on a store whose host is
+  gone; `close()` is then a no-op.
 
 The multi-slice mesh (`create_multislice_mesh`) has no counterpart: a
 process group spans hosts as it spans GPUs. moco_tpu/parallel/compat.py
@@ -49,6 +57,7 @@ holds JAX version shims and has no counterpart.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 from typing import Optional
 
@@ -236,6 +245,20 @@ class World:
         dist.all_reduce(flat, group=self.model_group)
         torch._foreach_copy_(tensors, torch._utils._unflatten_dense_tensors(flat, tensors))
 
+    @torch.no_grad()
+    def model_all_reduce_mean_(self, tensors: list) -> None:
+        """Replace each tensor (None entries skipped) by its mean over the
+        model group, in place, through one flat all-reduce (JAX's
+        `lax.pmean(grads, MODEL_AXIS)` before a ZeRO update, which records
+        no ledger site)."""
+        tensors = [t for t in tensors if t is not None]
+        if self.model_group is None or not tensors:
+            return
+        flat = torch._utils._flatten_dense_tensors(tensors)
+        dist.all_reduce(flat, group=self.model_group)
+        flat.div_(self.num_model)
+        torch._foreach_copy_(tensors, torch._utils._unflatten_dense_tensors(flat, tensors))
+
     def ring(self):
         """The model group as the ring of parallel/ring_attention.py."""
         from moco_tpu_torch.parallel.ring_attention import Ring
@@ -417,6 +440,22 @@ class World:
         if self.distributed and dist.is_initialized():
             dist.destroy_process_group()
         self.group = self.data_group = self.model_group = None
+
+    def abort(self) -> None:
+        """Abort every communicator of this process (module docstring) and
+        drop this world's references to its groups. Under gloo the group's
+        sockets stay open after the abort (the process's socket count does
+        not drop), so a peer blocked in a collective on this rank fails only
+        at the group's timeout. Idempotent."""
+        if self.distributed and dist.is_initialized():
+            try:
+                dist.distributed_c10d._abort_process_group()
+            except Exception as e:  # the group is broken already; leaving is the point
+                print(f"rank {self.rank}: process group abort raised {e!r}", flush=True)
+        for stats in self._stats_groups.values():
+            stats.group = None
+        self.group = self.data_group = self.model_group = None
+        gc.collect()
 
 
 def init_world(backend: Optional[str] = None, rank: Optional[int] = None,

@@ -2,6 +2,12 @@
 of moco_tpu/parallel/zero.py, built on the `World` collectives
 (parallel/mesh.py), not on FSDP or `ZeroRedundancyOptimizer`.
 
+The shards span the data axis, as JAX's: n is the world's `num_data`,
+a rank's row its `data_rank`, and every collective here runs over the data
+group. On a model axis the model ranks of a data index hold the same rows
+and make the same update (the step first means their gradients over the
+model group).
+
 The layout is JAX's. Each parameter leaf is flattened in its logical order,
 zero-padded to n * m elements (m = `padded_cols(size, n)`) and viewed as
 (n, m): rank r owns row r. The leaves are those of JAX's params tree, in
@@ -545,7 +551,7 @@ class ZeroLayout:
         from moco_tpu_torch.convert import flax_param_paths
 
         self.world = world
-        self.n, self.rank = world.world_size, world.rank
+        self.n, self.rank = world.num_data, world.data_rank  # the data axis's
         self.stage, self.layer = int(stage), bool(layer_granular)
         self.stage23 = self.stage >= 2
         self.bucket_bytes = int(bucket_mb * 1024 * 1024)

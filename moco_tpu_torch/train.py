@@ -119,9 +119,31 @@ fleet aggregate (obs/fleet.py, `fleet_metrics`). A preemption signal is
 agreed over the ranks at the log steps' deferred processing (each rank
 stops at the same step), then rank 0 saves the live state and the ranks
 meet at a barrier. kNN runs on every rank over the whole bank. `kill@host=i`
-ends rank i with exit code 113 at its step; the survivors leave with an
-error at their next collective (gloo), or when the group's timeout
-(`ParallelConfig.timeout_s`) or the watchdog fires (NCCL).
+ends rank i with exit code 113 at its step; without `elastic` the survivors
+leave with an error at their next collective (gloo), or when the group's
+timeout (`ParallelConfig.timeout_s`) or the watchdog fires (NCCL).
+
+Elastic training (`config.elastic`, `--elastic`; parallel/elastic.py), as
+JAX's driver runs it on several processes: each log step asks the
+heartbeat files for a newly stale rank, and so does a failed collective
+(gloo) or the stall watchdog (NCCL), polling for up to
+`heartbeat_timeout`, else the original error stands. A named rank commits
+the rescale: this rank's process group is aborted (peers blocked on it
+fail at once and run the same check), `plan_rescale` over the dead ranks,
+the survivors' file consensus (`agree`), then the lowest surviving rank
+saves the guard's snapshot (extras `reason: "rescale"` and the plan, epoch
+= the last completed one: the relaunch redoes the epoch) and writes the
+schema'd `rescale` line, fsynced; the other survivors wait until it is
+durable, and every survivor exits with RESCALE_EXIT_CODE (75), printing
+the relaunch's `--num-data`, `--batch-size` and `--auto-scale`. No process
+group is re-formed in place. Under ZeRO the survivors cannot gather the
+dead rank's shards: no emergency checkpoint is written, and the relaunch
+resumes from the newest durable one. Without `auto_scale` an elastic run
+is anchored at its own global batch; the relaunch resumes the emergency
+checkpoint at the new width (whole tensors) and keeps that anchor, so lr
+and momentum are the rule's at kappa = new / old batch. Under NCCL set
+`timeout_s` above `watchdog_timeout + heartbeat_timeout`, so the
+watchdog, not NCCL's own, wakes the survivors.
 
 The model axis (`ParallelConfig.num_model`, parallel/mesh.py): a launch of
 num_data x num_model ranks. The model ranks of a data rank load the same
@@ -177,11 +199,17 @@ from moco_tpu_torch.data.pipeline import TwoCropPipeline
 from moco_tpu_torch.knn import knn_eval
 from moco_tpu_torch.obs.alerts import AlertEngine, FatalAlertError, parse_rules
 from moco_tpu_torch.obs.fleet import FleetAggregator, Heartbeat
-from moco_tpu_torch.obs.sinks import build_sinks, flatten_tensors, unflatten_host
+from moco_tpu_torch.obs.sinks import JsonlSink, build_sinks, flatten_tensors, unflatten_host
 from moco_tpu_torch.obs.stepstats import StepTimeProbe, memory_payload, tree_shard_bytes
 from moco_tpu_torch.obs.trace import Tracer, set_tracer
 from moco_tpu_torch.obs.trace import span as obs_span
 from moco_tpu_torch.parallel.dist import DataPartition, maybe_init_distributed
+from moco_tpu_torch.parallel.elastic import (
+    ElasticCoordinator,
+    ElasticRescale,
+    plan_rescale,
+    surviving_ranks,
+)
 from moco_tpu_torch.parallel.mesh import World
 from moco_tpu_torch.parallel.zero import AsyncParamGather
 from moco_tpu_torch.utils import faults, retry
@@ -192,8 +220,12 @@ from moco_tpu_torch.utils.config import (
     TrainConfig,
     apply_auto_scale,
     config_to_dict,
+    elastic_reference,
+    parse_auto_scale,
     resume_compat_diff,
+    validate_elastic,
 )
+from moco_tpu_torch.utils.contracts import RESCALE_EXIT_CODE
 from moco_tpu_torch.utils.device import resolve_device
 from moco_tpu_torch.utils.metrics import (
     AverageMeter,
@@ -406,7 +438,8 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
     one; returns {"history": [per-step records], "state": the final state,
     "steps_per_epoch": n, "last_avg": the last epoch's means (and its
     knn_top1), "nan_steps": non-finite log steps, "preempted": whether a
-    signal stopped the run}.
+    signal stopped the run, "config": the live config (lr and momentum
+    derived by `auto_scale`)}.
 
     Each epoch's batches come from `pipe.epoch(e, device=config.device_prefetch,
     depth=config.prefetch_depth)`: the prefetch ring by default, made
@@ -429,7 +462,12 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
     on its device (a given `state` must be built with it); without one, a
     torchrun launch of several processes (`maybe_init_distributed`) makes
     the world, and destroys its process group when the run ends; else the
-    run has one device, `device`. Rank 0 alone writes and profiles."""
+    run has one device, `device`. Rank 0 alone writes and profiles.
+
+    Under `config.elastic` a lost rank ends the run with SystemExit(75) on
+    every survivor once the rescale is committed (module docstring); the
+    world is then aborted, and its `close()` does nothing."""
+    validate_elastic(config)
     workdir = config.workdir
     if profile_steps is not None and not (profile_dir or workdir):
         raise ValueError("profile_steps needs a profile_dir or a workdir")
@@ -443,9 +481,18 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
               if workdir and world.is_main else None)
     prev_tracer = set_tracer(tracer) if tracer is not None else None
     try:
-        return _train_impl(config, dataset, world, steps, state, num_filters, log,
-                           knn_datasets, profile_dir if world.is_main else None,
+        # the reference config: lr and momentum at the auto_scale anchor
+        return _train_impl(elastic_reference(config), dataset, world, steps, state,
+                           num_filters, log, knn_datasets,
+                           profile_dir if world.is_main else None,
                            profile_steps if world.is_main else None)
+    except ElasticRescale as r:
+        # a process group cannot shrink in place: the launcher relaunches
+        # the survivors at the planned width, which resumes the checkpoint
+        print(f"rank {world.rank}: {r}; exiting {RESCALE_EXIT_CODE} for the launcher to "
+              f"relaunch with {r.relaunch_flags()}", flush=True)
+        world.abort()
+        raise SystemExit(RESCALE_EXIT_CODE) from r
     finally:
         if own_world is not None:
             own_world.close()
@@ -471,8 +518,14 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                          f"axis has {world.num_model} rank(s): the launch needs num_data x "
                          "num_model ranks")
     world.ledger.reset()  # this run's sites only
+    validate_elastic(config)
+    if config.elastic and not config.workdir:
+        raise ValueError("elastic=True needs a workdir: the heartbeats, the consensus files "
+                         "and the emergency checkpoint live there")
     # `config` carries the reference lr and momentum; the live ones follow
-    # from the global batch (utils/config.py `apply_auto_scale`)
+    # from the global batch (utils/config.py `apply_auto_scale`); the
+    # elastic rescale re-derives from the same reference
+    ref_config = config
     config, auto_info = apply_auto_scale(config)
     if auto_info is not None:
         print0(f"auto-scale: global batch {config.data.global_batch} vs ref "
@@ -511,6 +564,14 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
             load_state_payload(state, payload)
             epoch, i = int(extra.get("epoch", 0)) + 1, 0
             print0(f"resumed from epoch {epoch - 1} (step {state.step})")
+            anchor = (extra.get("rescale") or {}).get("ref_batch")
+            if (config.elastic and anchor is not None
+                    and parse_auto_scale(ref_config.auto_scale) != int(anchor)):
+                # a rescale's relaunch keeps the anchor of the run it rescales
+                ref_config = dataclasses.replace(ref_config, auto_scale=f"ref_batch={anchor}")
+                config, auto_info = apply_auto_scale(ref_config)
+                print0(f"elastic resume: the rescaled run's anchor ref_batch={anchor} -> "
+                       f"lr {auto_info['lr']:g}, EMA momentum {auto_info['momentum']:g}")
         step_fn = make_train_step(config, steps_per_epoch, device=device, world=world)
         zero = state.zero
         # a save gathers on every rank: ZeRO's shards, a sharded queue's rows
@@ -558,15 +619,16 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                     "zero_stage": config.parallel.zero_stage}
 
         def emergency_save(source, completed_epoch: int, reason: str,
-                           extra_fields: Optional[dict] = None) -> None:
+                           extra_fields: Optional[dict] = None, writer_rank: int = 0) -> None:
             """Save first, die second: the preemption exit (`source` the
-            live state), the watchdog's stall and a fatal alert (`source`
-            the guard's snapshot). Skips a step that is already durable;
-            always blocks until the write lands. Rank 0's alone (the state
-            is the same on every rank), but under ZeRO every rank joins the
-            gather of the shards (`state_payload`), and a save from the
-            snapshot (the stall's, a fatal alert's), which one rank makes
-            alone, is skipped; so is a sharded queue's."""
+            live state), the watchdog's stall, a fatal alert and an elastic
+            rescale (`source` the guard's snapshot). Skips a step that is
+            already durable; always blocks until the write lands. Rank
+            `writer_rank`'s alone (the state is the same on every rank; the
+            rescale's is the lowest surviving rank), but under ZeRO every
+            rank joins the gather of the shards (`state_payload`), and a
+            save from the snapshot, which one rank makes alone, is skipped;
+            so is a sharded queue's."""
             if gathered_save:
                 if source is snapshot:
                     print0(f"{reason}: the state is sharded over the ranks (ZeRO or the queue) "
@@ -588,7 +650,7 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                                                            **(extra_fields or {})}, force=True)
                     ckpt.wait()
                 return
-            if not world.is_main:
+            if world.rank != writer_rank:
                 return
             if ckpt is None:
                 print0(f"{reason}: no workdir, no emergency checkpoint", flush=True)
@@ -630,12 +692,90 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
             if writer is not None:
                 writer.fsync()
             if config.alerts_fatal:
+                # under elastic a lost heartbeat is handled (the rescale the
+                # same observation commits), not fatal
+                fatal = [a for a in fired
+                         if not (config.elastic and a.get("kind") == "heartbeat")]
+                if not fatal:
+                    return
                 # the last finite state, mid-epoch: resume redoes the epoch
-                emergency_save(snapshot, epoch - 1, "alert", {"alert": fired[0]["rule"]})
+                emergency_save(snapshot, epoch - 1, "alert", {"alert": fatal[0]["rule"]})
                 where = f"; see {engine.path}" if engine.path else ""
-                raise FatalAlertError(f"aborting on fired alert(s) {[a['rule'] for a in fired]} "
+                raise FatalAlertError(f"aborting on fired alert(s) {[a['rule'] for a in fatal]} "
                                       f"at step {gstep} (alerts_fatal); emergency checkpoint "
                                       f"saved{where}")
+
+        # -- elastic training (parallel/elastic.py) ---------------------------
+        # the consensus waits out a survivor blocked in a collective on the
+        # lost rank: under gloo up to the group's timeout
+        elastic_coord = (ElasticCoordinator(
+            workdir, process_index=world.rank, num_processes=world.world_size,
+            timeout=config.heartbeat_timeout,
+            barrier_timeout=max(60.0, config.parallel.timeout_s + config.heartbeat_timeout))
+            if config.elastic else None)
+        commit_lock = threading.Lock()  # the loop's and the watchdog's commits: one wins
+
+        if elastic_coord is not None:  # stale only once the process is gone
+            heartbeat.keep_fresh(max(min(config.heartbeat_timeout / 4, 5.0), 0.05),
+                                 lambda: {"step": state.step, "epoch": guard["epoch"]})
+
+        def elastic_rescale(gstep: int, epoch: int, dead_now: list) -> None:
+            """The commit point (JAX's `elastic_rescale`): abort this rank's
+            process group, plan over the dead ranks, agree with the
+            survivors, the lowest surviving rank's emergency save of the
+            snapshot and its `rescale` line; the others wait for that save;
+            then ElasticRescale."""
+            commit_lock.acquire()  # held until the process exits
+            world.abort()  # no collective from here; a peer blocked on us fails now
+            plan, _, info = plan_rescale(ref_config, n, world.num_model, sorted(dead_now), gstep,
+                                         world_size=world.world_size)
+            writer_rank = min(surviving_ranks(plan.dead_hosts, world.world_size))
+            say = print if world.rank == writer_rank else (lambda *a, **k: None)
+            say(f"elastic: ranks {sorted(dead_now)} lost heartbeat (> "
+                f"{config.heartbeat_timeout:g}s stale) at step {gstep}; proposing mesh "
+                f"{plan.old_num_data} -> {plan.new_num_data}", flush=True)
+            plan = elastic_coord.agree(plan)
+            rescale_extra = {**plan.consensus_key(), "step": plan.step}
+            for k in ("kappa", "lr", "momentum", "ref_batch"):
+                if k in info:
+                    rescale_extra[k] = info[k]
+            if world.rank == writer_rank:
+                if zero is not None:
+                    say("rescale: under ZeRO the survivors lack the lost ranks' shards and "
+                        "cannot gather them; no emergency checkpoint: the relaunch resumes "
+                        "from the newest durable checkpoint", flush=True)
+                else:  # mid-epoch: the relaunch redoes this epoch
+                    emergency_save(snapshot, epoch - 1, "rescale", {"rescale": rescale_extra},
+                                   writer_rank=writer_rank)
+                line = {"epoch": epoch, "event": "rescale",
+                        "rescale/dead_hosts": list(plan.dead_hosts),
+                        "rescale/old_num_data": plan.old_num_data,
+                        "rescale/new_num_data": plan.new_num_data,
+                        "rescale/old_global_batch": plan.old_global_batch,
+                        "rescale/new_global_batch": plan.new_global_batch}
+                for k in ("kappa", "lr", "momentum"):
+                    if k in info:
+                        line[f"rescale/{k}"] = float(info[k])
+                sink = writer if writer is not None else JsonlSink(workdir)
+                sink.write(gstep, line)
+                sink.fsync()  # the rescale leaves its event on disk
+                if sink is not writer:
+                    sink.close()
+                elastic_coord.mark_durable(plan)
+            else:
+                elastic_coord.wait_durable(plan, writer_rank)
+            raise ElasticRescale(plan, info)
+
+        def elastic_recover(err: BaseException) -> None:
+            """A collective failed: abort, poll the heartbeats for up to the
+            timeout; a stale rank commits the rescale, else `err` stands."""
+            world.abort()
+            dead = elastic_coord.wait_for_stale()
+            if not dead:
+                raise err
+            print(f"rank {world.rank}: a collective failed ({type(err).__name__}); ranks "
+                  f"{dead} are stale", flush=True)
+            elastic_rescale(state.step, guard["epoch"], dead)
 
         # -- the in-flight window --------------------------------------
         # `waited["upto"]`: the newest step known finished on the card;
@@ -725,8 +865,20 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                     decode_failures=float(decode_failures),
                     hbm_live=memory.get("hbm_live_bytes")))
                 fleet_fields = fleet.payload(stats)
-            if writer is None and engine is None:
-                return
+            if writer is not None or engine is not None:
+                emit(p, m, record, probe_fields, memory, decode_failures, io_retries,
+                     fleet_fields)
+            if elastic_coord is not None:
+                # off the hot path: file reads on log steps; a newly stale
+                # rank commits the rescale
+                dead_now = elastic_coord.stale_hosts()
+                if dead_now:
+                    elastic_rescale(gstep, p["epoch"], dead_now)
+
+        def emit(p, m, record, probe_fields, memory, decode_failures, io_retries,
+                 fleet_fields) -> None:
+            """A log step's metrics line (rank 0) and the alert engine."""
+            gstep = p["gstep"]
             resident = StateSnapshot._tensors(state) + StateSnapshot._opt_state(state)[1]
             if zero is not None and not zero23:  # stage 1's shards, the optimizer's
                 resident += zero.q_shards
@@ -785,6 +937,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                 # bounded: the main thread is stuck in a device call and the
                 # save may hang on a wedged context, so it runs in a sidecar
                 # thread and the exit comes after the budget regardless
+                if elastic_coord is not None:  # an NCCL collective with a lost peer blocks
+                    elastic_stall()
                 try:
                     if writer is not None:
                         writer.write(0, {"event": "stall", "epoch": guard["epoch"],
@@ -803,6 +957,32 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                 t = threading.Thread(target=save, name="moco-stall-save", daemon=True)
                 t.start()
                 t.join(timeout=max(30.0, config.watchdog_timeout))
+
+            def elastic_stall() -> None:
+                """The stall under elastic: the heartbeats polled for up to
+                the timeout; a stale rank commits the rescale from this
+                thread (bounded as the stall's save) and the process exits
+                with RESCALE_EXIT_CODE; else the stall's own path goes on."""
+                done: dict = {}
+
+                def commit() -> None:
+                    try:
+                        dead = elastic_coord.wait_for_stale()
+                        if dead:
+                            elastic_rescale(state.step, guard["epoch"], dead)
+                    except ElasticRescale as r:
+                        done["rescale"] = r
+                    except Exception as e:
+                        print(f"watchdog: elastic check failed: {e!r}", flush=True)
+
+                t = threading.Thread(target=commit, name="moco-stall-rescale", daemon=True)
+                t.start()
+                t.join(timeout=config.heartbeat_timeout + max(30.0, config.watchdog_timeout))
+                r = done.get("rescale")
+                if r is not None:
+                    print(f"rank {world.rank}: {r}; exiting {RESCALE_EXIT_CODE} for the "
+                          f"launcher to relaunch with {r.relaunch_flags()}", flush=True)
+                    os._exit(RESCALE_EXIT_CODE)  # the main thread is wedged in a collective
 
             stacks = "stall_stacks.txt" if world.is_main else f"stall_stacks.p{world.rank}.txt"
             wd = StepWatchdog(config.watchdog_timeout, on_stall=on_stall,
@@ -965,6 +1145,12 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                                     ckpt.save(state.step, payload, extra=save_extra(epoch))
                                 world.barrier()
                     epoch, i = epoch + 1, 0
+        except (ElasticRescale, FatalAlertError):
+            raise
+        except RuntimeError as e:  # gloo raises once a peer's socket closes
+            if elastic_coord is None:
+                raise
+            elastic_recover(e)
         finally:
             if gatherer is not None:
                 gatherer.close()  # the parked gather is dropped
@@ -975,6 +1161,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                 profile_window.close()  # stop a still-open capture window
             if wd is not None:
                 wd.stop()
+            if heartbeat is not None:
+                heartbeat.stop()
             if engine is not None:
                 engine.close()
             if writer is not None:
@@ -984,7 +1172,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
             if ckpt is not None:
                 ckpt.close()  # an async write lands, or its error is raised
     return {"history": history, "state": state, "steps_per_epoch": steps_per_epoch,
-            "last_avg": last_avg, "nan_steps": guard["nan_steps"], "preempted": stop_now}
+            "last_avg": last_avg, "nan_steps": guard["nan_steps"], "preempted": stop_now,
+            "config": config}
 
 
 def main(argv=None) -> int:
@@ -1050,7 +1239,11 @@ def main(argv=None) -> int:
                          "exits with code 42 (0 = off; the first step gets 900 s)")
     ap.add_argument("--heartbeat-timeout", type=float, default=None,
                     help="seconds after which another process's heartbeat counts as stale "
-                         "(the heartbeat_loss alert; default 120)")
+                         "(the heartbeat_loss alert and the elastic trigger; default 120)")
+    ap.add_argument("--elastic", action="store_true", default=None,
+                    help="on a lost rank the survivors agree, the lowest saves the last "
+                         "finite state, and each exits 75 printing the relaunch's "
+                         "--num-data, --batch-size and --auto-scale")
     ap.add_argument("--alert-rules", default=None,
                     help="in-stream alert rules (obs/alerts.py grammar): 'default' = the "
                          "built-ins, 'default,<spec>' extends them, 'none' turns them off")
@@ -1074,6 +1267,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-steps", default=None, metavar="A:B",
                     help="profile exactly global steps [A, B) (into --profile-dir or "
                          "workdir/profile) instead of the whole run")
+    ap.add_argument("--num-data", type=int, default=None,
+                    help="data ranks of the launch (default: every rank over --num-model)")
     ap.add_argument("--dist-timeout", type=float, default=None,
                     help="seconds a collective waits for its peers before the process "
                          "group fails the rank (default 600)")
@@ -1103,7 +1298,7 @@ def main(argv=None) -> int:
            "checkpoint_async": args.checkpoint_async, "watchdog_timeout": args.watchdog_timeout,
            "heartbeat_timeout": args.heartbeat_timeout, "alert_rules": args.alert_rules,
            "alerts_fatal": args.alerts_fatal, "health_metrics": args.health_metrics,
-           "auto_scale": args.auto_scale, "sinks": args.sinks,
+           "auto_scale": args.auto_scale, "sinks": args.sinks, "elastic": args.elastic,
            "metrics_port": args.metrics_port, "metrics_host": args.metrics_host,
            "obs_probe_every": args.obs_probe_every}
     top = {k: v for k, v in top.items() if v is not None}
@@ -1113,7 +1308,7 @@ def main(argv=None) -> int:
     optim = {"epochs": args.epochs, "optimizer": args.optimizer}
     optim = {k: v for k, v in optim.items() if v is not None}
     par = {"timeout_s": args.dist_timeout, "zero_layer_granular": args.zero_layer_granular,
-           "num_model": args.num_model}
+           "num_model": args.num_model, "num_data": args.num_data}
     if args.zero_stage is not None:
         par.update(shard_weight_update=True, zero_stage=args.zero_stage)
     config = dataclasses.replace(config, parallel=dataclasses.replace(

@@ -26,12 +26,19 @@ the two features that run on it: the v1/v2 queue sharded over the model
 ranks (core/moco.py) and, with `MocoConfig.vit_sequence_parallel`, the
 ViT's tokens sharded over them with ring attention
 (parallel/ring_attention.py); so is the preset `vit_b16_v3_highres_sp`.
-ZeRO does not compose with `num_model > 1` in the port (`validate_zero`).
+ZeRO composes with it as in JAX: the state is sharded over the data axis
+only, and the model ranks of a data index hold the same shards.
 
-Fields of the JAX config that the port does not run yet (`elastic`, and
-the other telemetry fields: `strict_tracing`, the sanitizers) are left
-out, so a config that asks for one fails at construction with a TypeError
-instead of being ignored. So is `prefetch_donate`: it recycles a consumed
+Elastic training (`TrainConfig.elastic`, parallel/elastic.py) is JAX's
+field with its refusal (`validate_elastic`) and its anchor: without
+`auto_scale` an elastic run's reference batch is its own global batch
+(`elastic_reference`), so a rescale derives lr and momentum from the
+pre-loss recipe.
+
+Fields of the JAX config that the port does not run yet (the other
+telemetry fields: `strict_tracing`, the sanitizers) are left out, so a
+config that asks for one fails at construction with a TypeError instead
+of being ignored. So is `prefetch_donate`: it recycles a consumed
 staging slot's device buffer through XLA's donation, and PyTorch's caching
 allocator already reuses that memory; and `on_device_augment`: the port
 always augments on the device; and `fused_block_k`, the TPU kernel's tile
@@ -268,8 +275,16 @@ class TrainConfig:
     # Abort on any fired alert (FatalAlertError) after an emergency
     # checkpoint of the last finite log step's state.
     alerts_fatal: bool = False
+    # Elastic training (parallel/elastic.py): when another rank's heartbeat
+    # goes stale (or a collective with it fails), the survivors agree on
+    # the loss through files, the lowest surviving rank saves the guard's
+    # snapshot, writes a `rescale` event line, and every survivor exits
+    # with RESCALE_EXIT_CODE, printing the width and batch to relaunch at
+    # (the resume re-derives lr and momentum through auto_scale).
+    # Requires num_model == 1.
+    elastic: bool = False
     # Seconds after which another process's heartbeat file counts as
-    # stale (the default rules' heartbeat_loss).
+    # stale (the default rules' heartbeat_loss, and the elastic trigger).
     heartbeat_timeout: float = 120.0
     # Batch scaling, "ref_batch=N": optim.lr and moco.momentum are the
     # values at global batch N, and the live ones follow from the actual
@@ -386,8 +401,8 @@ def validate_zero(config: TrainConfig) -> None:
     """JAX's refusals of a ZeRO config (moco_tpu/core/moco.py:497-521,
     :551-562), with its messages: a stage outside {1, 2, 3}, LARS, the
     layer-granular schedule without stage >= 2, with a model axis or with
-    sequence parallelism. The port also refuses stages 1-3 with a model
-    axis, which JAX composes (ROADMAP.md, queue 1)."""
+    sequence parallelism. Stages 1-3 compose with a model axis: the shards
+    span the data axis."""
     par = config.parallel
     zero23 = par.shard_weight_update and par.zero_stage >= 2
     if par.shard_weight_update:
@@ -413,12 +428,22 @@ def validate_zero(config: TrainConfig) -> None:
             "zero_layer_granular does not compose with vit_sequence_parallel "
             "(the token shard would cross layer-group boundaries)"
         )
-    if par.shard_weight_update and par.num_model > 1:
-        raise ValueError(
-            "shard_weight_update with num_model > 1 is not ported: ZeRO runs over "
-            "the data axis of a world without a model axis (ROADMAP.md, queue 1, "
-            "'ZeRO with a model axis')"
-        )
+
+
+def validate_elastic(config: TrainConfig) -> None:
+    """JAX's refusal of an elastic run (moco_tpu/train.py:207-208)."""
+    if config.elastic and config.parallel.num_model > 1:
+        raise ValueError("elastic=True supports num_model=1 meshes only")
+
+
+def elastic_reference(config: TrainConfig) -> TrainConfig:
+    """The reference config of a run: under `elastic` without `auto_scale`,
+    the scaling rules anchored at the run's own global batch
+    (moco_tpu/train.py:139-146), so that a rescale derives kappa against
+    the pre-loss recipe; else `config` itself."""
+    if config.elastic and not config.auto_scale:
+        return dataclasses.replace(config, auto_scale=f"ref_batch={config.data.global_batch}")
+    return config
 
 
 def parse_auto_scale(spec: str) -> Optional[int]:

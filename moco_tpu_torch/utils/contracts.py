@@ -6,10 +6,14 @@ from __future__ import annotations
 
 STALL_EXIT_CODE = 42  # utils/watchdog.py: the watchdog fired, no step for `timeout`
 KILL_EXIT_CODE = 113  # utils/faults.py: kill@host sudden death
+# parallel/elastic.py: a survivor of a lost rank after the agreed emergency
+# checkpoint; the launcher relaunches the survivors at the width it prints
+RESCALE_EXIT_CODE = 75
 
 EXIT_CODES = {
     "stall": STALL_EXIT_CODE,
     "kill": KILL_EXIT_CODE,
+    "rescale": RESCALE_EXIT_CODE,
 }
 
 # How far a serving port shifts off a colliding Prometheus port

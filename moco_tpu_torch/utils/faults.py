@@ -46,7 +46,9 @@ comma-separated faults, each `kind@key=val[:key=val...]`:
                                   KILL_EXIT_CODE (113), no checkpoint, no
                                   cleanup; the survivors' next collective
                                   fails (gloo) or times out (NCCL), and
-                                  they exit non-zero. In a world of one,
+                                  they exit non-zero, or under `elastic`
+                                  rescale (parallel/elastic.py) and exit
+                                  with RESCALE_EXIT_CODE. In a world of one,
                                   rank i's heartbeat file is stamped stale
                                   (time 0) instead, so the heartbeat rule
                                   fires
@@ -58,9 +60,8 @@ training loop calls the step hooks on log steps only: `corrupt_loss` as
 it reads the loss, `maybe_stall`, `maybe_preempt` and `maybe_kill_host` in
 the step's deferred processing. The other kinds of the JAX module
 (`kill@replica`, diverge, deadlock) come with the slices that own their
-sites: the serving fleet and the analysis; the elastic rescale JAX's
-survivors run after a `kill@host` comes with elastic training. With no
-plan installed every hook returns at once.
+sites: the serving fleet and the analysis. With no plan installed every
+hook returns at once.
 """
 
 from __future__ import annotations

@@ -26,14 +26,15 @@ GROUP_TIMEOUT_S = 60.0
 JOIN_TIMEOUT_S = 240.0
 
 
-def _entry(job, rank: int, n: int, root: str, spec, num_model: int = 1) -> None:
+def _entry(job, rank: int, n: int, root: str, spec, num_model: int = 1,
+           timeout_s: float = GROUP_TIMEOUT_S) -> None:
     torch.set_num_threads(1)
     from moco_tpu_torch.parallel.mesh import init_world
 
     out = os.path.join(root, f"rank{rank}.pkl")
     try:
         world = init_world(backend="gloo", rank=rank, world_size=n, device="cpu",
-                           store_path=os.path.join(root, "store"), timeout_s=GROUP_TIMEOUT_S,
+                           store_path=os.path.join(root, "store"), timeout_s=timeout_s,
                            num_model=num_model)
         try:
             result = job(world, spec)
@@ -47,11 +48,14 @@ def _entry(job, rank: int, n: int, root: str, spec, num_model: int = 1) -> None:
         raise
 
 
-def start_world(job, n: int, root: str, spec=None, num_model: int = 1) -> list:
-    """Spawn the n ranks of `job`; the caller joins them (`join_world`)."""
+def start_world(job, n: int, root: str, spec=None, num_model: int = 1,
+                timeout_s: float = GROUP_TIMEOUT_S) -> list:
+    """Spawn the n ranks of `job` (their group's collectives time out after
+    `timeout_s`); the caller joins them (`join_world`)."""
     os.makedirs(root, exist_ok=True)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(job, r, n, root, spec, num_model), daemon=True)
+    procs = [ctx.Process(target=_entry, args=(job, r, n, root, spec, num_model, timeout_s),
+                         daemon=True)
              for r in range(n)]
     for p in procs:
         p.start()
@@ -93,9 +97,10 @@ def collect_world(procs: list, root: str) -> list:
     return out
 
 
-def run_world(job, n: int, root: str, spec=None, num_model: int = 1) -> list:
+def run_world(job, n: int, root: str, spec=None, num_model: int = 1,
+              timeout_s: float = GROUP_TIMEOUT_S) -> list:
     """Every rank's result of `job(world, spec)`, rank order."""
-    return collect_world(start_world(job, n, root, spec, num_model), root)
+    return collect_world(start_world(job, n, root, spec, num_model, timeout_s), root)
 
 
 # -- jobs ---------------------------------------------------------------------
@@ -190,8 +195,9 @@ def train_steps_job(world, spec) -> list:
 def train_job(world, spec) -> list:
     """`train()` in this world for each run of spec["runs"] (config, steps),
     one after another: per run, the history's losses and steps, the final
-    state and step, and whether it was preempted. spec["faults"], a fault
-    spec or {rank: spec}, is installed first."""
+    state and step, whether it was preempted, and the live lr and EMA
+    momentum. spec["faults"], a fault spec or {rank: spec}, is installed
+    first."""
     from moco_tpu_torch.data.datasets import SyntheticDataset
     from moco_tpu_torch.train import train
     from moco_tpu_torch.utils import faults
@@ -205,7 +211,8 @@ def train_job(world, spec) -> list:
         out.append({"losses": [r["loss"] for r in res["history"]],
                     "steps": [r["step"] for r in res["history"]],
                     "state": state_arrays(res["state"]), "step": res["state"].step,
-                    "preempted": res["preempted"]})
+                    "preempted": res["preempted"], "lr": res["config"].optim.lr,
+                    "momentum": res["config"].moco.momentum})
     return out
 
 
@@ -356,11 +363,14 @@ def model_axis_job(world, spec) -> dict:
     - "vit": the sequence-parallel ViT's features of the images;
     - "steps": {name: case}, the step from a case's JAX tree on this rank's
       rows of each step's views (with the global `perm`s): the sharded
-      queue's v1/v2 step or the sequence-parallel v3 step; per step the
-      metrics, the trained parameters' gradients and a digest of the state
-      but the queue, then the final state, queue_ptr and the ledger;
+      queue's v1/v2 step or the sequence-parallel v3 step, replicated or
+      under the case config's ZeRO layout; per step the metrics, the
+      trained parameters' gradients (replicated) and a digest of the state
+      but the queue (whole tensors), then the final state, queue_ptr and
+      the ledger;
     - "ckpt": `train()` runs with workdirs (run "a" straight, "b" and then
-      "c" resuming it): each run's final state."""
+      "c" resuming it): each run's final state;
+    - "cross": a checkpoint across layouts (`_cross_job`)."""
     import torch.distributed as dist
 
     from moco_tpu_torch import convert
@@ -413,11 +423,11 @@ def model_axis_job(world, spec) -> dict:
             m = step(state, batch)
             hist.append({k: float(v) for k, v in m.items() if k in ("loss", "acc1", "acc5")})
             grads.append({k: _np(p.grad) for k, p in trained if p.grad is not None})
-            arrays = state_arrays(state)
+            arrays = full_state_arrays(state)
             digests.append(hashlib.sha256(
                 b"".join(arrays[k].tobytes() for k in sorted(arrays) if k != "queue")).hexdigest())
         out[name] = {"hist": hist, "grads": grads, "digests": digests,
-                     "state": state_arrays(state), "queue_ptr": state.queue_ptr,
+                     "state": full_state_arrays(state), "queue_ptr": state.queue_ptr,
                      "ledger": {k: (v.collective, v.operand_bytes, v.bytes_per_step)
                                 for k, v in world.ledger.snapshot().items()}}
     if spec.get("ckpt") is not None:
@@ -432,4 +442,61 @@ def model_axis_job(world, spec) -> dict:
             out["ckpt"][run] = {"state": state_arrays(res["state"]), "step": res["state"].step,
                                 "queue_ptr": res["state"].queue_ptr,
                                 "losses": [r["loss"] for r in res["history"]]}
+    if spec.get("cross") is not None:
+        out["cross"] = _cross_job(world, spec["cross"])
     return out
+
+
+def _cross_job(world, case, wait_s: float = JOIN_TIMEOUT_S) -> dict:
+    """One step of case["config"] from its tree, saved under case["save"]
+    (every rank joins the payload's gathers, rank 0 writes), then the
+    checkpoint another world writes under case["load"] (waited for) loaded
+    into a fresh state of the config, and one step from it: the saved and
+    loaded states (whole tensors, this rank's queue rows), the loaded step
+    and the next loss."""
+    import time
+
+    from moco_tpu_torch import convert
+    from moco_tpu_torch.core.moco import make_train_step
+    from moco_tpu_torch.parallel.dist import DataPartition
+    from moco_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_state_payload,
+        state_payload,
+    )
+
+    cfg = case["config"]
+    part = DataPartition.of(world, cfg.data.global_batch)
+
+    def batch(i):
+        views = case["views"][i]
+        b = {"im_q": torch.from_numpy(part.rows(views[0])),
+             "im_k": torch.from_numpy(part.rows(views[1]))}
+        if case.get("perms") is not None:
+            b["perm"] = torch.from_numpy(case["perms"][i]["perm"])
+        return b
+
+    def fresh():
+        return convert.state_from_flax(cfg, case["tree"], device="cpu",
+                                       num_filters=case["num_filters"], world=world)
+
+    step = make_train_step(cfg, case["steps_per_epoch"], device="cpu", world=world)
+    state = fresh()
+    step(state, batch(0))
+    payload = state_payload(state, cfg.moco.arch, 1)
+    if world.is_main:
+        mgr = CheckpointManager(case["save"], keep=0)
+        mgr.save(state.step, payload, extra={"epoch": 0})
+        mgr.close()
+    saved = full_state_arrays(state)
+    deadline = time.time() + wait_s
+    while CheckpointManager(case["load"]).latest_step() is None:
+        if time.time() > deadline:
+            raise TimeoutError(f"no checkpoint under {case['load']}")
+        time.sleep(0.2)
+    world.barrier()
+    state = fresh()
+    load_state_payload(state, CheckpointManager(case["load"]).restore()[0])
+    loaded, loaded_step = full_state_arrays(state), state.step
+    loss = float(step(state, batch(1))["loss"])
+    return {"saved": saved, "loaded": loaded, "loaded_step": loaded_step, "next_loss": loss}

@@ -7,7 +7,10 @@ ledger sites; the fleet aggregate (obs/fleet.py) against JAX's
 `reduce_stats`; the gates with JAX's messages; and the driver in a world
 of 2: metrics.jsonl with the comms ledger and the fleet's gauges, rank 0's
 files only, a restart that continues the trajectory bit for bit, a
-preemption signalled on one rank, `kill@host`, and the torchrun command.
+preemption signalled on one rank, `kill@host`, and the torchrun command;
+and elastic training in a world of 4: `kill@host=0`, the survivors' exit
+75 with rank 1's emergency checkpoint and `rescale` line, and the relaunch
+at the planned width of 2 resuming it.
 
 Ranks are spawned processes in a gloo world (tests/_torch_dist_worker.py);
 each world has a group timeout and a join timeout.
@@ -46,7 +49,7 @@ from moco_tpu_torch.parallel import dist as port_dist
 from moco_tpu_torch.parallel.mesh import World
 from moco_tpu_torch.utils import config as pc
 from moco_tpu_torch.utils.checkpoint import CheckpointManager
-from moco_tpu_torch.utils.contracts import KILL_EXIT_CODE
+from moco_tpu_torch.utils.contracts import KILL_EXIT_CODE, RESCALE_EXIT_CODE
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT_KEY = 5
@@ -249,8 +252,9 @@ def test_gates_raise_jax_messages():
     """syncbn_group_size not dividing the data axis, or set without one; a
     global batch the ranks cannot split; the parallel fields beyond
     num_data, num_model (tests/test_torch_model_axis.py) and ZeRO's
-    (tests/test_torch_zero.py) still a TypeError; a world that is not
-    num_data ranks."""
+    (tests/test_torch_zero.py) still a TypeError (`elastic` is a
+    TrainConfig field, as in JAX); elastic on a model axis with the
+    driver's message; a world that is not num_data ranks."""
     for g, n in ((3, 4), (4, 2)):
         kw = dict(arch="resnet18", shuffle="syncbn", syncbn_group_size=g)
         want = _message(lambda: jax_create_backbone(jc.MocoConfig(**kw), num_data=n))
@@ -270,6 +274,9 @@ def test_gates_raise_jax_messages():
         lambda: make_train_step(a2a, 2, device="cpu", world=World(world_size=4, device="cpu")))
     with pytest.raises(TypeError):
         pc.ParallelConfig(elastic=2)
+    elastic = pc.TrainConfig(elastic=True, parallel=pc.ParallelConfig(num_model=2))
+    want = "elastic=True supports num_model=1 meshes only"
+    assert _message(lambda: pc.validate_elastic(elastic)) == want  # moco_tpu/train.py:207-208
     tiny = pc.TrainConfig(moco=pc.MocoConfig(arch="resnet18", dim=16, num_negatives=64),
                           data=pc.DataConfig(global_batch=8, image_size=16),
                           parallel=pc.ParallelConfig(num_data=2))
@@ -335,13 +342,27 @@ def _lines(workdir):
         return [json.loads(line) for line in f]
 
 
+ELASTIC_TIMEOUT_S = 12.0  # the elastic world's group timeout: a survivor blocked on a peer waits it out
+ELASTIC_BATCH = 16  # 4 ranks x 4 rows; K = 64: feasible_width(3, 4, 64) = 2 -> 8
+
+
+def _elastic_config(workdir, batch=ELASTIC_BATCH):
+    cfg = _config(workdir, elastic=True, heartbeat_timeout=2.0, steps_per_epoch=6,
+                  parallel=pc.ParallelConfig(timeout_s=ELASTIC_TIMEOUT_S))
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, global_batch=batch))
+
+
 @functools.lru_cache(maxsize=None)
 def _driver(root):
     """Three worlds of 2 side by side: (a) an uninterrupted run of 2 epochs
     of 3 steps, then one epoch and its restart to 2 epochs on another
-    workdir; (b) `preempt@step=2` on rank 1 alone; (c) `kill@host=1:at=2`."""
+    workdir; (b) `preempt@step=2` on rank 1 alone; (c) `kill@host=1:at=2`;
+    beside them (d) an elastic world of 4 with `kill@host=0:at=3`, and once
+    it has ended (e) its relaunch at 2 ranks and the planned batch: a run of
+    no step (the restored state), then 3 steps."""
     common = {"examples": 24, "num_filters": 4}
-    w = {k: os.path.join(root, k) for k in ("whole", "split", "preempt", "kill")}
+    w = {k: os.path.join(root, k) for k in ("whole", "split", "preempt", "kill", "elastic")}
+    elastic = {"examples": 6 * ELASTIC_BATCH, "num_filters": 4}
     procs = {
         "a": dw.start_world(dw.train_job, 2, f"{root}/a", {**common, "runs": [
             (_config(w["whole"], epochs=2), None), (_config(w["split"], epochs=1), None),
@@ -350,10 +371,19 @@ def _driver(root):
             1: "preempt@step=2"}, "runs": [(_config(w["preempt"], epochs=2), None)]}),
         "c": dw.start_world(dw.train_job, 2, f"{root}/c", {
             **common, "faults": "kill@host=1:at=2", "runs": [(_config(w["kill"]), None)]}),
+        "d": dw.start_world(dw.train_job, 4, f"{root}/d", {
+            **elastic, "faults": "kill@host=0:at=3",
+            "runs": [(_elastic_config(w["elastic"]), None)]}, timeout_s=ELASTIC_TIMEOUT_S),
     }
-    return {"a": dw.collect_world(procs["a"], f"{root}/a"),
-            "b": dw.collect_world(procs["b"], f"{root}/b"),
-            "c": dw.join_world(procs["c"]), "dirs": w}
+    out = {"d": dw.join_world(procs["d"]), "dirs": w}
+    relaunch = _elastic_config(w["elastic"], ELASTIC_BATCH // 2)
+    procs["e"] = dw.start_world(dw.train_job, 2, f"{root}/e", {
+        **elastic, "runs": [(relaunch, 0), (relaunch, 3)]}, timeout_s=ELASTIC_TIMEOUT_S)
+    out.update({"a": dw.collect_world(procs["a"], f"{root}/a"),
+                "b": dw.collect_world(procs["b"], f"{root}/b"),
+                "c": dw.join_world(procs["c"]),
+                "e": dw.collect_world(procs["e"], f"{root}/e")})
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -422,6 +452,71 @@ def test_kill_host_exits_113_and_the_survivor_does_not_hang(driver):
     codes = driver["c"]
     assert codes[1] == KILL_EXIT_CODE == 113
     assert codes[0] not in (0, None)
+
+
+def test_elastic_survivors_exit_75_after_rank_1_saves(driver):
+    """Elastic, kill@host=0:at=3 in a world of 4 (rank 0, the writer, dies at
+    its step-3 log processing): rank 0 exits 113 and every survivor 75;
+    rank 1, the lowest survivor, has written the emergency checkpoint of
+    the guard's step-3 snapshot (extras `reason: "rescale"`, the plan,
+    epoch -1: the relaunch redoes the epoch) and one `rescale` line, valid
+    under the port's schema and JAX's, planning 4 -> 2 ranks and 16 -> 8
+    rows at kappa 1/2."""
+    from moco_tpu.obs.schema import validate_line as jax_validate_line
+
+    assert driver["d"] == [KILL_EXIT_CODE] + [RESCALE_EXIT_CODE] * 3
+    workdir = driver["dirs"]["elastic"]
+    mgr = CheckpointManager(workdir)
+    assert mgr.all_steps() == [3]
+    extra = mgr.read_extra(3)
+    mgr.close()
+    assert extra["emergency"] and extra["reason"] == "rescale" and extra["epoch"] == -1
+    cfg = _elastic_config(workdir)
+    assert extra["rescale"] == {"dead_hosts": [0], "new_num_data": 2, "new_global_batch": 8,
+                                "step": extra["rescale"]["step"], "kappa": 0.5,
+                                "lr": cfg.optim.lr * 0.5,
+                                "momentum": cfg.moco.momentum ** 0.5, "ref_batch": 16}
+    lines = [r for r in _lines(workdir) if r.get("event") == "rescale"]
+    assert len(lines) == 1
+    line = lines[0]
+    assert validate_line(line) == [] and jax_validate_line(line) == []
+    assert {k: line[k] for k in line if k.startswith("rescale/")} == {
+        "rescale/dead_hosts": [0], "rescale/old_num_data": 4, "rescale/new_num_data": 2,
+        "rescale/old_global_batch": 16, "rescale/new_global_batch": 8, "rescale/kappa": 0.5,
+        "rescale/lr": cfg.optim.lr * 0.5, "rescale/momentum": cfg.moco.momentum ** 0.5}
+
+
+def test_elastic_relaunch_resumes_the_checkpoint_bit_for_bit(driver):
+    """The relaunch at the plan's 2 ranks and batch 8 (no --auto-scale: the
+    checkpoint's anchor, ref_batch 16, is kept): each rank's restored state
+    is the emergency checkpoint's, bit for bit (the file loaded here into a
+    one-process state), lr and EMA momentum are `apply_auto_scale`'s at
+    kappa 1/2, and 3 more steps (4-6) train to finite losses, the ranks in
+    lockstep."""
+    from moco_tpu_torch.core.moco import build_encoder as port_encoder
+    from moco_tpu_torch.core.moco import create_state
+    from moco_tpu_torch.utils.checkpoint import load_state_payload
+
+    workdir = driver["dirs"]["elastic"]
+    relaunch = _elastic_config(workdir, ELASTIC_BATCH // 2)
+    want, _ = pc.apply_auto_scale(dataclasses.replace(relaunch, auto_scale="ref_batch=16"))
+    mgr = CheckpointManager(workdir)
+    payload, _ = mgr.restore(step=3)
+    mgr.close()
+    state = create_state(relaunch, port_encoder(relaunch.moco, num_filters=4), device="cpu")
+    load_state_payload(state, payload)
+    restored = dw.state_arrays(state)
+    ranks = driver["e"]
+    for restart, trained in ranks:
+        assert restart["step"] == 3 and restart["steps"] == []
+        assert set(restart["state"]) == set(restored)
+        for k, v in restored.items():
+            np.testing.assert_array_equal(restart["state"][k], v, err_msg=k)
+        for run in (restart, trained):
+            assert run["lr"] == want.optim.lr == relaunch.optim.lr * 0.5
+            assert run["momentum"] == want.moco.momentum == relaunch.moco.momentum ** 0.5
+        assert trained["steps"] == [4, 5, 6] and np.all(np.isfinite(trained["losses"]))
+    assert ranks[0][1]["losses"] == ranks[1][1]["losses"]
 
 
 def test_torchrun_trains_two_gloo_ranks_on_the_cpu(tmp_path):

@@ -674,18 +674,20 @@ def test_make_train_step_gates_the_eman_key_forward_as_jax(fields):
 
 
 def test_config_rejects_what_the_slice_does_not_run():
-    """The Pallas tile and the parallel fields beyond `num_data`, the model
-    axis and ZeRO's (elastic) stay out of the port's config;
-    `syncbn_group_size`, `ParallelConfig(num_data, num_model)`,
-    `vit_sequence_parallel` and the ZeRO fields are in it."""
+    """The Pallas tile, `prefetch_donate` and the telemetry fields not yet
+    ported stay out of the port's config; `syncbn_group_size`,
+    `ParallelConfig(num_data, num_model)`, `vit_sequence_parallel`, the
+    ZeRO fields and `TrainConfig.elastic` (a top-level field, as in JAX)
+    are in it."""
     with pytest.raises(TypeError):
         pc.MocoConfig(fused_block_k=1)
-    for field, value in (("elastic", True), ("prefetch_donate", True),
-                         ("strict_tracing", True)):
+    for field, value in (("prefetch_donate", True), ("strict_tracing", True)):
         with pytest.raises(TypeError):
             pc.TrainConfig(**{field: value})
     with pytest.raises(TypeError):
         pc.ParallelConfig(elastic=True)
+    assert pc.TrainConfig(elastic=True).elastic and not pc.TrainConfig().elastic
+    assert {f.name for f in dataclasses.fields(jc.TrainConfig)} >= {"elastic"}
     assert pc.MocoConfig(syncbn_group_size=2).syncbn_group_size == 2
     assert pc.MocoConfig(vit_sequence_parallel=True).vit_sequence_parallel
     assert pc.TrainConfig(parallel=pc.ParallelConfig(num_data=4)).parallel.num_data == 4

@@ -165,14 +165,15 @@ def test_plans_and_peak_equal_jax(v3):
 
 
 class _FakeWorld:
-    """Rank 0 of `n` with no process group: enough to build a layout (no
-    collective is issued while building one)."""
+    """Rank 0 of `n` data ranks with no process group: enough to build a
+    layout (no collective is issued while building one)."""
 
     def __init__(self, n):
         from moco_tpu_torch.parallel.mesh import World
 
         self._w = World(device="cpu")
         self.world_size, self.rank, self.device = n, 0, torch.device("cpu")
+        self.num_data, self.data_rank = n, 0  # the layout's axis
         self.ledger = self._w.ledger
         self.distributed = False
 
