@@ -60,7 +60,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    prefetch ring from a copy of that state: the step clones each batch it
    is given (on the consumer's stream, no host sync), and afterwards each
    must equal the synchronous batch(0, s) bit for bit. Then
-   train(..., device="cuda") for 3 warm-up, 10 timed and 5 untimed steps
+   train(..., device="cuda") for 3 warm-up, 5 timed and 5 untimed steps
    (the ring makes no batch past a run's last step, so its last steps run
    alone; they stay out of the timed window) three times,
    from the same seeded state and data: in sync mode (device_prefetch=False,
@@ -114,7 +114,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    Flax-layout weights through convert.state_from_flax and a
    SyntheticDataset (epochs of 4 steps, so the ring starts anew at steps
    4, 8 and 12) through the TwoCropPipeline. The 3-step ring check of
-   phase 8, then train(..., device="cuda") for 3 warm-up and 10 timed steps
+   phase 8, then train(..., device="cuda") for 3 warm-up and 5 timed steps
    in sync and in ring mode from the same seeded state and data, the flash
    launch counts set to 0 just before each and read just after. Checks, in
    each mode: finite losses; per step 24 forward launches (12 blocks in each
@@ -148,8 +148,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
 12b. The closed v2 loop, at full width (imagenet_v2: ResNet-50 + MLP head,
    K = 65536, batch 256, 224 px, bf16) in a temporary workdir, deleted at
    the end. (a) Two epochs of 3 steps on a seeded LearnableSyntheticDataset
-   through the prefetch ring, the kNN monitor every epoch (a bank of 1024,
-   256 held-out queries) and checkpoint_keep=2, the InfoNCE launch counts
+   through the prefetch ring, the kNN monitor every epoch (a bank of 512,
+   128 held-out queries) and checkpoint_keep=2, the InfoNCE launch counts
    set to 0 just before and read just after: each kernel launched once per
    step; every metrics.jsonl line passes obs/schema.py; one knn_top1 line
    per epoch; checkpoints at steps 3 and 6. A save of the final state is
@@ -169,7 +169,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    nonfinite_loss lines (nan_steps 1 and 2), each followed by its alert
    line (the default rules, since PR 10); FloatingPointError at step 10's.
    (c) The probe: train_lincls from the workdir (ResNet-50, fc 2048 -> 8,
-   batch 256, 2 epochs of 512 images, a val split of 300: a padded, masked
+   batch 256, 1 epoch of 512 images, a val split of 300: a padded, masked
    tail), whose sanity_check holds every backbone weight and BN statistic
    to the checkpoint's bits; evaluate_lincls on model_best gives the best
    epoch's acc1 exactly; the probe and eval steps are timed on one batch;
@@ -205,13 +205,13 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    the logit statistics, 1/sqrt(d) for feature_std), feature_dim_active
    equal but for dimensions within 1e-6 of the threshold; the gauges'
    device time (CUDA events) and the v2 sync-mode step ms with
-   health_metrics on and off (10 timed steps each from the same state);
+   health_metrics on and off (5 timed steps each from the same state);
    nan@step=5 (log_every=1) under the default rules writes one
    nonfinite_loss alert line and one alerts.jsonl entry, and under
    alerts_fatal raises FatalAlertError after an emergency checkpoint of
    step 4 (reason "alert"). (b) The watchdog, last: `python -m
    moco_tpu_torch.train --preset imagenet_v2 --data synthetic --epochs 2
-   --steps-per-epoch 3 --watchdog-timeout 15` with
+   --steps-per-epoch 3 --watchdog-timeout 8` with
    MOCO_FAULTS=stall@step=6:seconds=120 (the last log step's deferred
    read) exits with code 42, leaves stall_stacks.txt, one `stall` line and
    an emergency checkpoint (reason "stall") of the last log step whose
@@ -219,7 +219,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    queue_ptr 1024, and the rows steps 5 and 6 wrote still the seeded
    initial queue's; the seconds from the stall to the exit are printed.
 12d. The options of the v1/v2 step at full width, each part 3 warm-up
-   and 10 timed steps through the prefetch ring from a seeded state, the
+   and 5 timed steps through the prefetch ring from a seeded state, the
    InfoNCE launch counts set to 0 just before and read just after (each
    kernel once per step, finite losses). (a) `imagenet_v2` with
    bn_virtual_groups=8 and shuffle="gather_perm" (the reference's 8 GPUs
@@ -270,7 +270,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    12 x the engine's encoder forwards, all flash_fwd_mma_kernel; the ViT
    engine's ms per bucket; its embeddings against an f32 engine whose
    attention is the port's plain attention_reference, cosine >= 0.99. (d)
-   train_lincls on W3 (2 epochs of 512 learnable 224-px images at batch 256,
+   train_lincls on W3 (1 epoch of 512 learnable 224-px images at batch 256,
    a val split of 300): finite losses, sanity_check inside, the flash
    forward launched; evaluate_lincls gives the best epoch's acc1; the probe
    and eval steps timed on one batch. (e) convert_pretrain W3 -> .pth: the
@@ -282,7 +282,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    launch is flash_fwd_mma_kernel and no flash backward launches; the
    phase's IVF and flash forward launches are added to the kernels line.
 12f. Observability, at full width, in a temporary workdir deleted at the
-   end. (a) train(imagenet_v2) for 3 warm-up and 10 timed ring steps from
+   end. (a) train(imagenet_v2) for 3 warm-up and 5 timed ring steps from
    phase 8's seeded state and data with a workdir, log_every=1,
    obs_probe_every=5, sinks jsonl,csv (tensorboard where a writer is
    importable; else its constructor must raise JAX's RuntimeError) and a
@@ -301,7 +301,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    torch.cuda.set_sync_debug_mode("warn"), raises no synchronization
    warning on its thread. (b) From the same state and data, 15 ring steps
    with obs_probe_every=0 (the in-flight window alone) and twice with
-   obs_probe_every=1 (a wait around every step): imgs/s over the 10 timed
+   obs_probe_every=1 (a wait around every step): imgs/s over the 5 timed
    steps (the host clock from the first timed step's dispatch to the
    dispatch after the last's), the medians of t_dispatch and t_device of
    the first every-step run; the losses of the window run within the
@@ -353,7 +353,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    estimate reported, serve/quant_tier 2 and serve/int8 1, 0 recompiles,
    the cell scan launched, the lines schema-valid. Then 3 more v2 ring
    steps from 12e's checkpoint (its copy) write step 6 (InfoNCE once per
-   step); `replica_main` serves the step-3 copy with --fresh-max-age-s 30
+   step); `replica_main` serves the step-3 copy with --fresh-max-age-s 20
    and a fault plan that stalls its first /ingest after the ones below by
    90 s; `python -m moco_tpu_torch.serve.serve_ingest --once` sends step
    6's whole queue oldest-first (65536 rows, in blocks of 8192), an
@@ -393,7 +393,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    phase 8's seeded state, each rank's batches made by its own ring from
    its rows of the seeded global batch: imagenet_v2 with
    shuffle="gather_perm" for 4 steps (bf16, the preset's dtype; timed), in
-   float32 without TF32 with "gather_perm" and "syncbn" for 3 steps each,
+   float32 without TF32 with "gather_perm" and "syncbn" for 2 steps each,
    and vit_b16_v3 at 2 x 128 rows (flash attention) for 2 steps. Checks: finite losses; the two ranks'
    states (parameters, BN statistics, optimizer buffers, queue) equal bit
    for bit after every step; each rank's ring batches are its rows of the
@@ -404,7 +404,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    TF32: the float32 gather_perm against bn_virtual_groups=2 with the
    same permutations, syncbn against shuffle="none", and as a control
    whole-batch BN against gather_perm. An oracle must keep every loss
-   within DP_LOSS_RTOL relative, the 3-step update
+   within DP_LOSS_RTOL relative, the 2-step update
    of all parameters and BN statistics within DP_UPDATE_REL of the
    oracle's (||world - oracle|| / ||oracle - init|| over all of them) and
    every queue row the steps wrote at cosine DP_QUEUE_COS or more; the
@@ -419,13 +419,13 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    import no JAX. Each rank first reports whether its group takes
    `reduce_scatter_tensor` on its device (the port issues it on every
    backend; the phase fails if a rank's group does not). From phase 8's seeded
-   state on each rank's 128 rows of the same 3 ring batches: imagenet_v2
+   state on each rank's 128 rows of the same 2 ring batches: imagenet_v2
    (ResNet-50 + MLP, K = 65536, 224 px) in float32 without TF32 with the
    replicated data-parallel step (12h's) and at stage 1, stage 3 and
    layer-granular; a stage-3 checkpoint (whole tensors gathered onto rank
    0) loaded into a stage-1 state equals the stage-3 state bit for bit;
    then the replicated step and the three layouts in bf16 (the preset's
-   dtype; 3 steps, one per batch, stages 2/3 with the training loop's hoisted
+   dtype; 3 steps over the 2 batches, stages 2/3 with the training loop's hoisted
    gather): step ms (the median of the last 2), imgs/s, peak memory,
    `hbm_state_bytes`, `hbm_model_peak_bytes` and `overlap/zero` per rank,
    beside 12h's peak memory; then the vit_b16_v3_huge_batch_zero3 preset's
@@ -487,7 +487,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    rank's shapes, (B, K, C) = (128, 32768, 128) (phase 7's checks). (a) a
    world of 2 x 2 ranks (NCCL on four cards, else gloo on cuda:0):
    imagenet_v2 (ResNet-50 + MLP, K = 65536, batch 256, 224 px) in float32
-   without TF32, 3 steps each replicated and at ZeRO stages 1 and 3 (the
+   without TF32, 2 steps each replicated and at ZeRO stages 1 and 3 (the
    state sharded over the 2 data ranks, the queue's 32768 rows a rank over
    the model ranks, a data rank's 128 rows on both its model ranks), from
    phase 8's seeded state on the same batches: finite losses, the ranks'
@@ -500,19 +500,58 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    each, global 256) run imagenet_v2 (bf16, PyTorch's seeded init) through
    train() with
    `elastic`, heartbeat_timeout ZK_HEARTBEAT_S, a group timeout of
-   ZK_GROUP_TIMEOUT_S and kill@host=0:at=3 (the writer dies): rank 0 exits
+   ZK_GROUP_TIMEOUT_S (the ranks meet first through a file store under
+   ZK_TIMEOUT_S: rank 0 comes late from (a)'s oracle) and kill@host=0:at=3 (the writer dies): rank 0 exits
    113 and the 3 survivors 75; one durable checkpoint, step 3's (extras
    `reason: "rescale"`, the plan 4 -> 2 ranks, 256 -> 128 rows), and one
    schema-valid `rescale` line (dead [0], kappa 1/2), both rank 1's; then
    2 new processes relaunch at the plan (global 128, no --auto-scale):
    each loads the checkpoint into a fresh state whose payload equals the
-   file's tensor for tensor, bit for bit, then 3 steps through train()
-   (4-6, finite, the ranks equal) with InfoNCE once a step, and lr and EMA
+   file's tensor for tensor, bit for bit, then 2 steps through train()
+   (4-5, finite, the ranks equal) with InfoNCE once a step, and lr and EMA
    momentum `apply_auto_scale`'s at kappa = 1/2. Printed: the signal to
    the last survivor's exit (host clock, from rank 0's exit) and the
    relaunch's spawn to its first finished step. The launches of (a), (b)'s
    survivors and the relaunch are added to the kernels line
    (`launches_12k`).
+12l. The serving fleet (moco_tpu_torch/serve/{router,fleet,promote}.py),
+   right after 12g, at full width: a ReplicaSupervisor of two
+   `moco_tpu_torch.serve.replica_main --device cuda` processes on the card
+   serving 12e's v2 checkpoint (buckets 1 / 8 / 32), FL_WARM_ROWS of its
+   queue as the warm rows, `kill@replica=1:at=FL_KILL_AT` in replica 1's
+   environment, behind a FleetRouter (breaker threshold 1, hedging off).
+   (a) FL_CLIENTS client processes of FL_BURST /embed and /neighbors
+   requests of FL_BURST_SIZES images: no client request fails; replica 1 dies once (rc 113), is
+   respawned once and warm-replayed (its serve/ingested_rows = the warm
+   rows); the router's retries and breaker trips above 0; every answer's
+   `replica` matches its `r<i>-` request id; every embedding within cosine
+   0.99 of an in-process engine on the same checkpoint; each request's
+   stitched hop sum (obs/critpath.py on the router's flight record) within
+   FL_HOP_REL or FL_HOP_MS of the client's wall to the answer's last byte.
+   Printed: each replica's spawn to healthy, the kill to the first answer
+   from the reborn replica through the router, the router's p50 / p99 of
+   FL_LAT_N sequential 32-image /embed requests (a full bucket: the batcher
+   flushes at once, where a smaller request waits up to half the replicas'
+   1000 ms SLO to coalesce) beside replica 0's own. (b) A drain
+   of replica 0 (restart through the supervisor) and an undrain under two
+   client threads: nothing dropped, the cycle's seconds printed; then
+   `serve_ingest --fanout --once` of 12g's step-6 queue through the router:
+   K rows more on each replica. (c) `serve_promote` gates a candidate whose
+   encoders are re-initialised (rejected, the ledger line naming the gate),
+   then, with the router, a compatible one (the live parameters scaled by
+   1 + FL_NUDGE, the reference smoke's stand-in for one more epoch; 12g's
+   step-6 checkpoint fails compat_cosine: its key encoder's BN statistics
+   moved): accepted (its EMA-drift ceiling FL_MAX_EMA_DRIFT and feature_std
+   floor FL_FEATURE_STD_FLOOR, the other floors the defaults; the gates the
+   defaults would fail printed) and rolled out one replica at a time
+   through /admin/promote: `fleet_serve/model_skew` at least 1
+   mid-rollout, then 0, both replicas on the candidate's step and digest,
+   the ledger schema-valid. (d) During the rollout: the same router
+   class in front of two in-process ServeServers over phase 4's index (IVF
+   nlist 256, nprobe 16, ivf_fused): FL_NEIGHBORS
+   /neighbors?mode=ivf_fused requests of 32 launch cell_scores_mma_kernel
+   (`launches_12l` in the kernels line), each answer's ids equal and scores
+   within SCORE_TOL of a direct index.query of its own embeddings.
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -532,10 +571,12 @@ it carry the kernel table and the timings as JSON.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -544,6 +585,7 @@ import subprocess
 import sys
 import tempfile
 import signal
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -560,7 +602,7 @@ K, DIM, NLIST, NPROBE, TOPK = 65536, 128, 256, 16, 5
 IMG = 224
 SCORE_TOL = 1e-5
 POS_TOL, LSE_TOL, TIE_TOL = 1e-5, 1e-4, 1e-5
-TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAIN_WARMUP, TRAIN_TIMED = 3, 5
 # untimed steps after the timed ones in the v2 runs: the ring makes no batch
 # past the run's last, so in its last steps the step has the card and the
 # host to itself; the tail keeps that out of the timed window
@@ -576,10 +618,13 @@ TOL_SHARE = 0.125  # most a flash tolerance may be of its output's largest value
 # trained state, the kernels were at most 4.6e-5 and 0.020 off, the nearer
 # of two wrong attentions at least 4.3e-4 (loss) and 0.045 (features)
 LOSS_REL, FEAT_REL = 1.5e-4, 0.03
-# the closed loop (phase 12b): epochs of 3 steps, a kNN bank of 1024 and 256
+# the closed loop (phase 12b): epochs of 3 steps, a kNN bank of 512 and 128
 # held-out queries, a probe val split of 300 (a padded tail of 44 in batches
 # of 256)
-LOOP_EPOCH_STEPS, KNN_BANK, KNN_TEST, PROBE_VAL = 3, 1024, 256, 300
+LOOP_EPOCH_STEPS, KNN_BANK, KNN_TEST, PROBE_VAL = 3, 512, 128, 300
+PROBE_EPOCHS = 1  # the probes of 12b(c) and 12e(d): epochs of 512 images
+# phase 12c(b): the watchdog's timeout; the first step has its own grace of 900 s
+WATCHDOG_TIMEOUT_S = 8.0
 # phase 12d: the virtual groups of the reference's 8 GPUs x 32 rows, and the
 # large-batch preset's global batch 8192 cut to what one card holds
 OPTION_GROUPS, LARGE_BATCH = 8, 1024
@@ -2211,7 +2256,7 @@ def closed_loop_phase(fi, workdir):
     # (c) the linear probe at full width from the pretraining checkpoint
     probe_dir = os.path.join(workdir, "probe")
     val = LearnableSyntheticDataset(PROBE_VAL, IMG, train=False)
-    probe = ProbeConfig(epochs=2, num_classes=8)
+    probe = ProbeConfig(epochs=PROBE_EPOCHS, num_classes=8)
     t0 = time.perf_counter()
     res = lincls.train_lincls(pre, probe, train_dataset=LearnableSyntheticDataset(512, IMG),
                               val_dataset=val, workdir=probe_dir, device="cuda")
@@ -2583,7 +2628,7 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
     env = {**os.environ, "MOCO_FAULTS": "stall@step=6:seconds=120"}
     cmd = [sys.executable, "-m", "moco_tpu_torch.train", "--preset", preset_name, "--data",
            "synthetic", "--workdir", wd_dir, "--epochs", "2", "--steps-per-epoch", str(spe),
-           "--watchdog-timeout", "15", "--device", device]
+           "--watchdog-timeout", f"{WATCHDOG_TIMEOUT_S:g}", "--device", device]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2613,7 +2658,8 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
     check("Thread" in open(os.path.join(wd_dir, "stall_stacks.txt")).read(), "watchdog: no stacks")
     stall = [r for r in read_metrics(os.path.join(wd_dir, "metrics.jsonl"))
              if r.get("event") == "stall"]
-    check(len(stall) == 1 and stall[0]["watchdog_timeout"] == 15.0, f"watchdog: stall lines {stall}")
+    check(len(stall) == 1 and stall[0]["watchdog_timeout"] == WATCHDOG_TIMEOUT_S,
+          f"watchdog: stall lines {stall}")
     wmgr = CheckpointManager(wd_dir)
     check(wmgr.all_steps() == [spe, 4], f"watchdog: checkpoints {wmgr.all_steps()}")
     payload, extra = wmgr.restore(step=4)
@@ -2957,7 +3003,7 @@ def train_to_serve_phase(ivf_scan, fa, workdir):
     # (d) the ViT probe and its evaluation
     probe_dir = os.path.join(workdir, "v3_probe")
     val = LearnableSyntheticDataset(PROBE_VAL, IMG, train=False)
-    probe = ProbeConfig(epochs=2, num_classes=8)
+    probe = ProbeConfig(epochs=PROBE_EPOCHS, num_classes=8)
     before = fa.flash_forward.launches
     t0 = time.perf_counter()
     res = lincls.train_lincls(v3_dir, probe, train_dataset=LearnableSyntheticDataset(512, IMG),
@@ -3204,7 +3250,7 @@ def observability_phase(fi, ivf_scan, workdir):
         finally:
             train_module.make_train_step = make
         runs[label] = run
-        # 10 timed steps: from the first timed step's dispatch to the one
+        # the timed steps: from the first timed step's dispatch to the one
         # after the last's (the window keeps dispatch at the card's pace)
         wall = stamps[TRAIN_WARMUP + TRAIN_TIMED] - stamps[TRAIN_WARMUP]
         out.setdefault("b", {})[f"imgs_per_s_{label}"] = TRAIN_TIMED * b / wall
@@ -3381,7 +3427,7 @@ INGEST_BLOCK = 8192  # serve_ingest's rows per POST in 12g(c): 9 POSTs for its 6
 # (its rows are stamped at its start), and the stall of an ingest past it
 # (the replica is stopped once the burn alert fires, ~1/6 of its 60 s
 # window's observations bad past the objective: the stall's end is a bound)
-FRESH_MAX_AGE_S, STALL_S = 30.0, 90.0
+FRESH_MAX_AGE_S, STALL_S = 20.0, 90.0
 FIRST_FLUSH_NEXT, FIRST_FLUSH_RATIO = 16, 3.0  # 12g(d)
 
 
@@ -3885,11 +3931,11 @@ def post(port, path, imgs):
 # NCCL when the machine has two)
 # the v2 steps held to their oracles, the v2 steps of the bf16 runs (the
 # median of those after the first two is their step ms), v3's, the ranks
-DP_STEPS, DP_TIMED_STEPS, DP_V3_STEPS, DP_RANKS = 3, 4, 2, 2
+DP_STEPS, DP_TIMED_STEPS, DP_V3_STEPS, DP_RANKS = 2, 4, 2, 2
 DP_TIMEOUT_S = 300.0  # the process groups' timeout, and the children's join budget past it
 # 12h(b)'s oracles, in float32 without TF32 (in bf16 the oracle's losses
 # drifted as far as whole-batch BN's against per-rank BN): the
-# losses' relative deviation; the 3-step update of all parameters and BN
+# losses' relative deviation; the update of all parameters and BN
 # statistics against the oracle's, relative in L2 (||dp - oracle|| /
 # ||oracle - init||); the cosine of each queue row the steps wrote. On an
 # H100 the oracles gave at most 1.5e-5, 4.7e-3 and 0.999993, the control
@@ -4136,7 +4182,7 @@ def dp_rank_child(rank: int, n: int, backend: str, device: str, store: str, out_
     """12h(b), rank `rank` of `n`: the collectives it can issue; on its 128
     rows of each batch, made by its own ring, from phase 8's seeded state:
     imagenet_v2 with gather_perm (6 steps), then in float32 without TF32
-    gather_perm and syncbn (3 steps each), and vit_b16_v3 (2 steps, flash
+    gather_perm and syncbn (2 steps each), and vit_b16_v3 (2 steps, flash
     attention); per run the losses, step ms, the state's digest after each
     step, launches, the ledger and peak memory. Rank 0 then runs the
     oracles on one device on the whole batches, in float32:
@@ -4410,7 +4456,7 @@ ZERO_LAYOUTS = {
     "stage3": {"shard_weight_update": True, "zero_stage": 3},
     "layer": {"shard_weight_update": True, "zero_stage": 3, "zero_layer_granular": True},
 }
-ZERO_STEPS = 3  # steps of each float32 imagenet_v2 run (and its ring batches)
+ZERO_STEPS = 2  # steps of each float32 imagenet_v2 run (and its ring batches)
 ZERO_BF16_STEPS = 3  # steps of each bf16 run, one per batch
 ZERO_V3_ROWS, ZERO_V3_STEPS = 64, 2  # the zero3 preset's 8192 cut to 2 x 64
 ZERO_PROBE_TRAIN, ZERO_PROBE_VAL, ZERO_PROBE_BATCH = 64, 32, 32
@@ -4537,7 +4583,7 @@ def zero_rank_child(rank: int, n: int, backend: str, device: str, store: str,
                     out_dir: str) -> None:
     """12i, rank `rank` of `n` (module docstring): the reduce-scatter
     report; imagenet_v2 in float32 without TF32, replicated and at each
-    ZeRO layout (3 steps each, the same batches); a stage-3 checkpoint
+    ZeRO layout (2 steps each, the same batches); a stage-3 checkpoint
     loaded at stage 1; the bf16 runs at each layout (timed, the launches,
     the ledger, the memory gauges); the zero3 preset's ViT at 2 x 64 rows,
     replicated and layer-granular; the probe on the two ranks from the
@@ -5387,7 +5433,7 @@ def model_axis_phase(fi, fa):
 # kill@host=0, and 2 new processes relaunch the survivors' plan
 ZK_NUM_DATA, ZK_NUM_MODEL = 2, 2
 ZK_RANKS = ZK_NUM_DATA * ZK_NUM_MODEL
-ZK_STEPS = 3  # (a)'s float32 steps per layout, and the relaunch's steps
+ZK_STEPS = 2  # (a)'s float32 steps per layout, and the relaunch's steps
 ZK_LAYOUTS = (("dp", {}), ("stage1", ZERO_LAYOUTS["stage1"]), ("stage3", ZERO_LAYOUTS["stage3"]))
 ZK_KILL_AT = 3  # (b): kill@host=0:at=3, rank 0 (the writer) dies at its step-3 log processing
 ZK_EPOCH_STEPS = 8  # (b)'s steps_per_epoch: the kill lands mid-epoch
@@ -5395,7 +5441,7 @@ ZK_EPOCH_STEPS = 8  # (b)'s steps_per_epoch: the kill lands mid-epoch
 # blocked in a collective on a peer that has left it waits that long (gloo
 # keeps a group's sockets open after the abort), so the rescale's
 # signal-to-exit is bounded by about the larger of the two
-ZK_HEARTBEAT_S, ZK_GROUP_TIMEOUT_S = 4.0, 20.0
+ZK_HEARTBEAT_S, ZK_GROUP_TIMEOUT_S = 4.0, 12.0
 ZK_TIMEOUT_S = 300.0
 
 
@@ -5556,6 +5602,17 @@ def zk_rank_child(rank: int, backend: str, device: str, tmp: str, workdir: str) 
     res = {"rank": rank}
     code = 0
     try:
+        # The group's timeout is short (a survivor waits out the lost rank) and
+        # bounds its rendezvous too, while rank 0 comes from (a)'s oracle
+        # ~11 s after the others: the ranks first meet under ZK_TIMEOUT_S.
+        import datetime
+
+        import torch.distributed as dist
+
+        ready = dist.FileStore(os.path.join(tmp, "store_b_ready"), ZK_RANKS)
+        ready.set_timeout(datetime.timedelta(seconds=ZK_TIMEOUT_S))
+        ready.set(f"rank{rank}", "1")
+        ready.wait([f"rank{r}" for r in range(ZK_RANKS)])
         world = init_world(backend, rank, ZK_RANKS, device=device,
                            store_path=os.path.join(tmp, "store_b"),
                            timeout_s=ZK_GROUP_TIMEOUT_S)
@@ -5834,6 +5891,557 @@ def zk_phase(fi):
         shutil.rmtree(tmp)
 
 
+# phase 12l: the serving fleet. Two replica processes on the card behind the
+# router; a burst from FL_CLIENTS client processes of FL_BURST requests each
+# (of FL_BURST_SIZES images, the reference smoke's small requests), whose
+# FL_KILL_AT-th data POST on replica 1 kills it; FL_WARM_ROWS warm rows from
+# the live checkpoint's queue replayed into a reborn replica; FL_LAT_N
+# sequential requests of a full bucket (32 images, no coalescing wait) a
+# side for the router's and a replica's latency; FL_NEIGHBORS requests of 32
+# through the in-process fleet of (d)
+FL_CLIENTS, FL_BURST, FL_KILL_AT, FL_WARM_ROWS, FL_LAT_N, FL_NEIGHBORS = 4, 6, 5, 4096, 20, 4
+FL_BURST_SIZES = (1, 2, 4, 8)
+FL_BOOT_S = 300.0  # a replica's spawn-to-healthy limit
+FL_HOP_REL, FL_HOP_MS = 0.05, 2.0  # the stitched hop sum against the client's wall
+# the compatible candidate: the live encoders' parameters scaled by 1 +
+# FL_NUDGE (the reference smoke's stand-in for one more epoch: a new digest,
+# the same embedding space). Its gates: the default compatibility floors;
+# the reference smoke's feature_std floor for an untrained encoder; an EMA-
+# drift ceiling above the seeded state's (phase 8 starts the key encoder
+# from another seed on purpose: its drift is ~1.1, over the default 0.5)
+FL_NUDGE, FL_MAX_EMA_DRIFT, FL_FEATURE_STD_FLOOR = 1e-3, 2.0, 0.05
+
+
+def fl_post(url, path, imgs, timeout=120):
+    req = urllib.request.Request(url + path, data=imgs.tobytes(),
+                                 headers={"X-Image-Shape": ",".join(map(str, imgs.shape))})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def fl_get(url, path, timeout=30):
+    with urllib.request.urlopen(url + path, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def fl_wait(pred, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < deadline, f"12l: {what} within {timeout:.0f} s")
+        time.sleep(0.05)
+
+
+def fl_burst_images(c: int, img: int) -> list:
+    """Client c's FL_BURST request batches of FL_BURST_SIZES seeded images."""
+    rng = np.random.default_rng(SEED + 130 + c)
+    return [rng.integers(0, 256, (int(n), img, img, 3), np.uint8)
+            for n in rng.choice(FL_BURST_SIZES, FL_BURST)]
+
+
+def fl_timed_post(url, path, imgs) -> tuple:
+    """(answer, wall ms, wall clock at the first byte): POST `imgs` on a
+    connection opened beforehand; the wall runs from the request's first
+    byte to the answer's last, the span the router's trace can account for
+    (the connection's setup and the JSON decode stay outside it)."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+    try:
+        conn.connect()
+        w0, t0 = time.time(), time.perf_counter()
+        conn.request("POST", path, body=imgs.tobytes(),
+                     headers={"X-Image-Shape": ",".join(map(str, imgs.shape))})
+        resp = conn.getresponse()
+        raw = resp.read()
+        wall = (time.perf_counter() - t0) * 1e3
+        if resp.status != 200:
+            raise OSError(f"HTTP {resp.status}: {raw[:200]!r}")
+    finally:
+        conn.close()
+    return json.loads(raw), wall, w0
+
+
+def fl_burst_client(args) -> dict:
+    """One burst client of 12l(a), in a process of its own: one untimed
+    /healthz (the process's first request pays its HTTP modules' imports),
+    then requests alternating /embed and /neighbors; returns each answer
+    with its wall ms and the wall clock of its first byte, and each
+    failure."""
+    url, c, img = args
+    fl_get(url, "/healthz")
+    out = {"answers": [], "failures": []}
+    for j, imgs in enumerate(fl_burst_images(c, img)):
+        path = "/neighbors" if j % 2 else "/embed"
+        try:
+            body, wall, w0 = fl_timed_post(url, path, imgs)
+        except Exception as e:  # a failed client request is what is counted
+            out["failures"].append(repr(e))
+            continue
+        out["answers"].append((path, body, wall, w0))
+    return out
+
+
+def fl_percentiles(ms: list) -> dict:
+    a = np.sort(np.asarray(ms))
+    pick = lambda p: float(a[min(int(p * (len(a) - 1) + 0.5), len(a) - 1)])  # noqa: E731
+    return {"p50_ms": pick(0.50), "p99_ms": pick(0.99), "n": len(ms)}
+
+
+def fl_candidate(src_dir: str, dst_dir: str, *, nudge=None, reinit_seed=None) -> None:
+    """`src_dir`'s newest checkpoint with both encoders changed and saved
+    one step later: every parameter (not the BatchNorm statistics) scaled
+    by 1 + `nudge`, or every module re-initialised from `reinit_seed`
+    (PyTorch's init, BatchNorm statistics reset): a candidate trained from
+    nothing."""
+    from moco_tpu_torch.lincls import restore_pretrain_state
+    from moco_tpu_torch.utils.checkpoint import CheckpointManager, encoder_to_reference
+
+    mgr = CheckpointManager(src_dir)
+    payload, extra = mgr.restore()
+    restored = restore_pretrain_state(src_dir, sides=("q", "k"), device="cpu")
+    sd = payload["state_dict"]
+    for side, enc in restored.encoders.items():
+        with torch.no_grad():
+            if reinit_seed is not None:
+                torch.manual_seed(reinit_seed)
+                for m in enc.modules():
+                    if hasattr(m, "reset_parameters"):
+                        m.reset_parameters()
+            else:
+                for p in enc.parameters():
+                    p.mul_(1.0 + nudge)
+        for k, v in encoder_to_reference(enc).items():
+            name = f"module.encoder_{side}.{k}"
+            check(name in sd and sd[name].shape == v.shape, f"12l: candidate key {name}")
+            sd[name] = v.detach().clone()
+    CheckpointManager(dst_dir).save(mgr.latest_step() + 1, payload, extra=extra)
+
+
+def fl_noop(x):
+    return x
+
+
+class FlThread(threading.Thread):
+    """`fn()` on a thread, started at once; `result()` joins it and returns
+    its value or raises its exception."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self._fn, self._out = fn, None
+        self.start()
+
+    def run(self):
+        try:
+            self._out = (self._fn(), None)
+        except BaseException as e:  # raised again on the caller's thread
+            self._out = (None, e)
+
+    def result(self, timeout=FL_BOOT_S):
+        self.join(timeout)
+        check(self._out is not None, "12l: a helper thread did not finish")
+        value, err = self._out
+        if err is not None:
+            raise err
+        return value
+
+
+def fleet_phase(ivf_scan, v2_dir, fanout_dir, workdir, device="cuda"):
+    """Phase 12l: the serving fleet (module docstring) over 12e's v2
+    checkpoint (`v2_dir`), fanning out the queue of 12g's newer one
+    (`fanout_dir`), in `workdir`; returns (its numbers, its cell-scan
+    launches)."""
+    import torch.multiprocessing as mp
+
+    from moco_tpu_torch.obs import critpath
+    from moco_tpu_torch.obs.schema import validate_line, validate_lines
+    from moco_tpu_torch.serve import serve_ingest, serve_promote
+    from moco_tpu_torch.serve.engine import InferenceEngine, load_serving_encoder
+    from moco_tpu_torch.serve.fleet import ReplicaSupervisor
+    from moco_tpu_torch.serve.promote import DEFAULT_FLOORS, PromotionLedger, ledger_record
+    from moco_tpu_torch.serve.router import FleetRouter
+
+    out = {}
+    phase_t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"12l: {what} at {time.perf_counter() - phase_t0:.1f} s", flush=True)
+
+    os.makedirs(workdir, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    env.pop("MOCO_FAULTS", None)
+    live_queue, _ = serve_ingest.read_queue(v2_dir)
+    warm = np.ascontiguousarray(live_queue[:FL_WARM_ROWS])
+    sup = ReplicaSupervisor(
+        2, ckpt_dir=v2_dir, workdir=os.path.join(workdir, "fleet"),
+        buckets=tuple(int(b) for b in REPLICA_BUCKETS.split(",")), device=device, env=env,
+        extra_env={1: {"MOCO_FAULTS": f"kill@replica=1:at={FL_KILL_AT}"}},
+        warm_rows_fn=lambda: warm, boot_timeout_s=FL_BOOT_S, monitor_interval_s=0.1,
+        restart_backoff_s=0.1)
+    # each replica's spawn to its first healthy answer, polled beside the
+    # supervisor's own wait
+    healthy_at = {}
+
+    def first_healthy(i):
+        while i not in healthy_at:
+            try:
+                if fl_get(sup.url(i), "/healthz", timeout=2).get("ok"):
+                    healthy_at[i] = time.monotonic()
+            except OSError:
+                time.sleep(0.05)
+
+    sup_err, router, pool = [], None, None
+    try:
+        sup_thread = threading.Thread(target=lambda: _fl_start(sup, sup_err))
+        sup_thread.start()
+        pollers = [threading.Thread(target=first_healthy, args=(i,), daemon=True)
+                   for i in (0, 1)]
+        for t in pollers:
+            t.start()
+        # while the replicas boot: the burst's client processes, the
+        # in-process engine, and the candidates on a thread of their own
+        # (host work, done before the burst)
+        pool = concurrent.futures.ProcessPoolExecutor(FL_CLIENTS,
+                                                      mp_context=mp.get_context("spawn"))
+        clients_up = list(pool.map(fl_noop, range(FL_CLIENTS)))
+        reinit_dir, cand_dir = os.path.join(workdir, "reinit"), os.path.join(workdir, "cand")
+        cand_thread = FlThread(lambda: (
+            fl_candidate(v2_dir, reinit_dir, reinit_seed=SEED + 999),
+            fl_candidate(v2_dir, cand_dir, nudge=FL_NUDGE)))
+        encoder, _, _, config = load_serving_encoder(v2_dir, device=device)
+        img = config.data.image_size
+        local = InferenceEngine(encoder, img, buckets=(1, 8, 32), device=device)
+        local.warmup()
+        sup_thread.join(timeout=FL_BOOT_S + 30)
+        check(sup_err == [None] and clients_up == list(range(FL_CLIENTS)),
+              f"12l: the supervisor's start: {sup_err}")
+        for t in pollers:
+            t.join(timeout=10)
+        spawn_t = {e["replica"]: e["t"] for e in sup.events() if e["kind"] == "spawn"}
+        out["spawn_to_healthy_s"] = [healthy_at[i] - spawn_t[i] for i in (0, 1)]
+        lap(f"(a) 2 replicas healthy, {[round(s, 1) for s in out['spawn_to_healthy_s']]} s "
+            "after their spawns")
+        router = FleetRouter(supervisor=sup, workdir=os.path.join(workdir, "fleet"),
+                             health_interval_s=0.1, hedge=False, retry_attempts=4,
+                             retry_base_delay_s=0.02, breaker_fail_threshold=1,
+                             breaker_cooldown_s=0.5, breaker_cooldown_cap_s=2.0,
+                             readmit_timeout_s=FL_BOOT_S, metrics_flush_s=0.5)
+        url = f"http://127.0.0.1:{router.port}"
+        rng = np.random.default_rng(SEED + 121)
+        full = rng.integers(0, 256, (32, img, img, 3), np.uint8)  # a full bucket
+
+        # (a) the burst through the kill, each client a process of its own so
+        # that its wall clock waits on no thread of the router's process; the
+        # candidates' thread done and the heap collected first, so no other
+        # work of this process holds the interpreter while the router serves
+        cand_thread.result()
+        gc.collect()
+        done = list(pool.map(fl_burst_client, [(url, c, img) for c in range(FL_CLIENTS)]))
+        failures = [f for d in done for f in d["failures"]]
+        answers = [(imgs, path, body, wall, w0) for c, d in enumerate(done)
+                   for imgs, (path, body, wall, w0) in zip(fl_burst_images(c, img),
+                                                           d["answers"])]
+        check(failures == [], f"12l(a): {len(failures)} failed client requests: {failures[:3]}")
+        check(len(answers) == FL_CLIENTS * FL_BURST, f"12l(a): {len(answers)} answers")
+        lap(f"(a) burst of {len(answers)} answered")
+        exits = [e for e in sup.events() if e["kind"] == "exit"]
+        check([(e["replica"], e["rc"], e["reason"]) for e in exits] == [(1, 113, "crash")],
+              f"12l(a): exits {exits}")
+        t_exit = exits[0]["t"]
+        # the burst's stitched traces, before the readmission's probes join
+        # the fleet flight ring
+        flight = {r["trace_id"]: r for r in fl_get(url, "/debug/flight")["requests"]}
+        # kill to readmit: the first answer from replica 1 through the router
+        # after its exit (full-bucket probes: no coalescing wait), polled on a
+        # thread while this one goes on
+        readmit = {}
+
+        def wait_readmit():
+            while "t" not in readmit and time.monotonic() - t_exit < FL_BOOT_S:
+                try:
+                    if fl_post(url, "/embed", full)["replica"] == 1:
+                        readmit["t"] = time.monotonic()
+                except OSError as e:
+                    readmit.setdefault("errors", []).append(repr(e))
+                time.sleep(0.05)
+
+        readmitter = threading.Thread(target=wait_readmit)
+        readmitter.start()
+        for imgs, path, body, wall, w0 in answers:
+            check(body["request_id"].startswith(f"r{body['replica']}-"),
+                  f"12l(a): replica {body['replica']} vs request id {body['request_id']}")
+        emb = np.concatenate([np.asarray(b["embedding"], np.float32)
+                              for _, _, b, _, _ in answers])
+        want = np.concatenate([local.embed(imgs)[0] for imgs, *_ in answers])
+        cosine = float((emb * want).sum(1).min())
+        check(cosine >= 0.99, f"12l(a): fleet vs in-process engine cosine {cosine}")
+        out["fleet_vs_engine_min_cosine"] = cosine
+        # the stitched hop sum against each client's wall (before the
+        # router's clock starts: the request's first byte to the handler's
+        # entry; after it stops: its last write to the client's last byte)
+        worst, gaps, split = 0.0, [], []
+        for _, _, body, wall, w0 in answers:
+            rec = flight.get(body["trace_id"])
+            check(rec is not None, f"12l(a): trace {body['trace_id']} not in the flight ring")
+            hops = critpath.attribute(rec)["hops"]
+            total = sum(hops.values())
+            gaps.append(abs(total - wall))
+            worst = max(worst, gaps[-1] / max(wall, 1e-9))
+            before = (rec["wall_t0"] - w0) * 1e3
+            top = sorted(hops.items(), key=lambda kv: -kv[1])[:3]
+            split.append({"wall_ms": round(wall, 3), "hops_ms": round(total, 3),
+                          "before_ms": round(before, 3),
+                          "after_ms": round(wall - before - rec["total_ms"], 3),
+                          "attempts": len(rec["attempts"]),
+                          "top_hops": {k: round(v, 2) for k, v in top}})
+        out["hop_sum_worst_rel"], out["hop_sum_worst_ms"] = worst, max(gaps)
+        out["before_ms_max"] = max(r["before_ms"] for r in split)
+        print(f"12l(a): client wall against the stitched hop sum, per request: "
+              f"{json.dumps(split)}", flush=True)
+        for rec in split:
+            check(abs(rec["hops_ms"] - rec["wall_ms"]) <= max(FL_HOP_REL * rec["wall_ms"],
+                                                              FL_HOP_MS),
+                  f"12l(a): hop sum {rec['hops_ms']} ms vs the client's {rec['wall_ms']} ms "
+                  f"({rec})")
+
+        # (c) while replica 1 respawns: the re-initialised candidate's gates
+        ledger_path = os.path.join(workdir, "promotions.jsonl")
+        gate_args = ["--live-dir", v2_dir, "--ledger", ledger_path, "--device", device,
+                     "--probes", "32", "--max-ema-drift", f"{FL_MAX_EMA_DRIFT:g}",
+                     "--floor-feature-std", f"{FL_FEATURE_STD_FLOOR:g}"]
+        rc = serve_promote.main(["--candidate-dir", reinit_dir, *gate_args])
+        with open(ledger_path) as f:
+            ledger = [json.loads(line) for line in f if line.strip()]
+        check(rc == 1 and len(ledger) == 1 and ledger[0]["promotion/verdict"] == "rejected"
+              and ledger[0]["promotion/failed_gate"] is not None,
+              f"12l(c): the re-initialised candidate: rc {rc}, ledger {ledger}")
+        out["reinit"] = {k.split("/", 1)[1]: v for k, v in ledger[0].items()
+                         if k.startswith("promotion/")}
+        lap(f"(c) re-initialised candidate rejected by {ledger[0]['promotion/failed_gate']}")
+        # the compatible candidate's gates too, its rollout after (b): the
+        # two halves of serve_promote's pass with the router
+        floors = {"compat_cosine": 0.90, "recall_overlap": 0.60,
+                  "feature_std": FL_FEATURE_STD_FLOOR, "ema_drift_max": FL_MAX_EMA_DRIFT,
+                  "live_recall": None}
+        gates, cand_digest, cand_step = serve_promote.gate_candidate(
+            v2_dir, cand_dir, n_probes=32, floors=floors, device=device)
+        PromotionLedger(ledger_path).append(ledger_record(
+            cand_step, "accepted" if gates["ok"] else "rejected", "gates", digest=cand_digest,
+            failed_gate=gates["failed_gate"], gates=gates["gates"], compat=gates["compat"]))
+        out["accepted"] = {name: g["value"] for name, g in gates["gates"].items()}
+        # which gates the default floors would have failed
+        out["default_floor_fails"] = [
+            g for g, floor in DEFAULT_FLOORS.items()
+            if floor is not None and out["accepted"].get(g) is not None
+            and (out["accepted"][g] > floor if g.endswith("_max") else out["accepted"][g] < floor)]
+        print(f"12l(c): the compatible candidate's gates {gates['gates']}; under the default "
+              f"floors it would fail {out['default_floor_fails']}", flush=True)
+        check(gates["ok"], f"12l(c): the compatible candidate failed {gates['failed_gate']}")
+        lap("(c) the compatible candidate's gates passed")
+
+        readmitter.join(timeout=FL_BOOT_S)
+        check("t" in readmit, f"12l(a): replica 1 never answered again: {readmit}")
+        out["kill_to_readmit_s"] = readmit["t"] - t_exit
+        # the router admits the reborn replica once it answers healthy; the
+        # supervisor's warm replay may still be running then
+        fl_wait(lambda: ("restart", 1) in [(e["kind"], e["replica"]) for e in sup.events()],
+                FL_BOOT_S, "replica 1's respawn to finish its warm replay")
+        r1 = [e for e in sup.events() if e["replica"] == 1]
+        check([e["kind"] for e in r1].count("restart") == 1
+              and [e["rows"] for e in r1 if e["kind"] == "warm"] == [len(warm)],
+              f"12l(a): replica 1's events {r1}")
+        rows1 = fl_get(sup.url(1), "/stats")["serve/ingested_rows"]
+        check(rows1 == len(warm), f"12l(a): reborn replica ingested {rows1} rows")
+        st = router.stats()
+        check(st["fleet_serve/failed"] == 0 and st["fleet_serve/retries"] > 0
+              and st["fleet_serve/breaker_trips"] > 0,
+              f"12l(a): router failed {st['fleet_serve/failed']}, retries "
+              f"{st['fleet_serve/retries']}, trips {st['fleet_serve/breaker_trips']}")
+        out["a"] = {k.split("/", 1)[1]: st[k] for k in (
+            "fleet_serve/requests", "fleet_serve/retries", "fleet_serve/breaker_trips",
+            "fleet_serve/failed", "fleet_serve/p50_ms", "fleet_serve/p99_ms")}
+        lap(f"(a) replica 1 back {out['kill_to_readmit_s']:.1f} s after its exit")
+
+        # latency: the router's against a replica's own, sequential full buckets
+        lat = {}
+        for name, base in (("replica", sup.url(0)), ("router", url)):
+            ms = []
+            for _ in range(FL_LAT_N):
+                ms.append(fl_timed_post(base, "/embed", full)[1])
+            lat[name] = fl_percentiles(ms)
+        out["latency"] = lat
+        print(f"12l: /embed of 32 images, router {lat['router']} vs replica 0 direct "
+              f"{lat['replica']}", flush=True)
+
+        # (b) drain and undrain replica 0 under traffic; fanout ingest
+        stop, b_failures, lock = threading.Event(), [], threading.Lock()
+
+        def traffic():
+            imgs = rng.integers(0, 256, (1, img, img, 3), np.uint8)
+            while not stop.is_set():
+                try:
+                    fl_post(url, "/embed", imgs)
+                except Exception as e:  # a dropped request is what is counted
+                    with lock:
+                        b_failures.append(repr(e))
+                time.sleep(0.02)
+
+        feeders = [threading.Thread(target=traffic) for _ in range(2)]
+        for t in feeders:
+            t.start()
+        try:
+            t0 = time.monotonic()
+            req = urllib.request.Request(url + "/admin/drain?replica=0", data=b"")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                check(r.status == 202 and json.loads(r.read())["accepted"], "12l(b): drain")
+
+            def back():
+                snap = fl_get(url, "/admin/replicas")["replicas"][0]
+                return snap["healthy"] and not snap["draining"] and snap["drain_phase"] is None
+
+            time.sleep(0.2)
+            fl_wait(back, FL_BOOT_S, "replica 0 back from its drain")
+            out["drain_cycle_s"] = time.monotonic() - t0
+            req = urllib.request.Request(url + "/admin/undrain?replica=0", data=b"")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                check(r.status == 200, "12l(b): undrain")
+            time.sleep(0.3)
+        finally:
+            stop.set()
+            for t in feeders:
+                t.join(timeout=60)
+        check(b_failures == [], f"12l(b): {len(b_failures)} dropped: {b_failures[:3]}")
+        lap(f"(b) drain cycle {out['drain_cycle_s']:.1f} s, nothing dropped")
+        before = [fl_get(sup.url(i), "/stats")["serve/ingested_rows"] for i in (0, 1)]
+        rc = serve_ingest.main(["--ckpt-dir", fanout_dir, "--server", url, "--fanout",
+                                "--once", "--block", str(INGEST_BLOCK)])
+        after = [fl_get(sup.url(i), "/stats")["serve/ingested_rows"] for i in (0, 1)]
+        fan_rows = serve_ingest.read_queue(fanout_dir)[0].shape[0]
+        check(rc == 0 and [a - b for a, b in zip(after, before)] == [fan_rows] * 2,
+              f"12l(b): fanout rc {rc}, rows {before} -> {after}")
+        out["fanout_rows"] = [a - b for a, b in zip(after, before)]
+        lap(f"(b) fanout landed {fan_rows} rows on both replicas")
+
+        # (c) the compatible candidate rolls out through /admin/promote; (d)
+        # meanwhile in this process, on a thread
+        d_thread = FlThread(lambda: fl_kernel_part(ivf_scan, local, device))
+        skews, watching = [], threading.Event()
+
+        def watch():
+            while not watching.is_set():
+                skews.append(router.stats()["fleet_serve/model_skew"])
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=watch)
+        watcher.start()
+        t0 = time.monotonic()
+        try:
+            rolled = serve_promote.rollout(url, cand_dir, v2_dir, target_digest=cand_digest,
+                                           soak_s=0.2, swap_timeout_s=FL_BOOT_S, poll_s=0.1)
+        finally:
+            watching.set()
+            watcher.join(timeout=10)
+        out["rollout_s"] = time.monotonic() - t0
+        PromotionLedger(ledger_path).append(ledger_record(
+            cand_step, rolled["verdict"], "rollout", digest=cand_digest,
+            failed_gate=rolled["reason"], replica=rolled["replica"]))
+        with open(ledger_path) as f:
+            ledger = [json.loads(line) for line in f if line.strip()]
+        check(validate_lines([json.dumps(r) for r in ledger]) == [], "12l(c): ledger schema")
+        check([r["promotion/verdict"] for r in ledger] == ["rejected", "accepted", "promoted"],
+              f"12l(c): the rollout {rolled}, ledger {ledger[1:]}")
+        fl_wait(lambda: router.stats()["fleet_serve/model_skew"] == 0, 30, "skew back to 0")
+        snaps = fl_get(url, "/admin/replicas")["replicas"]
+        out["skew_max"] = max(s for s in skews if s is not None)
+        check(out["skew_max"] >= 1, f"12l(c): model_skew never reached 1: {sorted(set(skews))}")
+        check([(s["model_step"], s["model_digest"]) for s in snaps]
+              == [(cand_step, cand_digest)] * 2, f"12l(c): replicas after the rollout {snaps}")
+        lap(f"(c) rolled out in {out['rollout_s']:.1f} s, skew {out['skew_max']} -> 0")
+        out["d"], d_launches = d_thread.result()
+        lap(f"(d) ivf_fused through the router: {d_launches} cell-scan launches")
+        line = {"step": 1, "time": time.time(), **router.stats()}
+        check(validate_line(line) == [], f"12l: the router's line {validate_line(line)}")
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+        if router is not None:
+            router.close()
+        sup.close()
+    events = sup.events()
+    check([e["replica"] for e in events if e["kind"] == "exit" and e.get("rc") == 113] == [1],
+          f"12l: exits with 113 {events}")
+    out["events"] = [{k: e[k] for k in ("kind", "replica", "rc", "reason", "rows") if k in e}
+                     for e in events]
+    out["phase_s"] = time.perf_counter() - phase_t0
+    return out, d_launches
+
+
+def _fl_start(sup, errors):
+    try:
+        sup.start()
+        errors.append(None)
+    except Exception as e:  # reported by the caller's check
+        errors.append(repr(e))
+
+
+def fl_kernel_part(ivf_scan, engine, device):
+    """12l(d): the router in front of two in-process ServeServers, each over
+    phase 4's index (its seeded rows, IVF nlist NLIST / nprobe NPROBE,
+    ivf_fused): FL_NEIGHBORS requests of 32 images through the router's
+    /neighbors?mode=ivf_fused, the cell-scan launches counted around them,
+    each answer equal to a direct index.query of its own embeddings.
+    Returns (its numbers, the launches)."""
+    from moco_tpu_torch.serve.index import EmbeddingIndex
+    from moco_tpu_torch.serve.router import FleetRouter
+    from moco_tpu_torch.serve.server import ServeServer
+
+    rows = unit_rows(np.random.default_rng(SEED), K, DIM)  # phase 4's rows
+    servers, indices, router = [], [], None
+    try:
+        for i in range(2):
+            index = EmbeddingIndex(K, DIM, device=device)
+            index.snapshot(rows)
+            index.train_ivf(nlist=NLIST, nprobe=NPROBE)
+            index.prepare(engine.buckets, TOPK, modes=("exact", "ivf_fused"))
+            index.freeze()
+            indices.append(index)
+            servers.append(ServeServer(engine, index=index, port=0, slo_ms=1000,
+                                       neighbors_k=TOPK, neighbors_mode="ivf_fused",
+                                       warmup=False, replica_index=i))
+        router = FleetRouter(replica_urls=[f"http://127.0.0.1:{s.port}" for s in servers],
+                             health_interval_s=0.2, hedge=False)
+        url = f"http://127.0.0.1:{router.port}"
+        rng = np.random.default_rng(SEED + 140)
+        img = engine.image_size
+        replies = []
+        before = ivf_scan.fused_cell_scores.launches
+        for _ in range(FL_NEIGHBORS):
+            imgs = rng.integers(0, 256, (32, img, img, 3), np.uint8)
+            replies.append(fl_post(url, "/neighbors?mode=ivf_fused", imgs))
+        launches = ivf_scan.fused_cell_scores.launches - before
+        served = {r["replica"] for r in replies}
+    finally:
+        if router is not None:
+            router.close()
+        for s in servers:
+            s.close()
+    check(launches > 0, "12l(d): the router's ivf_fused requests launched no cell scan")
+    check(served == {0, 1}, f"12l(d): replicas served {served}")
+    worst = 0.0
+    for body in replies:
+        check(body["mode"] == "ivf_fused", f"12l(d): mode {body['mode']}")
+        emb = np.asarray(body["embedding"], np.float32)
+        scores, ids = indices[body["replica"]].query(emb, TOPK, mode="ivf_fused")
+        check(np.array_equal(ids, np.asarray(body["indices"])),
+              "12l(d): ids differ from a direct index.query")
+        err = float(np.abs(scores - np.asarray(body["scores"], np.float32)).max())
+        check(err <= SCORE_TOL, f"12l(d): scores {err} off a direct index.query")
+        worst = max(worst, err)
+    return {"requests": len(replies), "launches": launches, "max_score_err": worst}, launches
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -6026,15 +6634,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- serving, the rest: int8 tiers, quantized engines, ingest, freshness ----
+    # its newer checkpoint (workdir/train) stays for phase 12l
     workdir = tempfile.mkdtemp(prefix="chip_smoke_rest_")
     try:
         rest_out, rest_launches = serving_rest_phase(
             fused_infonce, ivf_scan, feats_t, os.path.join(serve_dir, "v2"), workdir)
+        print(json.dumps({"serving_rest": rest_out, "device": smi}))
+        lap("12g serving, the rest")
+        torch.cuda.empty_cache()
+
+        # -- the serving fleet: router, supervisor, kill@replica, promotion ------
+        fleet_out, fleet_launches = fleet_phase(
+            ivf_scan, os.path.join(serve_dir, "v2"), os.path.join(workdir, "train"),
+            os.path.join(workdir, "fleet"))
     finally:
         shutil.rmtree(workdir)
         shutil.rmtree(serve_dir)
-    print(json.dumps({"serving_rest": rest_out, "device": smi}))
-    lap("12g serving, the rest")
+    print(json.dumps({"fleet": fleet_out, "device": smi}))
+    lap("12l serving fleet")
     torch.cuda.empty_cache()
 
     # -- data parallelism: an NCCL world of one, two ranks on the card --------
@@ -6073,10 +6690,11 @@ def main() -> int:
     ivf_kernel = ivf_timing_phase(ivf_scan, feats_t, cell_rows, probes, buckets,
                                   launches["ivf_cell_scores"] + serve_launches["ivf_cell_scores"]
                                   + obs_launches["c"]["ivf_cell_scores"]
-                                  + rest_launches["ivf_cell_scores"], max_err)
+                                  + rest_launches["ivf_cell_scores"] + fleet_launches, max_err)
     ivf_kernel["launches_12e"] = serve_launches["ivf_cell_scores"]
     ivf_kernel["launches_12f"] = obs_launches["c"]["ivf_cell_scores"]
     ivf_kernel["launches_12g"] = rest_launches["ivf_cell_scores"]
+    ivf_kernel["launches_12l"] = fleet_launches
     for rec in v3_kernels:
         if rec["name"] == "flash_fwd":
             rec["launches"] += serve_launches["flash_fwd"]

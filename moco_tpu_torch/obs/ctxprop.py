@@ -21,13 +21,13 @@ adopted by the /embed and /neighbors handlers:
 
 `parse()` is the receiving side (strict: a malformed id is ignored, the
 request is served untraced rather than rejected — tracing must never
-fail a request). `inject()` is the sending side. The minting of trace
-ids, JAX's `extract` and its contract-coverage hook come with the port's
-router and static analysis.
+fail a request). `inject()` is the sending side. JAX's `extract` and its
+contract-coverage hook come with the port's static analysis.
 
 Stdlib-only, like every obs module: the port's copy of
-moco_tpu/obs/ctxprop.py. The port's server adopts a context (`parse`);
-`inject` waits for the port's router.
+moco_tpu/obs/ctxprop.py. The port's server adopts a context (`parse`); the
+fleet router (serve/router.py) mints trace ids (`new_trace_id`) and sends
+one span per dispatch attempt (`inject`).
 """
 
 from __future__ import annotations
@@ -43,6 +43,12 @@ TRACE_ID_HEX_LEN = 32  # 128-bit trace id
 SPAN_ID_HEX_LEN = 16  # 64-bit span id
 
 _HEX = set("0123456789abcdef")
+
+
+def new_trace_id() -> str:
+    """A fresh trace id: the fleet router mints one when no upstream
+    context arrives (serve/router.py)."""
+    return os.urandom(TRACE_ID_HEX_LEN // 2).hex()
 
 
 def new_span_id() -> str:

@@ -35,9 +35,12 @@ validator wins over its prefix family, else the longest prefix.
 Numbers are finite or null: NaN/Inf literals are rejected at parse time
 (`loads_strict`), matching the writer's scrubbing. Data-parallel lines
 carry the fleet aggregate (`fleet_hosts`, `straggler_skew`, the `fleet/`
-family, rank 0's) and the `comms/` ledger. The JAX schema's promotion
-family comes with the serving fleet's slice; a field this copy does not
-list passes unchecked, as in the original.
+family, rank 0's) and the `comms/` ledger. The serving fleet's router
+flushes the `fleet_serve/*` family (serve/router.py: topology counts, the
+hedge-loser and version-skew gauges, the burn and critical-path families),
+and the promotion ledger (serve/promote.py) writes `event: "promotion"`
+lines of the `promotion/*` family. A field this copy does not list passes
+unchecked, as in the original.
 """
 
 from __future__ import annotations
@@ -194,6 +197,26 @@ FIELD_VALIDATORS = {
     "serve/model_step": lambda v: v is None or _int_like(v),
     "serve/model_digest": _str_or_null,
     "serve/ingest_ckpt_step": lambda v: v is None or _int_like(v),
+    # the fleet router's gauges (serve/router.py FleetRouter.stats):
+    # topology counts are ints, the objective mirrors serve/slo_objective,
+    # the cancelled hedge lanes' cost is a counter in ms, and the version
+    # skew (distinct served digests minus one) is null until a replica
+    # reports a digest
+    "fleet_serve/replicas": lambda v: _int_like(v) and v >= 1,
+    "fleet_serve/replicas_healthy": lambda v: _int_like(v) and v >= 0,
+    "fleet_serve/slo_objective": lambda v: _num(v) and 0.0 < v < 1.0,
+    "fleet_serve/hedge_wasted_ms": _nonneg_or_null,
+    "fleet_serve/model_skew": lambda v: v is None or (_int_like(v) and v >= 0),
+    # promotion ledger lines (serve/promote.py ledger_record): the verdict,
+    # the stage, the candidate's digest, the first failed gate (null on
+    # success) and the replica a rollout line names (null fleet-wide); the
+    # per-gate evidence rides the numeric promotion/ family below
+    "promotion/verdict": lambda v: v in ("accepted", "rejected", "promoted", "rolled_back"),
+    "promotion/stage": lambda v: isinstance(v, str),
+    "promotion/digest": _str_or_null,
+    "promotion/failed_gate": _str_or_null,
+    "promotion/replica": lambda v: v is None or _int_like(v),
+    "promotion/step": _int_like,
 }
 
 # key-prefix families sharing one validator: the per-group EMA drift, the
@@ -218,6 +241,17 @@ PREFIX_VALIDATORS = {
     "serve/trace_": _nonneg_or_null,
     "serve/burn_rate_": _nonneg_or_null,
     "serve/fresh_burn_rate_": _nonneg_or_null,
+    # the router's family: latency gauges null before the first proxied
+    # request, counters numeric; its burn rates (its own and the replicas'
+    # min / mean / max, renamed from serve/) and the critical-path hop means
+    # (obs/critpath.py) never negative
+    "fleet_serve/": _num_or_null,
+    "fleet_serve/burn_rate_": _nonneg_or_null,
+    "fleet_serve/fresh_burn_rate_": _nonneg_or_null,
+    "fleet_serve/critpath_": _nonneg_or_null,
+    # promotion/gate/<name> (null where a gate could not run),
+    # promotion/floor/<name> and promotion/gate_ok/<name> (0/1)
+    "promotion/": _num_or_null,
 }
 
 

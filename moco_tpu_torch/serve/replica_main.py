@@ -12,7 +12,9 @@ a queue-free v3 checkpoint serves `/embed` alone, `/neighbors` answering
 503) and starts a `ServeServer` on the port, which binds only after the
 engine's warmup: a refused connection means still warming, never a cold
 replica. The served model's identity is the checkpoint's step and the
-digest of its parameters (obs/quality.py). With `--workdir`, the
+digest of its parameters (obs/quality.py). The line that announces the
+port gives the boot's seconds by stage (imports, restore, digest, and the
+engine's, index's and batcher's warm-up). With `--workdir`, the
 `serve/*` gauges go to `<workdir>/metrics.jsonl` every `--metrics-flush-s`.
 
 `--fresh-max-age-s` above 0 declares the freshness SLO (the oldest index
@@ -30,6 +32,7 @@ import argparse
 import os
 import signal
 import threading
+import time
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -54,6 +57,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    marks = [("start", time.perf_counter())]
 
     from moco_tpu_torch.obs.quality import encoder_digest
     from moco_tpu_torch.obs.sinks import JsonlSink
@@ -74,9 +78,12 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
     buckets = tuple(int(b) for b in args.buckets.split(","))
+    marks.append(("imports", time.perf_counter()))
     encoder, queue, queue_ptr, config = load_serving_encoder(args.ckpt_dir, device=args.device)
     model_step = CheckpointManager(args.ckpt_dir).latest_step()
+    marks.append(("restore", time.perf_counter()))
     model_digest = encoder_digest(encoder)
+    marks.append(("digest", time.perf_counter()))
     engine = InferenceEngine(encoder, config.data.image_size, buckets=buckets,
                              device=args.device)
     index = None
@@ -93,8 +100,11 @@ def main(argv=None) -> int:
         replica_index=args.replica_index, model_step=model_step, model_digest=model_digest,
         fresh_max_age_s=args.fresh_max_age_s or None,
     )
+    marks.append(("warm-up", time.perf_counter()))
+    stages = ", ".join(f"{name} {t - prev:.1f} s"
+                       for (_, prev), (name, t) in zip(marks, marks[1:]))
     print(f"replica {args.replica_index} serving on http://{args.host}:{server.port} "
-          f"(buckets={buckets})", flush=True)
+          f"(buckets={buckets}; {stages})", flush=True)
     while not stop.wait(0.25):
         pass
     drained = server.drain(timeout=args.drain_timeout_s)

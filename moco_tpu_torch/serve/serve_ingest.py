@@ -2,7 +2,8 @@
 port of scripts/serve_ingest.py.
 
     python -m moco_tpu_torch.serve.serve_ingest --ckpt-dir /run/workdir \\
-        --server http://127.0.0.1:8000 [--poll-s 10] [--block 512] [--once]
+        --server http://127.0.0.1:8000 [--poll-s 10] [--block 512] [--once] \\
+        [--fanout]
 
 The training queue and the serving index share their FIFO write
 (serve/index.py `fifo_write`). This tails a training run's checkpoint
@@ -22,8 +23,14 @@ mirror follow each ingest, and `serve/ingested_rows`,
 
 Assumes fewer than K rows are enqueued between polled checkpoints (a whole
 turnover of the queue with the same head looks like no change; shorten
-`--poll-s` if the trainer outruns it). `--fanout` (every replica behind a
-fleet router) comes with the fleet's slice of the port and is refused.
+`--poll-s` if the trainer outruns it).
+
+With `--fanout`, `--server` is a fleet router (serve/router.py): the
+replicas are read off its `/admin/replicas` (`discover_replicas`) and each
+block goes to every one of them under its own retry site `ingest.post.r<i>`
+(`fanout_rows`); a replica whose retries run out is reported and skipped,
+the others still get the block, and the supervisor's warm replay realigns
+it when it restarts.
 """
 
 from __future__ import annotations
@@ -83,6 +90,32 @@ def post_rows(server: str, rows: np.ndarray, block: int = DEFAULT_BLOCK,
     return index_rows
 
 
+def discover_replicas(router: str) -> dict:
+    """{replica index: base URL} from a fleet router's `/admin/replicas`:
+    every replica it knows, draining or not."""
+    with _urlopen(router.rstrip("/") + "/admin/replicas", timeout=10) as r:
+        body = json.loads(r.read())
+    return {int(rep["index"]): rep["url"] for rep in body["replicas"]}
+
+
+def fanout_rows(router: str, rows: np.ndarray, block: int = DEFAULT_BLOCK,
+                ckpt_step: Optional[int] = None) -> dict:
+    """POST `rows` to every replica behind `router`, each under its own
+    retry site (`ingest.post.r<i>`). Returns {index: index_rows, or None
+    for a replica whose retries ran out (reported; the others still got
+    the block)}."""
+    results: dict = {}
+    for index, url in sorted(discover_replicas(router).items()):
+        try:
+            results[index] = post_rows(url, rows, block, site=f"ingest.post.r{index}",
+                                       ckpt_step=ckpt_step)
+        except OSError as e:
+            print(f"WARNING: replica {index} ({url}) dropped an ingest block after "
+                  f"retries: {e!r}", flush=True)
+            results[index] = None
+    return results
+
+
 def read_queue(ckpt_dir: str, step: Optional[int] = None) -> tuple[np.ndarray, int]:
     """The (K, dim) f32 queue rows and the write head of the checkpoint at
     `step` (the newest good one by default), read from its state dict."""
@@ -96,9 +129,11 @@ def read_queue(ckpt_dir: str, step: Optional[int] = None) -> tuple[np.ndarray, i
     return queue, int(sd["module.queue_ptr"].reshape(-1)[0])
 
 
-def poll_once(ckpt_dir: str, server: str, seen: dict, block: int = DEFAULT_BLOCK) -> int:
+def poll_once(ckpt_dir: str, server: str, seen: dict, block: int = DEFAULT_BLOCK,
+              fanout: bool = False) -> int:
     """One tail step: ingest anything new; returns the rows ingested.
-    `seen` carries {"step", "ptr"} across polls."""
+    `seen` carries {"step", "ptr"} across polls. With `fanout`, `server` is
+    a router and the block goes to every replica behind it."""
     from moco_tpu_torch.utils.checkpoint import CheckpointManager
 
     step = CheckpointManager(ckpt_dir).latest_step()
@@ -106,7 +141,13 @@ def poll_once(ckpt_dir: str, server: str, seen: dict, block: int = DEFAULT_BLOCK
         return 0
     queue, new_ptr = read_queue(ckpt_dir, step)
     rows = fresh_rows(queue, seen.get("ptr"), new_ptr)
-    if rows.shape[0]:
+    if rows.shape[0] and fanout:
+        results = fanout_rows(server, rows, block, ckpt_step=step)
+        summary = ", ".join(f"r{i}={'FAILED' if n is None else n}"
+                            for i, n in sorted(results.items()))
+        print(f"step {step}: fanned {rows.shape[0]} fresh rows to {len(results)} replicas "
+              f"(index_rows: {summary})", flush=True)
+    elif rows.shape[0]:
         index_rows = post_rows(server, rows, block, ckpt_step=step)
         print(f"step {step}: ingested {rows.shape[0]} fresh rows "
               f"(replica index_rows={index_rows})", flush=True)
@@ -123,20 +164,18 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--block", type=int, default=DEFAULT_BLOCK, help="rows per /ingest POST")
     ap.add_argument("--once", action="store_true", help="one poll, then exit")
     ap.add_argument("--fanout", action="store_true",
-                    help="--server is a fleet router: comes with the fleet's slice of the port")
+                    help="--server is a fleet router: discover the replicas through "
+                    "/admin/replicas and ingest into every one")
     return ap
 
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.fanout:
-        raise SystemExit("--fanout: ingest through a fleet router comes with the serving "
-                         "fleet's slice of the port (serve/router.py)")
     from moco_tpu_torch.utils import retry
 
     seen: dict = {}
     while True:
-        poll_once(args.ckpt_dir, args.server, seen, args.block)
+        poll_once(args.ckpt_dir, args.server, seen, args.block, fanout=args.fanout)
         retries = retry.snapshot()
         if retries:
             print(f"io_retries: {json.dumps(retries)}", flush=True)

@@ -298,6 +298,10 @@ class ServeServer:
                 if path not in ("/embed", "/neighbors"):
                     self.send_error(404)
                     return
+                # kill@replica=i[:at=K] dies here, with the request (and any
+                # riders of its batch) in flight: the router's breaker and
+                # retry absorb the reset
+                faults.maybe_kill_replica(server.replica_index)
                 faults.maybe_slow("serve.ingress")
                 try:
                     images = self._read_images()

@@ -5,7 +5,7 @@ fault sites its code reaches."""
 from __future__ import annotations
 
 STALL_EXIT_CODE = 42  # utils/watchdog.py: the watchdog fired, no step for `timeout`
-KILL_EXIT_CODE = 113  # utils/faults.py: kill@host sudden death
+KILL_EXIT_CODE = 113  # utils/faults.py: kill@host / kill@replica sudden death
 # parallel/elastic.py: a survivor of a lost rank after the agreed emergency
 # checkpoint; the launcher relaunches the survivors at the width it prints
 RESCALE_EXIT_CODE = 75

@@ -1,6 +1,6 @@
 """Deterministic fault injection (the `io`, `delay`, `nan`,
-`ckpt_truncate`, `stall`, `preempt`, `slow` and `kill@host` kinds of
-moco_tpu/utils/faults.py).
+`ckpt_truncate`, `stall`, `preempt`, `slow`, `kill@host` and
+`kill@replica` kinds of moco_tpu/utils/faults.py).
 
 A plan is installed from a spec string (`install`, or the `MOCO_FAULTS`
 environment variable, which the training driver reads at its start):
@@ -52,16 +52,26 @@ comma-separated faults, each `kind@key=val[:key=val...]`:
                                   rank i's heartbeat file is stamped stale
                                   (time 0) instead, so the heartbeat rule
                                   fires
+    kill@replica=i[:at=K]         serving replica i exits at once with
+                                  KILL_EXIT_CODE (no drain, no flush) while
+                                  handling its Kth /embed or /neighbors
+                                  POST (1-based; default 1): the fleet
+                                  router must retry the request elsewhere
+                                  and the ReplicaSupervisor restart and
+                                  re-warm the replica, whose respawn runs
+                                  with the kill@replica rules stripped
+                                  (`strip_replica_kills`), so one rule is
+                                  one death
 
 Faults are keyed on global steps and per-site call counters, never on
 randomness, so a run is exactly reproducible. The sites the port's code
 calls the hooks at are listed in utils/contracts.py (`FAULT_SITES`). The
 training loop calls the step hooks on log steps only: `corrupt_loss` as
 it reads the loss, `maybe_stall`, `maybe_preempt` and `maybe_kill_host` in
-the step's deferred processing. The other kinds of the JAX module
-(`kill@replica`, diverge, deadlock) come with the slices that own their
-sites: the serving fleet and the analysis. With no plan installed every
-hook returns at once.
+the step's deferred processing; a replica's HTTP handler calls
+`maybe_kill_replica` on each /embed and /neighbors POST. The other kinds of
+the JAX module (diverge, deadlock) come with the slice that owns their
+sites: the analysis. With no plan installed every hook returns at once.
 """
 
 from __future__ import annotations
@@ -77,7 +87,7 @@ from typing import Optional
 from moco_tpu_torch.utils.contracts import KILL_EXIT_CODE
 
 KINDS = ("ckpt_truncate", "io", "nan", "stall", "preempt", "delay", "slow", "kill")
-_INT_KEYS = ("step", "at", "times", "host")
+_INT_KEYS = ("step", "at", "times", "host", "replica")
 _FLOAT_KEYS = ("seconds", "ms")
 _STR_KEYS = ("site",)
 
@@ -115,8 +125,12 @@ class FaultPlan:
                 raise ValueError(f"{kind} fault {part!r} needs step=<N>")
             if kind == "stall" and "seconds" not in kv:
                 raise ValueError(f"stall fault {part!r} needs seconds=<S>")
-            if kind == "kill" and "host" not in kv:
-                raise ValueError(f"kill fault {part!r} needs host=<rank>")
+            if kind == "kill" and "host" not in kv and "replica" not in kv:
+                raise ValueError(f"kill fault {part!r} needs host=<process index> "
+                                 f"or replica=<serving replica index>")
+            if kind == "kill" and "host" in kv and "replica" in kv:
+                raise ValueError(f"kill fault {part!r}: host= (training harness) and "
+                                 f"replica= (serving harness) are mutually exclusive")
             self.rules.append((kind, kv))
         self._lock = threading.Lock()
         self._counts: Counter = Counter()  # (kind, site) -> calls seen
@@ -193,7 +207,7 @@ class FaultPlan:
         KILL_EXIT_CODE in a world of several ranks; in a world of one, rank
         i's heartbeat file is stamped stale."""
         for i, (kind, p) in enumerate(self.rules):
-            if kind != "kill" or step < p.get("at", 1):
+            if kind != "kill" or "host" not in p or step < p.get("at", 1):
                 continue
             host = p["host"]
             if num_processes > 1:
@@ -210,6 +224,19 @@ class FaultPlan:
                 os.replace(tmp, path)
                 print(f"injected fault: simulated host {host} stopped beating at step {step}",
                       flush=True)
+
+    def maybe_kill_replica(self, replica_index: int) -> None:
+        """`kill@replica=i[:at=K]` (module docstring), keyed on this
+        replica's own count of /embed and /neighbors POSTs, so the death
+        lands at the same request however the router spreads the load."""
+        n = self._count("kill", f"replica:{int(replica_index)}")
+        for kind, p in self.rules:
+            if kind != "kill" or p.get("replica") != int(replica_index):
+                continue
+            if n >= p.get("at", 1):
+                print(f"injected fault: killing replica {replica_index} (this process) "
+                      f"on request #{n}", flush=True)
+                os._exit(KILL_EXIT_CODE)  # sudden death: no drain, no flush
 
     def on_checkpoint_saved(self, path: str, step: int, wait=None) -> None:
         """Halve the file of the checkpoint written at `step` (once per
@@ -289,6 +316,29 @@ def maybe_kill_host(step: int, workdir: Optional[str], process_index: int,
                     num_processes: int = 1) -> None:
     if _PLAN is not None:
         _PLAN.maybe_kill_host(step, workdir, process_index, num_processes)
+
+
+def maybe_kill_replica(replica_index: int) -> None:
+    if _PLAN is not None:
+        _PLAN.maybe_kill_replica(replica_index)
+
+
+def strip_replica_kills(spec: Optional[str]) -> str:
+    """`spec` without its `kill@replica=...` rules, the others verbatim and
+    in order: the ReplicaSupervisor's spec for a reborn replica, so a kill
+    rule fires once instead of crash-looping the respawn."""
+    if not spec:
+        return ""
+    kept = []
+    for part in spec.split(","):
+        token = part.strip()
+        kind, _, params = token.partition("@")
+        if kind == "kill" and any(tok.partition("=")[0] == "replica"
+                                  for tok in params.split(":")):
+            continue
+        if token:
+            kept.append(token)
+    return ",".join(kept)
 
 
 def on_checkpoint_saved(path: str, step: int, wait=None) -> None:

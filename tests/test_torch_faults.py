@@ -104,6 +104,7 @@ def test_watchdog_defaults_match_jax():
     "preempt@step=3,stall@step=5:seconds=0.5,nan@step=2",
     "ckpt_truncate@step=9,io@site=data.read:at=3,delay@site=input.h2d:seconds=0.01",
     "kill@host=1:at=3,preempt@step=5",
+    "kill@replica=1", "kill@replica=0:at=5,slow@site=serve.ingress:ms=5",
 ])
 def test_grammar_parses_and_describes_as_jax(spec):
     assert faults.install(spec).describe() == jax_faults.install(spec).describe()
@@ -111,7 +112,8 @@ def test_grammar_parses_and_describes_as_jax(spec):
 
 
 def test_unknown_kinds_and_params_are_refused():
-    for spec in ("kill@replica=1", "diverge@step=1", "stall@step=4:minutes=2", "preempt@at=3"):
+    for spec in ("diverge@step=1", "stall@step=4:minutes=2", "preempt@at=3", "kill@at=2",
+                 "kill@host=2:replica=1"):
         with pytest.raises(ValueError):
             faults.install(spec)
 

@@ -270,9 +270,18 @@ def test_post_rows_retries_at_its_site(monkeypatch):
     assert calls[-1]["X-ckpt-step"] == "11" and calls[-1]["X-rows-shape"] == "3,16"
 
 
-def test_fanout_is_refused():
-    with pytest.raises(SystemExit, match="fleet"):
-        serve_ingest.main(["--ckpt-dir", "d", "--server", "http://x", "--fanout", "--once"])
+def test_fanout_is_refused(monkeypatch):
+    """`--fanout` is taken now: main hands `poll_once` the router URL with
+    fanout on (its path is held against JAX's in test_torch_router.py), and
+    leaves it off without the flag."""
+    seen = []
+    monkeypatch.setattr(serve_ingest, "poll_once",
+                        lambda *a, **kw: seen.append((a, kw)) or 0)
+    for flags, fanout in ((["--fanout"], True), ([], False)):
+        seen.clear()
+        assert serve_ingest.main(["--ckpt-dir", "d", "--server", "http://x", "--once",
+                                  "--block", "64", *flags]) == 0
+        assert seen == [(("d", "http://x", {}, 64), {"fanout": fanout})]
 
 
 def test_replica_passes_fresh_max_age_through(ckpt, monkeypatch):
