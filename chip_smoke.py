@@ -209,7 +209,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    nan@step=5 (log_every=1) under the default rules writes one
    nonfinite_loss alert line and one alerts.jsonl entry, and under
    alerts_fatal raises FatalAlertError after an emergency checkpoint of
-   step 4 (reason "alert"). (b) The watchdog, last: `python -m
+   step 4 (reason "alert"). (b) The watchdog, its process started with
+   12i and checked after it (its checkpoint, not its time, is held): `python -m
    moco_tpu_torch.train --preset imagenet_v2 --data synthetic --epochs 2
    --steps-per-epoch 3 --watchdog-timeout 8` with
    MOCO_FAULTS=stall@step=6:seconds=120 (the last log step's deferred
@@ -218,8 +219,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    loss the deferred read found finite, step 4, not of the live step 6:
    queue_ptr 1024, and the rows steps 5 and 6 wrote still the seeded
    initial queue's; the seconds from the stall to the exit are printed.
-12d. The options of the v1/v2 step at full width, each part 3 warm-up
-   and 5 timed steps through the prefetch ring from a seeded state, the
+12d. The options of the v1/v2 step at full width, each part 2 warm-up
+   and 3 timed steps through the prefetch ring from a seeded state, the
    InfoNCE launch counts set to 0 just before and read just after (each
    kernel once per step, finite losses). (a) `imagenet_v2` with
    bn_virtual_groups=8 and shuffle="gather_perm" (the reference's 8 GPUs
@@ -255,7 +256,8 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    oracle as in phase 5 (no recall floor: a 3-step queue is mostly the
    seeded init); bf16 against an f32 engine, cosine >= 0.99. (b) `python
    -m moco_tpu_torch.serve.replica_main --ckpt-dir W --port <free>
-   --buckets 1,8,32` as a subprocess on the card, timed from spawn to a
+   --buckets 1,8,32` as a subprocess on the card, spawned once the
+   checkpoint is restored (it boots while (a) serves), timed from spawn to a
    healthy /healthz: its /neighbors rows (exact, its default) within
    cosine 0.999 of (a)'s engine at the same bucket, its ids equal to (a)'s
    exact tier's but where two rows' float64 scores lie within twice the
@@ -321,8 +323,9 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    holds slowed requests among its slowest, each blaming engine_execute
    for at least 200 ms. The tracing cost:
    /neighbors p50 and p99 of the same requests with reqtrace on and off,
-   in turns (on, off, off, on), each server warmed by one request. The phase's InfoNCE and IVF launches are
-   added to the kernels line.
+   in turns (on, off, off, on) on one server each way, each warmed by one
+   request. The phase's InfoNCE and IVF launches are added to the kernels
+   line.
    Earlier phases that read a record's step_ms or a `log` callback's state
    run with obs_probe_every=1: a wait around every step, as the loop did
    before the in-flight window, and each record's `log` call before the
@@ -348,8 +351,9 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    bytes at rest; ms per bucket per tier (CUDA events, f32 beside them) and
    the w8a8 forward's extra peak memory at bucket 128 (its im2col). (c) A
    ServeServer with the w8a8 engine over (a)'s index, neighbors_mode
-   ivf_fused, recall sampled on every flush: 64 two-image /neighbors
-   requests and 16 with ?mode=ivf_fused_i8 from 4 threads; the recall
+   ivf_fused, recall sampled on every flush: 48 two-image /neighbors
+   requests and 12 with ?mode=ivf_fused_i8 from 4 threads (64 and 16
+   before phase 12m's legs, which the cut pays for); the recall
    estimate reported, serve/quant_tier 2 and serve/int8 1, 0 recompiles,
    the cell scan launched, the lines schema-valid. Then 3 more v2 ring
    steps from 12e's checkpoint (its copy) write step 6 (InfoNCE once per
@@ -371,12 +375,17 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    engine's warm-up on this one, and its next 16 (no pass); on other fresh
    threads the cuBLAS handle, a matmul and a tiny convolution before the
    first forwards at buckets 8 and 32, and the batcher's own pass before 17
-   forwards; then a fresh ServeServer (bf16 engine, (a)'s index): the
-   first of 17 sequential /neighbors requests' engine_execute within 3x the
+   forwards; then a fresh ServeServer (bf16 engine, (a)'s index, SLO 100
+   ms): the first of 17 sequential /neighbors requests' engine_execute within 3x the
    median of the next 16. The phase's cell-scan and InfoNCE launches are
-   added to the kernels line (`launches_12g`).
+   added to the kernels line (`launches_12g`; the cell scans of 12m(b)'s
+   bursts, which run after them, apart as `launches_12m`).
 12h. Data parallelism (moco_tpu_torch/parallel/), each world in child
-   processes that import no JAX. (a) An NCCL group of one: the imagenet_v2
+   processes that import no JAX; (a)'s process runs beside (b)'s ranks,
+   and 12i's, 12j's and 12k's ranks spawn while the phase before theirs
+   runs, waiting behind a gate file (no check reads a time; (a)'s step ms,
+   and so its NCCL-of-one overhead, carry (b)'s load). (a) An NCCL group
+   of one: the imagenet_v2
    preset (ResNet-50 + MLP, K = 65536, batch 256, 224 px, bf16) for 4
    steps from phase 8's seeded state on the same batches, on one device,
    through the distributed path (`init_process_group("nccl")`; the
@@ -552,6 +561,37 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    /neighbors?mode=ivf_fused requests of 32 launch cell_scores_mma_kernel
    (`launches_12l` in the kernels line), each answer's ids equal and scores
    within SCORE_TOL of a direct index.query of its own embeddings.
+12m. The analysis's runtime arms (moco_tpu_torch/analysis), as legs of
+   the phases that already pay for their setup (`python3 chip_smoke_12m.py`
+   runs them alone): (a) in 12h(b)'s two-rank world, two SAN_STEPS-step
+   imagenet_v2 runs through train() under `sanitize_collectives` in
+   workdirs both ranks share: the clean one publishes equal schedule hashes
+   (schedule.p<rank>.json) and `collective_schedule_hash` on every record
+   and line; with `diverge@site=SAN_DIVERGE_SITE` on rank 1 alone both
+   ranks abort with ScheduleDivergenceError at the first log step, the
+   site in schedule_diff.json. (b) In 12g, after its replica, bursts of
+   TSAN_REQUESTS sequential /neighbors requests to in-process
+   ServeServers (the bf16 engine, the IVF index, ivf_fused, SLO
+   TSAN_SLO_MS): one without any hook, one started under ThreadSanitizer
+   with its profile hook (the clean leg: the serve.index -> serve.metrics
+   edge, no cycle, lock_order.json), the first again; the client's p50 of
+   each printed. Then `deadlock@site=TSAN_DEADLOCK_LOCK` (the lock taken
+   under serve.index) records the inverted order: a cycle,
+   lock_order_diff.json with both edges' stacks. (c) 12l's replicas run
+   with MOCO_CONTRACT_COVERAGE=1 and a freshness objective
+   (FL_FRESH_MAX_AGE_S), this process under a coverage recorder of its own
+   (the router's routes, the ledger's and the router's lines' validators,
+   each replica's metrics.jsonl validated under it at the end); 12l also
+   asks each replica's /admin/model (the candidate's step and digest after
+   the rollout) and the router's /stats. Its snapshot and the replicas'
+   dumps (contract_coverage.json, one per slot, added up over its respawns
+   in this run), merged, pass check_coverage for every declared replica
+   and router route, both trace headers, kill@replica, delay@ingest and
+   the six stage hooks, and the SERVE, FLEET, QUALITY and PROMOTION gated
+   validators, as the reference fleet smoke gates them. (d) Phase 8's ring run under
+   `strict_tracing` (recompile_warmup_steps STRICT_WARMUP_STEPS): every log
+   record's `compile_cache_misses` (the augment's CUDA-graph captures) at
+   least 1 and flat, and the run does not abort.
 13. IVF timing, after every other timing (the profiler it uses stays
    attached to the process): the kernel, its plain version, its bound and
    one library call on the path's own inputs. Its `ms` (CUDA events over
@@ -577,6 +617,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import importlib
 import json
 import os
 import re
@@ -603,10 +644,12 @@ IMG = 224
 SCORE_TOL = 1e-5
 POS_TOL, LSE_TOL, TIE_TOL = 1e-5, 1e-4, 1e-5
 TRAIN_WARMUP, TRAIN_TIMED = 3, 5
+OPTION_WARMUP, OPTION_TIMED = 2, 3  # phase 12d's runs: the options' step ms beside each other
 # untimed steps after the timed ones in the v2 runs: the ring makes no batch
 # past the run's last, so in its last steps the step has the card and the
 # host to itself; the tail keeps that out of the timed window
 V2_TAIL = 5
+STRICT_WARMUP_STEPS = 1  # 12m(d): phase 8's ring run under strict_tracing
 EPOCH_STEPS = 20  # steps in an epoch of the v2 phase's synthetic data: one ring per run
 RING_CHECK_STEPS = 3  # steps of the ring runs whose batches are held against batch(e, s)
 V3_BATCH = 256  # vit_b16_v3's global batch 4096 cut to one GPU's share of 16
@@ -774,10 +817,15 @@ def tensor_core_check(build) -> dict:
     libraries' SASS; fails unless every bf16 flash forward, dq and dk/dv
     kernel, every InfoNCE forward and backward kernel and every IVF
     cell-scan kernel has some and the f32 flash ones have none."""
-    counts = {}
-    for lib in ("flash_attention", "infonce", "ivf_cell_scores"):
-        sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(build.library_path(lib))],
+    def dump(lib):
+        return subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
+
+    counts = {}
+    libs = ("flash_attention", "infonce", "ivf_cell_scores")
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one cuobjdump per library
+        dumps = list(pool.map(dump, libs))
+    for sass in dumps:
         kernel = None
         for line in sass.splitlines():
             if "Function :" in line:
@@ -1164,9 +1212,9 @@ def data_split(cfg, dataset, steps=6):
             "augment_eager_issue_ms": med[5], "h2d_bytes": int(hb.views.numel()), "steps": steps}
 
 
-def mode_summary(hist):
+def mode_summary(hist, warmup=TRAIN_WARMUP, timed=TRAIN_TIMED):
     """Medians over the timed steps of one mode's run."""
-    timed = hist[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]
+    timed = hist[warmup:warmup + timed]
     out = {k: float(np.median([r[k] for r in timed])) for k in ("imgs_per_s", "step_ms", "data_ms")}
     if "t_transfer" in timed[0]:
         out.update(t_transfer_ms=float(np.median([r["t_transfer"] for r in timed])) * 1e3,
@@ -1307,9 +1355,14 @@ def train_phase(fi):
     host_crop_state = copy.deepcopy(state)
     runs = {}
     for mode in ("sync", "ring_eager", "ring"):  # the same seeded state and data in each
+        c = dataclasses.replace(cfg, device_prefetch=mode != "sync")
+        if mode == "ring":  # 12m(d): strict tracing on the default path
+            c = dataclasses.replace(c, strict_tracing=True,
+                                    recompile_warmup_steps=STRICT_WARMUP_STEPS)
         with eager_augment(mode == "ring_eager"):
-            runs[mode] = v2_run(fi, dataclasses.replace(cfg, device_prefetch=mode != "sync"),
-                                dataset, state if mode == "ring" else copy.deepcopy(state), mode)
+            runs[mode] = v2_run(fi, c, dataset, state if mode == "ring" else copy.deepcopy(state),
+                                mode)
+    strict = strict_tracing_check(runs["ring"]["hist"], "8 ring")
     split = data_split(cfg, dataset)
     check(runs["sync"]["launches"] == runs["ring"]["launches"], "launches differ between the modes")
     loss_gap = max(abs(a["loss"] - c["loss"]) for a, c in zip(runs["sync"]["hist"], runs["ring"]["hist"]))
@@ -1372,9 +1425,24 @@ def train_phase(fi):
               "ring_eager_augment": mode_summary(runs["ring_eager"]["hist"]),
               "infonce_share_of_step": share, "peak_memory_gb": ring["peak_gb"],
               "peak_memory_gb_sync": runs["sync"]["peak_gb"], "steps_timed": len(timed), "batch": b,
-              "host_crop": host_crop, "profile": profile_step(train, cfg, dataset, state)}
+              "host_crop": host_crop, "strict_tracing": strict,
+              "profile": profile_step(train, cfg, dataset, state)}
     print(f"train timing: {json.dumps(timing)}", flush=True)
     return kernels, timing
+
+
+def strict_tracing_check(hist, what: str) -> dict:
+    """12m(d): a strict_tracing run's `compile_cache_misses` (the augment's
+    CUDA-graph captures since the run began) on its log steps' records: at
+    least one capture, the same count on every log step (none after the
+    warm-up), and the run returned (a capture after the warm-up aborts it)."""
+    seen = [(r["step"], r["compile_cache_misses"]) for r in hist if "compile_cache_misses" in r]
+    print(f"12m(d) {what}: compile_cache_misses by log step {seen}", flush=True)
+    check(len(seen) >= 2 and seen[-1][0] > STRICT_WARMUP_STEPS,
+          f"12m(d) {what}: compile_cache_misses on the log steps {seen}")
+    check(seen[0][1] >= 1 and len({n for _, n in seen}) == 1,
+          f"12m(d) {what}: compile_cache_misses not flat after warm-up: {seen}")
+    return {"compile_cache_misses": seen, "recompile_warmup_steps": STRICT_WARMUP_STEPS}
 
 
 def host_crop_phase(fi, cfg, state, n_images=256, steps=RING_CHECK_STEPS):
@@ -1865,13 +1933,13 @@ def last_batch(store: dict):
 
 
 def options_run(fi, cfg, dataset, state, label, log=None):
-    """TRAIN_WARMUP + TRAIN_TIMED steps of `cfg` from `state` through the
+    """OPTION_WARMUP + OPTION_TIMED steps of `cfg` from `state` through the
     ring, the InfoNCE launch counts set to 0 just before and read just
     after: finite losses and each kernel once per step. Returns the
     history, launches, medians of the timed steps and the peak memory."""
     from moco_tpu_torch.train import train
 
-    steps = TRAIN_WARMUP + TRAIN_TIMED
+    steps = OPTION_WARMUP + OPTION_TIMED
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fi.infonce_stats.launches = fi.infonce_dq.launches = 0
@@ -1883,8 +1951,9 @@ def options_run(fi, cfg, dataset, state, label, log=None):
           f"12d {label}: finite losses")
     check(launches == {"infonce_fwd": steps, "infonce_bwd": steps},
           f"12d {label}: InfoNCE kernels not launched once per step: {launches}")
-    summary = {**mode_summary(hist), "peak_memory_gb": peak_gb, "launches": launches,
-               "first_loss": hist[0]["loss"], "steps_per_epoch": out["steps_per_epoch"]}
+    summary = {**mode_summary(hist, OPTION_WARMUP, OPTION_TIMED), "peak_memory_gb": peak_gb,
+               "launches": launches, "first_loss": hist[0]["loss"],
+               "steps_per_epoch": out["steps_per_epoch"]}
     print(f"12d {label}: {json.dumps(summary)}", flush=True)
     return hist, summary
 
@@ -1980,7 +2049,7 @@ def step_options_phase(fi):
 
         def step(*args, **kw):  # the last step's update is captured
             calls[0] += 1
-            if calls[0] != TRAIN_WARMUP + TRAIN_TIMED:
+            if calls[0] != OPTION_WARMUP + OPTION_TIMED:
                 return real_step(*args, **kw)
             params = [(p, g) for g in opt.param_groups for p in g["params"]]
             lars["before"] = {i: (p.detach().clone(), p.grad.detach().clone(),
@@ -2388,7 +2457,6 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
 
     from moco_tpu_torch import train as train_module
     from moco_tpu_torch.core.moco import build_encoder, create_state, make_train_step
-    from moco_tpu_torch.core.queue import init_queue
     from moco_tpu_torch.data.datasets import SyntheticDataset
     from moco_tpu_torch.obs import health
     from moco_tpu_torch.obs.alerts import FatalAlertError, read_alerts
@@ -2620,41 +2688,78 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
     if cuda:
         torch.cuda.empty_cache()
 
-    # (b) the watchdog: a stalled training process exits with 42 after
-    # saving the last finite log step's state
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"fault tolerance and health in {out['phase_s']:.1f} s: SIGTERM to durable checkpoint "
+          f"{out['sigterm_to_durable_ms']:.1f} ms (step {out['sigterm_saved_step']}); save paid by "
+          f"the loop, async {out['async_save_paid_ms'][0]:.1f} / {out['async_save_paid_ms'][1]:.1f}"
+          f" ms (same state {out['async_save_paid_ms_same_state'][0]:.1f} / "
+          f"{out['async_save_paid_ms_same_state'][1]:.1f}) against blocking "
+          f"{out['blocking_save_ms']:.1f} ms; gauges {out['gauge_ms']:.3f} ms of device time, "
+          f"v2 sync step {out['step_ms_health_on']:.2f} ms on, {out['step_ms_health_off']:.2f} ms "
+          f"off, worst relative error {out['gauge_max_rel_err']:.2e}", flush=True)
+    return out
+
+
+def watchdog_start(workdir, preset_name="imagenet_v2", device="cuda") -> dict:
+    """Phase 12c(b), started: the watchdog's training process (module
+    docstring) in `workdir`, left running beside what follows (12i's
+    processes) until `watchdog_finish`."""
     wd_dir = os.path.join(workdir, "watchdog")
     # the stall lands at the last log step's deferred read (step 6, after
     # the loop): the good snapshot is then step 4's, promoted at step 5
     env = {**os.environ, "MOCO_FAULTS": "stall@step=6:seconds=120"}
     cmd = [sys.executable, "-m", "moco_tpu_torch.train", "--preset", preset_name, "--data",
-           "synthetic", "--workdir", wd_dir, "--epochs", "2", "--steps-per-epoch", str(spe),
-           "--watchdog-timeout", f"{WATCHDOG_TIMEOUT_S:g}", "--device", device]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    stalled, tail = {}, []
+           "synthetic", "--workdir", wd_dir, "--epochs", "2", "--steps-per-epoch",
+           str(LOOP_EPOCH_STEPS), "--watchdog-timeout", f"{WATCHDOG_TIMEOUT_S:g}", "--device",
+           device]
+    h = {"dir": wd_dir, "preset": preset_name, "device": device, "stalled": {}, "tail": [],
+         "t0": time.perf_counter()}
+    h["proc"] = proc = subprocess.Popen(
+        cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
 
     def read():
         for line in proc.stdout:
-            tail.append(line.rstrip())
+            h["tail"].append(line.rstrip())
             if line.startswith("injected fault: stalling"):
-                stalled["t"] = time.perf_counter()
+                h["stalled"]["t"] = time.perf_counter()
 
-    reader = threading.Thread(target=read, daemon=True)
-    reader.start()
-    try:
-        rc = proc.wait(timeout=300)
-    except subprocess.TimeoutExpired:
-        rc = None
-    finally:
-        t_exit = time.perf_counter()
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        reader.join(timeout=30)
-    check(rc == 42 and "t" in stalled, f"watchdog: exit code {rc}; output {tail[-12:]}")
-    out["watchdog_exit_s"] = t_exit - stalled["t"]
-    out["watchdog_process_s"] = t_exit - t0
+    def wait():  # the exit's time, however long after it this process looks
+        h["rc"] = proc.wait()
+        h["t_exit"] = time.perf_counter()
+
+    h["reader"] = threading.Thread(target=read, daemon=True)
+    h["waiter"] = threading.Thread(target=wait, daemon=True)
+    h["reader"].start()
+    h["waiter"].start()
+    return h
+
+
+def watchdog_finish(h) -> dict:
+    """Phase 12c(b), checked: a stalled training process exits with 42
+    after saving the last finite log step's state (module docstring)."""
+    from moco_tpu_torch.core.queue import init_queue
+    from moco_tpu_torch.obs.schema import read_metrics
+    from moco_tpu_torch.utils.checkpoint import CheckpointManager
+    from moco_tpu_torch.utils.config import PRESETS
+    from moco_tpu_torch.utils.contracts import STALL_EXIT_CODE
+
+    proc, stalled, tail, wd_dir, device = h["proc"], h["stalled"], h["tail"], h["dir"], h["device"]
+    base = PRESETS[h["preset"]]
+    spe, b, kk, dim = (LOOP_EPOCH_STEPS, base.data.global_batch, base.moco.num_negatives,
+                       base.moco.dim)
+    out = {}
+    h["waiter"].join(timeout=max(300 - (time.perf_counter() - h["t0"]), 1.0))
+    rc = h.get("rc")
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    h["waiter"].join(timeout=30)
+    h["reader"].join(timeout=30)
+    check(rc == STALL_EXIT_CODE and "t" in stalled,
+          f"watchdog: exit code {rc}, stalled {stalled}; output {tail[-12:]}")
+    out["watchdog_exit_s"] = h["t_exit"] - stalled["t"]
+    out["watchdog_process_s"] = h["t_exit"] - h["t0"]
     check("Thread" in open(os.path.join(wd_dir, "stall_stacks.txt")).read(), "watchdog: no stacks")
     stall = [r for r in read_metrics(os.path.join(wd_dir, "metrics.jsonl"))
              if r.get("event") == "stall"]
@@ -2675,17 +2780,8 @@ def fault_health_phase(fi, workdir, preset_name="imagenet_v2", device="cuda"):
     check(torch.equal(queue[4 * b:6 * b], init[4 * b:6 * b])
           and not torch.equal(queue[3 * b:4 * b], init[3 * b:4 * b]),
           "watchdog: the checkpoint is not the state of step 4")
-    out["phase_s"] = time.perf_counter() - phase_t0
-    print(f"fault tolerance and health in {out['phase_s']:.1f} s: SIGTERM to durable checkpoint "
-          f"{out['sigterm_to_durable_ms']:.1f} ms (step {out['sigterm_saved_step']}); save paid by "
-          f"the loop, async {out['async_save_paid_ms'][0]:.1f} / {out['async_save_paid_ms'][1]:.1f}"
-          f" ms (same state {out['async_save_paid_ms_same_state'][0]:.1f} / "
-          f"{out['async_save_paid_ms_same_state'][1]:.1f}) against blocking "
-          f"{out['blocking_save_ms']:.1f} ms; gauges {out['gauge_ms']:.3f} ms of device time, "
-          f"v2 sync step {out['step_ms_health_on']:.2f} ms on, {out['step_ms_health_off']:.2f} ms "
-          f"off, worst relative error {out['gauge_max_rel_err']:.2e}; watchdog exit "
-          f"{out['watchdog_exit_s']:.1f} s after the stall ({out['watchdog_process_s']:.1f} s "
-          f"process)", flush=True)
+    print(f"12c(b) watchdog: exit {out['watchdog_exit_s']:.1f} s after the stall "
+          f"({out['watchdog_process_s']:.1f} s process, beside 12i's processes)", flush=True)
     return out
 
 
@@ -2832,103 +2928,106 @@ def train_to_serve_phase(ivf_scan, fa, workdir):
     same_weights(encoder, trained.encoder_k, "12e: restored key encoder")
     check(torch.equal(queue, trained.queue.cpu()) and ptr == trained.queue_ptr
           == SERVE_V2_STEPS * b, "12e: restored queue or pointer")
-    del run, trained
-    torch.cuda.empty_cache()
-    rows = queue.numpy()
-    model_step = CheckpointManager(v2_dir).latest_step()
-    digest = encoder_digest(encoder)
-    engine = InferenceEngine(encoder, IMG, device="cuda")  # bf16, buckets 1/8/32/128
-    engine.warmup()
-    index = EmbeddingIndex.from_train_queue(queue, ptr, device="cuda")
-    out["ivf"] = index.train_ivf(nlist=NLIST, nprobe=NPROBE)
-    index.prepare(engine.buckets, TOPK, modes=F32_MODES)
-    index.freeze()
-    lap("(a) engine warm, IVF trained and prepared")
-    sink = JsonlSink(os.path.join(v2_dir, "serve"))
-    server = ServeServer(engine, index=index, slo_ms=1000, neighbors_k=TOPK, warmup=False,
-                         sink=sink, metrics_flush_s=0.5, workdir=os.path.join(v2_dir, "serve"),
-                         model_step=model_step, model_digest=digest)
-    try:
-        embedded = {n: np.asarray(post(server.port, "/embed", imgs[:n])["embedding"], np.float32)
-                    for n in (1, 8, 32)}
-        ivf_scan.fused_cell_scores.launches = 0  # the requests' launches from here
-        neighbors = {mode: post(server.port, f"/neighbors?mode={mode}", imgs)
-                     for mode in F32_MODES}
-        launches["ivf_cell_scores"] = ivf_scan.fused_cell_scores.launches
-        model = get(server.port, "/admin/model")
-        stats = get(server.port, "/stats")
-    finally:
-        server.close()
-        sink.close()
-    check(launches["ivf_cell_scores"] > 0, "12e: the ivf_fused requests did not launch the kernel")
-    check(model == {"model_step": SERVE_V2_STEPS, "model_digest": digest,
-                    "ingest_ckpt_step": None, "replica": 0}, f"12e: /admin/model {model}")
-    check(stats["serve/recompiles_after_warmup"] == 0, "12e: recompiles after warmup")
-    metrics_path = os.path.join(v2_dir, "serve", "metrics.jsonl")
-    errors = validate_file(metrics_path)
-    check(errors == [] and read_metrics(metrics_path), f"12e: serve metrics.jsonl {errors[:3]}")
-    for n, emb in embedded.items():
-        check(np.isfinite(emb).all() and np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-3,
-              f"12e: /embed n={n}")
-    feats = engine.forward(torch.from_numpy(imgs).cuda()).cpu().numpy()
-    _, per_mode, _ = engine.embed_and_query_modes(imgs, index, TOPK, modes=F32_MODES)
-    out["swaps_fused_vs_ivf"] = same_topk(feats, rows, per_mode["ivf_fused"], per_mode["ivf"],
-                                          "12e: ivf_fused vs ivf")
-    out["swaps_exact_vs_oracle"] = same_topk(feats, rows, per_mode["exact"],
-                                             host_topk(feats, rows), "12e: exact vs host oracle")
-    # the HTTP answer against the oracle of its own embeddings: the batcher's
-    # thread may round the bf16 forward otherwise than this one
-    http_emb = np.asarray(neighbors["exact"]["embedding"], np.float32)
-    out["swaps_http_exact_vs_oracle"] = same_topk(
-        http_emb, rows, (np.asarray(neighbors["exact"]["scores"]),
-                         np.asarray(neighbors["exact"]["indices"])),
-        host_topk(http_emb, rows), "12e: /neighbors exact vs host oracle")
-    out["http_vs_in_process_max_abs"] = float(np.abs(http_emb - feats).max())
-    out["ivf_recall_vs_exact"] = float(np.mean(
-        [len(set(a) & set(b)) / TOPK for a, b in zip(per_mode["ivf"][1], per_mode["exact"][1])]))
-    f32_feats, _ = InferenceEngine(encoder, IMG, device="cuda", dtype=torch.float32).embed(imgs)
-    out["bf16_vs_f32_min_cosine"] = float((f32_feats * feats).sum(1).min())
-    check(out["bf16_vs_f32_min_cosine"] >= 0.99, f"12e: bf16 vs f32 engine {out}")
-    emb8, _, ids8, _ = engine.embed_and_query(imgs[:8], index, TOPK)  # bucket 8, as the replica
-    del index, engine
-    torch.cuda.empty_cache()
-    lap("(a) served and checked")
-
-    # (b) the replica process on the same checkpoint
+    # (b)'s replica process on the same checkpoint, spawned now: it boots
+    # beside (a)'s serving, which times nothing of it
     port = free_port()
     log_path = os.path.join(workdir, "replica.log")
     cmd = [sys.executable, "-m", "moco_tpu_torch.serve.replica_main", "--ckpt-dir", v2_dir,
            "--port", str(port), "--buckets", REPLICA_BUCKETS, "--device", "cuda",
            "--workdir", os.path.join(workdir, "replica")]
-    with open(log_path, "w") as log:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
-                                stdout=log, stderr=subprocess.STDOUT, text=True)
+    log = open(log_path, "w")
+    t0_replica = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=log, stderr=subprocess.STDOUT, text=True)
+    try:
+        del run, trained
+        torch.cuda.empty_cache()
+        rows = queue.numpy()
+        model_step = CheckpointManager(v2_dir).latest_step()
+        digest = encoder_digest(encoder)
+        engine = InferenceEngine(encoder, IMG, device="cuda")  # bf16, buckets 1/8/32/128
+        engine.warmup()
+        index = EmbeddingIndex.from_train_queue(queue, ptr, device="cuda")
+        out["ivf"] = index.train_ivf(nlist=NLIST, nprobe=NPROBE)
+        index.prepare(engine.buckets, TOPK, modes=F32_MODES)
+        index.freeze()
+        lap("(a) engine warm, IVF trained and prepared")
+        sink = JsonlSink(os.path.join(v2_dir, "serve"))
+        server = ServeServer(engine, index=index, slo_ms=1000, neighbors_k=TOPK, warmup=False,
+                             sink=sink, metrics_flush_s=0.5, workdir=os.path.join(v2_dir, "serve"),
+                             model_step=model_step, model_digest=digest)
         try:
-            while True:
-                check(proc.poll() is None, "12e: the replica exited before it served")
-                check(time.perf_counter() - t0 < 300, "12e: the replica never became healthy")
-                try:
-                    health = get(port, "/healthz", timeout=2)
-                    break
-                except OSError:
-                    time.sleep(0.1)
-            out["replica_spawn_to_healthy_s"] = time.perf_counter() - t0
-            lap("(b) replica healthy")
-            check(health["ok"] and health["warm"], f"12e: replica /healthz {health}")
-            rep = post(port, "/neighbors", imgs[:8])  # the replica's default tier: exact
-            rep_emb = np.asarray(rep["embedding"], np.float32)
-            out["replica_min_cosine"] = float((rep_emb * emb8).sum(1).min())
-            check(out["replica_min_cosine"] >= 0.999, f"12e: replica /embed rows {out}")
-            out["replica_exact_swaps"] = ids_agree(rep_emb, np.asarray(rep["indices"]), emb8,
-                                                   ids8, rows, "12e: replica exact ids")
-            check(get(port, "/admin/model")["model_digest"] == digest, "12e: replica digest")
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=60)
+            embedded = {n: np.asarray(post(server.port, "/embed", imgs[:n])["embedding"], np.float32)
+                        for n in (1, 8, 32)}
+            ivf_scan.fused_cell_scores.launches = 0  # the requests' launches from here
+            neighbors = {mode: post(server.port, f"/neighbors?mode={mode}", imgs)
+                         for mode in F32_MODES}
+            launches["ivf_cell_scores"] = ivf_scan.fused_cell_scores.launches
+            model = get(server.port, "/admin/model")
+            stats = get(server.port, "/stats")
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            server.close()
+            sink.close()
+        check(launches["ivf_cell_scores"] > 0, "12e: the ivf_fused requests did not launch the kernel")
+        check(model == {"model_step": SERVE_V2_STEPS, "model_digest": digest,
+                        "ingest_ckpt_step": None, "replica": 0}, f"12e: /admin/model {model}")
+        check(stats["serve/recompiles_after_warmup"] == 0, "12e: recompiles after warmup")
+        metrics_path = os.path.join(v2_dir, "serve", "metrics.jsonl")
+        errors = validate_file(metrics_path)
+        check(errors == [] and read_metrics(metrics_path), f"12e: serve metrics.jsonl {errors[:3]}")
+        for n, emb in embedded.items():
+            check(np.isfinite(emb).all() and np.abs(np.linalg.norm(emb, axis=1) - 1).max() < 1e-3,
+                  f"12e: /embed n={n}")
+        feats = engine.forward(torch.from_numpy(imgs).cuda()).cpu().numpy()
+        _, per_mode, _ = engine.embed_and_query_modes(imgs, index, TOPK, modes=F32_MODES)
+        out["swaps_fused_vs_ivf"] = same_topk(feats, rows, per_mode["ivf_fused"], per_mode["ivf"],
+                                              "12e: ivf_fused vs ivf")
+        out["swaps_exact_vs_oracle"] = same_topk(feats, rows, per_mode["exact"],
+                                                 host_topk(feats, rows), "12e: exact vs host oracle")
+        # the HTTP answer against the oracle of its own embeddings: the batcher's
+        # thread may round the bf16 forward otherwise than this one
+        http_emb = np.asarray(neighbors["exact"]["embedding"], np.float32)
+        out["swaps_http_exact_vs_oracle"] = same_topk(
+            http_emb, rows, (np.asarray(neighbors["exact"]["scores"]),
+                             np.asarray(neighbors["exact"]["indices"])),
+            host_topk(http_emb, rows), "12e: /neighbors exact vs host oracle")
+        out["http_vs_in_process_max_abs"] = float(np.abs(http_emb - feats).max())
+        out["ivf_recall_vs_exact"] = float(np.mean(
+            [len(set(a) & set(b)) / TOPK for a, b in zip(per_mode["ivf"][1], per_mode["exact"][1])]))
+        f32_feats, _ = InferenceEngine(encoder, IMG, device="cuda", dtype=torch.float32).embed(imgs)
+        out["bf16_vs_f32_min_cosine"] = float((f32_feats * feats).sum(1).min())
+        check(out["bf16_vs_f32_min_cosine"] >= 0.99, f"12e: bf16 vs f32 engine {out}")
+        emb8, _, ids8, _ = engine.embed_and_query(imgs[:8], index, TOPK)  # bucket 8, as the replica
+        del index, engine
+        torch.cuda.empty_cache()
+        lap("(a) served and checked")
+
+        # (b) the replica process on the same checkpoint
+        while True:
+            check(proc.poll() is None, "12e: the replica exited before it served")
+            check(time.perf_counter() - t0_replica < 300, "12e: the replica never became healthy")
+            try:
+                health = get(port, "/healthz", timeout=2)
+                break
+            except OSError:
+                time.sleep(0.1)
+        out["replica_spawn_to_healthy_s"] = time.perf_counter() - t0_replica
+        lap("(b) replica healthy")
+        check(health["ok"] and health["warm"], f"12e: replica /healthz {health}")
+        rep = post(port, "/neighbors", imgs[:8])  # the replica's default tier: exact
+        rep_emb = np.asarray(rep["embedding"], np.float32)
+        out["replica_min_cosine"] = float((rep_emb * emb8).sum(1).min())
+        check(out["replica_min_cosine"] >= 0.999, f"12e: replica /embed rows {out}")
+        out["replica_exact_swaps"] = ids_agree(rep_emb, np.asarray(rep["indices"]), emb8,
+                                               ids8, rows, "12e: replica exact ids")
+        check(get(port, "/admin/model")["model_digest"] == digest, "12e: replica digest")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
     with open(log_path) as f:
         replica_log = f.read()
     check(rc == 0 and "drained (clean)" in replica_log, f"12e: replica exit {rc}: "
@@ -3377,15 +3476,18 @@ def observability_phase(fi, ivf_scan, workdir):
           f"12f(c): the dump's slowed requests do not blame engine_execute: {blamed[:2]}")
 
     # the tracing cost: the same requests with reqtrace on and off, in turns
-    lat = {True: [], False: []}
-    for on in (True, False, False, True):
-        server = ServeServer(engine, index=index, port=0, slo_ms=OBS_SLO_MS, neighbors_k=TOPK,
-                             neighbors_mode="ivf_fused", warmup=False, reqtrace=on,
-                             alert_spec="serve_default" if on else "")
-        try:
-            post(server.port, "/neighbors?mode=ivf_fused", reqs[0])  # the thread's warm-up
-            lat[on] += serve(server)[1]
-        finally:
+    # on two servers (each new batcher thread pays its own warm pass)
+    lat, servers = {True: [], False: []}, {}
+    try:
+        for on in (True, False):
+            servers[on] = ServeServer(engine, index=index, port=0, slo_ms=OBS_SLO_MS,
+                                      neighbors_k=TOPK, neighbors_mode="ivf_fused", warmup=False,
+                                      reqtrace=on, alert_spec="serve_default" if on else "")
+            post(servers[on].port, "/neighbors?mode=ivf_fused", reqs[0])  # the thread's warm-up
+        for on in (True, False, False, True):
+            lat[on] += serve(servers[on])[1]
+    finally:
+        for server in servers.values():
             server.close()
     pct = {on: (float(np.percentile(v, 50)), float(np.percentile(v, 99))) for on, v in lat.items()}
     out["c"] = {
@@ -3421,7 +3523,7 @@ I8_SCORE_TOL = 0.02  # JAX's rescale bound on an int8 score (tests/test_serve_iv
 I8_RECALL_SLACK = 0.02  # what the IVF twins may lose in int8 beyond the f32 ivf_fused
 QUANT_COSINE_FLOOR = 0.99  # JAX's floor for a quantized tier (scripts/perf_ledger.py:48)
 CALIB_N = 256  # 12g(b): held-out images behind the w8a8 calibration
-G_REQUESTS, G_RIDERS, G_CLIENTS = 64, 16, 4  # 12g(c): /neighbors requests, int8 riders, threads
+G_REQUESTS, G_RIDERS, G_CLIENTS = 48, 12, 4  # 12g(c): /neighbors requests, int8 riders, threads
 INGEST_BLOCK = 8192  # serve_ingest's rows per POST in 12g(c): 9 POSTs for its 66304 rows
 # 12g(c): the replica's freshness objective, above its spawn-to-ingest time
 # (its rows are stamped at its start), and the stall of an ingest past it
@@ -3429,6 +3531,9 @@ INGEST_BLOCK = 8192  # serve_ingest's rows per POST in 12g(c): 9 POSTs for its 6
 # window's observations bad past the objective: the stall's end is a bound)
 FRESH_MAX_AGE_S, STALL_S = 20.0, 90.0
 FIRST_FLUSH_NEXT, FIRST_FLUSH_RATIO = 16, 3.0  # 12g(d)
+# 12m(b): the lock-order bursts (module docstring); serve.metrics is taken
+# under serve.index, so its inverted edge closes the cycle
+TSAN_REQUESTS, TSAN_SLO_MS, TSAN_DEADLOCK_LOCK = 24, 40.0, "serve.metrics"
 
 
 def on_thread(fn):
@@ -3849,7 +3954,9 @@ def serving_rest_phase(fi, ivf_scan, feats_t, v2_dir, workdir):
                 0, 256, (2 * (1 + FIRST_FLUSH_NEXT), IMG, IMG, 3), np.uint8)
             out["first_flush"] = {"anatomy": first_flush_anatomy(engines["off"], d_imgs)}
             d_dir = os.path.join(workdir, "first_flush")
-            d_server = ServeServer(engines["off"], index=index, port=0, slo_ms=1000,
+            # a 100 ms SLO: each sequential request waits half of it to
+            # coalesce, and the check reads engine_execute alone
+            d_server = ServeServer(engines["off"], index=index, port=0, slo_ms=100,
                                    neighbors_k=TOPK, neighbors_mode="ivf_fused", warmup=False,
                                    workdir=d_dir, alert_spec="")
             try:
@@ -3910,11 +4017,94 @@ def serving_rest_phase(fi, ivf_scan, feats_t, v2_dir, workdir):
     check(errors == [], f"12g(c): replica metrics.jsonl {errors[:3]}")
     launches["ivf_cell_scores"] = ivf_scan.fused_cell_scores.launches
     check(launches["ivf_cell_scores"] > 0, "12g: the phase launched no cell scan")
+    ivf_scan.fused_cell_scores.launches = 0  # 12m(b)'s bursts count apart
+    out["lock_order"] = lock_order_part(engines["off"], index, workdir)
+    lap("12m(b) lock order")
+    launches["ivf_cell_scores_12m"] = ivf_scan.fused_cell_scores.launches
+    check(launches["ivf_cell_scores_12m"] > 0, "12m(b): the bursts launched no cell scan")
     del engines, index, encoder
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"serving, the rest in {out['phase_s']:.1f} s: launches {launches}", flush=True)
     return out, launches
+
+
+def lock_order_part(engine, index, workdir: str) -> dict:
+    """12m(b) (module docstring): sequential /neighbors bursts of `engine`
+    over `index` to in-process servers: server A without a hook, server B
+    started under ThreadSanitizer with its profile hook (every thread of B
+    and this one profiled: the clean leg), A again, then a /stats request
+    to A (its gauges read under serve.index) under
+    deadlock@site=TSAN_DEADLOCK_LOCK with the recorder alone. Two
+    servers, not four: each new batcher thread pays its own warm pass
+    (~6 s on an H100, its cuDNN and cuBLAS handles). Returns the p50s, the
+    recorded edges and blocking ops, and the cycle."""
+    from moco_tpu_torch.analysis import tsan
+    from moco_tpu_torch.serve.server import ServeServer
+    from moco_tpu_torch.utils import faults
+
+    imgs = np.random.default_rng(SEED + 18).integers(
+        0, 256, (TSAN_REQUESTS, 2, IMG, IMG, 3), np.uint8)
+
+    def server():
+        return ServeServer(engine, index=index, port=0, slo_ms=TSAN_SLO_MS, neighbors_k=TOPK,
+                           neighbors_mode="ivf_fused", warmup=False, alert_spec="")
+
+    def p50(srv, n=TSAN_REQUESTS) -> float:
+        """The client's median ms over `n` sequential requests, the first
+        two (the server's first flushes) left out."""
+        ms = []
+        for j in range(n):
+            t0 = time.perf_counter()
+            post(srv.port, "/neighbors", imgs[j])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms[2:]))
+
+    clean_dir, dl_dir = os.path.join(workdir, "tsan_clean"), os.path.join(workdir, "tsan_deadlock")
+    server_a = server()
+    try:
+        off1 = p50(server_a)
+        san = tsan.ThreadSanitizer(workdir=clean_dir, strict=False, profile=True)
+        try:
+            server_b = server()
+            try:
+                on = p50(server_b)
+                get(server_b.port, "/stats")  # stats() reads the metrics under serve.index
+            finally:
+                server_b.close()
+        finally:
+            clean = san.close()
+        off2 = p50(server_a)
+        faults.install(f"deadlock@site={TSAN_DEADLOCK_LOCK}")
+        san = tsan.ThreadSanitizer(workdir=dl_dir, strict=False, profile=False)
+        try:
+            get(server_a.port, "/stats")
+        finally:
+            dl = san.close()
+            faults.clear()
+    finally:
+        server_a.close()
+    edges = {(e["held"], e["acquired"]) for e in clean["edges"]}
+    check(clean["cycles"] == [] and ("serve.index", TSAN_DEADLOCK_LOCK) in edges
+          and os.path.exists(os.path.join(clean_dir, "lock_order.json")),
+          f"12m(b): the clean leg's edges {sorted(edges)}, cycles {clean['cycles'][:1]}")
+    with open(os.path.join(dl_dir, "lock_order_diff.json")) as f:
+        diff = json.load(f)
+    pair = {"serve.index", TSAN_DEADLOCK_LOCK}
+    check(dl["cycles"] and set(diff["cycle"]) == pair
+          and {(e["held"], e["acquired"], e["injected"]) for e in diff["edges"]}
+          == {("serve.index", TSAN_DEADLOCK_LOCK, False), (TSAN_DEADLOCK_LOCK, "serve.index", True)}
+          and all(e["stack"] for e in diff["edges"]),
+          f"12m(b): the deadlock leg's cycle {diff.get('cycle')}, edges {diff.get('edges')}")
+    ops: dict = {}
+    for b in clean["blocking_ops_under_lock"]:
+        key = f"{b['op']} under {','.join(b['held'])}"
+        ops[key] = ops.get(key, 0) + 1
+    out = {"p50_ms_off": [off1, off2], "p50_ms_profile_hook": on, "requests": TSAN_REQUESTS,
+           "slo_ms": TSAN_SLO_MS, "acquisitions": clean["acquisitions"], "edges": sorted(edges),
+           "blocking_ops_under_lock": ops, "cycle": diff["cycle"]}
+    print(f"12m(b): {json.dumps(out)}", flush=True)
+    return out
 
 
 def post(port, path, imgs):
@@ -3947,6 +4137,7 @@ DP_TIMEOUT_S = 300.0  # the process groups' timeout, and the children's join bud
 # BN spreads the flipped unit's gradient over its channel, so some
 # elements move by a large share of their tensor's largest in one step
 DP_LOSS_RTOL, DP_UPDATE_REL, DP_QUEUE_COS = 1e-4, 1.5e-2, 0.9999
+SAN_STEPS, SAN_DIVERGE_SITE = 2, "grad.psum"  # 12m(a)
 DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-3, 1e-5
 
 
@@ -3979,14 +4170,29 @@ def tensor_fingerprint(tensors: dict, skip=()) -> str:
     host."""
     import hashlib
 
-    h = hashlib.sha256()
+    names, sums, weights = [], [], {}
     for name, t in sorted(tensors.items()):
         if name in skip:
             continue
         b = t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64)
-        w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 65521 + 1
+        w = weights.get(b.device)
+        if w is None or w.numel() < b.numel():
+            w = weights[b.device] = torch.arange(max(b.numel(), 1 << 20), device=b.device,
+                                                 dtype=torch.int64) % 65521 + 1
+        names.append(name)
+        sums.append((b * w[:b.numel()]).sum())
+    # one host copy per device, not one wait per tensor
+    by_device = {}
+    for i, x in enumerate(sums):
+        by_device.setdefault(x.device, []).append(i)
+    values = [0] * len(sums)
+    for idx in by_device.values():
+        for i, v in zip(idx, torch.stack([sums[i] for i in idx]).tolist()):
+            values[i] = v
+    h = hashlib.sha256()
+    for name, v in zip(names, values):
         h.update(name.encode())
-        h.update(int((b * w).sum()).to_bytes(8, "little", signed=True))
+        h.update(int(v).to_bytes(8, "little", signed=True))
     return h.hexdigest()
 
 
@@ -4184,7 +4390,8 @@ def dp_rank_child(rank: int, n: int, backend: str, device: str, store: str, out_
     imagenet_v2 with gather_perm (6 steps), then in float32 without TF32
     gather_perm and syncbn (2 steps each), and vit_b16_v3 (2 steps, flash
     attention); per run the losses, step ms, the state's digest after each
-    step, launches, the ledger and peak memory. Rank 0 then runs the
+    step, launches, the ledger and peak memory; then 12m(a)'s two driver
+    runs under sanitize_collectives (`dp_sanitize_legs`). Rank 0 then runs the
     oracles on one device on the whole batches, in float32:
     bn_virtual_groups=2 with the same permutations for gather_perm,
     shuffle='none' for syncbn; the latter, whole-batch BN, is also the
@@ -4277,6 +4484,7 @@ def dp_rank_child(rank: int, n: int, backend: str, device: str, store: str, out_
             out["v3"] = run
             del state, step, batches
             torch.cuda.empty_cache()
+            out["sanitize"] = dp_sanitize_legs(world, rank, dev, out_dir)
             world.barrier()
         finally:
             world.close()
@@ -4310,6 +4518,120 @@ def dp_rank_child(rank: int, n: int, backend: str, device: str, store: str, out_
         json.dump(out, f)
 
 
+def dp_sanitize_legs(world, rank: int, dev, out_dir: str) -> dict:
+    """12m(a), one rank of 12h(b): two SAN_STEPS-step imagenet_v2 runs
+    through train() on `world` under sanitize_collectives (log_every 1), in
+    workdirs every rank shares: "clean" (each record's
+    collective_schedule_hash), then "diverge", with
+    diverge@site=SAN_DIVERGE_SITE on rank 1 alone (the error each rank must
+    raise at its first log step)."""
+    from moco_tpu_torch.analysis.sanitizer import ScheduleDivergenceError
+    from moco_tpu_torch.data.datasets import SyntheticDataset
+    from moco_tpu_torch.train import train
+    from moco_tpu_torch.utils import faults
+
+    res = {}
+    for leg in ("clean", "diverge"):
+        cfg = dataclasses.replace(dp_config("imagenet_v2"), log_every=1, obs_probe_every=0,
+                                  workdir=os.path.join(out_dir, f"sched_{leg}"),
+                                  sanitize_collectives=True)
+        data = SyntheticDataset(cfg.data.global_batch * EPOCH_STEPS, IMG)
+        if leg == "diverge" and rank == 1:
+            faults.install(f"diverge@site={SAN_DIVERGE_SITE}")
+        t0 = time.perf_counter()
+        try:
+            run = train(cfg, dataset=data, state=seeded_v2_state(cfg, world, device=dev),
+                        steps=SAN_STEPS, world=world)
+            res[leg] = {"hashes": [r.get("collective_schedule_hash") for r in run["history"]]}
+            del run
+        except ScheduleDivergenceError as e:
+            res[leg] = {"error": str(e)}
+        finally:
+            faults.clear()
+        res[leg]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return res
+
+
+def dp_sanitize_check(results: list, tmp: str) -> dict:
+    """12m(a)'s checks over both ranks' `dp_sanitize_legs` (module
+    docstring); returns the leg's numbers."""
+    from moco_tpu_torch.obs.schema import read_metrics
+
+    clean = [r["clean"] for r in results]
+    for r, c in enumerate(clean):
+        check("error" not in c and len(c["hashes"]) == SAN_STEPS and len(set(c["hashes"])) == 1
+              and c["hashes"][0], f"12m(a) rank {r}: the clean run {c}")
+    published = []
+    for r in range(len(results)):
+        with open(os.path.join(tmp, "sched_clean", f"schedule.p{r}.json")) as f:
+            published.append(json.load(f))
+    check(len({c["hashes"][0] for c in clean}) == 1
+          and all(p["hash"][:12] == clean[0]["hashes"][0] for p in published),
+          f"12m(a): the ranks' schedule hashes {[c['hashes'] for c in clean]}, published "
+          f"{[p['hash'] for p in published]}")
+    lines = [x for x in read_metrics(os.path.join(tmp, "sched_clean", "metrics.jsonl"))
+             if "loss" in x]
+    check(len(lines) == SAN_STEPS
+          and all(x.get("collective_schedule_hash") == clean[0]["hashes"][0] for x in lines),
+          "12m(a): collective_schedule_hash on rank 0's training lines")
+    div = [r["diverge"] for r in results]
+    for r, d in enumerate(div):
+        check("collective schedules diverged at step 1" in d.get("error", "")
+              and SAN_DIVERGE_SITE in d["error"], f"12m(a) rank {r}: the diverge run {d}")
+    with open(os.path.join(tmp, "sched_diverge", "schedule_diff.json")) as f:
+        diff = json.load(f)
+    check(diff["step"] == 1 and any(SAN_DIVERGE_SITE in line for line in diff["diff"]),
+          f"12m(a): schedule_diff.json {diff.get('diff')}")
+    out = {"hash": clean[0]["hashes"][0], "sites": [e[0] for e in published[0]["schedule"]],
+           "clean_s": [c["s"] for c in clean], "diverge_s": [d["s"] for d in div],
+           "diff": [line[:160] for line in diff["diff"]]}
+    print(f"12m(a): {json.dumps(out)}", flush=True)
+    return out
+
+
+def gated_child(gate: str, target, *args) -> None:
+    """A phase's child process spawned while the phase before it runs: it
+    imports the port and torch._dynamo (which the first optimizer imports:
+    some seconds of host time), waits for the file `gate`, which its phase
+    creates when it starts, then runs target(*args). It returns at once if
+    its parent has exited."""
+    import multiprocessing
+
+    import torch._dynamo  # noqa: F401
+
+    import moco_tpu_torch.train  # noqa: F401
+
+    parent = multiprocessing.parent_process()
+    while not os.path.exists(gate):
+        if parent is not None and not parent.is_alive():
+            return
+        time.sleep(0.05)
+    target(*args)
+
+
+def start_ranks(specs, gate=None) -> list:
+    """A process of the spawn context for each (target, args) of `specs`,
+    started; each behind `gate` (`gated_child`) when one is given."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=gated_child, args=(gate, target, *args)) if gate
+             else ctx.Process(target=target, args=args) for target, args in specs]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def end_ranks(procs) -> None:
+    """Kill whichever of `procs` still runs (a phase that failed, or one
+    that never opened its gate)."""
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+
+
 def dp_join(procs, budget: float) -> list:
     """Exit codes of `procs`, joined within `budget` seconds in all (a child
     still alive then is killed and reads None)."""
@@ -4336,12 +4658,25 @@ def dp_phase(fi):
 
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    procs_all = []
     try:
-        # (a) the distributed path over an NCCL group of one
+        # (a) the distributed path over an NCCL group of one, its process
+        # beside (b)'s ranks (nothing of either is timed against the other)
         t0 = time.perf_counter()
         path_a = os.path.join(tmp, "one.json")
         proc = ctx.Process(target=dp_one_child, args=(os.path.join(tmp, "store_a"), path_a))
         proc.start()
+        # (b) two ranks
+        count = torch.cuda.device_count()
+        backend, devices = (("nccl", ["cuda:0", "cuda:1"]) if count >= DP_RANKS
+                            else ("gloo", ["cuda:0", "cuda:0"]))
+        print(f"12h(b): {DP_RANKS} ranks, backend {backend}, devices {devices}", flush=True)
+        procs = [ctx.Process(target=dp_rank_child, args=(r, DP_RANKS, backend, devices[r],
+                                                         os.path.join(tmp, "store_b"), tmp))
+                 for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        procs_all += [proc, *procs]
         codes = dp_join([proc], 2 * DP_TIMEOUT_S)
         with open(path_a) as f:
             a = json.load(f)
@@ -4363,17 +4698,6 @@ def dp_phase(fi):
               f"12h(a): InfoNCE launches {nccl['launches']} / {one['launches']}")
         check(nccl["ledger"] == {"comms/grad.psum": 0, "comms/total": 0},
               f"12h(a): a world of one's ledger {nccl['ledger']}")
-        # (b) two ranks
-        count = torch.cuda.device_count()
-        backend, devices = (("nccl", ["cuda:0", "cuda:1"]) if count >= DP_RANKS
-                            else ("gloo", ["cuda:0", "cuda:0"]))
-        print(f"12h(b): {DP_RANKS} ranks, backend {backend}, devices {devices}", flush=True)
-        t0 = time.perf_counter()
-        procs = [ctx.Process(target=dp_rank_child, args=(r, DP_RANKS, backend, devices[r],
-                                                         os.path.join(tmp, "store_b"), tmp))
-                 for r in range(DP_RANKS)]
-        for p in procs:
-            p.start()
         cfg = dp_config("imagenet_v2")
         b = cfg.data.global_batch
         with TwoCropPipeline(cfg.data, seed=cfg.seed, device="cuda",
@@ -4393,6 +4717,7 @@ def dp_phase(fi):
                   flush=True)
         check(codes == [0] * DP_RANKS and not any("error" in r for r in ranks),
               f"12h(b): exit {codes}: {[r.get('error') for r in ranks]}")
+        sanitize = dp_sanitize_check([r["sanitize"] for r in ranks], tmp)
         per_rank = []
         for r, res in enumerate(ranks):
             for name in ("gather_perm", "gather_perm_f32", "syncbn_f32", "v3"):
@@ -4439,13 +4764,17 @@ def dp_phase(fi):
                       "overhead_ms": nccl["step_ms"] - again["step_ms"]},
                 "b": {"backend": backend, "devices": devices, "wall_s": wall_b,
                       "collectives": ranks[0]["collectives"], "ranks": per_rank,
-                      "oracle": oracle}}, {
+                      "oracle": oracle, "sanitize": sanitize}}, {
             "nccl_1": nccl["launches"],
             "ranks": [{**{k: sum(res[run]["launches"][k] for run in
                                  ("gather_perm", "gather_perm_f32", "syncbn_f32"))
                           for k in ("infonce_fwd", "infonce_bwd")},
                        **res["v3"]["launches"]} for res in ranks]}
     finally:
+        for p in procs_all:  # a failed check leaves no rank running
+            if p.is_alive():
+                p.kill()
+                p.join(10)
         shutil.rmtree(tmp)
 
 
@@ -4771,25 +5100,32 @@ def zero_rank_child(rank: int, n: int, backend: str, device: str, store: str,
         json.dump(out, f)
 
 
-def zero_phase(fi, dp_peak_gb=None):
+def zero_spawn(gated: bool = False) -> dict:
+    """12i's ranks in a new temporary directory, started (behind a gate
+    when `gated`: spawned while 12h runs)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    count = torch.cuda.device_count()
+    backend, devices = (("nccl", ["cuda:0", "cuda:1"]) if count >= DP_RANKS
+                        else ("gloo", ["cuda:0", "cuda:0"]))
+    gate = os.path.join(tmp, "gate") if gated else None
+    return {"tmp": tmp, "backend": backend, "devices": devices, "gate": gate,
+            "procs": start_ranks([(zero_rank_child, (r, DP_RANKS, backend, devices[r],
+                                                     os.path.join(tmp, "store"), tmp))
+                                  for r in range(DP_RANKS)], gate)}
+
+
+def zero_phase(fi, dp_peak_gb=None, spawned=None):
     """Phase 12i (module docstring); returns its JSON and the launches of
     its paths, per rank. `dp_peak_gb` is 12h's per-rank peak memory (v2,
-    v3), printed beside 12i's."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    v3), printed beside 12i's; `spawned`, `zero_spawn(gated=True)`'s ranks
+    (else they start here)."""
+    sp = spawned or zero_spawn()
+    tmp, backend, devices, procs = sp["tmp"], sp["backend"], sp["devices"], sp["procs"]
     try:
-        count = torch.cuda.device_count()
-        backend, devices = (("nccl", ["cuda:0", "cuda:1"]) if count >= DP_RANKS
-                            else ("gloo", ["cuda:0", "cuda:0"]))
         print(f"12i: {DP_RANKS} ranks, backend {backend}, devices {devices}", flush=True)
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=zero_rank_child, args=(r, DP_RANKS, backend, devices[r],
-                                                           os.path.join(tmp, "store"), tmp))
-                 for r in range(DP_RANKS)]
-        for p in procs:
-            p.start()
+        if sp["gate"]:
+            open(sp["gate"], "w").close()
         codes = dp_join(procs, 3 * DP_TIMEOUT_S)
         ranks = []
         for r in range(DP_RANKS):
@@ -4877,6 +5213,7 @@ def zero_phase(fi, dp_peak_gb=None):
              **{k: sum(res[name]["launches"][k] for name in ("v3_dp", "v3_layer"))
                 for k in ("flash_fwd", "flash_dq", "flash_dkv")}} for res in ranks]
     finally:
+        end_ranks(procs)
         shutil.rmtree(tmp)
 
 
@@ -4913,20 +5250,10 @@ MA_GRAD_REL, MA_UPDATE_REL = 1e-3, 5e-2
 
 
 def ma_fingerprint(modules) -> str:
-    """sha256 over per-tensor position-weighted sums of the bytes of every
-    tensor of `modules` (on the card, exact in int64): equal states give
-    equal prints, and two states that differ anywhere differ with
-    overwhelming probability."""
-    import hashlib
-
-    h = hashlib.sha256()
-    for m in modules:
-        for name, t in m.state_dict().items():
-            b = t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64)
-            w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 65521 + 1
-            h.update(name.encode())
-            h.update(int((b * w).sum()).to_bytes(8, "little", signed=True))
-    return h.hexdigest()
+    """`tensor_fingerprint` of every tensor of `modules`, each name prefixed
+    by its module's position."""
+    return tensor_fingerprint({f"{i}.{name}": t for i, m in enumerate(modules)
+                               for name, t in m.state_dict().items()})
 
 
 def ma_ring_check(fa, ring, dev, label) -> dict:
@@ -5303,31 +5630,46 @@ def ma_kernel_shapes(fi, fa) -> dict:
     return out
 
 
-def model_axis_phase(fi, fa):
-    """Phase 12j (module docstring); returns its JSON, the launches of its
-    paths per rank, and the kernels' records at its shapes."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
+def ma_spawn(gated: bool = False) -> dict:
+    """12j's main world's ranks in a new temporary directory, started
+    (behind a gate when `gated`: spawned while 12i runs); the ring's eight
+    start with the phase."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ma_")
+    count = torch.cuda.device_count()
+    worlds = {key: (("nccl", [f"cuda:{r}" for r in range(n)]) if count >= n
+                    else ("gloo", ["cuda:0"] * n))
+              for key, n in (("main", MA_RANKS), ("ring", MA_RING_WIDE))}
+    gate = os.path.join(tmp, "gate") if gated else None
+    return {"tmp": tmp, "worlds": worlds, "gate": gate,
+            "procs": start_ranks([(ma_rank_child, (r, MA_RANKS, worlds["main"][0],
+                                                   worlds["main"][1][r],
+                                                   os.path.join(tmp, "store"), tmp))
+                                  for r in range(MA_RANKS)], gate)}
+
+
+def model_axis_phase(fi, fa, spawned=None, after_ring=None):
+    """Phase 12j (module docstring); returns its JSON, the launches of its
+    paths per rank, and the kernels' records at its shapes. `spawned`,
+    `ma_spawn(gated=True)`'s ranks (else they start here); `after_ring`,
+    called once the ring's eight processes are done (the next phase's
+    ranks spawn then)."""
+    sp = spawned or ma_spawn()
+    tmp, worlds, procs = sp["tmp"], sp["worlds"], list(sp["procs"])
     try:
-        count = torch.cuda.device_count()
-        worlds = {}
         for key, n in (("main", MA_RANKS), ("ring", MA_RING_WIDE)):
-            worlds[key] = (("nccl", [f"cuda:{r}" for r in range(n)]) if count >= n
-                           else ("gloo", ["cuda:0"] * n))
             print(f"12j {key}: {n} ranks, backend {worlds[key][0]}, devices "
                   f"{sorted(set(worlds[key][1]))}", flush=True)
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=ma_rank_child, args=(
-            r, MA_RANKS, worlds["main"][0], worlds["main"][1][r], os.path.join(tmp, "store"),
-            tmp)) for r in range(MA_RANKS)]
-        procs += [ctx.Process(target=ma_ring_child, args=(
+        if sp["gate"]:
+            open(sp["gate"], "w").close()
+        ring = start_ranks([(ma_ring_child, (
             r, MA_RING_WIDE, worlds["ring"][0], worlds["ring"][1][r],
-            os.path.join(tmp, "store_ring"), tmp)) for r in range(MA_RING_WIDE)]
-        for p in procs:
-            p.start()
-        codes = dp_join(procs, 2 * MA_TIMEOUT_S)
+            os.path.join(tmp, "store_ring"), tmp)) for r in range(MA_RING_WIDE)])
+        procs += ring
+        ring_codes = dp_join(ring, 2 * MA_TIMEOUT_S)
+        if after_ring is not None:
+            after_ring()
+        codes = dp_join(procs[:MA_RANKS], 2 * MA_TIMEOUT_S) + ring_codes
         ranks, rings = [], []
         for r in range(MA_RANKS):
             with open(os.path.join(tmp, f"ma_rank{r}.json")) as f:
@@ -5422,6 +5764,7 @@ def model_axis_phase(fi, fa):
                                   "num_model": [8, MA_RANKS]}},
                 "sections": [res["sections"] for res in ranks]}, launches, shapes
     finally:
+        end_ranks(procs)
         shutil.rmtree(tmp)
 
 
@@ -5734,9 +6077,25 @@ def zk_infonce_check(fi) -> dict:
     return compare_infonce(fi, q, k, queue, 0.2, g, f"B={b} K={kk} C={DIM} (a 2 x 2 rank)")
 
 
-def zk_phase(fi):
+def zk_spawn(gated: bool = False) -> dict:
+    """12k's ranks in a new temporary directory, started (behind a gate
+    when `gated`: spawned while 12j runs)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zk_")
+    workdir = os.path.join(tmp, "elastic")
+    count = torch.cuda.device_count()
+    backend, devices = (("nccl", [f"cuda:{r}" for r in range(ZK_RANKS)])
+                        if count >= ZK_RANKS else ("gloo", ["cuda:0"] * ZK_RANKS))
+    gate = os.path.join(tmp, "gate") if gated else None
+    return {"tmp": tmp, "workdir": workdir, "backend": backend, "devices": devices,
+            "gate": gate,
+            "procs": start_ranks([(zk_rank_child, (r, backend, devices[r], tmp, workdir))
+                                  for r in range(ZK_RANKS)], gate)}
+
+
+def zk_phase(fi, spawned=None):
     """Phase 12k (module docstring); returns its JSON and the launches of
-    its paths per process."""
+    its paths per process. `spawned`, `zk_spawn(gated=True)`'s ranks (else
+    they start here)."""
     import torch.multiprocessing as mp
 
     from moco_tpu_torch.obs.schema import validate_line
@@ -5745,20 +6104,16 @@ def zk_phase(fi):
     from moco_tpu_torch.utils.contracts import KILL_EXIT_CODE, RESCALE_EXIT_CODE
 
     ctx = mp.get_context("spawn")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_zk_")
-    workdir = os.path.join(tmp, "elastic")
+    sp = spawned or zk_spawn()
+    tmp, workdir, backend, devices, procs = (sp["tmp"], sp["workdir"], sp["backend"],
+                                             sp["devices"], list(sp["procs"]))
     try:
         t0 = time.perf_counter()
         infonce = zk_infonce_check(fi)
-        count = torch.cuda.device_count()
-        backend, devices = (("nccl", [f"cuda:{r}" for r in range(ZK_RANKS)])
-                            if count >= ZK_RANKS else ("gloo", ["cuda:0"] * ZK_RANKS))
         print(f"12k: {ZK_RANKS} ranks, backend {backend}, devices {sorted(set(devices))}",
               flush=True)
-        procs = [ctx.Process(target=zk_rank_child, args=(r, backend, devices[r], tmp, workdir))
-                 for r in range(ZK_RANKS)]
-        for p in procs:
-            p.start()
+        if sp["gate"]:
+            open(sp["gate"], "w").close()
         # each process's exit, on the host clock: (b)'s kill and rescale exits
         exits: dict = {}
         deadline = time.monotonic() + 3 * ZK_TIMEOUT_S
@@ -5888,6 +6243,7 @@ def zk_phase(fi):
                       "oracle": ranks[0]["oracle"], "sections": [r["sections"] for r in ranks]},
                 "b": b_out}, launches
     finally:
+        end_ranks(procs)
         shutil.rmtree(tmp)
 
 
@@ -5901,6 +6257,9 @@ def zk_phase(fi):
 # through the in-process fleet of (d)
 FL_CLIENTS, FL_BURST, FL_KILL_AT, FL_WARM_ROWS, FL_LAT_N, FL_NEIGHBORS = 4, 6, 5, 4096, 20, 4
 FL_BURST_SIZES = (1, 2, 4, 8)
+# 12m(c): the replicas' freshness objective (the reference fleet smoke's:
+# it puts the freshness gauges on their lines, nothing burns in a phase)
+FL_FRESH_MAX_AGE_S = 600.0
 FL_BOOT_S = 300.0  # a replica's spawn-to-healthy limit
 FL_HOP_REL, FL_HOP_MS = 0.05, 2.0  # the stitched hop sum against the client's wall
 # the compatible candidate: the live encoders' parameters scaled by 1 +
@@ -6054,6 +6413,7 @@ def fleet_phase(ivf_scan, v2_dir, fanout_dir, workdir, device="cuda"):
     launches)."""
     import torch.multiprocessing as mp
 
+    from moco_tpu_torch.analysis import contracts as contract_cov
     from moco_tpu_torch.obs import critpath
     from moco_tpu_torch.obs.schema import validate_line, validate_lines
     from moco_tpu_torch.serve import serve_ingest, serve_promote
@@ -6073,6 +6433,10 @@ def fleet_phase(ivf_scan, v2_dir, fanout_dir, workdir, device="cuda"):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (here, os.environ.get("PYTHONPATH")) if p))
     env.pop("MOCO_FAULTS", None)
+    env["MOCO_CONTRACT_COVERAGE"] = "1"  # 12m(c): each replica dumps its contract coverage
+    # 12m(c): this process's own (the router's routes, the ledger's and the
+    # lines' validators), from here to the gate
+    recorder = contract_cov.install_recorder()
     live_queue, _ = serve_ingest.read_queue(v2_dir)
     warm = np.ascontiguousarray(live_queue[:FL_WARM_ROWS])
     sup = ReplicaSupervisor(
@@ -6080,7 +6444,7 @@ def fleet_phase(ivf_scan, v2_dir, fanout_dir, workdir, device="cuda"):
         buckets=tuple(int(b) for b in REPLICA_BUCKETS.split(",")), device=device, env=env,
         extra_env={1: {"MOCO_FAULTS": f"kill@replica=1:at={FL_KILL_AT}"}},
         warm_rows_fn=lambda: warm, boot_timeout_s=FL_BOOT_S, monitor_interval_s=0.1,
-        restart_backoff_s=0.1)
+        restart_backoff_s=0.1, fresh_max_age_s=FL_FRESH_MAX_AGE_S)
     # each replica's spawn to its first healthy answer, polled beside the
     # supervisor's own wait
     healthy_at = {}
@@ -6093,290 +6457,335 @@ def fleet_phase(ivf_scan, v2_dir, fanout_dir, workdir, device="cuda"):
             except OSError:
                 time.sleep(0.05)
 
-    sup_err, router, pool = [], None, None
     try:
-        sup_thread = threading.Thread(target=lambda: _fl_start(sup, sup_err))
-        sup_thread.start()
-        pollers = [threading.Thread(target=first_healthy, args=(i,), daemon=True)
-                   for i in (0, 1)]
-        for t in pollers:
-            t.start()
-        # while the replicas boot: the burst's client processes, the
-        # in-process engine, and the candidates on a thread of their own
-        # (host work, done before the burst)
-        pool = concurrent.futures.ProcessPoolExecutor(FL_CLIENTS,
-                                                      mp_context=mp.get_context("spawn"))
-        clients_up = list(pool.map(fl_noop, range(FL_CLIENTS)))
-        reinit_dir, cand_dir = os.path.join(workdir, "reinit"), os.path.join(workdir, "cand")
-        cand_thread = FlThread(lambda: (
-            fl_candidate(v2_dir, reinit_dir, reinit_seed=SEED + 999),
-            fl_candidate(v2_dir, cand_dir, nudge=FL_NUDGE)))
-        encoder, _, _, config = load_serving_encoder(v2_dir, device=device)
-        img = config.data.image_size
-        local = InferenceEngine(encoder, img, buckets=(1, 8, 32), device=device)
-        local.warmup()
-        sup_thread.join(timeout=FL_BOOT_S + 30)
-        check(sup_err == [None] and clients_up == list(range(FL_CLIENTS)),
-              f"12l: the supervisor's start: {sup_err}")
-        for t in pollers:
-            t.join(timeout=10)
-        spawn_t = {e["replica"]: e["t"] for e in sup.events() if e["kind"] == "spawn"}
-        out["spawn_to_healthy_s"] = [healthy_at[i] - spawn_t[i] for i in (0, 1)]
-        lap(f"(a) 2 replicas healthy, {[round(s, 1) for s in out['spawn_to_healthy_s']]} s "
-            "after their spawns")
-        router = FleetRouter(supervisor=sup, workdir=os.path.join(workdir, "fleet"),
-                             health_interval_s=0.1, hedge=False, retry_attempts=4,
-                             retry_base_delay_s=0.02, breaker_fail_threshold=1,
-                             breaker_cooldown_s=0.5, breaker_cooldown_cap_s=2.0,
-                             readmit_timeout_s=FL_BOOT_S, metrics_flush_s=0.5)
-        url = f"http://127.0.0.1:{router.port}"
-        rng = np.random.default_rng(SEED + 121)
-        full = rng.integers(0, 256, (32, img, img, 3), np.uint8)  # a full bucket
-
-        # (a) the burst through the kill, each client a process of its own so
-        # that its wall clock waits on no thread of the router's process; the
-        # candidates' thread done and the heap collected first, so no other
-        # work of this process holds the interpreter while the router serves
-        cand_thread.result()
-        gc.collect()
-        done = list(pool.map(fl_burst_client, [(url, c, img) for c in range(FL_CLIENTS)]))
-        failures = [f for d in done for f in d["failures"]]
-        answers = [(imgs, path, body, wall, w0) for c, d in enumerate(done)
-                   for imgs, (path, body, wall, w0) in zip(fl_burst_images(c, img),
-                                                           d["answers"])]
-        check(failures == [], f"12l(a): {len(failures)} failed client requests: {failures[:3]}")
-        check(len(answers) == FL_CLIENTS * FL_BURST, f"12l(a): {len(answers)} answers")
-        lap(f"(a) burst of {len(answers)} answered")
-        exits = [e for e in sup.events() if e["kind"] == "exit"]
-        check([(e["replica"], e["rc"], e["reason"]) for e in exits] == [(1, 113, "crash")],
-              f"12l(a): exits {exits}")
-        t_exit = exits[0]["t"]
-        # the burst's stitched traces, before the readmission's probes join
-        # the fleet flight ring
-        flight = {r["trace_id"]: r for r in fl_get(url, "/debug/flight")["requests"]}
-        # kill to readmit: the first answer from replica 1 through the router
-        # after its exit (full-bucket probes: no coalescing wait), polled on a
-        # thread while this one goes on
-        readmit = {}
-
-        def wait_readmit():
-            while "t" not in readmit and time.monotonic() - t_exit < FL_BOOT_S:
-                try:
-                    if fl_post(url, "/embed", full)["replica"] == 1:
-                        readmit["t"] = time.monotonic()
-                except OSError as e:
-                    readmit.setdefault("errors", []).append(repr(e))
-                time.sleep(0.05)
-
-        readmitter = threading.Thread(target=wait_readmit)
-        readmitter.start()
-        for imgs, path, body, wall, w0 in answers:
-            check(body["request_id"].startswith(f"r{body['replica']}-"),
-                  f"12l(a): replica {body['replica']} vs request id {body['request_id']}")
-        emb = np.concatenate([np.asarray(b["embedding"], np.float32)
-                              for _, _, b, _, _ in answers])
-        want = np.concatenate([local.embed(imgs)[0] for imgs, *_ in answers])
-        cosine = float((emb * want).sum(1).min())
-        check(cosine >= 0.99, f"12l(a): fleet vs in-process engine cosine {cosine}")
-        out["fleet_vs_engine_min_cosine"] = cosine
-        # the stitched hop sum against each client's wall (before the
-        # router's clock starts: the request's first byte to the handler's
-        # entry; after it stops: its last write to the client's last byte)
-        worst, gaps, split = 0.0, [], []
-        for _, _, body, wall, w0 in answers:
-            rec = flight.get(body["trace_id"])
-            check(rec is not None, f"12l(a): trace {body['trace_id']} not in the flight ring")
-            hops = critpath.attribute(rec)["hops"]
-            total = sum(hops.values())
-            gaps.append(abs(total - wall))
-            worst = max(worst, gaps[-1] / max(wall, 1e-9))
-            before = (rec["wall_t0"] - w0) * 1e3
-            top = sorted(hops.items(), key=lambda kv: -kv[1])[:3]
-            split.append({"wall_ms": round(wall, 3), "hops_ms": round(total, 3),
-                          "before_ms": round(before, 3),
-                          "after_ms": round(wall - before - rec["total_ms"], 3),
-                          "attempts": len(rec["attempts"]),
-                          "top_hops": {k: round(v, 2) for k, v in top}})
-        out["hop_sum_worst_rel"], out["hop_sum_worst_ms"] = worst, max(gaps)
-        out["before_ms_max"] = max(r["before_ms"] for r in split)
-        print(f"12l(a): client wall against the stitched hop sum, per request: "
-              f"{json.dumps(split)}", flush=True)
-        for rec in split:
-            check(abs(rec["hops_ms"] - rec["wall_ms"]) <= max(FL_HOP_REL * rec["wall_ms"],
-                                                              FL_HOP_MS),
-                  f"12l(a): hop sum {rec['hops_ms']} ms vs the client's {rec['wall_ms']} ms "
-                  f"({rec})")
-
-        # (c) while replica 1 respawns: the re-initialised candidate's gates
-        ledger_path = os.path.join(workdir, "promotions.jsonl")
-        gate_args = ["--live-dir", v2_dir, "--ledger", ledger_path, "--device", device,
-                     "--probes", "32", "--max-ema-drift", f"{FL_MAX_EMA_DRIFT:g}",
-                     "--floor-feature-std", f"{FL_FEATURE_STD_FLOOR:g}"]
-        rc = serve_promote.main(["--candidate-dir", reinit_dir, *gate_args])
-        with open(ledger_path) as f:
-            ledger = [json.loads(line) for line in f if line.strip()]
-        check(rc == 1 and len(ledger) == 1 and ledger[0]["promotion/verdict"] == "rejected"
-              and ledger[0]["promotion/failed_gate"] is not None,
-              f"12l(c): the re-initialised candidate: rc {rc}, ledger {ledger}")
-        out["reinit"] = {k.split("/", 1)[1]: v for k, v in ledger[0].items()
-                         if k.startswith("promotion/")}
-        lap(f"(c) re-initialised candidate rejected by {ledger[0]['promotion/failed_gate']}")
-        # the compatible candidate's gates too, its rollout after (b): the
-        # two halves of serve_promote's pass with the router
-        floors = {"compat_cosine": 0.90, "recall_overlap": 0.60,
-                  "feature_std": FL_FEATURE_STD_FLOOR, "ema_drift_max": FL_MAX_EMA_DRIFT,
-                  "live_recall": None}
-        gates, cand_digest, cand_step = serve_promote.gate_candidate(
-            v2_dir, cand_dir, n_probes=32, floors=floors, device=device)
-        PromotionLedger(ledger_path).append(ledger_record(
-            cand_step, "accepted" if gates["ok"] else "rejected", "gates", digest=cand_digest,
-            failed_gate=gates["failed_gate"], gates=gates["gates"], compat=gates["compat"]))
-        out["accepted"] = {name: g["value"] for name, g in gates["gates"].items()}
-        # which gates the default floors would have failed
-        out["default_floor_fails"] = [
-            g for g, floor in DEFAULT_FLOORS.items()
-            if floor is not None and out["accepted"].get(g) is not None
-            and (out["accepted"][g] > floor if g.endswith("_max") else out["accepted"][g] < floor)]
-        print(f"12l(c): the compatible candidate's gates {gates['gates']}; under the default "
-              f"floors it would fail {out['default_floor_fails']}", flush=True)
-        check(gates["ok"], f"12l(c): the compatible candidate failed {gates['failed_gate']}")
-        lap("(c) the compatible candidate's gates passed")
-
-        readmitter.join(timeout=FL_BOOT_S)
-        check("t" in readmit, f"12l(a): replica 1 never answered again: {readmit}")
-        out["kill_to_readmit_s"] = readmit["t"] - t_exit
-        # the router admits the reborn replica once it answers healthy; the
-        # supervisor's warm replay may still be running then
-        fl_wait(lambda: ("restart", 1) in [(e["kind"], e["replica"]) for e in sup.events()],
-                FL_BOOT_S, "replica 1's respawn to finish its warm replay")
-        r1 = [e for e in sup.events() if e["replica"] == 1]
-        check([e["kind"] for e in r1].count("restart") == 1
-              and [e["rows"] for e in r1 if e["kind"] == "warm"] == [len(warm)],
-              f"12l(a): replica 1's events {r1}")
-        rows1 = fl_get(sup.url(1), "/stats")["serve/ingested_rows"]
-        check(rows1 == len(warm), f"12l(a): reborn replica ingested {rows1} rows")
-        st = router.stats()
-        check(st["fleet_serve/failed"] == 0 and st["fleet_serve/retries"] > 0
-              and st["fleet_serve/breaker_trips"] > 0,
-              f"12l(a): router failed {st['fleet_serve/failed']}, retries "
-              f"{st['fleet_serve/retries']}, trips {st['fleet_serve/breaker_trips']}")
-        out["a"] = {k.split("/", 1)[1]: st[k] for k in (
-            "fleet_serve/requests", "fleet_serve/retries", "fleet_serve/breaker_trips",
-            "fleet_serve/failed", "fleet_serve/p50_ms", "fleet_serve/p99_ms")}
-        lap(f"(a) replica 1 back {out['kill_to_readmit_s']:.1f} s after its exit")
-
-        # latency: the router's against a replica's own, sequential full buckets
-        lat = {}
-        for name, base in (("replica", sup.url(0)), ("router", url)):
-            ms = []
-            for _ in range(FL_LAT_N):
-                ms.append(fl_timed_post(base, "/embed", full)[1])
-            lat[name] = fl_percentiles(ms)
-        out["latency"] = lat
-        print(f"12l: /embed of 32 images, router {lat['router']} vs replica 0 direct "
-              f"{lat['replica']}", flush=True)
-
-        # (b) drain and undrain replica 0 under traffic; fanout ingest
-        stop, b_failures, lock = threading.Event(), [], threading.Lock()
-
-        def traffic():
-            imgs = rng.integers(0, 256, (1, img, img, 3), np.uint8)
-            while not stop.is_set():
-                try:
-                    fl_post(url, "/embed", imgs)
-                except Exception as e:  # a dropped request is what is counted
-                    with lock:
-                        b_failures.append(repr(e))
-                time.sleep(0.02)
-
-        feeders = [threading.Thread(target=traffic) for _ in range(2)]
-        for t in feeders:
-            t.start()
+        sup_err, router, pool = [], None, None
         try:
-            t0 = time.monotonic()
-            req = urllib.request.Request(url + "/admin/drain?replica=0", data=b"")
-            with urllib.request.urlopen(req, timeout=30) as r:
-                check(r.status == 202 and json.loads(r.read())["accepted"], "12l(b): drain")
+            sup_thread = threading.Thread(target=lambda: _fl_start(sup, sup_err))
+            sup_thread.start()
+            pollers = [threading.Thread(target=first_healthy, args=(i,), daemon=True)
+                       for i in (0, 1)]
+            for t in pollers:
+                t.start()
+            # while the replicas boot: the burst's client processes, the
+            # in-process engine, and the candidates on a thread of their own
+            # (host work, done before the burst)
+            pool = concurrent.futures.ProcessPoolExecutor(FL_CLIENTS,
+                                                          mp_context=mp.get_context("spawn"))
+            clients_up = list(pool.map(fl_noop, range(FL_CLIENTS)))
+            reinit_dir, cand_dir = os.path.join(workdir, "reinit"), os.path.join(workdir, "cand")
+            cand_thread = FlThread(lambda: (
+                fl_candidate(v2_dir, reinit_dir, reinit_seed=SEED + 999),
+                fl_candidate(v2_dir, cand_dir, nudge=FL_NUDGE)))
+            encoder, _, _, config = load_serving_encoder(v2_dir, device=device)
+            img = config.data.image_size
+            local = InferenceEngine(encoder, img, buckets=(1, 8, 32), device=device)
+            local.warmup()
+            sup_thread.join(timeout=FL_BOOT_S + 30)
+            check(sup_err == [None] and clients_up == list(range(FL_CLIENTS)),
+                  f"12l: the supervisor's start: {sup_err}")
+            for t in pollers:
+                t.join(timeout=10)
+            spawn_t = {e["replica"]: e["t"] for e in sup.events() if e["kind"] == "spawn"}
+            out["spawn_to_healthy_s"] = [healthy_at[i] - spawn_t[i] for i in (0, 1)]
+            lap(f"(a) 2 replicas healthy, {[round(s, 1) for s in out['spawn_to_healthy_s']]} s "
+                "after their spawns")
+            router = FleetRouter(supervisor=sup, workdir=os.path.join(workdir, "fleet"),
+                                 health_interval_s=0.1, hedge=False, retry_attempts=4,
+                                 retry_base_delay_s=0.02, breaker_fail_threshold=1,
+                                 breaker_cooldown_s=0.5, breaker_cooldown_cap_s=2.0,
+                                 readmit_timeout_s=FL_BOOT_S, metrics_flush_s=0.5)
+            url = f"http://127.0.0.1:{router.port}"
+            rng = np.random.default_rng(SEED + 121)
+            full = rng.integers(0, 256, (32, img, img, 3), np.uint8)  # a full bucket
 
-            def back():
-                snap = fl_get(url, "/admin/replicas")["replicas"][0]
-                return snap["healthy"] and not snap["draining"] and snap["drain_phase"] is None
+            # (a) the burst through the kill, each client a process of its own so
+            # that its wall clock waits on no thread of the router's process; the
+            # candidates' thread done and the heap collected first, so no other
+            # work of this process holds the interpreter while the router serves
+            cand_thread.result()
+            gc.collect()
+            done = list(pool.map(fl_burst_client, [(url, c, img) for c in range(FL_CLIENTS)]))
+            failures = [f for d in done for f in d["failures"]]
+            answers = [(imgs, path, body, wall, w0) for c, d in enumerate(done)
+                       for imgs, (path, body, wall, w0) in zip(fl_burst_images(c, img),
+                                                               d["answers"])]
+            check(failures == [], f"12l(a): {len(failures)} failed client requests: {failures[:3]}")
+            check(len(answers) == FL_CLIENTS * FL_BURST, f"12l(a): {len(answers)} answers")
+            lap(f"(a) burst of {len(answers)} answered")
+            exits = [e for e in sup.events() if e["kind"] == "exit"]
+            check([(e["replica"], e["rc"], e["reason"]) for e in exits] == [(1, 113, "crash")],
+                  f"12l(a): exits {exits}")
+            t_exit = exits[0]["t"]
+            # the burst's stitched traces, before the readmission's probes join
+            # the fleet flight ring
+            flight = {r["trace_id"]: r for r in fl_get(url, "/debug/flight")["requests"]}
+            # kill to readmit: the first answer from replica 1 through the router
+            # after its exit (full-bucket probes: no coalescing wait), polled on a
+            # thread while this one goes on
+            readmit = {}
 
-            time.sleep(0.2)
-            fl_wait(back, FL_BOOT_S, "replica 0 back from its drain")
-            out["drain_cycle_s"] = time.monotonic() - t0
-            req = urllib.request.Request(url + "/admin/undrain?replica=0", data=b"")
-            with urllib.request.urlopen(req, timeout=30) as r:
-                check(r.status == 200, "12l(b): undrain")
-            time.sleep(0.3)
-        finally:
-            stop.set()
+            def wait_readmit():
+                while "t" not in readmit and time.monotonic() - t_exit < FL_BOOT_S:
+                    try:
+                        if fl_post(url, "/embed", full)["replica"] == 1:
+                            readmit["t"] = time.monotonic()
+                    except OSError as e:
+                        readmit.setdefault("errors", []).append(repr(e))
+                    time.sleep(0.05)
+
+            readmitter = threading.Thread(target=wait_readmit)
+            readmitter.start()
+            for imgs, path, body, wall, w0 in answers:
+                check(body["request_id"].startswith(f"r{body['replica']}-"),
+                      f"12l(a): replica {body['replica']} vs request id {body['request_id']}")
+            emb = np.concatenate([np.asarray(b["embedding"], np.float32)
+                                  for _, _, b, _, _ in answers])
+            want = np.concatenate([local.embed(imgs)[0] for imgs, *_ in answers])
+            cosine = float((emb * want).sum(1).min())
+            check(cosine >= 0.99, f"12l(a): fleet vs in-process engine cosine {cosine}")
+            out["fleet_vs_engine_min_cosine"] = cosine
+            # the stitched hop sum against each client's wall (before the
+            # router's clock starts: the request's first byte to the handler's
+            # entry; after it stops: its last write to the client's last byte)
+            worst, gaps, split = 0.0, [], []
+            for _, _, body, wall, w0 in answers:
+                rec = flight.get(body["trace_id"])
+                check(rec is not None, f"12l(a): trace {body['trace_id']} not in the flight ring")
+                hops = critpath.attribute(rec)["hops"]
+                total = sum(hops.values())
+                gaps.append(abs(total - wall))
+                worst = max(worst, gaps[-1] / max(wall, 1e-9))
+                before = (rec["wall_t0"] - w0) * 1e3
+                top = sorted(hops.items(), key=lambda kv: -kv[1])[:3]
+                split.append({"wall_ms": round(wall, 3), "hops_ms": round(total, 3),
+                              "before_ms": round(before, 3),
+                              "after_ms": round(wall - before - rec["total_ms"], 3),
+                              "attempts": len(rec["attempts"]),
+                              "top_hops": {k: round(v, 2) for k, v in top}})
+            out["hop_sum_worst_rel"], out["hop_sum_worst_ms"] = worst, max(gaps)
+            out["before_ms_max"] = max(r["before_ms"] for r in split)
+            print(f"12l(a): client wall against the stitched hop sum, per request: "
+                  f"{json.dumps(split)}", flush=True)
+            for rec in split:
+                check(abs(rec["hops_ms"] - rec["wall_ms"]) <= max(FL_HOP_REL * rec["wall_ms"],
+                                                                  FL_HOP_MS),
+                      f"12l(a): hop sum {rec['hops_ms']} ms vs the client's {rec['wall_ms']} ms "
+                      f"({rec})")
+
+            # (c) while replica 1 respawns: the re-initialised candidate's gates
+            ledger_path = os.path.join(workdir, "promotions.jsonl")
+            gate_args = ["--live-dir", v2_dir, "--ledger", ledger_path, "--device", device,
+                         "--probes", "32", "--max-ema-drift", f"{FL_MAX_EMA_DRIFT:g}",
+                         "--floor-feature-std", f"{FL_FEATURE_STD_FLOOR:g}"]
+            rc = serve_promote.main(["--candidate-dir", reinit_dir, *gate_args])
+            with open(ledger_path) as f:
+                ledger = [json.loads(line) for line in f if line.strip()]
+            check(rc == 1 and len(ledger) == 1 and ledger[0]["promotion/verdict"] == "rejected"
+                  and ledger[0]["promotion/failed_gate"] is not None,
+                  f"12l(c): the re-initialised candidate: rc {rc}, ledger {ledger}")
+            out["reinit"] = {k.split("/", 1)[1]: v for k, v in ledger[0].items()
+                             if k.startswith("promotion/")}
+            lap(f"(c) re-initialised candidate rejected by {ledger[0]['promotion/failed_gate']}")
+            # the compatible candidate's gates too, its rollout after (b): the
+            # two halves of serve_promote's pass with the router
+            floors = {"compat_cosine": 0.90, "recall_overlap": 0.60,
+                      "feature_std": FL_FEATURE_STD_FLOOR, "ema_drift_max": FL_MAX_EMA_DRIFT,
+                      "live_recall": None}
+            gates, cand_digest, cand_step = serve_promote.gate_candidate(
+                v2_dir, cand_dir, n_probes=32, floors=floors, device=device)
+            PromotionLedger(ledger_path).append(ledger_record(
+                cand_step, "accepted" if gates["ok"] else "rejected", "gates", digest=cand_digest,
+                failed_gate=gates["failed_gate"], gates=gates["gates"], compat=gates["compat"]))
+            out["accepted"] = {name: g["value"] for name, g in gates["gates"].items()}
+            # which gates the default floors would have failed
+            out["default_floor_fails"] = [
+                g for g, floor in DEFAULT_FLOORS.items()
+                if floor is not None and out["accepted"].get(g) is not None
+                and (out["accepted"][g] > floor if g.endswith("_max") else out["accepted"][g] < floor)]
+            print(f"12l(c): the compatible candidate's gates {gates['gates']}; under the default "
+                  f"floors it would fail {out['default_floor_fails']}", flush=True)
+            check(gates["ok"], f"12l(c): the compatible candidate failed {gates['failed_gate']}")
+            lap("(c) the compatible candidate's gates passed")
+
+            readmitter.join(timeout=FL_BOOT_S)
+            check("t" in readmit, f"12l(a): replica 1 never answered again: {readmit}")
+            out["kill_to_readmit_s"] = readmit["t"] - t_exit
+            # the router admits the reborn replica once it answers healthy; the
+            # supervisor's warm replay may still be running then
+            fl_wait(lambda: ("restart", 1) in [(e["kind"], e["replica"]) for e in sup.events()],
+                    FL_BOOT_S, "replica 1's respawn to finish its warm replay")
+            r1 = [e for e in sup.events() if e["replica"] == 1]
+            check([e["kind"] for e in r1].count("restart") == 1
+                  and [e["rows"] for e in r1 if e["kind"] == "warm"] == [len(warm)],
+                  f"12l(a): replica 1's events {r1}")
+            rows1 = fl_get(sup.url(1), "/stats")["serve/ingested_rows"]
+            check(rows1 == len(warm), f"12l(a): reborn replica ingested {rows1} rows")
+            st = router.stats()
+            check(st["fleet_serve/failed"] == 0 and st["fleet_serve/retries"] > 0
+                  and st["fleet_serve/breaker_trips"] > 0,
+                  f"12l(a): router failed {st['fleet_serve/failed']}, retries "
+                  f"{st['fleet_serve/retries']}, trips {st['fleet_serve/breaker_trips']}")
+            out["a"] = {k.split("/", 1)[1]: st[k] for k in (
+                "fleet_serve/requests", "fleet_serve/retries", "fleet_serve/breaker_trips",
+                "fleet_serve/failed", "fleet_serve/p50_ms", "fleet_serve/p99_ms")}
+            lap(f"(a) replica 1 back {out['kill_to_readmit_s']:.1f} s after its exit")
+
+            # latency: the router's against a replica's own, sequential full buckets
+            lat = {}
+            for name, base in (("replica", sup.url(0)), ("router", url)):
+                ms = []
+                for _ in range(FL_LAT_N):
+                    ms.append(fl_timed_post(base, "/embed", full)[1])
+                lat[name] = fl_percentiles(ms)
+            out["latency"] = lat
+            print(f"12l: /embed of 32 images, router {lat['router']} vs replica 0 direct "
+                  f"{lat['replica']}", flush=True)
+
+            # (b) drain and undrain replica 0 under traffic; fanout ingest
+            stop, b_failures, lock = threading.Event(), [], threading.Lock()
+
+            def traffic():
+                imgs = rng.integers(0, 256, (1, img, img, 3), np.uint8)
+                while not stop.is_set():
+                    try:
+                        fl_post(url, "/embed", imgs)
+                    except Exception as e:  # a dropped request is what is counted
+                        with lock:
+                            b_failures.append(repr(e))
+                    time.sleep(0.02)
+
+            feeders = [threading.Thread(target=traffic) for _ in range(2)]
             for t in feeders:
-                t.join(timeout=60)
-        check(b_failures == [], f"12l(b): {len(b_failures)} dropped: {b_failures[:3]}")
-        lap(f"(b) drain cycle {out['drain_cycle_s']:.1f} s, nothing dropped")
-        before = [fl_get(sup.url(i), "/stats")["serve/ingested_rows"] for i in (0, 1)]
-        rc = serve_ingest.main(["--ckpt-dir", fanout_dir, "--server", url, "--fanout",
-                                "--once", "--block", str(INGEST_BLOCK)])
-        after = [fl_get(sup.url(i), "/stats")["serve/ingested_rows"] for i in (0, 1)]
-        fan_rows = serve_ingest.read_queue(fanout_dir)[0].shape[0]
-        check(rc == 0 and [a - b for a, b in zip(after, before)] == [fan_rows] * 2,
-              f"12l(b): fanout rc {rc}, rows {before} -> {after}")
-        out["fanout_rows"] = [a - b for a, b in zip(after, before)]
-        lap(f"(b) fanout landed {fan_rows} rows on both replicas")
+                t.start()
+            try:
+                t0 = time.monotonic()
+                req = urllib.request.Request(url + "/admin/drain?replica=0", data=b"")
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    check(r.status == 202 and json.loads(r.read())["accepted"], "12l(b): drain")
 
-        # (c) the compatible candidate rolls out through /admin/promote; (d)
-        # meanwhile in this process, on a thread
-        d_thread = FlThread(lambda: fl_kernel_part(ivf_scan, local, device))
-        skews, watching = [], threading.Event()
+                def back():
+                    snap = fl_get(url, "/admin/replicas")["replicas"][0]
+                    return snap["healthy"] and not snap["draining"] and snap["drain_phase"] is None
 
-        def watch():
-            while not watching.is_set():
-                skews.append(router.stats()["fleet_serve/model_skew"])
-                time.sleep(0.05)
+                time.sleep(0.2)
+                fl_wait(back, FL_BOOT_S, "replica 0 back from its drain")
+                out["drain_cycle_s"] = time.monotonic() - t0
+                req = urllib.request.Request(url + "/admin/undrain?replica=0", data=b"")
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    check(r.status == 200, "12l(b): undrain")
+                time.sleep(0.3)
+            finally:
+                stop.set()
+                for t in feeders:
+                    t.join(timeout=60)
+            check(b_failures == [], f"12l(b): {len(b_failures)} dropped: {b_failures[:3]}")
+            lap(f"(b) drain cycle {out['drain_cycle_s']:.1f} s, nothing dropped")
+            before = [fl_get(sup.url(i), "/stats")["serve/ingested_rows"] for i in (0, 1)]
+            rc = serve_ingest.main(["--ckpt-dir", fanout_dir, "--server", url, "--fanout",
+                                    "--once", "--block", str(INGEST_BLOCK)])
+            after = [fl_get(sup.url(i), "/stats")["serve/ingested_rows"] for i in (0, 1)]
+            fan_rows = serve_ingest.read_queue(fanout_dir)[0].shape[0]
+            check(rc == 0 and [a - b for a, b in zip(after, before)] == [fan_rows] * 2,
+                  f"12l(b): fanout rc {rc}, rows {before} -> {after}")
+            out["fanout_rows"] = [a - b for a, b in zip(after, before)]
+            lap(f"(b) fanout landed {fan_rows} rows on both replicas")
 
-        watcher = threading.Thread(target=watch)
-        watcher.start()
-        t0 = time.monotonic()
-        try:
-            rolled = serve_promote.rollout(url, cand_dir, v2_dir, target_digest=cand_digest,
-                                           soak_s=0.2, swap_timeout_s=FL_BOOT_S, poll_s=0.1)
+            # (c) the compatible candidate rolls out through /admin/promote; (d)
+            # meanwhile in this process, on a thread
+            d_thread = FlThread(lambda: fl_kernel_part(ivf_scan, local, device))
+            skews, watching = [], threading.Event()
+
+            def watch():
+                while not watching.is_set():
+                    skews.append(router.stats()["fleet_serve/model_skew"])
+                    time.sleep(0.05)
+
+            watcher = threading.Thread(target=watch)
+            watcher.start()
+            t0 = time.monotonic()
+            try:
+                rolled = serve_promote.rollout(url, cand_dir, v2_dir, target_digest=cand_digest,
+                                               soak_s=0.2, swap_timeout_s=FL_BOOT_S, poll_s=0.1)
+            finally:
+                watching.set()
+                watcher.join(timeout=10)
+            out["rollout_s"] = time.monotonic() - t0
+            PromotionLedger(ledger_path).append(ledger_record(
+                cand_step, rolled["verdict"], "rollout", digest=cand_digest,
+                failed_gate=rolled["reason"], replica=rolled["replica"]))
+            with open(ledger_path) as f:
+                ledger = [json.loads(line) for line in f if line.strip()]
+            check(validate_lines([json.dumps(r) for r in ledger]) == [], "12l(c): ledger schema")
+            check([r["promotion/verdict"] for r in ledger] == ["rejected", "accepted", "promoted"],
+                  f"12l(c): the rollout {rolled}, ledger {ledger[1:]}")
+            fl_wait(lambda: router.stats()["fleet_serve/model_skew"] == 0, 30, "skew back to 0")
+            snaps = fl_get(url, "/admin/replicas")["replicas"]
+            out["skew_max"] = max(s for s in skews if s is not None)
+            check(out["skew_max"] >= 1, f"12l(c): model_skew never reached 1: {sorted(set(skews))}")
+            check([(s["model_step"], s["model_digest"]) for s in snaps]
+                  == [(cand_step, cand_digest)] * 2, f"12l(c): replicas after the rollout {snaps}")
+            models = [fl_get(sup.url(i), "/admin/model") for i in (0, 1)]
+            check([(m["model_step"], m["model_digest"]) for m in models]
+                  == [(cand_step, cand_digest)] * 2, f"12l(c): the replicas' own /admin/model {models}")
+            lap(f"(c) rolled out in {out['rollout_s']:.1f} s, skew {out['skew_max']} -> 0")
+            out["d"], d_launches = d_thread.result()
+            lap(f"(d) ivf_fused through the router: {d_launches} cell-scan launches")
+            line = {"step": 1, "time": time.time(), **fl_get(url, "/stats")}
+            check(validate_line(line) == [], f"12l: the router's line {validate_line(line)}")
         finally:
-            watching.set()
-            watcher.join(timeout=10)
-        out["rollout_s"] = time.monotonic() - t0
-        PromotionLedger(ledger_path).append(ledger_record(
-            cand_step, rolled["verdict"], "rollout", digest=cand_digest,
-            failed_gate=rolled["reason"], replica=rolled["replica"]))
-        with open(ledger_path) as f:
-            ledger = [json.loads(line) for line in f if line.strip()]
-        check(validate_lines([json.dumps(r) for r in ledger]) == [], "12l(c): ledger schema")
-        check([r["promotion/verdict"] for r in ledger] == ["rejected", "accepted", "promoted"],
-              f"12l(c): the rollout {rolled}, ledger {ledger[1:]}")
-        fl_wait(lambda: router.stats()["fleet_serve/model_skew"] == 0, 30, "skew back to 0")
-        snaps = fl_get(url, "/admin/replicas")["replicas"]
-        out["skew_max"] = max(s for s in skews if s is not None)
-        check(out["skew_max"] >= 1, f"12l(c): model_skew never reached 1: {sorted(set(skews))}")
-        check([(s["model_step"], s["model_digest"]) for s in snaps]
-              == [(cand_step, cand_digest)] * 2, f"12l(c): replicas after the rollout {snaps}")
-        lap(f"(c) rolled out in {out['rollout_s']:.1f} s, skew {out['skew_max']} -> 0")
-        out["d"], d_launches = d_thread.result()
-        lap(f"(d) ivf_fused through the router: {d_launches} cell-scan launches")
-        line = {"step": 1, "time": time.time(), **router.stats()}
-        check(validate_line(line) == [], f"12l: the router's line {validate_line(line)}")
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+            if router is not None:
+                router.close()
+            sup.close()
+        events = sup.events()
+        from moco_tpu_torch.utils.contracts import KILL_EXIT_CODE
+
+        check([e["replica"] for e in events
+               if e["kind"] == "exit" and e.get("rc") == KILL_EXIT_CODE] == [1],
+              f"12l: exits with {KILL_EXIT_CODE} {events}")
+        out["events"] = [{k: e[k] for k in ("kind", "replica", "rc", "reason", "rows") if k in e}
+                         for e in events]
+        out["coverage"] = fl_coverage_check(os.path.join(workdir, "fleet"), recorder)
     finally:
-        if pool is not None:
-            pool.shutdown(wait=True, cancel_futures=True)
-        if router is not None:
-            router.close()
-        sup.close()
-    events = sup.events()
-    check([e["replica"] for e in events if e["kind"] == "exit" and e.get("rc") == 113] == [1],
-          f"12l: exits with 113 {events}")
-    out["events"] = [{k: e[k] for k in ("kind", "replica", "rc", "reason", "rows") if k in e}
-                     for e in events]
+        contract_cov.uninstall_recorder()
     out["phase_s"] = time.perf_counter() - phase_t0
     return out, d_launches
+
+
+def fl_coverage_check(fleet_dir: str, recorder) -> dict:
+    """12m(c), as the reference fleet smoke gates it: each replica's
+    metrics.jsonl validated under `recorder` (this process's, installed
+    around 12l), its snapshot merged with the replicas' dumps
+    (contract_coverage.json, one per slot, added up over its respawns),
+    then check_coverage over every declared replica and router route, the
+    trace headers, kill@replica, delay@ingest and the stage hooks, and the
+    four gated validator tuples."""
+    from moco_tpu_torch.analysis import contracts as contract_cov
+    from moco_tpu_torch.obs.schema import validate_file
+    from moco_tpu_torch.utils import contracts as decl
+
+    snaps = []
+    for i in (0, 1):
+        errors = validate_file(os.path.join(fleet_dir, f"replica{i}", "metrics.jsonl"))
+        check(errors == [], f"12m(c): replica {i}'s metrics.jsonl {errors[:3]}")
+        path = os.path.join(fleet_dir, f"replica{i}", "contract_coverage.json")
+        check(os.path.exists(path), f"12m(c): replica {i} left no {path}")
+        with open(path) as f:
+            snaps.append(json.load(f))
+    merged = contract_cov.merge_coverage([recorder.snapshot(), *snaps])
+    routes = list(dict.fromkeys(contract_cov.declared_route_gates("replica")
+                                + contract_cov.declared_route_gates("router")))
+    faults = ["kill@replica", "delay@ingest", *(f"slow@{s}" for s in decl.SERVE_STAGE_SITES)]
+    validators = (decl.SERVE_GATED_VALIDATORS + decl.FLEET_GATED_VALIDATORS
+                  + decl.QUALITY_GATED_VALIDATORS + decl.PROMOTION_GATED_VALIDATORS)
+    missing = contract_cov.check_coverage(merged, routes=routes, fault_sites=faults,
+                                          validators=validators, headers=decl.TRACE_HEADERS)
+    print(f"12m(c): merged coverage {json.dumps(merged)}; missing {missing}", flush=True)
+    check(missing == [], f"12m(c): contracts never exercised: {missing}")
+    return {**merged, "gated": {"routes": len(routes), "fault_hooks": len(faults),
+                                "validators": len(validators),
+                                "headers": len(decl.TRACE_HEADERS)}}
 
 
 def _fl_start(sup, errors):
@@ -6469,8 +6878,13 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"build: {len(logs)} kernel(s) in {time.perf_counter() - t0:.2f} s", flush=True)
+    # torch._dynamo, which the first optimizer imports (some seconds of host
+    # time), loads while cuobjdump reads the libraries
+    preload = threading.Thread(target=importlib.import_module, args=("torch._dynamo",))
+    preload.start()
     print_ptxas(logs)
     tensor_core_check(build)
+    preload.join()
     lap("build")
 
     # -- kernel vs plain ----------------------------------------------------
@@ -6655,30 +7069,56 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- data parallelism: an NCCL world of one, two ranks on the card --------
-    dp_out, dp_launches = dp_phase(fused_infonce)
-    print(json.dumps({"data_parallel": dp_out, "device": smi}))
-    lap("12h data parallel")
+    # 12i's, 12j's and 12k's ranks spawn while the phase before theirs runs,
+    # and wait behind their gates (`gated_child`)
+    early = {}
+    try:
+        early["zero"] = zero_spawn(gated=True)
+        dp_out, dp_launches = dp_phase(fused_infonce)
+        print(json.dumps({"data_parallel": dp_out, "device": smi}))
+        lap("12h data parallel")
 
-    # -- ZeRO: the sharded update at each layout, two ranks on the card -------
-    zero_out, zero_launches = zero_phase(fused_infonce, [
-        {"v2": rank["gather_perm"]["peak_gb"], "v3": rank["v3"]["peak_gb"]}
-        for rank in dp_out["b"]["ranks"]])
-    print(json.dumps({"zero": zero_out, "device": smi}))
-    lap("12i zero")
+        # -- ZeRO: the sharded update at each layout, two ranks on the card ---
+        # 12c(b)'s watchdog process runs beside 12i's ranks (neither is timed)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_watchdog_")
+        try:
+            watchdog = watchdog_start(workdir)
+            early["ma"] = ma_spawn(gated=True)
+            try:
+                zero_out, zero_launches = zero_phase(fused_infonce, [
+                    {"v2": rank["gather_perm"]["peak_gb"], "v3": rank["v3"]["peak_gb"]}
+                    for rank in dp_out["b"]["ranks"]], spawned=early["zero"])
+            except BaseException:
+                watchdog["proc"].kill()
+                watchdog["proc"].wait()
+                raise
+            watchdog_out = watchdog_finish(watchdog)
+        finally:
+            shutil.rmtree(workdir)
+        faults_out.update(watchdog_out)
+        print(json.dumps({"zero": zero_out, "watchdog": watchdog_out, "device": smi}))
+        lap("12i zero, 12c(b) watchdog")
 
-    # -- the model axis: the sharded queue, ring attention, the SP preset -----
-    t0 = time.perf_counter()
-    ma_out, ma_launches, ma_shapes = model_axis_phase(fused_infonce, fa)
-    ma_out["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"model_axis": ma_out, "device": smi}))
-    lap("12j model axis")
+        # -- the model axis: the sharded queue, ring attention, the SP preset -
+        t0 = time.perf_counter()
+        ma_out, ma_launches, ma_shapes = model_axis_phase(
+            fused_infonce, fa, spawned=early["ma"],
+            after_ring=lambda: early.setdefault("zk", zk_spawn(gated=True)))
+        ma_out["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"model_axis": ma_out, "device": smi}))
+        lap("12j model axis")
 
-    # -- the rest of distributed training: ZeRO on a 2 x 2 world, elastic --------
-    t0 = time.perf_counter()
-    zk_out, zk_launches = zk_phase(fused_infonce)
-    zk_out["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"zero_model_elastic": zk_out, "device": smi}))
-    lap("12k zero on the model axis, elastic")
+        # -- the rest of distributed training: ZeRO on a 2 x 2 world, elastic ----
+        t0 = time.perf_counter()
+        zk_out, zk_launches = zk_phase(fused_infonce, spawned=early["zk"])
+        zk_out["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"zero_model_elastic": zk_out, "device": smi}))
+        lap("12k zero on the model axis, elastic")
+    finally:
+        for sp in early.values():  # a phase that failed before another opened its gate
+            end_ranks(sp["procs"])
+            shutil.rmtree(sp["tmp"], ignore_errors=True)
+
     obs_infonce = {k: obs_launches["a"][k] + obs_launches["b"][k]
                    for k in ("infonce_fwd", "infonce_bwd")}
     for rec in train_kernels:
@@ -6690,10 +7130,12 @@ def main() -> int:
     ivf_kernel = ivf_timing_phase(ivf_scan, feats_t, cell_rows, probes, buckets,
                                   launches["ivf_cell_scores"] + serve_launches["ivf_cell_scores"]
                                   + obs_launches["c"]["ivf_cell_scores"]
-                                  + rest_launches["ivf_cell_scores"] + fleet_launches, max_err)
+                                  + rest_launches["ivf_cell_scores"]
+                                  + rest_launches["ivf_cell_scores_12m"] + fleet_launches, max_err)
     ivf_kernel["launches_12e"] = serve_launches["ivf_cell_scores"]
     ivf_kernel["launches_12f"] = obs_launches["c"]["ivf_cell_scores"]
     ivf_kernel["launches_12g"] = rest_launches["ivf_cell_scores"]
+    ivf_kernel["launches_12m"] = rest_launches["ivf_cell_scores_12m"]
     ivf_kernel["launches_12l"] = fleet_launches
     for rec in v3_kernels:
         if rec["name"] == "flash_fwd":

@@ -55,6 +55,7 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
+from moco_tpu_torch.analysis import runtime as _runtime
 from moco_tpu_torch.data.augment import (
     PROBE_RECIPE,
     AugRecipe,
@@ -252,6 +253,7 @@ class _GraphedAugment:
             self._transform(precropped, *static_in)
         torch.cuda.current_stream(raw.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        _runtime.note_capture()  # strict_tracing's compile count
         # thread_local: the step's work on the other threads may go on
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             static_out = self._transform(precropped, *static_in)
@@ -495,7 +497,7 @@ class _AugmentedPipeline(_HostPipeline):
         augment)."""
         raw = hb.views.to(self.device, non_blocking=True)
         if self.ledger is not None:
-            self.ledger.record("input.h2d", "device_put", hb.wire_bytes, 1)
+            self.ledger.record("input.h2d", "device_put", hb.wire_bytes, 1, operands=[raw])
         copied = None
         if self.device.type == "cuda":
             copied = torch.cuda.Event()

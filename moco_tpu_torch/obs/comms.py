@@ -34,15 +34,24 @@ not tag (metrics, BN statistics, SyncBN's moments) are not in it either.
 
 The ledger is an object that its world owns (parallel/mesh.py), not
 process state: a new run starts with a new or reset one.
+
+Each `record` also feeds the collective-schedule sanitizer
+(analysis/sanitizer.py) when its recorder is installed: the site, the
+collective and the operands' (shape, dtype) signature. The port records
+on every eager call of every step, where JAX records once per trace; the
+recorder keeps the first-seen entries only, so its hash is the schedule,
+not the step count. With no recorder installed this costs one None check.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Iterable
 
 import torch
+
+from moco_tpu_torch.analysis import sanitizer as _schedule
+from moco_tpu_torch.utils.locks import make_lock
 
 COLLECTIVES = ("all_gather", "all_to_all", "psum", "psum_scatter", "ppermute", "broadcast",
                "device_put")
@@ -51,6 +60,13 @@ COLLECTIVES = ("all_gather", "all_to_all", "psum", "psum_scatter", "ppermute", "
 def tensor_bytes(tensors: Iterable[torch.Tensor]) -> int:
     """Payload bytes of `tensors`."""
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def shape_signature(tensors: Iterable[torch.Tensor]) -> str:
+    """Stable (shape, dtype) signature of `tensors`, JAX's spelling (for
+    the schedule sanitizer)."""
+    return ",".join(f"{tuple(t.shape)}:{str(t.dtype).removeprefix('torch.')}"
+                    for t in tensors)
 
 
 def collective_bytes(collective: str, nbytes: int, axis_size: int) -> int:
@@ -93,11 +109,15 @@ class CommsLedger:
     ring's transfer thread records `input.h2d`."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.comms")
         self._sites: dict[str, CommSite] = {}
 
     def record(self, site: str, collective: str, nbytes: int, axis_size: int,
-               calls_per_step: int = 1) -> None:
+               calls_per_step: int = 1, operands: Iterable[torch.Tensor] = ()) -> None:
+        """Record `site`'s cost; `operands` are the tensors of this rank's
+        call, whose signature the schedule sanitizer records."""
+        if _schedule.enabled():
+            _schedule.on_tag(site, collective, shape_signature(operands))
         rec = CommSite(site, collective, int(nbytes),
                        collective_bytes(collective, int(nbytes), axis_size) * int(calls_per_step),
                        int(axis_size), int(calls_per_step))

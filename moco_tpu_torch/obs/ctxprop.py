@@ -85,6 +85,9 @@ def parse(trace_id, parent_span=None) -> Optional[TraceContext]:
     if not _valid_hex(trace_id, TRACE_ID_HEX_LEN):
         return None
     span = parent_span if _valid_hex(parent_span, SPAN_ID_HEX_LEN) else None
+    _record_header(TRACE_ID_HEADER)
+    if span is not None:
+        _record_header(PARENT_SPAN_HEADER)
     return TraceContext(trace_id, span)
 
 
@@ -94,9 +97,28 @@ def inject(headers: dict, ctx: TraceContext) -> dict:
     should parent under — for the router that is the dispatch-attempt
     span, not the request span."""
     headers[TRACE_ID_HEADER] = ctx.trace_id
+    _record_header(TRACE_ID_HEADER)
     if ctx.span_id is not None:
         headers[PARENT_SPAN_HEADER] = ctx.span_id
+        _record_header(PARENT_SPAN_HEADER)
     return headers
+
+
+# The contract-coverage recorder's hook (analysis/contracts.py): each
+# header parsed or injected is reported. One None check when off.
+_COVERAGE_CB = None
+
+
+def set_coverage_callback(cb) -> None:
+    """Install (or clear, with None) the `cb(header_name)` callback."""
+    global _COVERAGE_CB
+    _COVERAGE_CB = cb
+
+
+def _record_header(name: str) -> None:
+    cb = _COVERAGE_CB
+    if cb is not None:
+        cb(name)
 
 
 __all__ = [
@@ -109,4 +131,5 @@ __all__ = [
     "inject",
     "new_span_id",
     "parse",
+    "set_coverage_callback",
 ]

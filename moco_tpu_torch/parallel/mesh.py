@@ -227,7 +227,8 @@ class World:
         """(num_model, *x.shape): every model rank's `x`, differentiable
         (`_ModelGather`); `site` names it in the ledger."""
         if site is not None:
-            self.ledger.record(site, "all_gather", tensor_bytes([x]), self.num_model)
+            self.ledger.record(site, "all_gather", tensor_bytes([x]), self.num_model,
+                               operands=[x])
         if self.model_group is None:
             return x[None]
         return _ModelGather.apply(x, self)
@@ -238,7 +239,8 @@ class World:
         model group, in place, through one flat all-reduce."""
         tensors = [t for t in tensors if t is not None]
         if site is not None:
-            self.ledger.record(site, "psum", tensor_bytes(tensors), self.num_model)
+            self.ledger.record(site, "psum", tensor_bytes(tensors), self.num_model,
+                               operands=tensors)
         if self.model_group is None or not tensors:
             return
         flat = torch._utils._flatten_dense_tensors(tensors)
@@ -284,7 +286,7 @@ class World:
         n, group = ((self.num_data, self.data_group) if over == "data"
                     else (self.world_size, self.group))
         if site is not None:
-            self.ledger.record(site, "all_gather", tensor_bytes([x]), n)
+            self.ledger.record(site, "all_gather", tensor_bytes([x]), n, operands=[x])
         if not self.distributed:
             return x
         x = x.contiguous()
@@ -303,7 +305,7 @@ class World:
             raise ValueError(f"a2a shuffle needs local batch {x.shape[0]} divisible by "
                              f"axis size {n}")
         if site is not None:
-            self.ledger.record(site, "all_to_all", tensor_bytes([x]), n)
+            self.ledger.record(site, "all_to_all", tensor_bytes([x]), n, operands=[x])
         if not self.distributed:
             return x
         x = x.contiguous()
@@ -322,7 +324,7 @@ class World:
                     else (self.world_size, self.group))
         tensors = [t for t in tensors if t is not None]
         if site is not None:
-            self.ledger.record(site, "psum", tensor_bytes(tensors), n)
+            self.ledger.record(site, "psum", tensor_bytes(tensors), n, operands=tensors)
         if not self.distributed or not tensors:
             return
         flat = torch._utils._flatten_dense_tensors(tensors)
@@ -338,7 +340,8 @@ class World:
         `async_op`, (out, work or None): `out` holds the result once
         `work.wait()` has returned."""
         if site is not None:
-            self.ledger.record(site, "all_gather", tensor_bytes([shard]), self.num_data)
+            self.ledger.record(site, "all_gather", tensor_bytes([shard]), self.num_data,
+                               operands=[shard])
         shard = shard.contiguous()
         if not self.distributed:
             out, work = shard.clone(), None
@@ -364,7 +367,8 @@ class World:
         it)."""
         n = self.num_data
         if site is not None:
-            self.ledger.record(site, "psum_scatter", tensor_bytes([block]), n)
+            self.ledger.record(site, "psum_scatter", tensor_bytes([block]), n,
+                               operands=[block])
         m = block.numel() // n
         if not self.distributed:
             return block.reshape(-1).clone()

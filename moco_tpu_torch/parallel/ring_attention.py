@@ -116,7 +116,8 @@ def ring_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, r
     n = ring.size
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if ring.ledger is not None:
-        ring.ledger.record(SITE, "ppermute", tensor_bytes([k, v]), n, calls_per_step=n)
+        ring.ledger.record(SITE, "ppermute", tensor_bytes([k, v]), n, calls_per_step=n,
+                          operands=[k, v])
     kv = torch.stack([k, v]) if n > 1 else None
     k_cur, v_cur = k, v
     for step in range(n):

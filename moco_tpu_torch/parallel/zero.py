@@ -711,7 +711,8 @@ class ZeroLayout:
         world, n = self.world, self.n
         grads = self._full_grads()
         world.ledger.record("zero.grad_reduce_scatter", "psum_scatter",
-                            sum(lf.size * lf.dtype.itemsize for lf in self.trainable), n)
+                            sum(lf.size * lf.dtype.itemsize for lf in self.trainable), n,
+                            operands=[g for g in grads if g is not None])
         sh = self.plan_trainable.scatter_mean(world, grads, site=None)
         with torch.no_grad():
             rows = self.plan_trainable.local_shards([lf.q for lf in self.trainable], self.rank)
@@ -719,7 +720,7 @@ class ZeroLayout:
         self._set_shard_grads(sh)
         optimizer.step()
         world.ledger.record("zero.params_all_gather", "all_gather",
-                            self.plan_trainable.shard_bytes(), n)
+                            self.plan_trainable.shard_bytes(), n, operands=self.q_shards)
         with torch.no_grad():
             self.plan_trainable.gather(world, self.q_shards, None,
                                        out=[lf.q for lf in self.trainable])

@@ -274,6 +274,9 @@ class ContinuousBatcher:
         self._drained = threading.Event()
         self._warmup = warmup
         self._warm = threading.Event()
+        # the warm-up's error, written on the batcher thread and read on the
+        # callers': one lock on both sides
+        self._warm_lock = threading.Lock()
         self._warm_error: Optional[BaseException] = None
         self.warm_thread_ident: Optional[int] = None  # the thread the warm-up ran on
         self.warm_s: Optional[float] = None  # how long it took
@@ -291,7 +294,8 @@ class ContinuousBatcher:
                 self._warmup()
                 self.warm_thread_ident = threading.get_ident()
         except BaseException as e:  # surfaced by wait_warm on the caller's thread
-            self._warm_error = e
+            with self._warm_lock:
+                self._warm_error = e
             self._stop.set()
             return False
         finally:
@@ -303,14 +307,17 @@ class ContinuousBatcher:
         """Block until the batcher thread's warm-up has run: True once it
         has, False on timeout; its error, if it raised, is raised here."""
         done = self._warm.wait(timeout)
-        if self._warm_error is not None:
-            raise self._warm_error
+        with self._warm_lock:
+            err = self._warm_error
+        if err is not None:
+            raise err
         return done
 
     @property
     def warm(self) -> bool:
         """The warm-up ran, without error."""
-        return self._warm.is_set() and self._warm_error is None
+        with self._warm_lock:
+            return self._warm.is_set() and self._warm_error is None
 
     # -- client side -----------------------------------------------------
 

@@ -50,6 +50,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from moco_tpu_torch.analysis.contracts import COVERAGE_FILE
 from moco_tpu_torch.utils import faults, retry
 from moco_tpu_torch.utils.locks import make_lock
 
@@ -237,8 +238,15 @@ class ReplicaSupervisor:
         """Spawn every replica, wait until ALL report healthy, then
         start the crash monitor. Boot is parallel across children (they
         warm up concurrently); the healthy-wait is sequential — by the
-        time the first replica answers, the others are mid-warmup."""
+        time the first replica answers, the others are mid-warmup. A
+        slot's contract-coverage dump (`<workdir>/replica<i>/`, where the
+        default argv puts the replica's workdir) left by an earlier run is
+        removed first: its respawns add to it from here."""
         for child in self._children:
+            if self.workdir is not None:
+                path = os.path.join(self.workdir, f"replica{child.index}", COVERAGE_FILE)
+                if os.path.exists(path):
+                    os.remove(path)
             self._spawn(child.index, scrub_kills=False)
         for child in self._children:
             self._wait_healthy(child.index)

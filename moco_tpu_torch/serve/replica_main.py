@@ -59,6 +59,7 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     marks = [("start", time.perf_counter())]
 
+    from moco_tpu_torch.analysis import contracts as contract_cov
     from moco_tpu_torch.obs.quality import encoder_digest
     from moco_tpu_torch.obs.sinks import JsonlSink
     from moco_tpu_torch.serve.engine import InferenceEngine, load_serving_encoder
@@ -68,6 +69,12 @@ def main(argv=None) -> int:
     from moco_tpu_torch.utils.checkpoint import CheckpointManager
 
     faults.install_from_env()
+    # the contract-coverage arm: MOCO_CONTRACT_COVERAGE=1 installs a
+    # recorder, dumped to <workdir>/contract_coverage.json on a graceful
+    # exit, added to the file an earlier life of this slot left there in
+    # the supervisor's run (a killed replica never dumps; its respawn
+    # covers the same contracts)
+    recorder = contract_cov.maybe_install_from_env()
     # installed before the warmup: a signal during it drains the replica as
     # soon as it serves
     stop = threading.Event()
@@ -111,6 +118,8 @@ def main(argv=None) -> int:
     server.close()
     if sink is not None:
         sink.close()
+    if recorder is not None and args.workdir:
+        contract_cov.dump_merged(recorder, os.path.join(args.workdir, contract_cov.COVERAGE_FILE))
     print(f"replica {args.replica_index} drained ({'clean' if drained else 'timed out'}) "
           "and exited", flush=True)
     return 0

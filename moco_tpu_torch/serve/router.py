@@ -84,6 +84,7 @@ import urllib.request
 from collections import Counter, deque
 from typing import Optional
 
+from moco_tpu_torch.analysis.contracts import record_route
 from moco_tpu_torch.obs import critpath, ctxprop
 from moco_tpu_torch.obs.alerts import AlertEngine, parse_rules
 from moco_tpu_torch.obs.flight import FlightRecorder
@@ -689,6 +690,7 @@ class FleetRouter:
         class Handler(http.server.BaseHTTPRequestHandler):
             def do_GET(self):  # noqa: N802 (http.server API)
                 path = self.path.split("?")[0]
+                record_route("GET", path)
                 if path == "/healthz":
                     with server._fleet_lock:
                         healthy = sum(1 for r in server._replicas if r.admitted)
@@ -725,6 +727,7 @@ class FleetRouter:
             def do_POST(self):  # noqa: N802
                 t0 = time.perf_counter()
                 path, _, query = self.path.partition("?")
+                record_route("POST", path)
                 if path == "/admin/drain":
                     self._handle_admin_drain(query)
                     return
@@ -1429,9 +1432,7 @@ class FleetRouter:
         self._write_metrics(step + 1)  # the run's last gauges land too
 
     def _write_metrics(self, step: int) -> None:
-        # the flusher's thread only while the router runs; close() joins it
-        # before its own final drain, so the writers never overlap
-        self._flush_step = step  # mocolint: disable=JX012
+        self._flush_step = step  # mocolint: disable=JX012  (flusher-thread only during the run; close() joins the flusher before its own final drain, so writers are join-serialized)
         try:
             self._drain_traces()
             payload = self.stats()

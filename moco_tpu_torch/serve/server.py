@@ -93,6 +93,7 @@ from typing import Optional
 
 import numpy as np
 
+from moco_tpu_torch.analysis.contracts import record_route
 from moco_tpu_torch.obs import ctxprop
 from moco_tpu_torch.obs.alerts import AlertEngine, parse_rules
 from moco_tpu_torch.obs.flight import FlightRecorder
@@ -254,6 +255,7 @@ class ServeServer:
         class Handler(http.server.BaseHTTPRequestHandler):
             def do_GET(self):  # noqa: N802 (http.server API)
                 path = self.path.split("?")[0]
+                record_route("GET", path)
                 if path == "/healthz":
                     draining = server._draining.is_set()
                     self._json(200, {
@@ -289,6 +291,7 @@ class ServeServer:
             def do_POST(self):  # noqa: N802
                 t_arrival = time.perf_counter()
                 path, _, query = self.path.partition("?")
+                record_route("POST", path)
                 if path == "/ingest":
                     self._handle_ingest()
                     return
@@ -517,7 +520,7 @@ class ServeServer:
             except IndexError:
                 break
             emit_request_spans(self._tracer, trace, self._lane)
-            self._lane += 1  # the flusher's alone (close() joins it first)
+            self._lane += 1  # mocolint: disable=JX012  (flusher-thread only during the run; close() joins the flusher BEFORE its final _write_metrics call, so the two writers are join-serialized, never concurrent)
 
     def _on_alert(self, alert: dict) -> None:
         """AlertEngine hook, at the firing edge: dump the flight recorder
@@ -587,7 +590,7 @@ class ServeServer:
         gauges into the flight ring and the alert engine (a fired rule
         dumps the ring through `_on_alert`), the pending request spans,
         then the line to the sink."""
-        self._flush_step += 1
+        self._flush_step += 1  # mocolint: disable=JX012  (same join-serialization as _lane: the alert hook fires ON the flusher thread, and close() joins the flusher before the final flush, one writer at a time by construction)
         try:
             if self.fresh is not None:
                 # one freshness observation per flush: the oldest row's age

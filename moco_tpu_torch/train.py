@@ -101,7 +101,18 @@ Fault tolerance and health, as in the JAX driver:
   (`reason="alert"`), then `FatalAlertError`;
 - the fault hooks `nan@step=N` (at the deferred read of the loss),
   `stall@step=N:seconds=S` and `preempt@step=N`, run at a log step's
-  deferred processing.
+  deferred processing;
+- the analysis's runtime arms (analysis/), each installed before the
+  first step or the run fails: `strict_tracing` puts the run's CUDA-graph
+  captures on every line as `compile_cache_misses` and aborts with a
+  `recompile_after_warmup` event line on a capture after
+  `recompile_warmup_steps`; `sanitize_collectives` records every comms
+  site's (site, kind, operand signature), publishes the schedule's hash
+  (`schedule.p<rank>.json`, `collective_schedule_hash` on the lines)
+  before each log step's agreement and checks every peer's after it,
+  aborting with `schedule_diff.json` on a mismatch; `sanitize_threads`
+  records the traced locks' acquisition order (a cycle aborts with
+  `lock_order_diff.json`) and writes `lock_order.json` at the run's end.
 
 Without a workdir nothing is written: no checkpoint, emergency or not, no
 metrics, heartbeat, alerts.jsonl or trace; preemption still stops the run.
@@ -181,6 +192,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from moco_tpu_torch.analysis.runtime import CompileMonitor, RecompileError, RecompileGuard
+from moco_tpu_torch.analysis.sanitizer import ScheduleDivergenceError, ScheduleSanitizer
+from moco_tpu_torch.analysis.sanitizer import install_recorder as install_schedule_recorder
+from moco_tpu_torch.analysis.tsan import LockOrderError, ThreadSanitizer
 from moco_tpu_torch.convert import (
     encoder_from_flax,
     predictor_from_flax,
@@ -415,6 +430,71 @@ class StateSnapshot:
         state.queue_ptr = c.queue_ptr
 
 
+class _AnalysisArms:
+    """The analysis's runtime arms a run asked for (module docstring):
+    each is installed at construction, or the run fails; `close` restores
+    the hooks and writes lock_order.json."""
+
+    def __init__(self, config: TrainConfig, world: World):
+        self.schedule: Optional[ScheduleSanitizer] = None
+        self.threads: Optional[ThreadSanitizer] = None
+        self.monitor: Optional[CompileMonitor] = None
+        self.guard: Optional[RecompileGuard] = None
+        self._prev_schedule = None
+        if config.sanitize_collectives:
+            if not config.workdir:
+                raise ValueError("sanitize_collectives needs a workdir: every rank publishes "
+                                 "its schedule there (schedule.p<rank>.json)")
+            self.schedule = ScheduleSanitizer(config.workdir, process_index=world.rank,
+                                              num_processes=world.world_size)
+            self._prev_schedule = install_schedule_recorder(self.schedule.recorder)
+        if config.sanitize_threads:
+            # one lock_order.json per run: rank 0's (a cycle on another rank
+            # still aborts it, with both stacks in the error)
+            self.threads = ThreadSanitizer(workdir=config.workdir if world.is_main else None,
+                                           strict=True, profile=True)
+        if config.strict_tracing:
+            self.monitor = CompileMonitor()
+            self.guard = RecompileGuard(config.recompile_warmup_steps)
+
+    def line_fields(self) -> dict:
+        """The fields of a log step's line (and record)."""
+        out = {}
+        if self.monitor is not None:  # on every line: absence would read as 0
+            out["compile_cache_misses"] = self.monitor.misses()
+        if self.schedule is not None:
+            out.update(self.schedule.recorder.payload())
+        return out
+
+    def publish(self, gstep: int) -> None:
+        if self.schedule is not None:
+            self.schedule.publish(gstep)
+
+    def check(self, gstep: int, epoch: int, writer) -> None:
+        """After the log step's agreement: the peers' schedules (every live
+        rank published before it), then the recompile guard; each aborts
+        with its line on disk first."""
+        if self.schedule is not None:
+            if writer is not None:
+                writer.fsync()
+            self.schedule.check(gstep)
+        if self.guard is not None:
+            misses = self.monitor.misses()
+            diagnosis = self.guard.update(gstep, misses)
+            if diagnosis is not None:
+                if writer is not None:
+                    writer.write(gstep, {"epoch": epoch, "event": "recompile_after_warmup",
+                                         "compile_cache_misses": misses})
+                    writer.fsync()
+                raise RecompileError(diagnosis)
+
+    def close(self) -> None:
+        if self.schedule is not None:
+            install_schedule_recorder(self._prev_schedule)
+        if self.threads is not None:
+            self.threads.close()  # restores the hooks, writes lock_order.json
+
+
 def _num_classes(dataset) -> int:
     """A dataset's class count: its `num_classes`, else the largest label
     + 1 over every example."""
@@ -480,12 +560,14 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
     tracer = (Tracer(os.path.join(workdir, "trace_events.jsonl"))
               if workdir and world.is_main else None)
     prev_tracer = set_tracer(tracer) if tracer is not None else None
+    arms = None
     try:
+        arms = _AnalysisArms(config, world)  # before the first collective
         # the reference config: lr and momentum at the auto_scale anchor
         return _train_impl(elastic_reference(config), dataset, world, steps, state,
                            num_filters, log, knn_datasets,
                            profile_dir if world.is_main else None,
-                           profile_steps if world.is_main else None)
+                           profile_steps if world.is_main else None, arms)
     except ElasticRescale as r:
         # a process group cannot shrink in place: the launcher relaunches
         # the survivors at the planned width, which resumes the checkpoint
@@ -494,6 +576,8 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
         world.abort()
         raise SystemExit(RESCALE_EXIT_CODE) from r
     finally:
+        if arms is not None:
+            arms.close()
         if own_world is not None:
             own_world.close()
         if tracer is not None:
@@ -506,7 +590,7 @@ def train(config: TrainConfig, dataset=None, device="cuda", steps: Optional[int]
 
 
 def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_filters, log,
-                knn_datasets, profile_dir, profile_steps) -> dict:
+                knn_datasets, profile_dir, profile_steps, arms: _AnalysisArms) -> dict:
     faults.install_from_env()
     device = world.device
     n = world.num_data
@@ -865,6 +949,7 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                     decode_failures=float(decode_failures),
                     hbm_live=memory.get("hbm_live_bytes")))
                 fleet_fields = fleet.payload(stats)
+            record.update(arms.line_fields())
             if writer is not None or engine is not None:
                 emit(p, m, record, probe_fields, memory, decode_failures, io_retries,
                      fleet_fields)
@@ -891,7 +976,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
             if zero23:
                 payload["hbm_model_peak_bytes"] = zero.hbm_model_peak_bytes
             payload.update({k: record[k] for k in ("t_transfer", "transfer_bytes",
-                                                   "prefetch_depth_live") if k in record})
+                                                   "prefetch_depth_live", "compile_cache_misses",
+                                                   "collective_schedule_hash") if k in record})
             if guard["nan_steps"]:
                 payload["nan_steps"] = guard["nan_steps"]
             if decode_failures:
@@ -914,10 +1000,14 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
 
         def flush_and_agree(p: dict, meters: dict, progress: ProgressMeter) -> None:
             """`flush`, then (data parallel) whether any rank was signalled:
-            every rank flushes the same log steps, so they agree there."""
+            every rank flushes the same log steps, so they agree there. The
+            schedule is published before that agreement and the peers'
+            checked after it, so every live rank's file is in place."""
             flush(p, meters, progress)
+            arms.publish(p["gstep"])
             if world.distributed:
                 preempted["agreed"] = world.any(preempted["count"] > 0)
+            arms.check(p["gstep"], p["epoch"], writer)
 
         def on_signal(signum, frame):
             preempted["count"] += 1
@@ -1145,7 +1235,8 @@ def _train_impl(config: TrainConfig, dataset, world: World, steps, state, num_fi
                                     ckpt.save(state.step, payload, extra=save_extra(epoch))
                                 world.barrier()
                     epoch, i = epoch + 1, 0
-        except (ElasticRescale, FatalAlertError):
+        except (ElasticRescale, FatalAlertError, ScheduleDivergenceError, LockOrderError,
+                RecompileError):
             raise
         except RuntimeError as e:  # gloo raises once a peer's socket closes
             if elastic_coord is None:
@@ -1263,6 +1354,19 @@ def main(argv=None) -> int:
     ap.add_argument("--obs-probe-every", type=int, default=None,
                     help="every N steps wait on the card around the step to split host "
                          "dispatch from device time (default 50; 0 = never)")
+    ap.add_argument("--strict-tracing", action="store_true", default=None,
+                    help="compile_cache_misses (the run's CUDA-graph captures) on every "
+                         "line; abort on a capture after --recompile-warmup-steps")
+    ap.add_argument("--recompile-warmup-steps", type=int, default=None,
+                    help="steps during which captures are free under --strict-tracing "
+                         "(default 8)")
+    ap.add_argument("--sanitize-collectives", action="store_true", default=None,
+                    help="record every rank's collective schedule, cross-check the hashes "
+                         "on log steps and abort with schedule_diff.json on a mismatch "
+                         "(needs --workdir)")
+    ap.add_argument("--sanitize-threads", action="store_true", default=None,
+                    help="record the traced locks' acquisition order: a cycle aborts with "
+                         "lock_order_diff.json; lock_order.json at the end")
     ap.add_argument("--profile-dir", default=None, help="torch.profiler trace output dir")
     ap.add_argument("--profile-steps", default=None, metavar="A:B",
                     help="profile exactly global steps [A, B) (into --profile-dir or "
@@ -1300,7 +1404,10 @@ def main(argv=None) -> int:
            "alerts_fatal": args.alerts_fatal, "health_metrics": args.health_metrics,
            "auto_scale": args.auto_scale, "sinks": args.sinks, "elastic": args.elastic,
            "metrics_port": args.metrics_port, "metrics_host": args.metrics_host,
-           "obs_probe_every": args.obs_probe_every}
+           "obs_probe_every": args.obs_probe_every, "strict_tracing": args.strict_tracing,
+           "recompile_warmup_steps": args.recompile_warmup_steps,
+           "sanitize_collectives": args.sanitize_collectives,
+           "sanitize_threads": args.sanitize_threads}
     top = {k: v for k, v in top.items() if v is not None}
     if args.no_device_prefetch:
         top["device_prefetch"] = False

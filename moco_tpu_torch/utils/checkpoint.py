@@ -117,6 +117,10 @@ class CheckpointManager:
         self.async_save = async_save
         os.makedirs(self.directory, exist_ok=True)
         self._host: list = []  # async: host buffers, reused while the payload's layout holds
+        # the async writer and its error, handed between the saving thread,
+        # the writer thread and any waiter (the stall watchdog's emergency
+        # save waits from a sidecar thread) under one lock
+        self._lock = threading.Lock()
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -137,10 +141,12 @@ class CheckpointManager:
             if self.async_save:
                 self.wait()  # the previous write still reads the host buffers
                 payload = self._snapshot(payload)
-                self._writer = threading.Thread(target=self._write_in_background,
-                                                args=(path, payload), name="moco-ckpt-writer",
-                                                daemon=True)
-                self._writer.start()
+                writer = threading.Thread(target=self._write_in_background,
+                                          args=(path, payload), name="moco-ckpt-writer",
+                                          daemon=True)
+                with self._lock:
+                    self._writer = writer
+                writer.start()
             else:
                 self._write(path, payload)
         faults.on_checkpoint_saved(path, int(step), wait=self.wait)
@@ -170,15 +176,23 @@ class CheckpointManager:
         try:
             self._write(path, payload)
         except BaseException as e:  # handed to the caller by wait()
-            self._error = e
+            with self._lock:
+                self._error = e
 
     def wait(self) -> None:
-        """Block until the in-flight async write is durable; raise its error."""
-        if self._writer is not None:
-            self._writer.join()
-            self._writer = None
-        if self._error is not None:
+        """Block until the in-flight async write is durable; raise its error
+        (once, to one waiter). Safe from several threads: each joins the
+        writer it saw, and only that writer is cleared, never one a save
+        started meanwhile."""
+        with self._lock:
+            writer = self._writer
+        if writer is not None:
+            writer.join()
+        with self._lock:
+            if self._writer is writer:
+                self._writer = None
             err, self._error = self._error, None
+        if err is not None:
             raise RuntimeError(f"async checkpoint write under {self.directory} failed") from err
 
     def close(self) -> None:

@@ -35,14 +35,18 @@ field with its refusal (`validate_elastic`) and its anchor: without
 (`elastic_reference`), so a rescale derives lr and momentum from the
 pre-loss recipe.
 
-Fields of the JAX config that the port does not run yet (the other
-telemetry fields: `strict_tracing`, the sanitizers) are left out, so a
+The analysis's runtime arms have JAX's fields and defaults:
+`strict_tracing` with `recompile_warmup_steps` (the port counts its
+CUDA-graph captures, analysis/runtime.py), `sanitize_collectives` and
+`sanitize_threads`.
+
+Fields of the JAX config that the port does not take are left out, so a
 config that asks for one fails at construction with a TypeError instead
-of being ignored. So is `prefetch_donate`: it recycles a consumed
-staging slot's device buffer through XLA's donation, and PyTorch's caching
-allocator already reuses that memory; and `on_device_augment`: the port
-always augments on the device; and `fused_block_k`, the TPU kernel's tile
-(see `fused_infonce`).
+of being ignored: `prefetch_donate` (it recycles a consumed staging slot's
+device buffer through XLA's donation, and PyTorch's caching allocator
+already reuses that memory), `on_device_augment` (the port always augments
+on the device) and `fused_block_k`, the TPU kernel's tile (see
+`fused_infonce`).
 """
 
 from __future__ import annotations
@@ -248,6 +252,29 @@ class TrainConfig:
     # exits with code 42. 0 disables. Must exceed the longest gap between
     # steps (an epoch's end: kNN, checkpoint); the first step gets 900 s.
     watchdog_timeout: float = 0.0
+    # Strict tracing (analysis/runtime.py, --strict-tracing): the run's
+    # CUDA-graph captures (the augment's, one per batch shape) as
+    # `compile_cache_misses` on every metrics line, and an abort
+    # (RecompileError, after an event line) on a capture after
+    # `recompile_warmup_steps`. Checked on log steps only.
+    strict_tracing: bool = False
+    # Steps during which captures are free; one after them aborts under
+    # strict_tracing.
+    recompile_warmup_steps: int = 8
+    # Collective-schedule sanitizer (analysis/sanitizer.py,
+    # --sanitize-collectives): every comms-ledger site records (site, kind,
+    # operand signature) into this rank's schedule; on log steps the
+    # schedule's hash is published to <workdir>/schedule.p<rank>.json and
+    # checked against every peer's. A mismatch writes schedule_diff.json and
+    # aborts (ScheduleDivergenceError) before the ranks deadlock in the
+    # mismatched collective. Needs a workdir.
+    sanitize_collectives: bool = False
+    # Lock-order sanitizer (analysis/tsan.py, --sanitize-threads): every
+    # utils/locks.py lock reports its acquisition order; an order cycle
+    # aborts (LockOrderError) with both stacks in lock_order_diff.json, and
+    # blocking calls under a held lock are recorded in lock_order.json at
+    # the run's end. The profile hook costs host time.
+    sanitize_threads: bool = False
     # The health gauges computed in the step (obs/health.py: EMA drift,
     # logit statistics, collapse, queue age), on every training line.
     health_metrics: bool = True

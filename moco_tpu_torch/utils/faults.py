@@ -1,6 +1,4 @@
-"""Deterministic fault injection (the `io`, `delay`, `nan`,
-`ckpt_truncate`, `stall`, `preempt`, `slow`, `kill@host` and
-`kill@replica` kinds of moco_tpu/utils/faults.py).
+"""Deterministic fault injection (the kinds of moco_tpu/utils/faults.py).
 
 A plan is installed from a spec string (`install`, or the `MOCO_FAULTS`
 environment variable, which the training driver reads at its start):
@@ -62,6 +60,22 @@ comma-separated faults, each `kind@key=val[:key=val...]`:
                                   with the kill@replica rules stripped
                                   (`strip_replica_kills`), so one rule is
                                   one death
+    diverge@site=S                perturb THIS process's recorded
+                                  collective schedule at comms site S
+                                  (analysis/sanitizer.py appends a marker
+                                  to the site's shape signature): the
+                                  schedule sanitizer's end-to-end proof
+                                  without a really divergent world
+    deadlock@site=L               force an inverted lock order at the
+                                  traced lock L (utils/locks.py names):
+                                  when L is acquired while another traced
+                                  lock is held, the lock-order recorder
+                                  (analysis/tsan.py) also records the
+                                  edge the opposite nesting would have
+                                  made, as if a second thread had raced
+                                  the critical section backwards; a
+                                  deterministic cycle through the real
+                                  detection path, no real deadlock
 
 Faults are keyed on global steps and per-site call counters, never on
 randomness, so a run is exactly reproducible. The sites the port's code
@@ -69,9 +83,12 @@ calls the hooks at are listed in utils/contracts.py (`FAULT_SITES`). The
 training loop calls the step hooks on log steps only: `corrupt_loss` as
 it reads the loss, `maybe_stall`, `maybe_preempt` and `maybe_kill_host` in
 the step's deferred processing; a replica's HTTP handler calls
-`maybe_kill_replica` on each /embed and /neighbors POST. The other kinds of
-the JAX module (diverge, deadlock) come with the slice that owns their
-sites: the analysis. With no plan installed every hook returns at once.
+`maybe_kill_replica` on each /embed and /neighbors POST; the schedule
+recorder asks `diverge_marker` and the lock-order recorder `deadlock_marker`.
+With no plan installed every hook returns at once. With a coverage callback
+installed (`set_coverage_callback`, the contract-coverage recorder of
+analysis/contracts.py) every hook reports its (kind, site), plan or no
+plan.
 """
 
 from __future__ import annotations
@@ -86,7 +103,8 @@ from typing import Optional
 
 from moco_tpu_torch.utils.contracts import KILL_EXIT_CODE
 
-KINDS = ("ckpt_truncate", "io", "nan", "stall", "preempt", "delay", "slow", "kill")
+KINDS = ("ckpt_truncate", "io", "nan", "stall", "preempt", "delay", "diverge", "slow", "kill",
+         "deadlock")
 _INT_KEYS = ("step", "at", "times", "host", "replica")
 _FLOAT_KEYS = ("seconds", "ms")
 _STR_KEYS = ("site",)
@@ -125,6 +143,8 @@ class FaultPlan:
                 raise ValueError(f"{kind} fault {part!r} needs step=<N>")
             if kind == "stall" and "seconds" not in kv:
                 raise ValueError(f"stall fault {part!r} needs seconds=<S>")
+            if kind in ("diverge", "deadlock") and "site" not in kv:
+                raise ValueError(f"{kind} fault {part!r} needs site=<S>")
             if kind == "kill" and "host" not in kv and "replica" not in kv:
                 raise ValueError(f"kill fault {part!r} needs host=<process index> "
                                  f"or replica=<serving replica index>")
@@ -238,6 +258,19 @@ class FaultPlan:
                       f"on request #{n}", flush=True)
                 os._exit(KILL_EXIT_CODE)  # sudden death: no drain, no flush
 
+    def deadlock_marker(self, site: str) -> bool:
+        """Whether a `deadlock@site=L` rule names this traced lock."""
+        return any(kind == "deadlock" and p.get("site") == site for kind, p in self.rules)
+
+    def diverge_marker(self, site: str) -> str:
+        """"#diverged" when a `diverge@site=S` rule names this comms site
+        (the schedule recorder appends it to the site's signature), else
+        ""."""
+        for kind, p in self.rules:
+            if kind == "diverge" and p.get("site") == site:
+                return "#diverged"
+        return ""
+
     def on_checkpoint_saved(self, path: str, step: int, wait=None) -> None:
         """Halve the file of the checkpoint written at `step` (once per
         rule): the file is in place and named as a good one, but its
@@ -283,44 +316,82 @@ def describe() -> list:
     return _PLAN.describe() if _PLAN else []
 
 
+_COVERAGE_CB = None
+
+
+def set_coverage_callback(cb) -> None:
+    """Install (or clear, with None) the `cb(kind, site)` hook-reached
+    callback (the module docstring)."""
+    global _COVERAGE_CB
+    _COVERAGE_CB = cb
+
+
 def maybe_io_error(site: str) -> None:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("io", site)
     if _PLAN is not None:
         _PLAN.maybe_io_error(site)
 
 
 def maybe_delay(site: str) -> None:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("delay", site)
     if _PLAN is not None:
         _PLAN.maybe_delay(site)
 
 
 def maybe_slow(site: str) -> None:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("slow", site)
     if _PLAN is not None:
         _PLAN.maybe_slow(site)
 
 
 def corrupt_loss(loss: float, step: int) -> float:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("nan", None)
     return _PLAN.corrupt_loss(loss, step) if _PLAN is not None else loss
 
 
 def maybe_stall(step: int) -> None:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("stall", None)
     if _PLAN is not None:
         _PLAN.maybe_stall(step)
 
 
 def maybe_preempt(step: int) -> None:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("preempt", None)
     if _PLAN is not None:
         _PLAN.maybe_preempt(step)
 
 
 def maybe_kill_host(step: int, workdir: Optional[str], process_index: int,
                     num_processes: int = 1) -> None:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("kill", "host")
     if _PLAN is not None:
         _PLAN.maybe_kill_host(step, workdir, process_index, num_processes)
 
 
 def maybe_kill_replica(replica_index: int) -> None:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("kill", "replica")
     if _PLAN is not None:
         _PLAN.maybe_kill_replica(replica_index)
+
+
+def diverge_marker(site: str) -> str:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("diverge", site)
+    return _PLAN.diverge_marker(site) if _PLAN is not None else ""
+
+
+def deadlock_marker(site: str) -> bool:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("deadlock", site)
+    return _PLAN.deadlock_marker(site) if _PLAN is not None else False
 
 
 def strip_replica_kills(spec: Optional[str]) -> str:
@@ -342,5 +413,7 @@ def strip_replica_kills(spec: Optional[str]) -> str:
 
 
 def on_checkpoint_saved(path: str, step: int, wait=None) -> None:
+    if _COVERAGE_CB is not None:
+        _COVERAGE_CB("ckpt_truncate", None)
     if _PLAN is not None:
         _PLAN.on_checkpoint_saved(path, step, wait=wait)

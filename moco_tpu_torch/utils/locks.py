@@ -1,17 +1,15 @@
-"""Named locks for the serving threads.
+"""Named locks for the port's threads.
 
-The JAX package makes its locks through a factory that can record their
-acquisition order (moco_tpu/analysis/tsan.py). The port has no such
-recorder yet (it is a later item of the port's queue, with the analysis
-tools); until then the factory hands out a plain lock, so the call sites
-already name their locks.
+Every named lock of the port comes from this factory: a
+`analysis/tsan.py` TracedLock, which reports its acquisitions to the
+lock-order recorder when one is installed (`TrainConfig.sanitize_threads`,
+or `tsan.ThreadSanitizer` around a serving burst) and costs one None check
+per acquire otherwise. The names are utils/contracts.py's `LOCK_SITES`,
+which the `deadlock@site=<lock>` fault keys on.
 """
 
 from __future__ import annotations
 
-import threading
+from moco_tpu_torch.analysis.tsan import TracedLock, make_lock
 
-
-def make_lock(name: str) -> threading.Lock:
-    del name  # the order recorder keys on it
-    return threading.Lock()
+__all__ = ["TracedLock", "make_lock"]

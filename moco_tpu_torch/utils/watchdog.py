@@ -56,9 +56,7 @@ class StepWatchdog:
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> "StepWatchdog":
-        # lock-free by design: the loop only stores the float, this thread
-        # only reads it, tolerating one poll of staleness
-        self._last = time.monotonic()
+        self._last = time.monotonic()  # mocolint: disable=JX012  (lock-free by design: beat() sits on the step hot path; a monotonic float STORE is GIL-atomic and the watchdog thread only READS it, tolerating one poll of staleness)
         self._thread = threading.Thread(target=self._run, name="moco-step-watchdog", daemon=True)
         self._thread.start()
         return self
@@ -67,7 +65,7 @@ class StepWatchdog:
         """One step completed; called from the train loop (a timestamp
         store, no lock, no device work)."""
         self._last = time.monotonic()
-        self._beats += 1
+        self._beats += 1  # mocolint: disable=JX012  (single writer — only the train loop beats; the watchdog thread reads it solely to pick the startup-grace limit, where a stale value is harmless)
 
     def stop(self) -> None:
         self._stop.set()

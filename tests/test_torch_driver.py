@@ -218,8 +218,15 @@ def test_cli_flags_reach_train(monkeypatch, tmp_path):
         str(tmp_path), 2, 3, 1)
     assert c.data.dataset == "synthetic_learnable" and seen["device"] == "cpu"
     assert pc.PRESETS["imagenet_v2"].workdir is None
-    with pytest.raises(TypeError):  # strict tracing is not ported
-        pc.TrainConfig(strict_tracing=True)
+    # the analysis's runtime arms: off by default, on through their flags
+    assert not (c.strict_tracing or c.sanitize_collectives or c.sanitize_threads)
+    assert train_module.main(["--preset", "cifar_smoke", "--strict-tracing",
+                              "--recompile-warmup-steps", "3", "--sanitize-collectives",
+                              "--sanitize-threads", "--workdir", str(tmp_path),
+                              "--device", "cpu"]) == 0
+    c = seen["config"]
+    assert (c.strict_tracing, c.recompile_warmup_steps, c.sanitize_collectives,
+            c.sanitize_threads) == (True, 3, True, True)
 
 
 def test_probe_cli_refuses_without_cuda(tmp_path):

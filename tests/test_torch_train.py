@@ -674,16 +674,19 @@ def test_make_train_step_gates_the_eman_key_forward_as_jax(fields):
 
 
 def test_config_rejects_what_the_slice_does_not_run():
-    """The Pallas tile, `prefetch_donate` and the telemetry fields not yet
-    ported stay out of the port's config; `syncbn_group_size`,
+    """The Pallas tile and `prefetch_donate` stay out of the port's config;
+    the analysis's four runtime fields are in it with JAX's defaults;
+    `syncbn_group_size`,
     `ParallelConfig(num_data, num_model)`, `vit_sequence_parallel`, the
     ZeRO fields and `TrainConfig.elastic` (a top-level field, as in JAX)
     are in it."""
     with pytest.raises(TypeError):
         pc.MocoConfig(fused_block_k=1)
-    for field, value in (("prefetch_donate", True), ("strict_tracing", True)):
-        with pytest.raises(TypeError):
-            pc.TrainConfig(**{field: value})
+    with pytest.raises(TypeError):
+        pc.TrainConfig(prefetch_donate=True)
+    for field in ("strict_tracing", "recompile_warmup_steps", "sanitize_collectives",
+                  "sanitize_threads"):
+        assert getattr(pc.TrainConfig(), field) == getattr(jc.TrainConfig(), field), field
     with pytest.raises(TypeError):
         pc.ParallelConfig(elastic=True)
     assert pc.TrainConfig(elastic=True).elastic and not pc.TrainConfig().elastic
